@@ -1,0 +1,15 @@
+"""PyTorch/CUDA port of the multiserver-job simulator (the ``repro`` package).
+
+``repro_torch`` runs the paper's Fig. 1/2 sweep — FCFS, ModifiedBS-π and
+BS-π over the Figure-1 workload — on float64 PyTorch tensors, with the
+event scans as hand-written CUDA kernels for Hopper.  It imports ``torch``
+and ``numpy`` only; the JAX package beside it is its reference.
+
+Entry points run on the card unless the caller asks for the CPU::
+
+    from repro_torch.core import engines, workload
+    wl = workload.figure1_workload(256)
+    res = engines.simulate("bs-fcfs", wl.sample_traces(10_000, 16), wl=wl)
+
+``device="cpu"`` runs the plain PyTorch versions of the kernels instead.
+"""

@@ -1,0 +1,245 @@
+"""Simulation-engine registry of the port — the single dispatch point.
+
+The port's counterpart of ``repro.core.engines``, with its own registry:
+cores register under a ``(policy, engine)`` key and every caller goes
+through :func:`simulate` / :func:`simulate_grid`::
+
+    from repro_torch.core import engines
+    res = engines.simulate("bs-fcfs", batch, wl=wl)            # on the card
+    res = engines.simulate("bs-fcfs", batch, wl=wl, device="cpu")
+
+* **Key**: ``(policy, engine)``; policy names are the reference's
+  canonical names (``"fcfs"``, ``"modbs-fcfs"``, ``"bs-fcfs"``) and
+  :func:`canonical` resolves the short aliases.  The port has one engine,
+  ``"torch"``; its cores dispatch on the device of the tensors they build:
+  on ``device="cpu"`` the plain PyTorch versions run, on ``device="cuda"``
+  the hand-written kernels of :mod:`repro_torch.kernels.msj_scan`.
+* **Core**: ``core(batch, *, device, partition=None, wl=None, **kw) ->
+  BatchSimResult``; cores do not mutate the batch.
+* **Determinism**: on a fixed batch every core returns the result of the
+  reference's engines bit for bit (rtol=0) on either device.
+* **Device**: entry points run on the card by default.  ``device="cuda"``
+  without a CUDA device raises ``RuntimeError``; nothing falls back to the
+  CPU quietly.
+* **Registration**: cores self-register when their provider module is
+  imported, lazily on first dispatch (``_PROVIDERS``).  Double
+  registration of a key is an error.  This registry is separate from the
+  reference's: the port registers nothing there.
+
+``simulate_grid`` runs a list of :class:`GridCell` s as a per-cell loop
+over :func:`simulate` (stacking cells onto the kernels' lane axis is later
+work).  Failure injection, streaming and checkpointing are not ported yet
+and raise ``NotImplementedError`` (ROADMAP Queue 1 items 9 and 10).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import TYPE_CHECKING, Callable, Sequence
+
+import numpy as np
+import torch
+
+if TYPE_CHECKING:  # pragma: no cover - typing only, avoids import cycles
+    from .sim_batch import BatchSimResult
+    from .workload import BatchTrace
+
+#: modules whose import registers engine cores
+_PROVIDERS = ("repro_torch.kernels.msj_scan.ops",)
+
+_REGISTRY: dict[tuple[str, str], Callable[..., "BatchSimResult"]] = {}
+
+#: short CLI aliases -> canonical policy names
+ALIASES = {
+    "bs": "bs-fcfs", "balanced-splitting": "bs-fcfs",
+    "modbs": "modbs-fcfs", "modified-bs": "modbs-fcfs",
+}
+
+_NO_FAILURES = ("failure injection (failures=) is not ported yet: ROADMAP "
+                "Queue 1 item 9 (drain-mode failures)")
+
+
+def canonical(policy: str) -> str:
+    """Resolve a short policy alias to its canonical name."""
+    return ALIASES.get(policy, policy)
+
+
+def register(policy: str, engine: str):
+    """Decorator: register a simulation core under ``(policy, engine)``."""
+    def deco(fn: Callable[..., "BatchSimResult"]):
+        key = (policy, engine)
+        if key in _REGISTRY:
+            raise ValueError(f"engine core {key} registered twice")
+        _REGISTRY[key] = fn
+        return fn
+    return deco
+
+
+def _ensure_registered() -> None:
+    for mod in _PROVIDERS:
+        importlib.import_module(mod)
+
+
+def registered() -> tuple[tuple[str, str], ...]:
+    """All registered ``(policy, engine)`` keys, sorted."""
+    _ensure_registered()
+    return tuple(sorted(_REGISTRY))
+
+
+def available_engines() -> tuple[str, ...]:
+    """All engine names with at least one registered core, sorted."""
+    return tuple(sorted({e for _, e in registered()}))
+
+
+def engines_for(policy: str) -> tuple[str, ...]:
+    """Engines registered for a policy (canonicalized), sorted."""
+    pol = canonical(policy)
+    return tuple(sorted(e for p, e in registered() if p == pol))
+
+
+def policies_for(engine: str) -> tuple[str, ...]:
+    """Policies registered for an engine, sorted."""
+    return tuple(sorted(p for p, e in registered() if e == engine))
+
+
+def get(policy: str, engine: str) -> Callable[..., "BatchSimResult"]:
+    """The registered core for ``(policy, engine)``.
+
+    Unknown policy -> ``KeyError``; known policy under an unknown engine
+    -> ``ValueError``.
+    """
+    _ensure_registered()
+    pol = canonical(policy)
+    core = _REGISTRY.get((pol, engine))
+    if core is not None:
+        return core
+    if not engines_for(pol):
+        raise KeyError(f"no simulation core for policy {policy!r}; "
+                       f"registered policies: "
+                       f"{sorted({p for p, _ in _REGISTRY})}")
+    raise ValueError(f"unknown engine {engine!r} for policy {pol!r}; "
+                     f"registered engines: {list(engines_for(pol))}")
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; raises where it cannot run.
+
+    ``"cuda"`` without a CUDA device is a ``RuntimeError`` — the port never
+    moves a run the caller put on the card to the CPU.
+    """
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "device='cuda' was requested but no CUDA device is "
+                "available; pass device='cpu' to run the plain PyTorch "
+                "versions of the kernels")
+        return torch.device("cuda", torch.cuda.current_device()
+                            if dev.index is None else dev.index)
+    if dev.type != "cpu":
+        raise ValueError(f"unsupported device {device!r}; expected 'cuda' "
+                         f"or 'cpu'")
+    return dev
+
+
+def validate_batch(batch: "BatchTrace", *, partition=None) -> None:
+    """Loud input validation shared by every core.
+
+    Malformed batches are rejected before dispatch with a ``ValueError``
+    naming the first offending replication, as in the reference; the port
+    also rejects needs above k, which the kernels could not host.
+    """
+    def _first_bad(mask) -> int:
+        return int(np.argmax(mask.any(axis=1)))
+
+    if np.isnan(batch.arrival).any():
+        raise ValueError("batch.arrival contains NaN (first bad replication "
+                         f"{_first_bad(np.isnan(batch.arrival))})")
+    if np.isnan(batch.service).any():
+        raise ValueError("batch.service contains NaN (first bad replication "
+                         f"{_first_bad(np.isnan(batch.service))})")
+    gaps = np.diff(batch.arrival, axis=1)
+    if batch.arrival.size and (batch.arrival[:, 0] < 0).any():
+        raise ValueError("negative arrival times (first bad replication "
+                         f"{int(np.argmax(batch.arrival[:, 0] < 0))})")
+    if (gaps < 0).any():
+        raise ValueError("arrival times are not nondecreasing along the job "
+                         f"axis (first bad replication {_first_bad(gaps < 0)})")
+    if (batch.service < 0).any():
+        raise ValueError("negative service times (first bad replication "
+                         f"{_first_bad(batch.service < 0)})")
+    if (batch.need < 1).any():
+        raise ValueError("server needs must be >= 1 (first bad replication "
+                         f"{_first_bad(batch.need < 1)})")
+    if (batch.need > batch.k).any():
+        raise ValueError(f"server needs must be <= k={batch.k} (first bad "
+                         f"replication {_first_bad(batch.need > batch.k)})")
+    if partition is not None:
+        C = partition.C
+        bad = (batch.cls < 0) | (batch.cls >= C)
+        if bad.any():
+            raise ValueError(
+                f"class ids outside the partition's [0, {C}) range (first "
+                f"bad replication {_first_bad(bad)})")
+
+
+def simulate(policy: str, batch: "BatchTrace", *, engine: str = "torch",
+             device="cuda", partition=None, wl=None, failures=None,
+             **kw) -> "BatchSimResult":
+    """Run ``batch`` through the registered ``(policy, engine)`` core.
+
+    ``device`` is where the scan runs: ``"cuda"`` (the default) launches
+    the hand-written kernels and raises without a card, ``"cpu"`` runs
+    their plain PyTorch versions.  ``partition``/``wl`` feed the eq.-2
+    partition (ModBS and BS need one of them); extra keywords (e.g.
+    ``queue_cap`` for ``bs-fcfs``) pass through to the core.
+    """
+    if failures is not None:
+        raise NotImplementedError(_NO_FAILURES)
+    core = get(policy, engine)
+    dev = resolve_device(device)
+    validate_batch(batch, partition=partition)
+    return core(batch, device=dev, partition=partition, wl=wl, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class GridCell:
+    """One cell of a simulation grid: a batch plus its per-cell context.
+
+    ``partition``/``wl`` feed the eq.-2 partition as the matching
+    :func:`simulate` keywords would; ``queue_cap`` bounds the BS-FCFS
+    helper-wait rings (``None`` = the default ``min(J, 8192)``).
+    """
+
+    batch: "BatchTrace"
+    partition: object = None
+    wl: object = None
+    queue_cap: int | None = None
+
+
+def simulate_grid(policy: str, cells: Sequence[GridCell], *,
+                  engine: str = "torch", device="cuda", **kw) -> list:
+    """Run every grid cell under one policy; one ``BatchSimResult`` each.
+
+    A per-cell loop over :func:`simulate`, so cell ``g`` of the result is
+    ``simulate(policy, cells[g].batch, ...)`` exactly.  Every cell must
+    have the same ``reps``, as in the reference.
+    """
+    cells = tuple(cells)
+    if not cells:
+        raise ValueError("simulate_grid needs at least one cell")
+    R = cells[0].batch.reps
+    for g, cell in enumerate(cells):
+        if cell.batch.reps != R:
+            raise ValueError(
+                f"grid cells must share one replication count; cell {g} "
+                f"has reps={cell.batch.reps}, cell 0 has reps={R}")
+    out = []
+    for cell in cells:
+        ckw = dict(kw)
+        if cell.queue_cap is not None:
+            ckw["queue_cap"] = cell.queue_cap
+        out.append(simulate(policy, cell.batch, engine=engine, device=device,
+                            partition=cell.partition, wl=cell.wl, **ckw))
+    return out

@@ -1,0 +1,297 @@
+"""Host result assembly and the Fig. 1/2 sweep of the port.
+
+The port's counterpart of the host side of ``repro.core.sim_batch``: the
+per-replication :class:`BatchSimResult` (numpy fields, assembled with the
+reference's own numpy op order so results and CSV rows match it bit for
+bit), the helpers every ``engine="torch"`` core shares, and
+:func:`sweep_many_server`, which drives the Fig. 1/2 k- and load-sweeps
+through :func:`repro_torch.core.engines.simulate_grid`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, Sequence
+
+import numpy as np
+import torch
+
+from . import engines
+from .partition import BalancedPartition, balanced_partition
+from .sim_torch import _bs_scatter_events, _check_classes
+from .workload import BatchTrace, Workload
+
+#: waiting-time epsilon for P[wait > 0] — the reference's ``WAIT_EPS``
+WAIT_EPS = 1e-9
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchSimResult:
+    """Per-replication sample-path metrics of a batched simulation."""
+
+    response: np.ndarray        # [R, J] response time per job
+    wait: np.ndarray            # [R, J] waiting time per job
+    p_helper: np.ndarray | None # [R] fraction served on helpers (BSF only)
+    blocked: np.ndarray | None  # [R, J] bool (ModBS routing)
+    p_routed: np.ndarray | None = None  # [R] fraction routed to H on arrival
+                                        # (> p_helper under Def.-1 pull-backs)
+    start: np.ndarray | None = None     # [R, J] raw start times
+
+    @property
+    def reps(self) -> int:
+        return self.response.shape[0]
+
+    @property
+    def mean_response(self) -> np.ndarray:
+        """[R] mean response time of each replication."""
+        return self.response.mean(axis=1)
+
+    @property
+    def mean_wait(self) -> np.ndarray:
+        return self.wait.mean(axis=1)
+
+    @property
+    def p_wait(self) -> np.ndarray:
+        """[R] queueing probability P[wait > 0] of each replication."""
+        return (self.wait > WAIT_EPS).mean(axis=1)
+
+
+# -- shared input-prep / result-assembly helpers -----------------------------
+
+
+def _fcfs_inputs(batch: BatchTrace, device: torch.device) -> tuple:
+    """(arrival f64, need i32, service f64) tensors of a batch on device."""
+    return (torch.tensor(batch.arrival, dtype=torch.float64, device=device),
+            torch.tensor(batch.need, dtype=torch.int32, device=device),
+            torch.tensor(batch.service, dtype=torch.float64, device=device))
+
+
+def _class_inputs(batch: BatchTrace, device: torch.device) -> tuple:
+    """(arrival f64, cls i32, need i32, service f64) tensors on device."""
+    a, n, v = _fcfs_inputs(batch, device)
+    return a, torch.tensor(batch.cls, dtype=torch.int32, device=device), n, v
+
+
+def _partition_args(batch: BatchTrace, partition: BalancedPartition | None,
+                    wl: Workload | None) -> tuple[np.ndarray, int, int]:
+    """(slots, s_max, h) of the eq.-2 partition, validated for the batch."""
+    if partition is None:
+        if wl is None:
+            raise ValueError("need a partition or a workload")
+        partition = balanced_partition(wl)
+    slots = np.asarray(partition.slots, dtype=np.int32)
+    s_max = int(slots.max())
+    h = int(partition.helpers)
+    if h < int(batch.need.max()):
+        raise ValueError("helper set smaller than the largest server need")
+    _check_classes(batch, len(slots))
+    return slots, s_max, h
+
+
+def _fcfs_result(batch: BatchTrace, starts) -> BatchSimResult:
+    starts = np.asarray(starts)
+    return BatchSimResult(response=starts + batch.service - batch.arrival,
+                          wait=starts - batch.arrival,
+                          p_helper=None, blocked=None, start=starts)
+
+
+def _modbs_result(batch: BatchTrace, blocked, starts) -> BatchSimResult:
+    blocked = np.asarray(blocked)
+    starts = np.asarray(starts)
+    return BatchSimResult(response=starts + batch.service - batch.arrival,
+                          wait=starts - batch.arrival,
+                          p_helper=blocked.mean(axis=1), blocked=blocked,
+                          p_routed=blocked.mean(axis=1), start=starts)
+
+
+def _bs_check_ovf(ovf, q_cap: int) -> None:
+    ovf = np.asarray(ovf)
+    if ovf.any():
+        raise RuntimeError(
+            f"helper-wait ring buffer overflow (queue_cap={q_cap}) in "
+            f"replication(s) {np.flatnonzero(ovf).tolist()} — "
+            f"workload unstable at this load, or raise queue_cap")
+
+
+def _bs_assemble(batch: BatchTrace, starts, served,
+                 routed) -> BatchSimResult:
+    """Per-job event arrays -> BatchSimResult (one shared op order)."""
+    return BatchSimResult(response=starts + batch.service - batch.arrival,
+                          wait=starts - batch.arrival,
+                          p_helper=served.mean(axis=1), blocked=None,
+                          p_routed=routed.mean(axis=1), start=starts)
+
+
+def _bs_result(batch: BatchTrace, tagged, rec_t, ovf,
+               q_cap: int) -> BatchSimResult:
+    _bs_check_ovf(ovf, q_cap)
+    starts, served, routed = _bs_scatter_events(batch.num_jobs, tagged,
+                                                rec_t)
+    return _bs_assemble(batch, starts, served, routed)
+
+
+# --------------------------------------------------------------------------
+# k-sweeps.
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class SweepResult:
+    """Mean/CI arrays of a batched sweep, shaped [policies, points].
+
+    ``ci95_*`` is the half-width of the normal 95% confidence interval over
+    the per-replication means (0 when ``reps == 1``).
+    """
+
+    points: tuple                  # the swept values (k, or load, ...)
+    policies: tuple[str, ...]
+    num_jobs: int
+    reps: int
+    mean_response: np.ndarray      # [P, N]
+    ci95_response: np.ndarray      # [P, N]
+    mean_wait: np.ndarray          # [P, N]
+    p_wait: np.ndarray             # [P, N]
+    ci95_p_wait: np.ndarray        # [P, N]
+    p_helper: np.ndarray           # [P, N], nan where not a BSF policy
+    p95_response: np.ndarray       # [P, N] (mean of per-rep 95th pctiles)
+    utilization: np.ndarray        # [P, N] busy server-time / (k * horizon)
+    sim_s: np.ndarray              # [P, N] simulator wall time
+
+    def rows(self, point_col: str, extra_cols: dict | None = None,
+             per_point_cols: Sequence[dict] | None = None) -> list[dict]:
+        """Benchmark CSV rows, one per (point, policy)."""
+        out = []
+        for j, pt in enumerate(self.points):
+            for i, pol in enumerate(self.policies):
+                ph = self.p_helper[i, j]
+                row = {
+                    point_col: pt, "policy": pol,
+                    "jobs": self.num_jobs, "reps": self.reps,
+                    "mean_response": self.mean_response[i, j],
+                    "ci95_response": self.ci95_response[i, j],
+                    "mean_wait": self.mean_wait[i, j],
+                    "p_wait": self.p_wait[i, j],
+                    "ci95_p_wait": self.ci95_p_wait[i, j],
+                    "p_helper": None if np.isnan(ph) else ph,
+                    "p95_response": self.p95_response[i, j],
+                    "utilization": self.utilization[i, j],
+                    "sim_s": round(float(self.sim_s[i, j]), 2),
+                }
+                if extra_cols:
+                    row.update(extra_cols)
+                if per_point_cols:
+                    row.update(per_point_cols[j])
+                out.append(row)
+        return out
+
+
+def _ci95(per_rep: np.ndarray) -> float:
+    if per_rep.size < 2:
+        return 0.0
+    return float(1.96 * per_rep.std(ddof=1) / np.sqrt(per_rep.size))
+
+
+def sweep_many_server(wl_factory: Callable[..., Workload], points: Sequence,
+                      *, num_jobs: int = 100_000, reps: int = 8,
+                      seed: int = 0,
+                      policies: Sequence[str] = ("fcfs", "modbs-fcfs",
+                                                 "bs-fcfs"),
+                      engine: str = "torch",
+                      device="cuda",
+                      grid: bool = True,
+                      failures=None,
+                      ckpt_dir: str | None = None,
+                      resume: bool = False,
+                      ) -> SweepResult:
+    """Run the simulators over ``wl_factory(point)`` for each point.
+
+    One batch of ``reps`` Philox replications x ``num_jobs`` arrivals is
+    sampled per point — the reference's batches, bit for bit.  With
+    ``grid=True`` each policy runs all points through one
+    :func:`engines.simulate_grid` call (``sim_s`` then records that call's
+    wall time amortized over its cells); ``grid=False`` dispatches one
+    :func:`engines.simulate` per (point, policy) with exact per-cell
+    timing.  Both give the same numbers.  ``device="cuda"`` (the default)
+    runs the kernels and raises without a card; ``device="cpu"`` runs the
+    plain PyTorch versions.  Returns mean/CI arrays [policies, points],
+    equal to the reference's ``sweep_many_server`` on the same arguments
+    (``sim_s`` aside).
+
+    ``failures``, ``ckpt_dir`` and ``resume`` are not ported yet and
+    raise ``NotImplementedError``.
+    """
+    if failures is not None:
+        raise NotImplementedError(engines._NO_FAILURES)
+    if ckpt_dir is not None or resume:
+        raise NotImplementedError(
+            "crash-resumable sweeps (ckpt_dir=/resume=) are not ported yet: "
+            "ROADMAP Queue 1 item 10 (checkpointing)")
+    if engine not in engines.available_engines():
+        raise ValueError(f"unknown engine {engine!r}; registered engines: "
+                         f"{list(engines.available_engines())}")
+    avail = engines.policies_for(engine)
+    unknown = {engines.canonical(p) for p in policies} - set(avail)
+    if unknown:
+        raise KeyError(f"no {engine!r} simulator for {sorted(unknown)}; "
+                       f"available: {list(avail)}")
+    engines.resolve_device(device)
+    P, N = len(policies), len(points)
+    shape = (P, N)
+    mean_r = np.zeros(shape); ci_r = np.zeros(shape)
+    mean_w = np.zeros(shape); p_wait = np.zeros(shape)
+    ci_pw = np.zeros(shape)
+    p_help = np.full(shape, np.nan)
+    p95 = np.zeros(shape); util = np.zeros(shape); sim_s = np.zeros(shape)
+
+    sampled: dict[int, tuple] = {}
+
+    def _point_data(j: int) -> tuple:
+        if j not in sampled:
+            wl = wl_factory(points[j])
+            batch = wl.sample_traces(num_jobs, reps, seed=seed)
+            busy = (batch.need * batch.service).sum(axis=1)    # [R]
+            sampled[j] = (wl, batch, busy)
+        return sampled[j]
+
+    def _record_cell(i: int, j: int, res, wall: float) -> None:
+        wl, batch, busy = sampled[j]
+        sim_s[i, j] = wall
+        mean_r[i, j] = res.mean_response.mean()
+        ci_r[i, j] = _ci95(res.mean_response)
+        mean_w[i, j] = res.mean_wait.mean()
+        p_wait[i, j] = res.p_wait.mean()
+        ci_pw[i, j] = _ci95(res.p_wait)
+        if res.p_helper is not None:
+            p_help[i, j] = res.p_helper.mean()
+        p95[i, j] = np.percentile(res.response, 95, axis=1).mean()
+        completion = batch.arrival + res.response
+        horizon = completion.max(axis=1)                       # [R]
+        util[i, j] = (busy / (wl.k * horizon)).mean()
+
+    if grid:
+        for i, pol in enumerate(policies):
+            gcells = []
+            for j in range(N):
+                wl, batch, _ = _point_data(j)
+                gcells.append(engines.GridCell(batch=batch, wl=wl))
+            t0 = time.time()
+            results = engines.simulate_grid(pol, gcells, engine=engine,
+                                            device=device)
+            wall = (time.time() - t0) / N
+            for j, res in enumerate(results):
+                _record_cell(i, j, res, wall)
+    else:
+        for j in range(N):
+            for i, pol in enumerate(policies):
+                wl, batch, _ = _point_data(j)
+                t0 = time.time()
+                res = engines.simulate(pol, batch, engine=engine,
+                                       device=device, wl=wl)
+                _record_cell(i, j, res, time.time() - t0)
+    return SweepResult(points=tuple(points), policies=tuple(policies),
+                       num_jobs=num_jobs, reps=reps,
+                       mean_response=mean_r, ci95_response=ci_r,
+                       mean_wait=mean_w, p_wait=p_wait, ci95_p_wait=ci_pw,
+                       p_helper=p_help, p95_response=p95,
+                       utilization=util, sim_s=sim_s)

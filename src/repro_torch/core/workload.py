@@ -1,0 +1,443 @@
+"""Multiserver-job workload model (paper §3.1) and the Figure-1/2 scalings.
+
+The port's own copy of the parts of the reference ``repro.core.workload``
+that the Fig. 1/2 sweep needs: service-time distributions, job classes,
+the ``Workload`` with its per-replication Philox trace sampler, the
+``BatchTrace``/``Trace`` containers, the subcritical/critical scalings
+(eqs. 6-8) and the Figure-1/2 workloads.  Sampling is plain numpy with the
+same Philox streams as the reference, so a seed gives bit-equal traces on
+both sides.
+
+A workload is a finite set of job *classes*.  A class-``i`` job requires the
+simultaneous possession of ``n_i`` servers for a random service time ``D_i``
+(mean ``d_i``) and arrives with probability ``alpha_i``; the aggregate arrival
+process is Poisson(``lam``) onto ``k`` unit-speed servers.
+
+Relative demand  ``rho_i = alpha_i * d_i * n_i``      (paper notation ϱ_i)
+Aggregate demand ``rho_tot = sum_i rho_i``            (ϱ)
+Load             ``load = lam / k * rho_tot``         (ρ, eq. 1)
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Sequence
+
+import numpy as np
+
+# --------------------------------------------------------------------------
+# Service-time distributions.
+#
+# Distributions are represented as small picklable objects with a mean and a
+# sampler.
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ServiceDistribution:
+    """A nonnegative service-time distribution."""
+
+    kind: str  # "exponential" | "deterministic" | "lognormal" | "hyperexp"
+    mean: float
+    # second parameter, meaning depends on kind:
+    #   lognormal -> std, hyperexp -> (p, mu1, mu2) packed in aux
+    std: float = 0.0
+    aux: tuple = ()
+
+    def sample(self, rng: np.random.Generator, size: int | None = None):
+        if self.kind == "exponential":
+            return rng.exponential(self.mean, size=size)
+        if self.kind == "deterministic":
+            if size is None:
+                return self.mean
+            return np.full(size, self.mean)
+        if self.kind == "lognormal":
+            mu, sigma = _lognormal_params(self.mean, self.std)
+            return rng.lognormal(mu, sigma, size=size)
+        if self.kind == "hyperexp":
+            p, m1, m2 = self.aux
+            if size is None:
+                branch = rng.random() < p
+                return rng.exponential(m1 if branch else m2)
+            branch = rng.random(size) < p
+            return np.where(branch, rng.exponential(m1, size), rng.exponential(m2, size))
+        raise ValueError(f"unknown service distribution kind {self.kind!r}")
+
+    def scv(self) -> float:
+        """Squared coefficient of variation (used for sanity checks only)."""
+        if self.kind == "exponential":
+            return 1.0
+        if self.kind == "deterministic":
+            return 0.0
+        if self.kind == "lognormal":
+            return (self.std / self.mean) ** 2
+        if self.kind == "hyperexp":
+            p, m1, m2 = self.aux
+            m = p * m1 + (1 - p) * m2
+            second = 2 * (p * m1**2 + (1 - p) * m2**2)
+            return second / m**2 - 1.0
+        raise ValueError(self.kind)
+
+
+def _lognormal_params(mean: float, std: float) -> tuple[float, float]:
+    """(mu, sigma) of a lognormal with the given mean/std."""
+    if mean <= 0:
+        raise ValueError("lognormal mean must be positive")
+    var = std * std
+    sigma2 = math.log(1.0 + var / (mean * mean))
+    mu = math.log(mean) - 0.5 * sigma2
+    return mu, math.sqrt(sigma2)
+
+
+def Exp(mean: float) -> ServiceDistribution:
+    return ServiceDistribution("exponential", float(mean))
+
+
+def Det(mean: float) -> ServiceDistribution:
+    return ServiceDistribution("deterministic", float(mean))
+
+
+def LogNormal(mean: float, std: float) -> ServiceDistribution:
+    return ServiceDistribution("lognormal", float(mean), float(std))
+
+
+def Hyperexp(p: float, mu1: float, mu2: float) -> ServiceDistribution:
+    """Two-phase hyperexponential: Exp(mean ``mu1``) w.p. ``p``, else
+    Exp(mean ``mu2``).
+
+    The ``"hyperexp"`` kind always existed in :class:`ServiceDistribution`
+    (sampler and scv), but had no constructor next to :func:`Exp` /
+    :func:`Det` / :func:`LogNormal` — every caller had to hand-pack
+    ``aux`` and precompute the mean.  ``mu1``/``mu2`` are the *branch
+    means*; the overall mean is ``p*mu1 + (1-p)*mu2`` and the scv is
+    ``2(p*mu1^2 + (1-p)*mu2^2)/mean^2 - 1 >= 1`` — the standard
+    high-variability service model (scv > 1 needs mu1 != mu2).
+    """
+    if not 0.0 <= p <= 1.0:
+        raise ValueError(f"branch probability p must be in [0, 1], got {p}")
+    if mu1 <= 0 or mu2 <= 0:
+        raise ValueError(f"branch means must be positive, got {mu1}, {mu2}")
+    mean = p * mu1 + (1.0 - p) * mu2
+    return ServiceDistribution("hyperexp", float(mean),
+                               aux=(float(p), float(mu1), float(mu2)))
+
+
+# --------------------------------------------------------------------------
+# Job classes and workloads.
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class JobClass:
+    """A job class: server need ``n``, service-time distribution, arrival prob."""
+
+    name: str
+    n: int                      # server need  (n_i, a constant)
+    service: ServiceDistribution
+    alpha: float                # class probability (alpha_i)
+
+    @property
+    def d(self) -> float:
+        """Mean service time d_i = E[D_i]."""
+        return self.service.mean
+
+    @property
+    def demand(self) -> float:
+        """Relative demand  ϱ_i = alpha_i * d_i * n_i."""
+        return self.alpha * self.d * self.n
+
+
+@dataclasses.dataclass(frozen=True)
+class Workload:
+    """A multiserver-job workload: k servers, Poisson(lam), C classes."""
+
+    k: int
+    lam: float
+    classes: tuple[JobClass, ...]
+
+    def __post_init__(self):
+        s = sum(c.alpha for c in self.classes)
+        if not math.isclose(s, 1.0, rel_tol=1e-9, abs_tol=1e-9):
+            raise ValueError(f"class probabilities must sum to 1, got {s}")
+        for c in self.classes:
+            if c.n > self.k:
+                raise ValueError(f"class {c.name}: need {c.n} > k={self.k}")
+
+    # -- paper quantities ---------------------------------------------------
+
+    @property
+    def C(self) -> int:
+        return len(self.classes)
+
+    @property
+    def demands(self) -> np.ndarray:
+        """ϱ_i for each class."""
+        return np.array([c.demand for c in self.classes])
+
+    @property
+    def total_demand(self) -> float:
+        """ϱ = Σ ϱ_i."""
+        return float(self.demands.sum())
+
+    @property
+    def load(self) -> float:
+        """ρ = (λ/k) ϱ  (eq. 1)."""
+        return self.lam / self.k * self.total_demand
+
+    @property
+    def needs(self) -> np.ndarray:
+        return np.array([c.n for c in self.classes], dtype=np.int64)
+
+    @property
+    def alphas(self) -> np.ndarray:
+        return np.array([c.alpha for c in self.classes])
+
+    @property
+    def means(self) -> np.ndarray:
+        return np.array([c.d for c in self.classes])
+
+    def with_load(self, load: float) -> "Workload":
+        """Rescale λ so the workload has the given load ρ."""
+        lam = load * self.k / self.total_demand
+        return dataclasses.replace(self, lam=lam)
+
+    def zero_wait_response_time(self) -> float:
+        """Σ α_i d_i — the Thm-1 limit of R_{BS-π} (all jobs served instantly)."""
+        return float(sum(c.alpha * c.d for c in self.classes))
+
+    # -- trace sampling -----------------------------------------------------
+
+    def sample_trace(self, num_jobs: int, seed=0) -> "Trace":
+        """Sample ``num_jobs`` Poisson arrivals with i.i.d. classes/services.
+
+        ``seed`` is anything :func:`numpy.random.default_rng` accepts — an
+        int, a ``SeedSequence``, or a ``BitGenerator`` such as the Philox
+        stream returned by :func:`replication_stream`.
+        """
+        rng = np.random.default_rng(seed)
+        inter = rng.exponential(1.0 / self.lam, size=num_jobs)
+        arrival = np.cumsum(inter)
+        cls = rng.choice(self.C, size=num_jobs, p=self.alphas)
+        service = np.empty(num_jobs)
+        for i, c in enumerate(self.classes):
+            mask = cls == i
+            service[mask] = c.service.sample(rng, size=int(mask.sum()))
+        needs = self.needs[cls]
+        return Trace(arrival=arrival, cls=cls.astype(np.int64), service=service,
+                     need=needs, k=self.k, C=self.C)
+
+    def sample_traces(self, num_jobs: int, reps: int,
+                      seed: int = 0) -> "BatchTrace":
+        """Sample ``reps`` independent replications as stacked [R, J] arrays.
+
+        Replication ``r`` draws from the counter-based Philox stream
+        ``replication_stream(seed, r)``, so the batch is reproducible
+        replication-by-replication against the single-trace path:
+
+            sample_traces(J, R, seed).rep(r)
+              == sample_trace(J, seed=replication_stream(seed, r))
+
+        This is the sampling side of the batched sweep
+        (:mod:`repro_torch.core.sim_batch`).
+        """
+        if reps < 1:
+            raise ValueError("need at least one replication")
+        traces = [self.sample_trace(num_jobs, seed=replication_stream(seed, r))
+                  for r in range(reps)]
+        return BatchTrace(
+            arrival=np.stack([t.arrival for t in traces]),
+            cls=np.stack([t.cls for t in traces]),
+            service=np.stack([t.service for t in traces]),
+            need=np.stack([t.need for t in traces]),
+            k=self.k, C=self.C)
+
+
+def replication_stream(seed: int, rep: int) -> np.random.Philox:
+    """The Philox stream of replication ``rep`` under master seed ``seed``.
+
+    Philox is counter-based: distinct (seed, rep) keys give independent
+    streams with no sequential seeding artifacts, and the mapping is pure
+    arithmetic — no SeedSequence state to thread through checkpoints.
+    """
+    if seed < 0 or rep < 0:
+        raise ValueError("seed and rep must be nonnegative")
+    return np.random.Philox(key=np.array([seed, rep], dtype=np.uint64))
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchTrace:
+    """``reps`` stacked replications of a job trace ([R, J] arrays).
+
+    ``C`` is the class count of the generating workload; a short trace may
+    never sample the last class, so deriving it from ``cls.max()+1`` would
+    under-report.  Hand-built batches may leave it ``None`` (observed max).
+    """
+
+    arrival: np.ndarray   # float64 [R, J], nondecreasing along axis 1
+    cls: np.ndarray       # int64   [R, J]
+    service: np.ndarray   # float64 [R, J]
+    need: np.ndarray      # int64   [R, J]
+    k: int
+    C: int | None = None  # workload class count (None: derive from cls)
+
+    def __post_init__(self):
+        if not (self.arrival.shape == self.cls.shape == self.service.shape
+                == self.need.shape) or self.arrival.ndim != 2:
+            raise ValueError("batch arrays must share one [R, J] shape")
+
+    @property
+    def reps(self) -> int:
+        return self.arrival.shape[0]
+
+    @property
+    def num_jobs(self) -> int:
+        return self.arrival.shape[1]
+
+    @property
+    def num_classes(self) -> int:
+        """Workload C when known, else the observed class count."""
+        if self.C is not None:
+            return self.C
+        return int(self.cls.max()) + 1 if self.cls.size else 0
+
+    def rep(self, r: int) -> "Trace":
+        """Replication ``r`` as a plain single :class:`Trace`."""
+        return Trace(arrival=self.arrival[r], cls=self.cls[r],
+                     service=self.service[r], need=self.need[r], k=self.k,
+                     C=self.C)
+
+    @classmethod
+    def from_arrays(cls, arrival, cls_, service, need, k: int,
+                    C: int | None = None) -> "BatchTrace":
+        """A batch from plain [R, J] arrays (numpy or anything numpy reads).
+
+        Carries a batch across from another implementation — the JAX
+        reference's ``BatchTrace`` fields, a file, a test's hand-built
+        trace — so both sides simulate the same data.  The arrays are
+        copied into the dtypes this package uses (float64 times, int64
+        class ids and needs); nothing aliases the caller's buffers.
+        """
+        return cls(arrival=np.array(arrival, dtype=np.float64),
+                   cls=np.array(cls_, dtype=np.int64),
+                   service=np.array(service, dtype=np.float64),
+                   need=np.array(need, dtype=np.int64),
+                   k=int(k), C=None if C is None else int(C))
+
+
+@dataclasses.dataclass(frozen=True)
+class Trace:
+    """A concrete job trace (arrival times, classes, service times, needs).
+
+    ``C`` carries the generating workload's class count so per-class metrics
+    and partition-backed policies agree on C even when a short trace never
+    samples the last class; ``None`` (hand-built traces) falls back to the
+    observed maximum.
+    """
+
+    arrival: np.ndarray   # float64 [J], nondecreasing
+    cls: np.ndarray       # int64   [J]
+    service: np.ndarray   # float64 [J]
+    need: np.ndarray      # int64   [J]
+    k: int
+    C: int | None = None  # workload class count (None: derive from cls)
+
+    def __post_init__(self):
+        J = len(self.arrival)
+        if not (len(self.cls) == len(self.service) == len(self.need) == J):
+            raise ValueError("trace arrays must have equal length")
+
+    @property
+    def num_jobs(self) -> int:
+        return len(self.arrival)
+
+    @property
+    def num_classes(self) -> int:
+        """Workload C when known, else the observed class count."""
+        if self.C is not None:
+            return self.C
+        return int(self.cls.max()) + 1 if len(self.cls) else 0
+
+
+# --------------------------------------------------------------------------
+# Limiting-regime scalings (paper eqs. 6, 7, 8).
+# --------------------------------------------------------------------------
+
+
+def default_fk(k: int) -> int:
+    """The paper's Figure-1 growth rate f_k = floor((k/32)^(2/3)).
+
+    The 1e-9 guard keeps exact powers from flooring down a unit
+    ((256/32)^(2/3) evaluates to 3.9999999999999996 in binary fp).
+    """
+    return max(1, int(math.floor((k / 32.0) ** (2.0 / 3.0) + 1e-9)))
+
+
+def subcritical_scaling(base_classes: Sequence[JobClass], lam: float, k: int,
+                        fk: Callable[[int], int] = default_fk) -> Workload:
+    """Eq. (7): λ^(k) = λ k/f_k,  n_i^(k) = n_i f_k,  α, D fixed.
+
+    ``lam`` is the base rate; the resulting load is  ρ = λ ϱ  independent of k.
+    """
+    f = fk(k)
+    classes = tuple(
+        dataclasses.replace(c, n=c.n * f) for c in base_classes
+    )
+    return Workload(k=k, lam=lam * k / f, classes=classes)
+
+
+def critical_scaling(base_classes: Sequence[JobClass], theta: float, k: int,
+                     fk: Callable[[int], int] = default_fk) -> Workload:
+    """Eq. (8): Halfin-Whitt.  (1-ρ^(k)) sqrt(k/f_k) -> θ,  n_i^(k) = n_i f_k.
+
+    We set ρ^(k) = 1 - θ sqrt(f_k/k) exactly (the canonical pre-limit choice)
+    and solve λ^(k) from eq. (1).
+    """
+    f = fk(k)
+    rho_k = 1.0 - theta * math.sqrt(f / k)
+    if rho_k <= 0:
+        raise ValueError(f"k={k} too small for theta={theta}")
+    classes = tuple(dataclasses.replace(c, n=c.n * f) for c in base_classes)
+    demand = sum(c.alpha * c.d * c.n for c in classes)
+    lam_k = rho_k * k / demand
+    return Workload(k=k, lam=lam_k, classes=classes)
+
+
+# --------------------------------------------------------------------------
+# The paper's workloads.
+# --------------------------------------------------------------------------
+
+
+def figure1_base_classes() -> tuple[JobClass, ...]:
+    """Figure-1 workload, expressed at f_k = 1 (base needs).
+
+    Small jobs: prob 0.95, (need, mean) = (1, 1).
+    Large jobs: prob 0.05, (need, mean) = (2, 40), (4, 20) or (8, 10) with
+    equal probability.  Exponential service times.
+    """
+    return (
+        JobClass("small", 1, Exp(1.0), 0.95),
+        JobClass("large-2", 2, Exp(40.0), 0.05 / 3),
+        JobClass("large-4", 4, Exp(20.0), 0.05 / 3),
+        JobClass("large-8", 8, Exp(10.0), 0.05 / 3),
+    )
+
+
+def figure1_workload(k: int, theta: float = 0.7) -> Workload:
+    """The exact Figure-1 cell for a given total server count k."""
+    return critical_scaling(figure1_base_classes(), theta, k)
+
+
+def figure2_workload(k: int, load: float) -> Workload:
+    """Figures 2a/2b: same classes as Figure 1 at fixed k, load swept.
+
+    Figure 2 uses constant k (heavy traffic: k fixed, ρ→1; subcritical uses
+    the eq.-7 scaling).  Server needs/means as in Figure 1 with f_k as in
+    ``default_fk``.
+    """
+    f = default_fk(k)
+    classes = tuple(dataclasses.replace(c, n=c.n * f)
+                    for c in figure1_base_classes())
+    demand = sum(c.alpha * c.d * c.n for c in classes)
+    lam = load * k / demand
+    return Workload(k=k, lam=lam, classes=classes)

@@ -1,0 +1,226 @@
+"""Wrappers of the hand-written msj_scan CUDA kernels, beside their plain
+PyTorch versions.
+
+Each wrapper takes the trace as [R, J] tensors (float64 times, int32 class
+ids and needs) plus the partition's ``slots`` [C] int32, exactly the
+signatures and outputs of the reference's Pallas kernels
+(``repro/kernels/msj_scan/kernel.py``).  It checks device, dtype, shape
+and contiguity, then
+
+* for CPU tensors returns its plain version (``*_ref``: the
+  :mod:`repro_torch.core.sim_torch` event scans);
+* for CUDA tensors allocates the outputs (and the BS ring scratch),
+  launches the kernel of ``csrc/msj_scan.cu`` on the current stream,
+  raises if the launch is refused, and adds one to its ``launches``
+  count.  There is no fallback: a CUDA tensor never reaches the plain
+  version through a wrapper.
+
+The kernels run one thread block per replication with the whole event
+loop inside the kernel; see the source's header note for what bounds them
+and where bit-identity with the reference needs care.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ...core import sim_torch
+from . import build
+
+_F64, _I32 = torch.float64, torch.int32
+#: the longest trace whose BS event tags (up to 3J) fit in int32
+_J_MAX = (2**31 - 1) // 3
+
+
+# -- plain versions ----------------------------------------------------------
+
+
+def fcfs_scan_ref(arrival, need, service, *, k: int):
+    """Plain FCFS scan: [R, J] arrays -> start times [R, J]."""
+    return sim_torch._fcfs_core(arrival, need, service, k)
+
+
+def modbs_scan_ref(arrival, cls, need, service, slots, *, s_max: int,
+                   h: int):
+    """Plain ModifiedBS-π scan -> (blocked [R, J] bool, starts [R, J])."""
+    return sim_torch._modbs_core(arrival, cls, need, service, slots, s_max,
+                                 h)
+
+
+def bs_scan_ref(arrival, cls, need, service, slots, *, s_max: int, h: int,
+                q_cap: int):
+    """Plain BS-π event scan -> (tagged [R, 2J] int32, rec_t [R, 2J],
+    ovf [R] bool)."""
+    return sim_torch._bs_core(arrival, cls, need, service, slots, s_max, h,
+                              q_cap)
+
+
+# -- checks and launch plumbing ---------------------------------------------
+
+
+_DTYPES = {"arrival": _F64, "service": _F64, "cls": _I32, "need": _I32}
+
+
+def _check(slots=None, **named) -> torch.device:
+    """Validate the [R, J] inputs (and ``slots``); their common device."""
+    first = named["arrival"]
+    if first.dim() != 2:
+        raise ValueError(f"trace arrays must be [R, J], got "
+                         f"{tuple(first.shape)}")
+    if first.shape[1] > _J_MAX:
+        raise ValueError(f"J={first.shape[1]} exceeds {_J_MAX}")
+    for name, t in named.items():
+        if t.shape != first.shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"{tuple(first.shape)}")
+        if t.dtype != _DTYPES[name]:
+            raise TypeError(f"{name} must be {_DTYPES[name]}, got {t.dtype}")
+        if t.device != first.device:
+            raise ValueError(f"{name} is on {t.device}, expected "
+                             f"{first.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if slots is not None:
+        if (slots.dim() != 1 or slots.dtype != _I32
+                or not slots.is_contiguous()):
+            raise TypeError("slots must be a contiguous 1-D int32 tensor")
+        if slots.device != first.device:
+            raise ValueError(f"slots is on {slots.device}, expected "
+                             f"{first.device}")
+    dev = first.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}; expected cpu or cuda")
+    return dev
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _stream(dev: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+
+def _raise_on(lib, rc: int, kernel: str, shape: str) -> None:
+    if rc != 0:
+        msg = lib.msj_error_string(rc).decode()
+        raise RuntimeError(f"{kernel} launch failed at {shape}: "
+                           f"cudaError {rc} ({msg})")
+
+
+# -- wrappers ----------------------------------------------------------------
+
+
+def fcfs_scan_fwd(arrival, need, service, *, k: int):
+    """arrival/need/service [R, J] -> start times [R, J] float64.
+
+    Multiserver-job FCFS (Kiefer–Wolfowitz): job j with need n starts at
+    max(A_j, T_{j-1}, W[n-1]) on the sorted free-time vector W of the k
+    servers, then n copies of its completion are rolled into W.
+    """
+    dev = _check(arrival=arrival, need=need, service=service)
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    if dev.type == "cpu":
+        return fcfs_scan_ref(arrival, need, service, k=k)
+    R, J = arrival.shape
+    starts = torch.empty_like(arrival)
+    if R == 0 or J == 0:
+        return starts
+    lib = build.load_library()
+    with torch.cuda.device(dev):
+        rc = lib.msj_fcfs_scan(_ptr(arrival), _ptr(need), _ptr(service),
+                               _ptr(starts), R, J, k, _stream(dev))
+    _raise_on(lib, rc, "fcfs_scan", f"R={R} J={J} k={k}")
+    fcfs_scan_fwd.launches += 1
+    return starts
+
+
+def modbs_scan_fwd(arrival, cls, need, service, slots, *, s_max: int,
+                   h: int):
+    """[R, J] trace arrays + slots [C] -> (blocked [R, J] bool,
+    starts [R, J] float64).
+
+    ModifiedBS-π (Definition 2): per-class loss queues of ``slots[c]``
+    slots (rows padded to ``s_max``); a job that finds its class full is
+    blocked and served by FCFS on the h helper servers.
+    """
+    dev = _check(slots, arrival=arrival, cls=cls, need=need,
+                 service=service)
+    if s_max < 1 or h < 1:
+        raise ValueError(f"s_max and h must be >= 1, got {s_max}, {h}")
+    if dev.type == "cpu":
+        return modbs_scan_ref(arrival, cls, need, service, slots,
+                              s_max=s_max, h=h)
+    R, J = arrival.shape
+    blocked = torch.empty(R, J, dtype=torch.bool, device=dev)
+    starts = torch.empty_like(arrival)
+    if R == 0 or J == 0:
+        return blocked, starts
+    C = slots.shape[0]
+    lib = build.load_library()
+    with torch.cuda.device(dev):
+        rc = lib.msj_modbs_scan(_ptr(arrival), _ptr(cls), _ptr(need),
+                                _ptr(service), _ptr(slots), _ptr(blocked),
+                                _ptr(starts), R, J, C, s_max, h,
+                                _stream(dev))
+    _raise_on(lib, rc, "modbs_scan", f"R={R} J={J} C={C} s_max={s_max} h={h}")
+    modbs_scan_fwd.launches += 1
+    return blocked, starts
+
+
+def bs_scan_fwd(arrival, cls, need, service, slots, *, s_max: int, h: int,
+                q_cap: int):
+    """[R, J] trace arrays + slots [C] -> (tagged [R, 2J] int32,
+    rec_t [R, 2J] float64, ovf [R] bool).
+
+    BS-π (Definition 1) as the 2J-event scan.  ``tagged`` encodes each
+    event: j = job j started in its A_i at ``rec_t``, j + J = job j was
+    routed to H on arrival, j + 2J = job j started on a helper at
+    ``rec_t``, -1 = no record.  ``ovf`` flags a helper-wait ring that
+    outgrew ``q_cap``; the caller must raise on it.
+    """
+    dev = _check(slots, arrival=arrival, cls=cls, need=need,
+                 service=service)
+    if s_max < 1 or h < 1 or q_cap < 1:
+        raise ValueError(f"s_max, h and q_cap must be >= 1, got {s_max}, "
+                         f"{h}, {q_cap}")
+    if dev.type == "cpu":
+        return bs_scan_ref(arrival, cls, need, service, slots, s_max=s_max,
+                           h=h, q_cap=q_cap)
+    R, J = arrival.shape
+    C = slots.shape[0]
+    tagged = torch.empty(R, 2 * J, dtype=_I32, device=dev)
+    rec_t = torch.empty(R, 2 * J, dtype=_F64, device=dev)
+    ovf = torch.zeros(R, dtype=torch.bool, device=dev)
+    if R == 0 or J == 0:
+        return tagged, rec_t, ovf
+    ring = torch.zeros(R, C * q_cap, dtype=_I32, device=dev)
+    lib = build.load_library()
+    with torch.cuda.device(dev):
+        rc = lib.msj_bs_scan(_ptr(arrival), _ptr(cls), _ptr(need),
+                             _ptr(service), _ptr(slots), _ptr(tagged),
+                             _ptr(rec_t), _ptr(ovf), _ptr(ring), R, J, C,
+                             s_max, h, q_cap, _stream(dev))
+    _raise_on(lib, rc, "bs_scan",
+              f"R={R} J={J} C={C} s_max={s_max} h={h} q_cap={q_cap}")
+    bs_scan_fwd.launches += 1
+    return tagged, rec_t, ovf
+
+
+WRAPPERS = (fcfs_scan_fwd, modbs_scan_fwd, bs_scan_fwd)
+for _w in WRAPPERS:
+    _w.launches = 0
+
+
+def reset_launches() -> None:
+    """Set every wrapper's ``launches`` count to 0."""
+    for w in WRAPPERS:
+        w.launches = 0
+
+
+def launches() -> dict[str, int]:
+    """Each wrapper's kernel launches since the last reset."""
+    return {w.__name__: w.launches for w in WRAPPERS}
