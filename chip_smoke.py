@@ -22,6 +22,26 @@ Phases, each of which exits non-zero on failure:
    CPU, field by field;
 4. time each kernel at the main path's largest shape.
 
+The Figure-3 slice adds to each phase:
+
+1. ``csrc/srpt_scan.cu`` builds beside ``msj_scan.cu`` (one nvcc each, in
+   parallel) and ptxas' report covers its kernels;
+2. ``srpt_scan`` (SF and FF) at the full width of the Fig. 3 path's
+   largest cells, k in {512, 1024} with Q = 2048 / 4096 slots, on R = 4
+   IID-bootstrapped SDSC-SP2 replications at load 0.85 with J cut to 2000
+   (the plain version is a Python event loop), and ``stable_sort`` at
+   W in {4096, 3000}, each ``torch.equal`` to its plain version on the card
+   and on the CPU;
+3. ``repro_torch.bench.fig3_traces.run()`` at its defaults on the card
+   (2 datasets x k in {512, 1024} x 3 loads x 5 policies, J = 15 000,
+   R = 4) with the counts set to 0 just before and read just after:
+   ``srpt_scan`` must launch >= 24 times and every row must be finite; a
+   small run on the card must equal the same run on the CPU on every
+   column but ``sim_s``.  Rows are printed; no ordering between policies
+   is asserted (on the reference BS-π is above FCFS at this J);
+4. ``srpt_scan`` timed at k = 1024, Q = 4096, R = 4, J = 15 000, and
+   ``stable_sort`` at [4, 4096] beside two stable ``torch.sort`` passes.
+
 Then it prints the card's name and power limit, one ``{"kernels": [...]}``
 line and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the repository around it, it exits non-zero and prints no
@@ -31,10 +51,12 @@ result.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 ROOT = Path(__file__).resolve().parent
 CMP_J, REPS = 4000, 16
@@ -49,6 +71,11 @@ KERNELS = {  # name -> (wrapper, TPU kernel it replaces)
     "bs_scan": ("bs_scan_fwd", "src/repro/kernels/msj_scan/kernel.py:257"),
 }
 SOURCE = "src/repro_torch/kernels/msj_scan/csrc/msj_scan.cu"
+SRPT_SOURCE = "src/repro_torch/kernels/msj_scan/csrc/srpt_scan.cu"
+SRPT_REPLACES = "src/repro/kernels/msj_scan/srpt.py:75"
+SORT_REPLACES = "src/repro/kernels/msj_scan/sort.py:58"
+FIG3_KS, FIG3_J, FIG3_R, SRPT_CMP_J = (512, 1024), 15_000, 4, 2000
+SORT_WS, SORT_R = (4096, 3000), 4
 
 
 def fail(msg: str) -> None:
@@ -78,6 +105,39 @@ def bound(name: str, R: int, J: int, k: int) -> tuple[float, str]:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def srpt_bound(R: int, J: int, job_ev) -> tuple[float, str]:
+    """Least time for one srpt_scan call: (ms, what bounds it).
+
+    Bytes: the three [R, J] float64 inputs and kk once, the three
+    [R, 2J] float64 record streams and the four [R] counters once.
+    Operations: what this run's data needs per event with n jobs in the
+    system — the rank of each (a subtract, a subtract, a maximum and, for
+    SF, a multiply: 4) and a comparison sort of the n ranks
+    (n log2 n compares); n at each event is read off the run's own
+    departure stream (every event is an arrival or a departure).
+    """
+    import numpy as np
+
+    nbytes = R * J * 3 * 8 + R * 8 + R * 2 * J * 3 * 8 + R * (1 + 3 * 4)
+    dep = (job_ev >= 0).astype(np.int64)
+    n = np.cumsum(1 - 2 * dep, axis=1)          # in-system after each event
+    n = np.maximum(n, 1).astype(np.float64)
+    ops = float((n * (4 + np.log2(np.maximum(n, 2)))).sum())
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F64_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def sort_bound(R: int, W: int, num_keys: int) -> tuple[float, str]:
+    """Least time for one stable_sort call: the keys and payload read and
+    written once; W log2 W float64 compares per row (a comparison sort)."""
+    nbytes = 2 * R * W * (8 * num_keys + 4)
+    ops = R * W * max(1.0, math.log2(W)) * num_keys
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F64_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script; "
@@ -92,9 +152,12 @@ def main() -> int:
               "False)", file=sys.stderr)
         return 2
 
+    from repro_torch.bench import fig3_traces
     from repro_torch.core import sim_torch
     from repro_torch.core.sim_batch import sweep_many_server
-    from repro_torch.core.workload import figure1_workload
+    from repro_torch.core.workload import (SDSC_SP2_TABLE, BatchTrace,
+                                           figure1_workload)
+    from repro_torch.data.swf import sdsc_sp2_trace
     from repro_torch.kernels.msj_scan import build
     from repro_torch.kernels.msj_scan import kernel as K
 
@@ -188,6 +251,111 @@ def main() -> int:
                 bound_by=b_by, library_ms=None,
                 shape=f"k={k} R={REPS} J={CMP_J}")
 
+
+    # -- 2b. srpt_scan and stable_sort against their plain versions --------
+    NU = tuple(sorted(int(row[2]) for row in SDSC_SP2_TABLE))
+
+    def srpt_inputs(k: int, J: int, seed: int):
+        """R IID bootstraps of a Table-2 trace at load 0.85, on the card,
+        and the slot-table width of the Fig. 3 path's J = 15 000 cells."""
+        b = BatchTrace.from_trace(sdsc_sp2_trace(J, k=k, load=0.85,
+                                                 seed=seed), FIG3_R,
+                                  seed=seed)
+        f64 = dict(dtype=torch.float64, device=dev)
+        t = (torch.tensor(b.arrival, **f64), torch.tensor(b.need, **f64),
+             torch.tensor(b.service, **f64),
+             torch.full((FIG3_R,), float(k), **f64))
+        Q = sim_torch._srpt_args(SimpleNamespace(num_jobs=FIG3_J, k=k), None)
+        return t, Q
+
+    def max_err(out, ref):
+        """Largest |kernel - plain| over the outputs; equal entries count
+        0, so equal infinities do not give nan."""
+        err = 0.0
+        for o, r in zip(out, ref):
+            o, r = o.double(), r.double().to(dev)
+            d = torch.where(o == r, 0.0, (o - r).abs())
+            err = max(err, d.max().item())
+        return err
+
+    srpt_cfgs = []
+    for k in FIG3_KS:
+        t, Q = srpt_inputs(k, SRPT_CMP_J, seed=1)
+        for sf in (True, False):
+            kw = dict(Q=Q, NU=NU, sf=sf)
+            out = K.srpt_scan_fwd(*t, **kw)
+            torch.cuda.synchronize()
+            ref_cpu = K.srpt_scan_fwd(*(x.cpu() for x in t), **kw)
+            t1 = time.time()
+            ref_dev = K.srpt_scan_ref(*t, **kw)
+            torch.cuda.synchronize()
+            plain_ms = (time.time() - t1) * 1e3
+            for o, r_cpu, r_dev in zip(out, ref_cpu, ref_dev):
+                if not (torch.equal(o.cpu(), r_cpu)
+                        and torch.equal(o, r_dev)):
+                    fail(f"srpt_scan sf={sf} at k={k} Q={Q} "
+                         f"J={SRPT_CMP_J} differs from its plain version")
+            if out[3].any() or not (out[5] == 2 * SRPT_CMP_J).all():
+                fail(f"srpt_scan sf={sf} k={k}: overflow or missing events")
+            ms = cuda_ms(lambda: K.srpt_scan_fwd(*t, **kw), 3)
+            b_ms, b_by = srpt_bound(FIG3_R, SRPT_CMP_J, out[0].cpu().numpy())
+            pol = "sf" if sf else "ff"
+            print(f"[kernel] srpt_scan {pol} k={k} Q={Q} NU={NU} R={FIG3_R} "
+                  f"J={SRPT_CMP_J} (J cut: the plain version is a Python "
+                  f"event loop): all 7 outputs equal at tolerance 0 "
+                  f"(torch.equal) to the plain version on CPU and on card, "
+                  f"kernel {ms:.3f} ms, plain on card {plain_ms:.1f} ms, "
+                  f"bound {b_ms:.5f} ms ({b_by}); peak in system "
+                  f"{out[6].tolist()}, preemptions {out[4].tolist()}")
+            srpt_cfgs.append(dict(policy=pol, k=k, Q=Q, ms=ms,
+                                  plain_ms=plain_ms, bound_ms=b_ms,
+                                  bound_by=b_by, err=max_err(out, ref_cpu)))
+    top = srpt_cfgs[-2]          # k = 1024, SF: the largest compared shape
+    report["srpt_scan"] = dict(
+        name="srpt_scan", route="cuda", source=SRPT_SOURCE,
+        replaces=SRPT_REPLACES, launches=None,
+        max_abs_err=max(c["err"] for c in srpt_cfgs), ms=top["ms"],
+        plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
+        bound_by=top["bound_by"], library_ms=None,
+        shape=f"sf k=1024 Q={top['Q']} R={FIG3_R} J={SRPT_CMP_J}",
+        configs=srpt_cfgs)
+
+    rng = np.random.default_rng(7)
+
+    def sort_inputs(W: int, num_keys: int):
+        """Keys with many duplicates and +-inf; row 0 all equal, row 1
+        all +inf; an int32 payload that numbers the entries."""
+        k1 = rng.choice([-np.inf, np.inf, 0.0, 1.0, 1.5, 2.5], (SORT_R, W))
+        k1[0], k1[1] = 0.5, np.inf
+        k2 = rng.choice([0.0, 1.0, 4.0], (SORT_R, W))
+        pay = np.arange(SORT_R * W, dtype=np.int32).reshape(SORT_R, W)
+        keys = [torch.tensor(k1, device=dev), torch.tensor(k2, device=dev)]
+        return keys[:num_keys] + [torch.tensor(pay, device=dev)]
+
+    sort_errs = []
+    for W in SORT_WS:
+        for nk in (1, 2):
+            ops = sort_inputs(W, nk)
+            out = K.stable_sort_fwd(*ops, num_keys=nk)
+            torch.cuda.synchronize()
+            ref_cpu = K.stable_sort_fwd(*(x.cpu() for x in ops), num_keys=nk)
+            t1 = time.time()
+            ref_dev = K.stable_sort_ref(*ops, num_keys=nk)
+            torch.cuda.synchronize()
+            plain_ms = (time.time() - t1) * 1e3
+            for o, r_cpu, r_dev in zip(out, ref_cpu, ref_dev):
+                if not (torch.equal(o.cpu(), r_cpu)
+                        and torch.equal(o, r_dev)):
+                    fail(f"stable_sort W={W} keys={nk} differs from its "
+                         f"plain version")
+            sort_errs.append(max_err(out, ref_cpu))
+            ms = cuda_ms(lambda: K.stable_sort_fwd(*ops, num_keys=nk), 3)
+            b_ms, b_by = sort_bound(SORT_R, W, nk)
+            print(f"[kernel] stable_sort R={SORT_R} W={W} keys={nk}: equal "
+                  f"at tolerance 0 (torch.equal) to the plain version on "
+                  f"CPU and on card, kernel {ms:.4f} ms, plain on card "
+                  f"{plain_ms:.2f} ms, bound {b_ms:.6f} ms ({b_by})")
+
     # -- 3. the main path -------------------------------------------------
     K.reset_launches()
     t0 = time.time()
@@ -207,6 +375,7 @@ def main() -> int:
                   f"sim_s={sw.sim_s[i, j]:.3f}")
     for name, (wrapper, _) in KERNELS.items():
         report[name]["launches"] = counts[wrapper]
+        report[name]["fig1_launches"] = counts[wrapper]
         if counts[wrapper] < 1:
             fail(f"the main path never launched {name}")
     for f in ("mean_response", "mean_wait", "p_wait", "p95_response",
@@ -244,6 +413,49 @@ def main() -> int:
     print("[main] small sweep (k=256, 2048; J=2000, R=4): card == CPU on "
           "every field")
 
+
+    # -- 3b. the Fig. 3 path: fig3_traces.run() at its defaults ------------
+    K.reset_launches()
+    t0 = time.time()
+    rows = fig3_traces.run(device="cuda")
+    torch.cuda.synchronize()
+    counts3 = K.launches()
+    wall = time.time() - t0
+    print(f"[fig3] fig3_traces.run() (2 datasets x k {FIG3_KS} x 3 loads x "
+          f"5 policies, J={FIG3_J}, R={FIG3_R}) on the card: {wall:.1f} s, "
+          f"launches {counts3}")
+    for r in rows:
+        print(f"[fig3] {r['dataset']} k={r['k']} load={r['load']} "
+              f"{r['policy']:>10}: mean_response={r['mean_response']:.6f} "
+              f"p_wait={r['p_wait']:.6f} p95={r['p95_response']:.6f} "
+              f"util={r['utilization']:.6f} sim_s={r['sim_s']}")
+    if len(rows) != 60:
+        fail(f"the Fig. 3 path gave {len(rows)} rows, expected 60")
+    for r in rows:
+        for f in ("mean_response", "p_wait", "p95_response"):
+            if not np.isfinite(r[f]):
+                fail(f"non-finite {f} in Fig. 3 row {r}")
+    if counts3["srpt_scan_fwd"] < 24:
+        fail(f"the Fig. 3 path launched srpt_scan "
+             f"{counts3['srpt_scan_fwd']} times, expected >= 24")
+    for name, (wrapper, _) in KERNELS.items():
+        if counts3[wrapper] < 1:
+            fail(f"the Fig. 3 path never launched {name}")
+        report[name]["fig3_launches"] = counts3[wrapper]
+        report[name]["launches"] += counts3[wrapper]
+    report["srpt_scan"]["launches"] = counts3["srpt_scan_fwd"]
+    small3 = dict(num_jobs=1500, reps=2, ks=(512,), loads=(0.85,))
+    card3 = fig3_traces.run(**small3, device="cuda")
+    cpu3 = fig3_traces.run(**small3, device="cpu")
+    for a, b in zip(card3, cpu3):
+        if ({c: v for c, v in a.items() if c != "sim_s"}
+                != {c: v for c, v in b.items() if c != "sim_s"}):
+            fail(f"small Fig. 3 run: card row {a} differs from CPU row {b}")
+    if len(card3) != len(cpu3) or len(card3) != 10:
+        fail("small Fig. 3 run: wrong row count")
+    print("[fig3] small run (J=1500, R=2, k=512, load=0.85): card == CPU on "
+          "every column but sim_s")
+
     # -- 4. kernel times at the main path's largest shape -----------------
     t, p = inputs(MAIN_KS[-1], MAIN_J, seed=0)
     for name, (kern, _) in calls(t, p).items():
@@ -256,6 +468,50 @@ def main() -> int:
         report[name].update(main_ms=ms, main_jobs_per_s=rate,
                             main_bound_ms=b_ms,
                             main_shape=f"k={MAIN_KS[-1]} R={REPS} J={MAIN_J}")
+
+    t, Q = srpt_inputs(FIG3_KS[-1], FIG3_J, seed=0)
+    for sf in (True, False):
+        kw = dict(Q=Q, NU=NU, sf=sf)
+        out = K.srpt_scan_fwd(*t, **kw)
+        ms = cuda_ms(lambda: K.srpt_scan_fwd(*t, **kw), 2)
+        b_ms, b_by = srpt_bound(FIG3_R, FIG3_J, out[0].cpu().numpy())
+        pol = "sf" if sf else "ff"
+        print(f"[time] srpt_scan {pol} k={FIG3_KS[-1]} Q={Q} R={FIG3_R} "
+              f"J={FIG3_J}: {ms:.3f} ms per launch "
+              f"({ms * 1e3 / (2 * FIG3_J):.2f} us per event), bound "
+              f"{b_ms:.5f} ms ({b_by})")
+        report["srpt_scan"][f"main_ms_{pol}"] = ms
+        report["srpt_scan"][f"main_bound_ms_{pol}"] = b_ms
+    report["srpt_scan"]["main_shape"] = (f"k={FIG3_KS[-1]} Q={Q} "
+                                         f"R={FIG3_R} J={FIG3_J}")
+
+    ops = sort_inputs(SORT_WS[0], 2)
+    ms = cuda_ms(lambda: K.stable_sort_fwd(*ops, num_keys=2), 20)
+    k1, k2 = ops[0], ops[1]
+
+    def torch_sort():
+        o1 = torch.sort(k2, dim=1, stable=True).indices
+        o2 = torch.sort(k1.gather(1, o1), dim=1, stable=True).indices
+        return o1.gather(1, o2)
+
+    lib_ms = cuda_ms(torch_sort, 20)
+    t1 = time.time()
+    K.stable_sort_ref(*ops, num_keys=2)
+    torch.cuda.synchronize()
+    plain_ms = (time.time() - t1) * 1e3
+    b_ms, b_by = sort_bound(SORT_R, SORT_WS[0], 2)
+    print(f"[time] stable_sort R={SORT_R} W={SORT_WS[0]} keys=2: "
+          f"{ms:.4f} ms per launch; two stable torch.sort passes "
+          f"{lib_ms:.4f} ms; plain version {plain_ms:.2f} ms; bound "
+          f"{b_ms:.6f} ms ({b_by})")
+    report["stable_sort"] = dict(
+        name="stable_sort", route="cuda", source=SRPT_SOURCE,
+        replaces=SORT_REPLACES, launches=report["srpt_scan"]["launches"],
+        launched_in="srpt_scan (device function; the standalone entry is "
+                    "not on the main path)",
+        max_abs_err=max(sort_errs), ms=ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+        shape=f"R={SORT_R} W={SORT_WS[0]} keys=2")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -1,8 +1,10 @@
 """PyTorch/CUDA port of the multiserver-job simulator (the ``repro`` package).
 
 ``repro_torch`` runs the paper's Fig. 1/2 sweep — FCFS, ModifiedBS-π and
-BS-π over the Figure-1 workload — on float64 PyTorch tensors, with the
-event scans as hand-written CUDA kernels for Hopper.  It imports ``torch``
+BS-π over the Figure-1 workload — and its Fig. 3 HPC-trace path (the
+Table-2/3 workloads, bootstrapped, on those three policies and the
+preemptive SF-SRPT / FF-SRPT) on float64 PyTorch tensors, with the event
+scans as hand-written CUDA kernels for Hopper.  It imports ``torch``
 and ``numpy`` only; the JAX package beside it is its reference.
 
 Entry points run on the card unless the caller asks for the CPU::
@@ -12,4 +14,5 @@ Entry points run on the card unless the caller asks for the CPU::
     res = engines.simulate("bs-fcfs", wl.sample_traces(10_000, 16), wl=wl)
 
 ``device="cpu"`` runs the plain PyTorch versions of the kernels instead.
+The Fig. 3 entry point is ``python -m repro_torch.bench.fig3_traces``.
 """

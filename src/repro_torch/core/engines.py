@@ -9,7 +9,8 @@ through :func:`simulate` / :func:`simulate_grid`::
     res = engines.simulate("bs-fcfs", batch, wl=wl, device="cpu")
 
 * **Key**: ``(policy, engine)``; policy names are the reference's
-  canonical names (``"fcfs"``, ``"modbs-fcfs"``, ``"bs-fcfs"``) and
+  canonical names (``"fcfs"``, ``"modbs-fcfs"``, ``"bs-fcfs"``,
+  ``"sf-srpt"``, ``"ff-srpt"``) and
   :func:`canonical` resolves the short aliases.  The port has one engine,
   ``"torch"``; its cores dispatch on the device of the tensors they build:
   on ``device="cpu"`` the plain PyTorch versions run, on ``device="cuda"``
@@ -193,7 +194,8 @@ def simulate(policy: str, batch: "BatchTrace", *, engine: str = "torch",
     the hand-written kernels and raises without a card, ``"cpu"`` runs
     their plain PyTorch versions.  ``partition``/``wl`` feed the eq.-2
     partition (ModBS and BS need one of them); extra keywords (e.g.
-    ``queue_cap`` for ``bs-fcfs``) pass through to the core.
+    ``queue_cap`` for ``bs-fcfs`` and the SRPT pair) pass through to the
+    core.
     """
     if failures is not None:
         raise NotImplementedError(_NO_FAILURES)

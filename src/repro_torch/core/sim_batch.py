@@ -19,11 +19,18 @@ import torch
 
 from . import engines
 from .partition import BalancedPartition, balanced_partition
-from .sim_torch import _bs_scatter_events, _check_classes
+from .sim_torch import (_bs_scatter_events, _check_classes,
+                        _srpt_scatter_events)
 from .workload import BatchTrace, Workload
 
 #: waiting-time epsilon for P[wait > 0] — the reference's ``WAIT_EPS``
 WAIT_EPS = 1e-9
+
+
+class QueueOverflowError(RuntimeError):
+    """A scan's bounded queue (BS helper-wait ring, SRPT slot table)
+    overflowed: the workload is unstable at this load, or the bound is too
+    small.  The figure scripts turn it into an infinite-response row."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,6 +44,8 @@ class BatchSimResult:
     p_routed: np.ndarray | None = None  # [R] fraction routed to H on arrival
                                         # (> p_helper under Def.-1 pull-backs)
     start: np.ndarray | None = None     # [R, J] raw start times
+    # preempt-resume observable (None for nonpreemptive policies):
+    preemptions: np.ndarray | None = None   # [R] preemption events
 
     @property
     def reps(self) -> int:
@@ -108,7 +117,7 @@ def _modbs_result(batch: BatchTrace, blocked, starts) -> BatchSimResult:
 def _bs_check_ovf(ovf, q_cap: int) -> None:
     ovf = np.asarray(ovf)
     if ovf.any():
-        raise RuntimeError(
+        raise QueueOverflowError(
             f"helper-wait ring buffer overflow (queue_cap={q_cap}) in "
             f"replication(s) {np.flatnonzero(ovf).tolist()} — "
             f"workload unstable at this load, or raise queue_cap")
@@ -129,6 +138,54 @@ def _bs_result(batch: BatchTrace, tagged, rec_t, ovf,
     starts, served, routed = _bs_scatter_events(batch.num_jobs, tagged,
                                                 rec_t)
     return _bs_assemble(batch, starts, served, routed)
+
+
+# -- preemptive SRPT-family helpers (sf-srpt / ff-srpt) ----------------------
+
+
+def _srpt_nu(*batches) -> tuple:
+    """Ascending tuple of distinct server needs — the rounds of the
+    first-fit walk.  A superset is always correct."""
+    return tuple(sorted({int(v) for b in batches for v in np.unique(b.need)}))
+
+
+def _srpt_check_ovf(ovf, q_cap: int, peak=None) -> None:
+    ovf = np.asarray(ovf)
+    if ovf.any():
+        hint = ""
+        if peak is not None:
+            need = int(np.asarray(peak).max())
+            # the peak stops counting dropped arrivals after the first
+            # overflow, so it is a lower bound on the required capacity
+            q_next = max(1 << max(need - 1, 1).bit_length(), 2 * q_cap)
+            hint = (f"; measured peak occupancy >= {need} jobs — pass "
+                    f"queue_cap={q_next} (the next power of two) or more")
+        raise QueueOverflowError(
+            f"SRPT slot table overflow (queue_cap={q_cap}) in "
+            f"replication(s) {np.flatnonzero(ovf).tolist()} — "
+            f"workload unstable at this load, or raise queue_cap{hint}")
+
+
+def _srpt_no_failures(failures, policy: str) -> None:
+    if failures is not None:
+        raise NotImplementedError(
+            f"policy {policy!r} has no fault-injection scan core (the "
+            f"reference runs it on its python engine, mode='kill', which "
+            f"is not ported)")
+
+
+def _srpt_result(batch: BatchTrace, job_ev, t_ev, fs_ev, ovf, npre, ne,
+                 q_cap: int, peak=None) -> BatchSimResult:
+    """Event streams -> BatchSimResult (response = completion - arrival,
+    wait = first start - arrival); raises on overflow."""
+    _srpt_check_ovf(ovf, q_cap, peak=peak)
+    if not (np.asarray(ne) == 2 * batch.num_jobs).all():
+        raise RuntimeError("SRPT event scan under-ran its 2J event budget")
+    comp, fstart = _srpt_scatter_events(batch.num_jobs, job_ev, t_ev, fs_ev)
+    return BatchSimResult(response=comp - batch.arrival,
+                          wait=fstart - batch.arrival,
+                          p_helper=None, blocked=None, start=fstart,
+                          preemptions=np.asarray(npre).astype(np.int64))
 
 
 # --------------------------------------------------------------------------

@@ -23,7 +23,10 @@ place where that saves a copy; the state is private to each scan.
 * ``_modbs_core`` — ModifiedBS-π with π = FCFS (Definition 2): per-class
   loss queues plus the helper FCFS on h servers;
 * ``_bs_core``    — BS-π proper (Definition 1): the event-indexed 2J-step
-  scan with per-class helper-wait rings and rule-3 pull-backs.
+  scan with per-class helper-wait rings and rule-3 pull-backs;
+* ``_srpt_core``  — the preemptive ServerFilling-SRPT / FirstFit-SRPT
+  2J-event scan over a Q-slot table (``sim_jax._srpt_make_step``, the
+  reference step, not its XLA:CPU rewrite ``_srpt_fast_make_step``).
 """
 
 from __future__ import annotations
@@ -367,3 +370,245 @@ def _bs_args(batch, partition, wl, queue_cap):
     elif queue_cap < 1:
         raise ValueError(f"queue_cap must be >= 1, got {queue_cap}")
     return slots, s_max, h, queue_cap
+
+
+# --------------------------------------------------------------------------
+# Preemptive SRPT family: ServerFilling-SRPT (sf) and FirstFit-SRPT (ff)
+#
+# At every event (an arrival, or the earliest departure) the in-system jobs
+# are re-ranked — rank = current remaining work (ff) or remaining x need
+# (sf), ties by arrival time, then by slot — and the desired running set is
+# recomputed: ff packs first-fit over the rank order; sf takes the shortest
+# rank prefix M whose cumulative need reaches k (all jobs when the total
+# need is below k) and packs it first-fit in (-need, rank) order.  Running
+# jobs outside the set are preempted (remaining work frozen), desired jobs
+# not running start.  Exactly 2J events exist per lane.
+#
+# The slot table is one [R, Q, 8] float64 tensor with the reference's
+# columns (_SRPT_COLS): job id (-1 = empty), arrival, need, remaining work,
+# run start, running, started, first start.
+# --------------------------------------------------------------------------
+
+_SRPT_COLS = 8  # job, arrival, need, rem, run_start, running, started, fstart
+
+
+def _lexsort_perm(keys, perm=None):
+    """Stable ascending lexicographic order of [R, Q] key rows.
+
+    Returns the permutation [R, Q] int64 (position -> original index).
+    ``perm`` is the starting order (identity when None); it breaks every
+    tie left by the keys.  Built from stable single-key ``torch.sort``
+    passes, least significant key first — so the result equals
+    ``jax.lax.sort(..., num_keys=len(keys), is_stable=True)`` and the
+    stable bitonic network with the index as its final key.
+    """
+    R, Q = keys[0].shape
+    if perm is None:
+        perm = torch.arange(Q, device=keys[0].device).expand(R, Q)
+    for key in reversed(keys):
+        order = torch.sort(key.gather(1, perm), dim=1, stable=True).indices
+        perm = perm.gather(1, order)
+    return perm
+
+
+def _srpt_first_fit(kk, need_w, cand, NU: tuple):
+    """Vectorized first-fit packing walk over pre-ordered candidates.
+
+    ``need_w`` [R, Q] holds the candidate needs in packing order (0 for
+    empty slots), ``cand`` [R, Q] the candidate mask, ``kk`` [R] the free
+    servers and ``NU`` the ascending tuple of distinct need values.
+    Returns the taken mask, equal to the sequential walk ``for j in order:
+    if need[j] <= free: take; free -= need[j]`` (``sim_jax._srpt_first_fit``
+    op for op: a round takes, among the jobs with need <= u = the largest
+    need value <= F, the prefix whose running need sum fits, so u strictly
+    falls and len(NU) rounds finish any walk).
+    """
+    R, Q = need_w.shape
+    dev = need_w.device
+    pos = torch.arange(Q, device=dev)[None, :]
+    F = kk
+    take = torch.zeros(R, Q, dtype=torch.bool, device=dev)
+    ptr = torch.zeros(R, dtype=torch.int64, device=dev)
+    zero = torch.zeros((), dtype=_F64, device=dev)
+    for _ in range(len(NU)):
+        u = torch.zeros_like(F)
+        for v in NU:  # ascending: ends at the largest need value <= F
+            u = torch.where(v <= F, float(v), u)
+        elig = (cand & ~take & (need_w >= 1.0) & (need_w <= u[:, None])
+                & (pos >= ptr[:, None]))
+        csum = torch.cumsum(torch.where(elig, need_w, zero), dim=1)
+        newt = elig & (F[:, None] - (csum - need_w) >= u[:, None])
+        take = take | newt
+        F = F - torch.where(newt, need_w, zero).sum(1)
+        missed = elig & ~newt
+        ptr = torch.where(missed.any(1), missed.to(torch.int8).argmax(1),
+                          Q)
+    return take
+
+
+def _srpt_init(R: int, Q: int, device):
+    """Empty slot table + counters: (arrival cursor, S [R, Q, 8], ovf,
+    preemptions, processed events, peak in-system count)."""
+    S = torch.zeros(R, Q, _SRPT_COLS, dtype=_F64, device=device)
+    S[..., 0] = -1.0
+    i32 = dict(dtype=torch.int32, device=device)
+    return (torch.zeros(R, dtype=torch.int64, device=device), S,
+            torch.zeros(R, dtype=torch.bool, device=device),
+            torch.zeros(R, **i32), torch.zeros(R, **i32),
+            torch.zeros(R, **i32))
+
+
+def _srpt_step(carry, arrival, need, service, kk, NU: tuple, sf: bool):
+    """One event per lane of ``sim_jax._srpt_make_step``, statement for
+    statement.  Returns the new carry and the record (job, t, fstart) —
+    job -1.0 with t = fstart = 0 on steps that are not departures."""
+    ai, S, ovf, npre, ne, peak = carry
+    R, J = arrival.shape
+    Q = S.shape[1]
+    dev = S.device
+    lanes = torch.arange(R, device=dev)
+    pos = torch.arange(Q, device=dev)[None, :]
+    zero = torch.zeros((), dtype=_F64, device=dev)
+    job, s_rem, s_rs = S[..., 0], S[..., 3], S[..., 4]
+    s_run = S[..., 5] > 0
+
+    # candidate events: the next arrival against the earliest departure
+    # (run_start + rem, the oracle's addition); an arrival wins ties
+    j_arr = ai.clamp(max=J - 1)
+    a_arr = arrival[lanes, j_arr]
+    Ta = torch.where(ai < J, a_arr, _INF)
+    comp = torch.where(s_run, s_rs + s_rem, _BIG)
+    qd = comp.argmin(1)
+    Tc = comp[lanes, qd]
+    is_arr = (ai < J) & (Ta <= Tc)
+    is_dep = ~is_arr & (Tc < 0.5 * _BIG)
+    active = is_arr | is_dep
+    ne = ne + active.int()
+    t = torch.where(is_arr, Ta, Tc)
+
+    # departure record, read before the slot is cleared
+    dep = S[lanes, qd]
+    job_out = torch.where(is_dep, dep[:, 0], -1.0)
+    t_out = torch.where(is_dep, Tc, zero)
+    fs_out = torch.where(is_dep, dep[:, 7], zero)
+
+    # admit the arrival into the first free slot, or clear the departed
+    # slot; an arrival that finds no free slot is dropped and flags ovf
+    free = job < 0
+    fs = free.to(torch.int8).argmax(1)
+    has_free = free[lanes, fs]
+    do_ins = is_arr & has_free
+    ovf = ovf | (is_arr & ~has_free)
+    idx = torch.where(do_ins, fs, torch.where(is_dep, qd, Q))
+    vals = torch.zeros(R, _SRPT_COLS, dtype=_F64, device=dev)
+    vals[:, 0] = torch.where(is_arr, j_arr.to(_F64), -1.0)
+    vals[:, 1] = torch.where(is_arr, a_arr, zero)
+    vals[:, 2] = torch.where(is_arr, need[lanes, j_arr], zero)
+    vals[:, 3] = torch.where(is_arr, service[lanes, j_arr], zero)
+    hit = idx < Q
+    S[lanes[hit], idx[hit]] = vals[hit]     # in place: S is the scan's own
+    ai = ai + is_arr.long()
+    job, s_arr, s_need, s_rem = S[..., 0], S[..., 1], S[..., 2], S[..., 3]
+    s_rs, s_run = S[..., 4], S[..., 5] > 0
+    s_started, s_fstart = S[..., 6] > 0, S[..., 7]
+    occ = job >= 0
+    # a dropped arrival still counts: on overflow the peak is the capacity
+    # the run needed (a lower bound)
+    peak = torch.maximum(
+        peak, (occ.sum(1) + (is_arr & ~has_free).long()).int())
+
+    # reconcile at t: rank-sort the in-system jobs, pick the running set
+    cur_rem = torch.where(
+        s_run, torch.maximum(zero, s_rem - (t[:, None] - s_rs)), s_rem)
+    rank = cur_rem * s_need if sf else cur_rem
+    rk = torch.where(occ, rank, _INF)
+    ak = torch.where(occ, s_arr, _INF)
+    slot_s = _lexsort_perm((rk, ak))
+    rk_s = rk.gather(1, slot_s)
+    need_s = s_need.gather(1, slot_s)
+    occ_s = rk_s < 0.5 * _BIG
+    desired = torch.zeros(R, Q, dtype=torch.bool, device=dev)
+    if sf:
+        cum = torch.cumsum(torch.where(occ_s, need_s, zero), dim=1)
+        has_m = cum[:, -1] >= kk
+        idx_m = (cum >= kk[:, None]).to(torch.int8).argmax(1)
+        in_M = occ_s & (pos <= idx_m[:, None])
+        key1 = torch.where(in_M, -need_s, _BIG)
+        perm = _lexsort_perm((key1, rk_s))
+        slot_w = slot_s.gather(1, perm)
+        take = _srpt_first_fit(kk, need_s.gather(1, perm),
+                               key1.gather(1, perm) < 0.5 * _BIG, NU)
+        desired.scatter_(1, slot_w, take)
+        desired = torch.where(has_m[:, None], desired, occ)
+    else:
+        take = _srpt_first_fit(kk, need_s, occ_s, NU)
+        desired.scatter_(1, slot_s, take)
+
+    act = active[:, None]
+    to_pre = act & s_run & ~desired
+    to_start = act & desired & ~s_run
+    npre = npre + to_pre.sum(1).int()
+    tt = t[:, None].expand(R, Q)
+    S = torch.stack(
+        [job, s_arr, s_need,
+         torch.where(to_pre, cur_rem, s_rem),
+         torch.where(to_start, tt, s_rs),
+         torch.where(act, desired, s_run).to(_F64),
+         (s_started | to_start).to(_F64),
+         torch.where(to_start & ~s_started, tt, s_fstart)], dim=2)
+    return (ai, S, ovf, npre, ne, peak), (job_out, t_out, fs_out)
+
+
+def _srpt_core(arrival, need, service, kk, Q: int, NU: tuple, sf: bool):
+    """Full-trace SRPT event scan: 2J steps from an empty system.
+
+    ``arrival``, ``need``, ``service`` [R, J] float64, ``kk`` [R] float64
+    servers.  Returns the departure-record streams ``(job_ev, t_ev,
+    fs_ev)`` [R, 2J] float64 (-1 job ids mark non-departure steps) and the
+    per-lane counters ``ovf`` [R] bool (slot-table overflow), ``npre``
+    (preemptions), ``ne`` (processed events, 2J on success) and ``peak``
+    (peak in-system count), [R] int32.
+    """
+    R, J = arrival.shape
+    dev = arrival.device
+    carry = _srpt_init(R, Q, dev)
+    job_ev = torch.empty(R, 2 * J, dtype=_F64, device=dev)
+    t_ev = torch.empty(R, 2 * J, dtype=_F64, device=dev)
+    fs_ev = torch.empty(R, 2 * J, dtype=_F64, device=dev)
+    for e in range(2 * J):
+        carry, (job_ev[:, e], t_ev[:, e], fs_ev[:, e]) = _srpt_step(
+            carry, arrival, need, service, kk, NU, sf)
+    _, _, ovf, npre, ne, peak = carry
+    return job_ev, t_ev, fs_ev, ovf, npre, ne, peak
+
+
+def _srpt_scatter_events(J: int, job_ev, t_ev, fs_ev):
+    """Scatter [R, 2J] departure records to per-job [R, J] numpy arrays
+    (completion, first start); each job departs exactly once."""
+    job_ev = np.asarray(job_ev)
+    jobs = job_ev.astype(np.int64)
+    valid = jobs >= 0
+    rows = np.broadcast_to(np.arange(job_ev.shape[0])[:, None],
+                           job_ev.shape)[valid]
+    cols = jobs[valid]
+    comp = np.zeros((job_ev.shape[0], J))
+    fstart = np.zeros((job_ev.shape[0], J))
+    comp[rows, cols] = np.asarray(t_ev)[valid]
+    fstart[rows, cols] = np.asarray(fs_ev)[valid]
+    return comp, fstart
+
+
+def _srpt_args(batch, queue_cap) -> int:
+    """The slot-table capacity ``Q`` of an SRPT scan.
+
+    Default ``max(4k, 256)``, capped at J and rounded up to a power of two
+    (the kernel's bitonic sort needs it).  Results do not depend on Q
+    unless the in-system count exceeds it, which raises after the scan.
+    """
+    J = int(batch.num_jobs)
+    if queue_cap is None:
+        queue_cap = max(4 * int(batch.k), 256)
+    elif queue_cap < 1:
+        raise ValueError(f"queue_cap must be >= 1, got {queue_cap}")
+    q = max(1, min(J, int(queue_cap)))
+    return 1 << (q - 1).bit_length()

@@ -1,10 +1,12 @@
-"""Multiserver-job workload model (paper §3.1) and the Figure-1/2 scalings.
+"""Multiserver-job workload model (paper §3.1) and the Figure-1–3 workloads.
 
 The port's own copy of the parts of the reference ``repro.core.workload``
-that the Fig. 1/2 sweep needs: service-time distributions, job classes,
+that the Fig. 1–3 sweeps need: service-time distributions, job classes,
 the ``Workload`` with its per-replication Philox trace sampler, the
-``BatchTrace``/``Trace`` containers, the subcritical/critical scalings
-(eqs. 6-8) and the Figure-1/2 workloads.  Sampling is plain numpy with the
+``BatchTrace``/``Trace`` containers (with the bootstrap
+``BatchTrace.from_trace``), the subcritical/critical scalings (eqs. 6-8),
+the Figure-1/2 workloads and the Table-2/3 HPC workloads of Figure 3.
+Sampling is plain numpy with the
 same Philox streams as the reference, so a seed gives bit-equal traces on
 both sides.
 
@@ -324,6 +326,56 @@ class BatchTrace:
                    need=np.array(need, dtype=np.int64),
                    k=int(k), C=None if C is None else int(C))
 
+    @classmethod
+    def from_trace(cls, trace: "Trace", reps: int, seed: int = 0,
+                   method: str = "iid", block_len: int | None = None,
+                   stream: bool = False) -> "BatchTrace":
+        """Bootstrap-resample an empirical trace into ``reps`` replications.
+
+        Jobs are resampled as whole (interarrival gap, class, service,
+        need) records and arrivals are the cumulative sum of the resampled
+        gaps, so they stay nondecreasing.  ``method="iid"`` draws J
+        records independently with replacement; ``method="block"`` is the
+        moving-block bootstrap with blocks of ``block_len`` consecutive
+        jobs (default ``ceil(J ** (1/3))``).  Replication ``r`` draws from
+        ``replication_stream(seed, r)``, the reference's streams, so a
+        seed gives the reference's batch bit for bit.
+
+        ``stream=True`` (the chunked source for unbounded logs) is not
+        ported yet and raises ``NotImplementedError``.
+        """
+        J = trace.num_jobs
+        if J < 1:
+            raise ValueError("cannot bootstrap an empty trace")
+        if reps < 1:
+            raise ValueError("need at least one replication")
+        if method not in ("iid", "block"):
+            raise ValueError(f"unknown bootstrap method {method!r}; "
+                             f"expected 'iid' or 'block'")
+        if block_len is None:
+            block_len = min(J, max(1, math.ceil(J ** (1.0 / 3.0))))
+        elif not 1 <= block_len <= J:
+            raise ValueError(f"block_len must be in [1, {J}], "
+                             f"got {block_len}")
+        if stream:
+            raise NotImplementedError(
+                "streamed bootstrap sources (stream=True) are not ported "
+                "yet: ROADMAP Queue 1 item 10 (streaming)")
+        gaps = np.diff(trace.arrival, prepend=0.0)
+        idx = np.empty((reps, J), dtype=np.int64)
+        for r in range(reps):
+            rng = np.random.default_rng(replication_stream(seed, r))
+            if method == "iid":
+                idx[r] = rng.integers(0, J, size=J)
+            else:
+                n_blocks = -(-J // block_len)
+                starts = rng.integers(0, J - block_len + 1, size=n_blocks)
+                idx[r] = (starts[:, None]
+                          + np.arange(block_len)[None, :]).ravel()[:J]
+        return cls(arrival=np.cumsum(gaps[idx], axis=1), cls=trace.cls[idx],
+                   service=trace.service[idx], need=trace.need[idx],
+                   k=trace.k, C=trace.C)
+
 
 @dataclasses.dataclass(frozen=True)
 class Trace:
@@ -441,3 +493,58 @@ def figure2_workload(k: int, load: float) -> Workload:
     demand = sum(c.alpha * c.d * c.n for c in classes)
     lam = load * k / demand
     return Workload(k=k, lam=lam, classes=classes)
+
+
+# --------------------------------------------------------------------------
+# The Figure-3 HPC workloads (paper Tables 2 and 3).
+# --------------------------------------------------------------------------
+
+# Table 2 — SDSC SP2 log (mean, std, n, alpha), cleaned, needs <= 64.
+SDSC_SP2_TABLE = (
+    (10519.71, 18267.03, 1, 0.2321),
+    (1436.82, 6250.19, 2, 0.1496),
+    (5643.69, 18123.70, 4, 0.1624),
+    (9248.53, 18468.51, 8, 0.1652),
+    (10601.46, 17050.63, 16, 0.1560),
+    (12139.59, 22654.86, 32, 0.0807),
+    (8302.33, 19074.81, 64, 0.0540),
+)
+
+# Table 3 — KIT FH2 log.
+KIT_FH2_TABLE = (
+    (1845.19, 11440.31, 1, 0.7851),
+    (1470.13, 5237.83, 2, 0.0180),
+    (11169.87, 38631.83, 4, 0.0406),
+    (3167.33, 19727.29, 8, 0.0137),
+    (5706.45, 17212.04, 16, 0.0539),
+    (60673.08, 92531.56, 32, 0.0493),
+    (61343.42, 106094.97, 64, 0.0393),
+)
+
+
+def _table_workload(table, k: int, load: float, dist: str) -> Workload:
+    alphas = np.array([row[3] for row in table])
+    alphas = alphas / alphas.sum()  # tables are rounded; renormalize
+    classes = []
+    for (mean, std, n, _), a in zip(table, alphas):
+        if dist == "lognormal":
+            svc = LogNormal(mean, std)
+        elif dist == "exponential":
+            svc = Exp(mean)
+        else:
+            raise ValueError(dist)
+        classes.append(JobClass(f"n{n}", n, svc, float(a)))
+    wl = Workload(k=k, lam=1.0, classes=tuple(classes))
+    return wl.with_load(load)
+
+
+def sdsc_sp2_workload(k: int = 512, load: float = 0.8,
+                      dist: str = "lognormal") -> Workload:
+    """Table-2 workload (SDSC SP2).  Service times: lognormal fit of mean/std."""
+    return _table_workload(SDSC_SP2_TABLE, k, load, dist)
+
+
+def kit_fh2_workload(k: int = 512, load: float = 0.8,
+                     dist: str = "lognormal") -> Workload:
+    """Table-3 workload (KIT FH2)."""
+    return _table_workload(KIT_FH2_TABLE, k, load, dist)

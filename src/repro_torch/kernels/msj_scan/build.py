@@ -1,6 +1,8 @@
 """Build and load the msj_scan CUDA library (nvcc, plain C interface, ctypes).
 
-The library is compiled at first use from ``csrc/msj_scan.cu`` into
+The library is compiled at first use from ``csrc/msj_scan.cu`` and
+``csrc/srpt_scan.cu`` (one ``nvcc -c`` per source, all started together,
+then one link) into
 ``build/`` at the repository root, under a directory named by a hash of
 the sources and the flags, so an edited source builds anew and an
 unchanged one is loaded from the cache.  Nothing here runs at import:
@@ -19,10 +21,9 @@ import subprocess
 from pathlib import Path
 
 _HERE = Path(__file__).resolve().parent
-SOURCES = (_HERE / "csrc" / "msj_scan.cu",)
+SOURCES = (_HERE / "csrc" / "msj_scan.cu", _HERE / "csrc" / "srpt_scan.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib: ctypes.CDLL | None = None
 
@@ -54,22 +55,44 @@ def library_path() -> Path:
 def build_library() -> Path:
     """Compile the library unless the cached build is current; its path.
 
-    ``nvcc``'s output (with ``-Xptxas -v``: registers, shared memory and
-    spills of each kernel) is kept beside the library as ``build.log``.
+    Each source compiles in its own ``nvcc -c`` process, all at once, and
+    one ``nvcc -shared`` links the objects.  ``nvcc``'s output (with
+    ``-Xptxas -v``: registers, shared memory and spills of each kernel) is
+    kept beside the library as ``build.log``.
     """
     out = library_path()
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out.parent / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
+    objs = [out.parent / f"{src.stem}.{tag}.o" for src in SOURCES]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(SOURCES, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    results = []
+    for c, p in zip(cmds, procs):
+        o, e = p.communicate()
+        results.append((c, p.returncode, o, e))
+    tmp = out.with_name(f"{out.name}.{tag}")
+    link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+            "-o", str(tmp), *map(str, objs)]
+    failed = [r for r in results if r[1] != 0]
+    if not failed:
+        proc = subprocess.run(link, capture_output=True, text=True)
+        results.append((link, proc.returncode, proc.stdout, proc.stderr))
+        if proc.returncode != 0:
+            failed = [results[-1]]
+    (out.parent / "build.log").write_text("".join(
+        " ".join(c) + "\n" + o + e for c, _, o, e in results))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stderr[-4000:]}")
+        c, rc, _, err = failed[0]
+        raise RuntimeError(f"nvcc failed ({rc}) on {c[-1]}:\n{err[-4000:]}")
     os.replace(tmp, out)
     return out
 
@@ -89,6 +112,9 @@ def load_library() -> ctypes.CDLL:
         "msj_fcfs_scan": [P, P, P, P, I, I, I, P],
         "msj_modbs_scan": [P, P, P, P, P, P, P, I, I, I, I, I, P],
         "msj_bs_scan": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P],
+        "msj_srpt_scan": [P, P, P, P, P, I, P, P, P, P, P, P, P, P, I, I, I,
+                          I, P],
+        "msj_stable_sort": [P, P, P, P, P, P, I, I, P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)

@@ -2,15 +2,18 @@
 PyTorch versions.
 
 Each wrapper takes the trace as [R, J] tensors (float64 times, int32 class
-ids and needs) plus the partition's ``slots`` [C] int32, exactly the
-signatures and outputs of the reference's Pallas kernels
-(``repro/kernels/msj_scan/kernel.py``).  It checks device, dtype, shape
-and contiguity, then
+ids and needs; float64 needs for SRPT) plus the partition's ``slots`` [C]
+int32 or the SRPT servers ``kk`` [R], exactly the signatures and outputs
+of the reference's Pallas kernels (``repro/kernels/msj_scan/kernel.py``,
+``srpt.py``; ``stable_sort_fwd`` is the standalone entry to the SRPT
+kernel's sort, the counterpart of ``sort.py``'s ``bitonic_sort``).  It
+checks device, dtype, shape and contiguity, then
 
 * for CPU tensors returns its plain version (``*_ref``: the
   :mod:`repro_torch.core.sim_torch` event scans);
-* for CUDA tensors allocates the outputs (and the BS ring scratch),
-  launches the kernel of ``csrc/msj_scan.cu`` on the current stream,
+* for CUDA tensors allocates the outputs (and the BS ring or SRPT
+  first-start scratch), launches the kernel of ``csrc/msj_scan.cu`` or
+  ``csrc/srpt_scan.cu`` on the current stream,
   raises if the launch is refused, and adds one to its ``launches``
   count.  There is no fallback: a CUDA tensor never reaches the plain
   version through a wrapper.
@@ -57,13 +60,30 @@ def bs_scan_ref(arrival, cls, need, service, slots, *, s_max: int, h: int,
                               q_cap)
 
 
+def srpt_scan_ref(arrival, need, service, kk, *, Q: int, NU: tuple,
+                  sf: bool):
+    """Plain SRPT event scan -> (job_ev, t_ev, fs_ev [R, 2J] float64,
+    ovf [R] bool, npre, ne, peak [R] int32)."""
+    return sim_torch._srpt_core(arrival, need, service, kk, Q, NU, sf)
+
+
+def stable_sort_ref(*operands, num_keys: int):
+    """Plain stable ascending sort of [R, W] rows: the first ``num_keys``
+    operands are float64 keys compared lexicographically, the last an
+    int32 payload; ties keep the input order."""
+    perm = sim_torch._lexsort_perm(operands[:num_keys])
+    return tuple(x.gather(1, perm) for x in operands)
+
+
 # -- checks and launch plumbing ---------------------------------------------
 
 
 _DTYPES = {"arrival": _F64, "service": _F64, "cls": _I32, "need": _I32}
+_SRPT_DTYPES = dict(_DTYPES, need=_F64)
+_SORT_W_MAX = 4096
 
 
-def _check(slots=None, **named) -> torch.device:
+def _check(slots=None, dtypes=_DTYPES, **named) -> torch.device:
     """Validate the [R, J] inputs (and ``slots``); their common device."""
     first = named["arrival"]
     if first.dim() != 2:
@@ -75,8 +95,8 @@ def _check(slots=None, **named) -> torch.device:
         if t.shape != first.shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                              f"{tuple(first.shape)}")
-        if t.dtype != _DTYPES[name]:
-            raise TypeError(f"{name} must be {_DTYPES[name]}, got {t.dtype}")
+        if t.dtype != dtypes[name]:
+            raise TypeError(f"{name} must be {dtypes[name]}, got {t.dtype}")
         if t.device != first.device:
             raise ValueError(f"{name} is on {t.device}, expected "
                              f"{first.device}")
@@ -210,7 +230,111 @@ def bs_scan_fwd(arrival, cls, need, service, slots, *, s_max: int, h: int,
     return tagged, rec_t, ovf
 
 
-WRAPPERS = (fcfs_scan_fwd, modbs_scan_fwd, bs_scan_fwd)
+def srpt_scan_fwd(arrival, need, service, kk, *, Q: int, NU: tuple,
+                  sf: bool):
+    """[R, J] trace arrays (float64 needs) + kk [R] float64 servers ->
+    (job_ev, t_ev, fs_ev [R, 2J] float64, ovf [R] bool, npre, ne,
+    peak [R] int32).
+
+    Preemptive ServerFilling-SRPT (``sf=True``) or FirstFit-SRPT as the
+    2J-event scan over a ``Q``-slot table (Q a power of two).  ``job_ev``
+    holds the departing job id at each departure event (-1 elsewhere),
+    ``t_ev`` its completion and ``fs_ev`` its first start; ``ovf`` flags a
+    table that overflowed (the caller must raise), ``npre`` counts
+    preemptions, ``ne`` processed events (2J on success) and ``peak`` the
+    peak in-system count.  ``NU`` is the ascending tuple of distinct needs
+    (every need must be in it).
+    """
+    dev = _check(dtypes=_SRPT_DTYPES, arrival=arrival, need=need,
+                 service=service)
+    R, J = arrival.shape
+    if Q < 1 or Q & (Q - 1):
+        raise ValueError(f"Q must be a power of two, got {Q}")
+    NU = tuple(int(v) for v in NU)
+    if not NU or list(NU) != sorted(set(NU)) or NU[0] < 1 or len(NU) > 64:
+        raise ValueError(f"NU must be 1 to 64 ascending distinct needs "
+                         f">= 1, got {NU}")
+    if (kk.shape != (R,) or kk.dtype != _F64 or kk.device != dev
+            or not kk.is_contiguous()):
+        raise ValueError(f"kk must be a contiguous float64 [R]={R} tensor "
+                         f"on {dev}")
+    if dev.type == "cpu":
+        return srpt_scan_ref(arrival, need, service, kk, Q=Q, NU=NU, sf=sf)
+    job_ev = torch.empty(R, 2 * J, dtype=_F64, device=dev)
+    t_ev = torch.empty_like(job_ev)
+    fs_ev = torch.empty_like(job_ev)
+    ovf = torch.zeros(R, dtype=torch.bool, device=dev)
+    npre, ne, peak = (torch.zeros(R, dtype=_I32, device=dev)
+                      for _ in range(3))
+    if R == 0 or J == 0:
+        return job_ev, t_ev, fs_ev, ovf, npre, ne, peak
+    nu = torch.tensor(NU, dtype=_I32, device=dev)
+    if not bool(torch.isin(need, nu.to(_F64)).all()):
+        raise ValueError(f"every need must be one of NU={NU}")
+    fstart = torch.zeros(R, Q, dtype=_F64, device=dev)
+    lib = build.load_library()
+    with torch.cuda.device(dev):
+        rc = lib.msj_srpt_scan(_ptr(arrival), _ptr(need), _ptr(service),
+                               _ptr(kk), _ptr(nu), len(NU), _ptr(job_ev),
+                               _ptr(t_ev), _ptr(fs_ev), _ptr(ovf),
+                               _ptr(npre), _ptr(ne), _ptr(peak),
+                               _ptr(fstart), R, J, Q, int(sf), _stream(dev))
+    _raise_on(lib, rc, "srpt_scan", f"R={R} J={J} Q={Q} sf={sf}")
+    srpt_scan_fwd.launches += 1
+    return job_ev, t_ev, fs_ev, ovf, npre, ne, peak
+
+
+def stable_sort_fwd(*operands, num_keys: int):
+    """Stable ascending sort of [R, W] rows, W <= 4096: ``num_keys``
+    (1 or 2) float64 key tensors compared lexicographically, then one int32
+    payload; returns the sorted keys and the payload.  Ties keep the input
+    order (the index is the final key), +inf sorts last and rows are padded
+    to a power of two with +inf, as in the reference's ``bitonic_sort``.
+    NaN keys are not supported.
+    """
+    if num_keys not in (1, 2) or len(operands) != num_keys + 1:
+        raise ValueError("expected 1 or 2 float64 keys and one int32 "
+                         "payload")
+    first = operands[0]
+    if first.dim() != 2:
+        raise ValueError(f"sort operands must be [R, W], got "
+                         f"{tuple(first.shape)}")
+    R, W = first.shape
+    if not 1 <= W <= _SORT_W_MAX:
+        raise ValueError(f"W={W} outside [1, {_SORT_W_MAX}]")
+    for i, t in enumerate(operands):
+        want = _I32 if i == num_keys else _F64
+        if t.dtype != want:
+            raise TypeError(f"operand {i} must be {want}, got {t.dtype}")
+        if t.shape != first.shape or t.device != first.device:
+            raise ValueError(f"operand {i} must be {tuple(first.shape)} on "
+                             f"{first.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"operand {i} must be contiguous")
+    dev = first.device
+    if dev.type == "cpu":
+        return stable_sort_ref(*operands, num_keys=num_keys)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}; expected cpu or cuda")
+    outs = tuple(torch.empty_like(t) for t in operands)
+    if R == 0:
+        return outs
+    k2, k2_out = ((operands[1], outs[1]) if num_keys == 2
+                  else (None, None))
+    lib = build.load_library()
+    with torch.cuda.device(dev):
+        rc = lib.msj_stable_sort(
+            _ptr(operands[0]), None if k2 is None else _ptr(k2),
+            _ptr(operands[-1]), _ptr(outs[0]),
+            None if k2_out is None else _ptr(k2_out), _ptr(outs[-1]), R, W,
+            _stream(dev))
+    _raise_on(lib, rc, "stable_sort", f"R={R} W={W} num_keys={num_keys}")
+    stable_sort_fwd.launches += 1
+    return outs
+
+
+WRAPPERS = (fcfs_scan_fwd, modbs_scan_fwd, bs_scan_fwd, srpt_scan_fwd,
+            stable_sort_fwd)
 for _w in WRAPPERS:
     _w.launches = 0
 

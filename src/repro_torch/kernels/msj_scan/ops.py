@@ -1,4 +1,5 @@
-"""``engine="torch"`` cores of the port's registry for FCFS, ModBS, BS-π.
+"""``engine="torch"`` cores of the port's registry: FCFS, ModBS, BS-π and
+the preemptive SF-/FF-SRPT pair.
 
 Each core builds the trace tensors on the requested device, calls the
 kernel wrapper (which runs the CUDA kernel on a CUDA tensor and the plain
@@ -13,9 +14,10 @@ import torch
 
 from ...core import engines
 from ...core.sim_batch import (_bs_result, _class_inputs, _fcfs_inputs,
-                               _fcfs_result, _modbs_result, _partition_args)
-from ...core.sim_torch import _bs_args
-from .kernel import bs_scan_fwd, fcfs_scan_fwd, modbs_scan_fwd
+                               _fcfs_result, _modbs_result, _partition_args,
+                               _srpt_no_failures, _srpt_nu, _srpt_result)
+from ...core.sim_torch import _bs_args, _srpt_args
+from .kernel import bs_scan_fwd, fcfs_scan_fwd, modbs_scan_fwd, srpt_scan_fwd
 
 
 def _host(*ts):
@@ -49,3 +51,36 @@ def _bs_torch(batch, *, device, partition=None, wl=None, queue_cap=None):
                                             sl, s_max=s_max, h=h,
                                             q_cap=q_cap))
     return _bs_result(batch, tagged, rec_t, ovf, q_cap)
+
+
+def _srpt_torch(sf: bool, batch, *, device, partition=None, wl=None,
+                queue_cap=None, failures=None):
+    _srpt_no_failures(failures, "sf-srpt" if sf else "ff-srpt")
+    q_cap = _srpt_args(batch, queue_cap)
+    NU = _srpt_nu(batch)
+    f64 = dict(dtype=torch.float64, device=device)
+    out = _host(*srpt_scan_fwd(
+        torch.tensor(batch.arrival, **f64), torch.tensor(batch.need, **f64),
+        torch.tensor(batch.service, **f64),
+        torch.full((batch.reps,), float(batch.k), **f64),
+        Q=q_cap, NU=NU, sf=sf))
+    job_ev, t_ev, fs_ev, ovf, npre, ne, peak = out
+    return _srpt_result(batch, job_ev, t_ev, fs_ev, ovf, npre, ne, q_cap,
+                        peak=peak)
+
+
+@engines.register("sf-srpt", "torch")
+def _sf_srpt_torch(batch, **kw):
+    """Preemptive ServerFilling-SRPT event scan over all replications
+    (rank = remaining work x need, the prefix reaching k packed
+    largest-need-first).  ``queue_cap`` bounds the slot table (default
+    ``min(J, max(4k, 256))``, rounded up to a power of two); overflow
+    raises.  ``failures=`` raises ``NotImplementedError``."""
+    return _srpt_torch(True, batch, **kw)
+
+
+@engines.register("ff-srpt", "torch")
+def _ff_srpt_torch(batch, **kw):
+    """Preemptive FirstFit-SRPT event scan (rank = remaining work, first
+    fit over the rank order); see ``_sf_srpt_torch``."""
+    return _srpt_torch(False, batch, **kw)

@@ -122,7 +122,7 @@ def test_loud_errors():
     wl = workload.figure1_workload(32)
     batch = wl.sample_traces(20, 1, seed=0)
     with pytest.raises(KeyError, match="no simulation core"):
-        engines.simulate("sf-srpt", batch, device="cpu")
+        engines.simulate("msf", batch, device="cpu")
     with pytest.raises(ValueError, match="unknown engine"):
         engines.simulate("fcfs", batch, engine="jax", device="cpu")
     with pytest.raises(ValueError, match="unsupported device"):
@@ -154,7 +154,7 @@ def test_loud_errors():
 
 def test_registries_are_separate():
     assert engines.registered() == tuple(
-        (p, "torch") for p in sorted(POLICIES))
+        (p, "torch") for p in sorted(POLICIES + ("sf-srpt", "ff-srpt")))
     assert "torch" not in ref_engines.available_engines()
     assert engines.canonical("bs") == "bs-fcfs"
 
@@ -165,9 +165,14 @@ import numpy as np
 import repro_torch
 from repro_torch.core import engines, partition, sim_batch, sim_torch, workload
 from repro_torch.kernels.msj_scan import build, kernel, ops
+from repro_torch.bench import fig3_traces
+from repro_torch.data import swf
 res = sim_batch.sweep_many_server(workload.figure1_workload, (32,),
                                   num_jobs=50, reps=2, device="cpu")
 assert np.isfinite(res.mean_response).all()
+rows = fig3_traces.run(num_jobs=60, reps=2, ks=(128,), loads=(0.7,),
+                       device="cpu")
+assert len(rows) == 10 and all(np.isfinite(r["mean_response"]) for r in rows)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro."))

@@ -149,7 +149,8 @@ def test_wrappers_check_inputs_and_count_only_kernel_launches():
     msj_scan.fcfs_scan_fwd(a, n, v, k=32)
     msj_scan.bs_scan_fwd(a, c, n, v, sl, s_max=s_max, h=h, q_cap=q_cap)
     assert K.launches() == {"fcfs_scan_fwd": 0, "modbs_scan_fwd": 0,
-                            "bs_scan_fwd": 0}
+                            "bs_scan_fwd": 0, "srpt_scan_fwd": 0,
+                            "stable_sort_fwd": 0}
     with pytest.raises(TypeError, match="need must be torch.int32"):
         msj_scan.fcfs_scan_fwd(a, n.long(), v, k=32)
     with pytest.raises(TypeError, match="arrival must be torch.float64"):
@@ -167,6 +168,7 @@ def test_wrappers_check_inputs_and_count_only_kernel_launches():
         msj_scan.fcfs_scan_fwd(a[0], n[0], v[0], k=32)
 
 
+@pytest.mark.cuda
 def test_cuda_kernels_equal_plain_versions_on_the_card():
     """Card only: each CUDA kernel against its plain version, rtol=0."""
     if not torch.cuda.is_available():

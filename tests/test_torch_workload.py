@@ -86,3 +86,81 @@ def test_from_arrays_copies_and_converts():
     with pytest.raises(ValueError, match="shape"):
         workload.BatchTrace.from_arrays([[0.5]], [[0, 1]], [[1.0]], [[1]],
                                         k=4)
+
+
+# -- the Figure-3 path: Table-2/3 workloads, synthesized traces, bootstrap --
+
+from repro.data import swf as ref_swf  # noqa: E402
+
+from repro_torch.data import swf  # noqa: E402
+
+TABLES = [("sdsc", 512, 0.85), ("sdsc", 1024, 0.5), ("kit", 512, 0.7),
+          ("kit", 1024, 0.85)]
+
+
+def _table(name, k, load):
+    if name == "sdsc":
+        return (ref_workload.sdsc_sp2_workload(k=k, load=load),
+                workload.sdsc_sp2_workload(k=k, load=load),
+                ref_swf.sdsc_sp2_trace, swf.sdsc_sp2_trace)
+    return (ref_workload.kit_fh2_workload(k=k, load=load),
+            workload.kit_fh2_workload(k=k, load=load),
+            ref_swf.kit_fh2_trace, swf.kit_fh2_trace)
+
+
+@pytest.mark.parametrize("name,k,load", TABLES)
+def test_table_workloads_equal(name, k, load):
+    ref_wl, wl, _, _ = _table(name, k, load)
+    assert workload.SDSC_SP2_TABLE == ref_workload.SDSC_SP2_TABLE
+    assert workload.KIT_FH2_TABLE == ref_workload.KIT_FH2_TABLE
+    assert wl.lam == ref_wl.lam and wl.load == ref_wl.load
+    assert [(c.name, c.n, c.alpha, c.service.kind, c.service.mean,
+             c.service.std) for c in wl.classes] == [
+        (c.name, c.n, c.alpha, c.service.kind, c.service.mean,
+         c.service.std) for c in ref_wl.classes]
+    ref_p = ref_partition.balanced_partition(ref_wl)
+    p = partition.balanced_partition(wl)
+    assert (p.slots, p.helpers) == (ref_p.slots, ref_p.helpers)
+    exp = workload.kit_fh2_workload(k=k, load=load, dist="exponential")
+    assert exp.lam == ref_workload.kit_fh2_workload(
+        k=k, load=load, dist="exponential").lam
+
+
+@pytest.mark.parametrize("name,k,load", TABLES)
+def test_synthesized_traces_equal(name, k, load):
+    _, _, ref_fn, fn = _table(name, k, load)
+    ref = ref_fn(500, k=k, load=load, seed=7)
+    out = fn(500, k=k, load=load, seed=7)
+    for f in ("arrival", "cls", "service", "need"):
+        a, b = getattr(out, f), getattr(ref, f)
+        assert a.dtype == b.dtype and np.array_equal(a, b), f
+    assert (out.k, out.C) == (ref.k, ref.C)
+
+
+@pytest.mark.parametrize("method,block_len", [("iid", None), ("block", None),
+                                              ("block", 7)])
+def test_from_trace_bootstrap_equal(method, block_len):
+    trace = ref_swf.kit_fh2_trace(400, k=512, load=0.85, seed=2)
+    ref = ref_workload.BatchTrace.from_trace(trace, 3, seed=5, method=method,
+                                             block_len=block_len)
+    port_trace = swf.kit_fh2_trace(400, k=512, load=0.85, seed=2)
+    out = workload.BatchTrace.from_trace(port_trace, 3, seed=5,
+                                         method=method, block_len=block_len)
+    for f in ("arrival", "cls", "service", "need"):
+        a, b = getattr(out, f), getattr(ref, f)
+        assert a.dtype == b.dtype and np.array_equal(a, b), f
+    assert (out.k, out.C) == (ref.k, ref.C)
+    assert (np.diff(out.arrival, axis=1) >= 0).all()
+
+
+def test_from_trace_rejects_what_the_reference_rejects():
+    trace = swf.sdsc_sp2_trace(50, k=512)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        workload.BatchTrace.from_trace(trace, 2, stream=True)
+    with pytest.raises(ValueError, match="bootstrap method"):
+        workload.BatchTrace.from_trace(trace, 2, method="wild")
+    with pytest.raises(ValueError, match="block_len"):
+        workload.BatchTrace.from_trace(trace, 2, method="block",
+                                       block_len=51)
+    with pytest.raises(ValueError, match="replication"):
+        workload.BatchTrace.from_trace(trace, 0)
