@@ -42,6 +42,28 @@ The Figure-3 slice adds to each phase:
 4. ``srpt_scan`` timed at k = 1024, Q = 4096, R = 4, J = 15 000, and
    ``stable_sort`` at [4, 4096] beside two stable ``torch.sort`` passes.
 
+The drain-mode failure slice adds:
+
+2. ``fcfs_fail_scan``, ``modbs_fail_scan`` and ``bs_fail_scan`` at the
+   Figure-1 widths of k in {256, 2048}, R = 16, J = 4000 (ring capacity
+   q_cap = J, so no ring can overflow), under two outage mixes over the
+   arrival horizon h: ``bench_sim.bench_failures``' process (mtbf = h/4,
+   mttr = h/400, single servers) and a heavier one (mtbf = h/4,
+   mttr = h/40, pods of 4 servers, which exercises class drains on free
+   slots and the slot dedup of pod outages); each ``torch.equal`` to its
+   plain version on the card on every raw output, failure rows included;
+3. the drain path, ``sweep_many_server(figure1_workload, (256, 1024),
+   num_jobs=100_000, reps=16, failures=<bench_failures' process>)`` for
+   FCFS, ModBS-π and BS-π on the card, counts set to 0 just before: every
+   fail kernel must launch, every metric be finite and availability lie
+   in (0, 1]; the rows are printed beside the clean sweep's, with no
+   ordering asserted (k = 2048 is left out: with the default ring of
+   8192 BS-π overflows there, on the reference too); then a small drain
+   run (J = 2000, R = 4, k in {256, 2048}) on the card must equal the CPU
+   run on every ``BatchSimResult`` field;
+4. each fail kernel timed at k = 2048, R = 16, J = 100 000 (BS-π with
+   q_cap = J).
+
 Then it prints the card's name and power limit, one ``{"kernels": [...]}``
 line and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the repository around it, it exits non-zero and prints no
@@ -50,6 +72,7 @@ result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -76,6 +99,17 @@ SRPT_REPLACES = "src/repro/kernels/msj_scan/srpt.py:75"
 SORT_REPLACES = "src/repro/kernels/msj_scan/sort.py:58"
 FIG3_KS, FIG3_J, FIG3_R, SRPT_CMP_J = (512, 1024), 15_000, 4, 2000
 SORT_WS, SORT_R = (4096, 3000), 4
+FAIL_KERNELS = {  # name -> (wrapper, TPU kernel it replaces)
+    "fcfs_fail_scan": ("fcfs_fail_scan_fwd",
+                       "src/repro/kernels/msj_scan/kernel.py:110"),
+    "modbs_fail_scan": ("modbs_fail_scan_fwd",
+                        "src/repro/kernels/msj_scan/kernel.py:201"),
+    "bs_fail_scan": ("bs_fail_scan_fwd",
+                     "src/repro/kernels/msj_scan/kernel.py:316"),
+}
+# outage mixes: horizon divisors of mtbf and mttr, and the pod size
+FAIL_MIXES = {"bench": (4, 400, 1), "heavy": (4, 40, 4)}
+DRAIN_KS, DRAIN_SMALL_J, DRAIN_SMALL_R = (256, 1024), 2000, 4
 
 
 def fail(msg: str) -> None:
@@ -100,6 +134,34 @@ def bound(name: str, R: int, J: int, k: int) -> tuple[float, str]:
     else:
         nbytes = R * J * (8 + 4 + 4 + 8) + R * 2 * J * (4 + 8) + R
         ops = R * 2 * J * (8 + log_k)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F64_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def fail_bound(name: str, R: int, J: int, k: int, events: int, F: int,
+               length: int) -> tuple[float, str]:
+    """Least time for one drain-mode call: (ms, what bounds it).
+
+    Bytes: every input read once (the [R, L] merged stream, L = J + F, for
+    FCFS/ModBS; the [R, J] trace and the [R, F] failure records for BS)
+    and every output written once ([R, L]; BS [R, length]).  Operations:
+    the per-event counts of :func:`bound` over the ``events`` this run's
+    data holds, summed over the replications: J plus the replication's
+    failure rows (FCFS/ModBS); 2J plus its failure events plus its
+    class-targeted ones, each of which may add a repair completion (BS).
+    """
+    log_k = max(1, (k - 1).bit_length())
+    if name == "fcfs_fail_scan":
+        nbytes = R * (J + F) * (8 + 4 + 8 + 8 + 1 + 8)
+        ops = events * (3 + log_k)
+    elif name == "modbs_fail_scan":
+        nbytes = R * (J + F) * (8 + 4 + 4 + 8 + 8 + 1 + 1 + 8)
+        ops = events * (6 + log_k)
+    else:
+        nbytes = (R * J * (8 + 4 + 4 + 8) + R * F * (8 + 4 + 8)
+                  + R * length * (4 + 8) + R)
+        ops = events * (8 + log_k)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F64_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
@@ -153,8 +215,13 @@ def main() -> int:
         return 2
 
     from repro_torch.bench import fig3_traces
-    from repro_torch.core import sim_torch
-    from repro_torch.core.sim_batch import sweep_many_server
+    from repro_torch.core import engines, sim_torch
+    from repro_torch.core.failures import FailureProcess
+    from repro_torch.core.sim_batch import (_bs_fail_args,
+                                            _merged_class_inputs,
+                                            _merged_fcfs_inputs,
+                                            _merged_tensors,
+                                            sweep_many_server)
     from repro_torch.core.workload import (SDSC_SP2_TABLE, BatchTrace,
                                            figure1_workload)
     from repro_torch.data.swf import sdsc_sp2_trace
@@ -162,6 +229,7 @@ def main() -> int:
     from repro_torch.kernels.msj_scan import kernel as K
 
     dev = torch.device("cuda", 0)
+    t_start = time.time()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
 
@@ -204,6 +272,16 @@ def main() -> int:
 
     def as_tuple(out):
         return out if isinstance(out, tuple) else (out,)
+
+    def max_err(out, ref):
+        """Largest |kernel - plain| over the outputs; equal entries count
+        0, so equal infinities do not give nan."""
+        err = 0.0
+        for o, r in zip(out, ref):
+            o, r = o.double(), r.double().to(dev)
+            d = torch.where(o == r, 0.0, (o - r).abs())
+            err = max(err, d.max().item())
+        return err
 
     def cuda_ms(fn, reps: int) -> float:
         fn()
@@ -267,16 +345,6 @@ def main() -> int:
              torch.full((FIG3_R,), float(k), **f64))
         Q = sim_torch._srpt_args(SimpleNamespace(num_jobs=FIG3_J, k=k), None)
         return t, Q
-
-    def max_err(out, ref):
-        """Largest |kernel - plain| over the outputs; equal entries count
-        0, so equal infinities do not give nan."""
-        err = 0.0
-        for o, r in zip(out, ref):
-            o, r = o.double(), r.double().to(dev)
-            d = torch.where(o == r, 0.0, (o - r).abs())
-            err = max(err, d.max().item())
-        return err
 
     srpt_cfgs = []
     for k in FIG3_KS:
@@ -355,6 +423,115 @@ def main() -> int:
                   f"at tolerance 0 (torch.equal) to the plain version on "
                   f"CPU and on card, kernel {ms:.4f} ms, plain on card "
                   f"{plain_ms:.2f} ms, bound {b_ms:.6f} ms ({b_by})")
+
+    # -- 2c. the drain-mode kernels against their plain versions ---------
+    def bench_failures(wl, batch, mix="bench", seed=0):
+        """``bench_sim.bench_failures``' outage process (mix "bench") over
+        the batch's arrival horizon h: mtbf = h/4, mttr = h/400 per
+        server; "heavy" is mttr = h/40 on pods of 4 servers."""
+        h0 = float(batch.arrival.max())
+        d_up, d_down, pod = FAIL_MIXES[mix]
+        return FailureProcess(mtbf=h0 / d_up, mttr=h0 / d_down,
+                              pod_size=pod).sample(wl.k, h0, batch.reps,
+                                                   seed=seed)
+
+    def fail_inputs(k: int, J: int, mix: str, seed: int):
+        """The three fail kernels' inputs on the card (BS-π's rings hold
+        q_cap = J, so none can overflow) and this data's event counts."""
+        wl = figure1_workload(k)
+        b = wl.sample_traces(J, REPS, seed=seed)
+        fb = bench_failures(wl, b, mix, seed=seed)
+        slots, s_max, h, q_cap = sim_torch._bs_args(b, None, wl, J)
+        msf = _merged_fcfs_inputs(b, fb)
+        msc = _merged_class_inputs(b, fb, None, wl)
+        ft, ftgt, fup, length = _bs_fail_args(b, fb, None, wl)
+        real = np.isfinite(ft)
+        f64 = dict(dtype=torch.float64, device=dev)
+        return dict(
+            k=k, s_max=s_max, h=h, q_cap=q_cap, length=length,
+            slots=torch.tensor(slots, device=dev),
+            fcfs=_merged_tensors(msf, dev), modbs=_merged_tensors(msc, dev),
+            trace=(torch.tensor(b.arrival, **f64),
+                   torch.tensor(b.cls, dtype=torch.int32, device=dev),
+                   torch.tensor(b.need, dtype=torch.int32, device=dev),
+                   torch.tensor(b.service, **f64)),
+            frec=(torch.tensor(ft, **f64),
+                  torch.tensor(ftgt, dtype=torch.int32, device=dev),
+                  torch.tensor(fup, **f64)),
+            F={"fcfs_fail_scan": msf.t.shape[1] - J,
+               "modbs_fail_scan": msc.t.shape[1] - J,
+               "bs_fail_scan": ft.shape[1]},
+            events={"fcfs_fail_scan": int(np.isfinite(msf.t).sum()),
+                    "modbs_fail_scan": int(np.isfinite(msc.t).sum()),
+                    "bs_fail_scan": int(2 * b.arrival.size + real.sum()
+                                        + (real & (ftgt < len(slots))).sum())})
+
+    def fail_calls(p):
+        """name -> (kernel call, plain call) on the same card tensors."""
+        a, c, n, v = p["trace"]
+        sl = p["slots"]
+        tf, _, nf, vf, tuf, isf = p["fcfs"]
+        kw_m = dict(s_max=p["s_max"], h=p["h"])
+        kw_b = dict(kw_m, q_cap=p["q_cap"], length=p["length"])
+        return {
+            "fcfs_fail_scan": (
+                lambda: K.fcfs_fail_scan_fwd(tf, nf, vf, tuf, isf, k=p["k"]),
+                lambda: K.fcfs_fail_scan_ref(tf, nf, vf, tuf, isf,
+                                             k=p["k"])),
+            "modbs_fail_scan": (
+                lambda: K.modbs_fail_scan_fwd(*p["modbs"], sl, **kw_m),
+                lambda: K.modbs_fail_scan_ref(*p["modbs"], sl, **kw_m)),
+            "bs_fail_scan": (
+                lambda: K.bs_fail_scan_fwd(a, c, n, v, *p["frec"], sl,
+                                           **kw_b),
+                lambda: K.bs_fail_scan_ref(a, c, n, v, *p["frec"], sl,
+                                           **kw_b)),
+        }
+
+    t_phase = time.time()
+    fail_cfgs = {name: [] for name in FAIL_KERNELS}
+    for k in (256, 2048):
+        for mix in FAIL_MIXES:
+            p = fail_inputs(k, CMP_J, mix, seed=1)
+            for name, (kern, plain) in fail_calls(p).items():
+                out = as_tuple(kern())
+                torch.cuda.synchronize()
+                t1 = time.time()
+                ref = as_tuple(plain())
+                torch.cuda.synchronize()
+                plain_ms = (time.time() - t1) * 1e3
+                for o, r in zip(out, ref):
+                    if not torch.equal(o, r):
+                        fail(f"{name} at k={k} J={CMP_J} R={REPS} ({mix} "
+                             f"outages) differs from its plain version")
+                if name == "bs_fail_scan" and out[2].any():
+                    fail(f"bs_fail_scan overflowed at k={k} with q_cap=J")
+                ms = cuda_ms(kern, 3)
+                b_ms, b_by = fail_bound(name, REPS, CMP_J, k,
+                                        p["events"][name], p["F"][name],
+                                        p["length"])
+                width = (f"length={p['length']}" if name == "bs_fail_scan"
+                         else f"L={CMP_J + p['F'][name]}")
+                print(f"[kernel] {name} k={k} {mix} outages R={REPS} "
+                      f"J={CMP_J} F={p['F'][name]} {width} events="
+                      f"{p['events'][name]}: every raw output equal at "
+                      f"tolerance 0 (torch.equal) to the plain version on "
+                      f"card, kernel {ms:.3f} ms, plain on card "
+                      f"{plain_ms:.1f} ms, bound {b_ms:.5f} ms ({b_by})")
+                fail_cfgs[name].append(dict(
+                    k=k, mix=mix, F=p["F"][name], events=p["events"][name],
+                    ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                    err=max_err(out, ref)))
+    for name, cfgs in fail_cfgs.items():
+        top = next(c for c in cfgs if c["k"] == 2048 and c["mix"] == "bench")
+        report[name] = dict(
+            name=name, route="cuda", source=SOURCE,
+            replaces=FAIL_KERNELS[name][1], launches=None,
+            max_abs_err=max(c["err"] for c in cfgs), ms=top["ms"],
+            plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
+            bound_by=top["bound_by"], library_ms=None,
+            shape=f"k=2048 R={REPS} J={CMP_J} bench outages", configs=cfgs)
+    print(f"[kernel] drain-mode comparisons took {time.time() - t_phase:.1f} s")
 
     # -- 3. the main path -------------------------------------------------
     K.reset_launches()
@@ -456,6 +633,64 @@ def main() -> int:
     print("[fig3] small run (J=1500, R=2, k=512, load=0.85): card == CPU on "
           "every column but sim_s")
 
+    # -- 3c. the drain path: sweep_many_server(..., failures=) ------------
+    K.reset_launches()
+    t0 = time.time()
+    swf = sweep_many_server(figure1_workload, DRAIN_KS, num_jobs=MAIN_J,
+                            reps=REPS, policies=POLICIES, device="cuda",
+                            failures=bench_failures)
+    torch.cuda.synchronize()
+    counts_d = K.launches()
+    wall = time.time() - t0
+    print(f"[drain] sweep_many_server(figure1_workload, {DRAIN_KS}, "
+          f"num_jobs={MAIN_J}, reps={REPS}, failures=<bench_failures: mtbf "
+          f"= h/4, mttr = h/400 per server>) on the card: {wall:.1f} s, "
+          f"launches {counts_d}")
+    print("[drain] k=2048 is left out: with the default queue_cap=8192 "
+          "BS-pi's helper-wait ring overflows there under these outages, "
+          "on the reference too (the class blocks run above unit load by "
+          "design)")
+    for j, k in enumerate(DRAIN_KS):
+        jc = MAIN_KS.index(k)
+        for i, pol in enumerate(POLICIES):
+            print(f"[drain] k={k} {pol:>10}: mean_response="
+                  f"{swf.mean_response[i, j]:.6f} (clean "
+                  f"{sw.mean_response[i, jc]:.6f}) p_wait="
+                  f"{swf.p_wait[i, j]:.6f} (clean {sw.p_wait[i, jc]:.6f}) "
+                  f"availability={swf.availability[i, j]:.6f} "
+                  f"sim_s={swf.sim_s[i, j]:.3f}")
+    for name, (wrapper, _) in FAIL_KERNELS.items():
+        report[name]["launches"] = counts_d[wrapper]
+        if counts_d[wrapper] < 1:
+            fail(f"the drain path never launched {name}")
+    for f in ("mean_response", "mean_wait", "p_wait", "p95_response",
+              "utilization", "availability"):
+        if not np.isfinite(getattr(swf, f)).all():
+            fail(f"non-finite {f} in the drain sweep")
+    if not ((swf.availability > 0) & (swf.availability <= 1)).all():
+        fail(f"availability outside (0, 1]: {swf.availability}")
+
+    for k in (256, 2048):
+        wl = figure1_workload(k)
+        b = wl.sample_traces(DRAIN_SMALL_J, DRAIN_SMALL_R, seed=3)
+        fb = bench_failures(wl, b, seed=3)
+        for pol in POLICIES:
+            on_card = engines.simulate(pol, b, wl=wl, failures=fb,
+                                       device="cuda")
+            on_cpu = engines.simulate(pol, b, wl=wl, failures=fb,
+                                      device="cpu")
+            for fld in dataclasses.fields(on_cpu):
+                x = getattr(on_card, fld.name)
+                y = getattr(on_cpu, fld.name)
+                if (x is None) != (y is None) or (
+                        x is not None and not np.array_equal(
+                            x, y, equal_nan=True)):
+                    fail(f"small drain run {pol} k={k}: {fld.name} on the "
+                         f"card differs from the CPU")
+    print(f"[drain] small runs (J={DRAIN_SMALL_J}, R={DRAIN_SMALL_R}, "
+          f"k=256, 2048, bench outages): card == CPU on every "
+          f"BatchSimResult field, availability included")
+
     # -- 4. kernel times at the main path's largest shape -----------------
     t, p = inputs(MAIN_KS[-1], MAIN_J, seed=0)
     for name, (kern, _) in calls(t, p).items():
@@ -484,6 +719,26 @@ def main() -> int:
         report["srpt_scan"][f"main_bound_ms_{pol}"] = b_ms
     report["srpt_scan"]["main_shape"] = (f"k={FIG3_KS[-1]} Q={Q} "
                                          f"R={FIG3_R} J={FIG3_J}")
+
+    p = fail_inputs(MAIN_KS[-1], MAIN_J, "bench", seed=0)
+    print(f"[time] drain kernels at k={MAIN_KS[-1]} R={REPS} J={MAIN_J}, "
+          f"bench outages; BS-pi with q_cap=J={MAIN_J}: the default 8192 "
+          f"ring overflows at this k (see [drain])")
+    for name, (kern, _) in fail_calls(p).items():
+        ms = cuda_ms(kern, 2)
+        b_ms, b_by = fail_bound(name, REPS, MAIN_J, MAIN_KS[-1],
+                                p["events"][name], p["F"][name],
+                                p["length"])
+        steps = (p["length"] if name == "bs_fail_scan"
+                 else MAIN_J + p["F"][name])
+        print(f"[time] {name} k={MAIN_KS[-1]} R={REPS} J={MAIN_J} "
+              f"F={p['F'][name]} steps={steps}: {ms:.3f} ms per launch "
+              f"({ms * 1e3 / steps:.3f} us per step), bound {b_ms:.5f} ms "
+              f"({b_by})")
+        report[name].update(main_ms=ms, main_bound_ms=b_ms,
+                            main_steps=steps,
+                            main_shape=f"k={MAIN_KS[-1]} R={REPS} "
+                                       f"J={MAIN_J} bench outages")
 
     ops = sort_inputs(SORT_WS[0], 2)
     ms = cuda_ms(lambda: K.stable_sort_fwd(*ops, num_keys=2), 20)
@@ -516,6 +771,7 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
+    print(f"[done] all phases in {time.time() - t_start:.1f} s")
     print(smi.splitlines()[0])
     print(json.dumps({"kernels": list(report.values())}))
     print(json.dumps({"ok": True, "device": {

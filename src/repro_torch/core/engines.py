@@ -27,10 +27,19 @@ through :func:`simulate` / :func:`simulate_grid`::
   registration of a key is an error.  This registry is separate from the
   reference's: the port registers nothing there.
 
+* **Failures**: ``failures=`` takes a drain-mode
+  :class:`~repro_torch.core.failures.FailureBatch` for ``fcfs``,
+  ``modbs-fcfs`` and ``bs-fcfs``: the outages are merged into the event
+  stream on the host and the ``*_fail_scan`` kernels (or their plain
+  versions) run it; the result grows the ``kills``/``requeues``/
+  ``availability`` observables.  ``mode="kill"`` needs the reference's
+  Python event engine, which is not ported, and raises
+  ``NotImplementedError``, as does ``failures=`` on the SRPT pair.
+
 ``simulate_grid`` runs a list of :class:`GridCell` s as a per-cell loop
 over :func:`simulate` (stacking cells onto the kernels' lane axis is later
-work).  Failure injection, streaming and checkpointing are not ported yet
-and raise ``NotImplementedError`` (ROADMAP Queue 1 items 9 and 10).
+work).  Streaming and checkpointing are not ported yet and raise
+``NotImplementedError`` (ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -56,10 +65,6 @@ ALIASES = {
     "bs": "bs-fcfs", "balanced-splitting": "bs-fcfs",
     "modbs": "modbs-fcfs", "modified-bs": "modbs-fcfs",
 }
-
-_NO_FAILURES = ("failure injection (failures=) is not ported yet: ROADMAP "
-                "Queue 1 item 9 (drain-mode failures)")
-
 
 def canonical(policy: str) -> str:
     """Resolve a short policy alias to its canonical name."""
@@ -144,12 +149,14 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def validate_batch(batch: "BatchTrace", *, partition=None) -> None:
+def validate_batch(batch: "BatchTrace", *, partition=None,
+                   failures=None) -> None:
     """Loud input validation shared by every core.
 
     Malformed batches are rejected before dispatch with a ``ValueError``
     naming the first offending replication, as in the reference; the port
-    also rejects needs above k, which the kernels could not host.
+    also rejects needs above k, which the kernels could not host.  A
+    failure batch must match the batch's k and replication count.
     """
     def _first_bad(mask) -> int:
         return int(np.argmax(mask.any(axis=1)))
@@ -183,6 +190,12 @@ def validate_batch(batch: "BatchTrace", *, partition=None) -> None:
             raise ValueError(
                 f"class ids outside the partition's [0, {C}) range (first "
                 f"bad replication {_first_bad(bad)})")
+    if failures is not None:
+        if getattr(failures, "k", batch.k) != batch.k:
+            raise ValueError(f"failures.k={failures.k} != batch.k={batch.k}")
+        if getattr(failures, "reps", batch.reps) != batch.reps:
+            raise ValueError(f"failures.reps={failures.reps} != "
+                             f"batch.reps={batch.reps}")
 
 
 def simulate(policy: str, batch: "BatchTrace", *, engine: str = "torch",
@@ -195,14 +208,15 @@ def simulate(policy: str, batch: "BatchTrace", *, engine: str = "torch",
     their plain PyTorch versions.  ``partition``/``wl`` feed the eq.-2
     partition (ModBS and BS need one of them); extra keywords (e.g.
     ``queue_cap`` for ``bs-fcfs`` and the SRPT pair) pass through to the
-    core.
+    core.  ``failures`` is a drain-mode ``FailureBatch`` of the batch's k
+    and replication count (``fcfs``, ``modbs-fcfs``, ``bs-fcfs``).
     """
-    if failures is not None:
-        raise NotImplementedError(_NO_FAILURES)
     core = get(policy, engine)
     dev = resolve_device(device)
-    validate_batch(batch, partition=partition)
-    return core(batch, device=dev, partition=partition, wl=wl, **kw)
+    validate_batch(batch, partition=partition,
+                   failures=failures if hasattr(failures, "k") else None)
+    return core(batch, device=dev, partition=partition, wl=wl,
+                failures=failures, **kw)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -210,13 +224,15 @@ class GridCell:
     """One cell of a simulation grid: a batch plus its per-cell context.
 
     ``partition``/``wl`` feed the eq.-2 partition as the matching
-    :func:`simulate` keywords would; ``queue_cap`` bounds the BS-FCFS
+    :func:`simulate` keywords would; ``failures`` injects the cell's
+    drain-mode ``FailureBatch``; ``queue_cap`` bounds the BS-FCFS
     helper-wait rings (``None`` = the default ``min(J, 8192)``).
     """
 
     batch: "BatchTrace"
     partition: object = None
     wl: object = None
+    failures: object = None
     queue_cap: int | None = None
 
 
@@ -226,7 +242,8 @@ def simulate_grid(policy: str, cells: Sequence[GridCell], *,
 
     A per-cell loop over :func:`simulate`, so cell ``g`` of the result is
     ``simulate(policy, cells[g].batch, ...)`` exactly.  Every cell must
-    have the same ``reps``, as in the reference.
+    have the same ``reps``, and failures are all-or-none across cells, as
+    in the reference.
     """
     cells = tuple(cells)
     if not cells:
@@ -237,11 +254,16 @@ def simulate_grid(policy: str, cells: Sequence[GridCell], *,
             raise ValueError(
                 f"grid cells must share one replication count; cell {g} "
                 f"has reps={cell.batch.reps}, cell 0 has reps={R}")
+    if sum(c.failures is not None for c in cells) not in (0, len(cells)):
+        raise ValueError(
+            "mixed failure/no-failure cells in one grid — split into one "
+            "simulate_grid call per failure axis")
     out = []
     for cell in cells:
         ckw = dict(kw)
         if cell.queue_cap is not None:
             ckw["queue_cap"] = cell.queue_cap
         out.append(simulate(policy, cell.batch, engine=engine, device=device,
-                            partition=cell.partition, wl=cell.wl, **ckw))
+                            partition=cell.partition, wl=cell.wl,
+                            failures=cell.failures, **ckw))
     return out

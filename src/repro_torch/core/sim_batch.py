@@ -3,9 +3,10 @@
 The port's counterpart of the host side of ``repro.core.sim_batch``: the
 per-replication :class:`BatchSimResult` (numpy fields, assembled with the
 reference's own numpy op order so results and CSV rows match it bit for
-bit), the helpers every ``engine="torch"`` core shares, and
-:func:`sweep_many_server`, which drives the Fig. 1/2 k- and load-sweeps
-through :func:`repro_torch.core.engines.simulate_grid`.
+bit), the helpers every ``engine="torch"`` core shares (the drain-mode
+failure helpers included), and :func:`sweep_many_server`, which drives
+the Fig. 1/2 k- and load-sweeps, with or without ``failures=``, through
+:func:`repro_torch.core.engines.simulate_grid`.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import numpy as np
 import torch
 
 from . import engines
+from . import failures as flr
 from .partition import BalancedPartition, balanced_partition
 from .sim_torch import (_bs_scatter_events, _check_classes,
                         _srpt_scatter_events)
@@ -44,6 +46,10 @@ class BatchSimResult:
     p_routed: np.ndarray | None = None  # [R] fraction routed to H on arrival
                                         # (> p_helper under Def.-1 pull-backs)
     start: np.ndarray | None = None     # [R, J] raw start times
+    # failure-scenario observables (None without fault injection):
+    kills: np.ndarray | None = None         # [R] jobs killed mid-service
+    requeues: np.ndarray | None = None      # [R] killed jobs requeued
+    availability: np.ndarray | None = None  # [R] time-avg live fraction
     # preempt-resume observable (None for nonpreemptive policies):
     preemptions: np.ndarray | None = None   # [R] preemption events
 
@@ -140,6 +146,67 @@ def _bs_result(batch: BatchTrace, tagged, rec_t, ovf,
     return _bs_assemble(batch, starts, served, routed)
 
 
+# -- drain-mode failure helpers (fcfs / modbs-fcfs / bs-fcfs) ----------------
+
+
+def _with_drain_obs(res: BatchSimResult, batch: BatchTrace,
+                    fb) -> BatchSimResult:
+    return dataclasses.replace(
+        res, **flr.drain_observables(fb, batch, res.response))
+
+
+def _merged_fcfs_inputs(batch: BatchTrace, fb) -> flr.MergedStream:
+    ft, ftgt, fup, count = flr.fcfs_targets(fb)
+    return flr.merge_failure_stream(batch, ft, ftgt, fup, count, pad_cls=0)
+
+
+def _merged_class_inputs(batch: BatchTrace, fb, partition,
+                         wl) -> flr.MergedStream:
+    """The merged stream of a ModBS drain run: failure rows carry their
+    target block (C = the helper) in the class column."""
+    part = partition if partition is not None else balanced_partition(wl)
+    ft, ftgt, fup, count = flr.partition_targets(fb, part)
+    return flr.merge_failure_stream(batch, ft, ftgt, fup, count,
+                                    pad_cls=len(part.a))
+
+
+def _merged_tensors(ms: flr.MergedStream, device: torch.device) -> tuple:
+    """(t f64, cls i32, need i32, service f64, t_up f64, is_fail bool)
+    tensors of a merged stream on device."""
+    return (torch.tensor(ms.t, dtype=torch.float64, device=device),
+            torch.tensor(ms.cls, dtype=torch.int32, device=device),
+            torch.tensor(ms.need, dtype=torch.int32, device=device),
+            torch.tensor(ms.service, dtype=torch.float64, device=device),
+            torch.tensor(ms.t_up, dtype=torch.float64, device=device),
+            torch.tensor(ms.is_fail != 0, dtype=torch.bool, device=device))
+
+
+def _unmerge(ms: flr.MergedStream, *per_row) -> tuple:
+    """Per-row [R, L] scan outputs -> per-job [R, J] (the arrival rows)."""
+    return tuple(np.take_along_axis(np.asarray(x), ms.job_pos, axis=1)
+                 for x in per_row)
+
+
+def _bs_fail_args(batch: BatchTrace, failures, partition, wl):
+    """(ft, ftgt, fup, scan length) of a BS drain run.
+
+    Length = 2J + F + F_A: every failure event consumes a step, and each
+    *class-targeted* event may claim a free slot, adding one future
+    repair-completion event.  With no failure event at all one ``+inf``
+    pad row stands in (F = 1); it never fires.
+    """
+    part = partition if partition is not None else balanced_partition(wl)
+    ft, ftgt, fup, count = flr.partition_targets(failures, part)
+    C = len(part.a)
+    F = max(1, ft.shape[1])
+    if ft.shape[1] == 0:
+        ft = np.full((batch.reps, 1), np.inf)
+        ftgt = np.full((batch.reps, 1), C, dtype=np.int32)
+        fup = np.zeros((batch.reps, 1))
+    fa = int((ftgt < C).sum(axis=1).max()) if ft.size else 0
+    return ft, ftgt, fup, 2 * batch.num_jobs + F + fa
+
+
 # -- preemptive SRPT-family helpers (sf-srpt / ff-srpt) ----------------------
 
 
@@ -214,6 +281,9 @@ class SweepResult:
     p95_response: np.ndarray       # [P, N] (mean of per-rep 95th pctiles)
     utilization: np.ndarray        # [P, N] busy server-time / (k * horizon)
     sim_s: np.ndarray              # [P, N] simulator wall time
+    # [P, N] mean time-averaged live capacity fraction (``failures=``
+    # sweeps only; the reference's SweepResult has no such field)
+    availability: np.ndarray | None = None
 
     def rows(self, point_col: str, extra_cols: dict | None = None,
              per_point_cols: Sequence[dict] | None = None) -> list[dict]:
@@ -249,6 +319,20 @@ def _ci95(per_rep: np.ndarray) -> float:
     return float(1.96 * per_rep.std(ddof=1) / np.sqrt(per_rep.size))
 
 
+def _sweep_failures(failures, wl: Workload, batch: BatchTrace, seed: int):
+    """Materialize the per-point FailureBatch of a faulty sweep.
+
+    ``failures`` is either a :class:`repro_torch.core.failures.
+    FailureProcess` (sampled here with the point's k and the batch's
+    arrival horizon, same seed as the traces) or a callable
+    ``(wl, batch) -> FailureBatch`` for full control.
+    """
+    if hasattr(failures, "sample"):
+        horizon = float(batch.arrival.max())
+        return failures.sample(wl.k, horizon, batch.reps, seed=seed)
+    return failures(wl, batch)
+
+
 def sweep_many_server(wl_factory: Callable[..., Workload], points: Sequence,
                       *, num_jobs: int = 100_000, reps: int = 8,
                       seed: int = 0,
@@ -275,11 +359,11 @@ def sweep_many_server(wl_factory: Callable[..., Workload], points: Sequence,
     equal to the reference's ``sweep_many_server`` on the same arguments
     (``sim_s`` aside).
 
-    ``failures``, ``ckpt_dir`` and ``resume`` are not ported yet and
-    raise ``NotImplementedError``.
+    ``failures`` injects drain-mode outages (see :func:`_sweep_failures`):
+    each point's batch gets its own FailureBatch, and ``availability``
+    holds the mean live capacity fraction of each cell.  ``ckpt_dir``
+    and ``resume`` are not ported yet and raise ``NotImplementedError``.
     """
-    if failures is not None:
-        raise NotImplementedError(engines._NO_FAILURES)
     if ckpt_dir is not None or resume:
         raise NotImplementedError(
             "crash-resumable sweeps (ckpt_dir=/resume=) are not ported yet: "
@@ -300,6 +384,7 @@ def sweep_many_server(wl_factory: Callable[..., Workload], points: Sequence,
     ci_pw = np.zeros(shape)
     p_help = np.full(shape, np.nan)
     p95 = np.zeros(shape); util = np.zeros(shape); sim_s = np.zeros(shape)
+    avail = None if failures is None else np.zeros(shape)
 
     sampled: dict[int, tuple] = {}
 
@@ -308,11 +393,13 @@ def sweep_many_server(wl_factory: Callable[..., Workload], points: Sequence,
             wl = wl_factory(points[j])
             batch = wl.sample_traces(num_jobs, reps, seed=seed)
             busy = (batch.need * batch.service).sum(axis=1)    # [R]
-            sampled[j] = (wl, batch, busy)
+            fb = (_sweep_failures(failures, wl, batch, seed)
+                  if failures is not None else None)
+            sampled[j] = (wl, batch, busy, fb)
         return sampled[j]
 
     def _record_cell(i: int, j: int, res, wall: float) -> None:
-        wl, batch, busy = sampled[j]
+        wl, batch, busy, _ = sampled[j]
         sim_s[i, j] = wall
         mean_r[i, j] = res.mean_response.mean()
         ci_r[i, j] = _ci95(res.mean_response)
@@ -325,13 +412,16 @@ def sweep_many_server(wl_factory: Callable[..., Workload], points: Sequence,
         completion = batch.arrival + res.response
         horizon = completion.max(axis=1)                       # [R]
         util[i, j] = (busy / (wl.k * horizon)).mean()
+        if avail is not None:
+            avail[i, j] = res.availability.mean()
 
     if grid:
         for i, pol in enumerate(policies):
             gcells = []
             for j in range(N):
-                wl, batch, _ = _point_data(j)
-                gcells.append(engines.GridCell(batch=batch, wl=wl))
+                wl, batch, _, fb = _point_data(j)
+                gcells.append(engines.GridCell(batch=batch, wl=wl,
+                                               failures=fb))
             t0 = time.time()
             results = engines.simulate_grid(pol, gcells, engine=engine,
                                             device=device)
@@ -341,14 +431,14 @@ def sweep_many_server(wl_factory: Callable[..., Workload], points: Sequence,
     else:
         for j in range(N):
             for i, pol in enumerate(policies):
-                wl, batch, _ = _point_data(j)
+                wl, batch, _, fb = _point_data(j)
                 t0 = time.time()
                 res = engines.simulate(pol, batch, engine=engine,
-                                       device=device, wl=wl)
+                                       device=device, wl=wl, failures=fb)
                 _record_cell(i, j, res, time.time() - t0)
     return SweepResult(points=tuple(points), policies=tuple(policies),
                        num_jobs=num_jobs, reps=reps,
                        mean_response=mean_r, ci95_response=ci_r,
                        mean_wait=mean_w, p_wait=p_wait, ci95_p_wait=ci_pw,
                        p_helper=p_help, p95_response=p95,
-                       utilization=util, sim_s=sim_s)
+                       utilization=util, sim_s=sim_s, availability=avail)

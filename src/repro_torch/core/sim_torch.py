@@ -24,6 +24,13 @@ place where that saves a copy; the state is private to each scan.
   loss queues plus the helper FCFS on h servers;
 * ``_bs_core``    — BS-π proper (Definition 1): the event-indexed 2J-step
   scan with per-class helper-wait rings and rule-3 pull-backs;
+* ``_fcfs_fail_core``, ``_modbs_fail_core``, ``_bs_fail_core`` — the
+  three in drain mode (``sim_jax._fcfs_fail_step``, ``_modbs_fail_step``,
+  ``_bs_fail_make_step``): FCFS and ModBS scan the host-merged
+  arrival+failure stream, a failure row holding the earliest-free unit of
+  its block until ``t_up`` (``_kw_drain`` on a free-time vector); BS-π
+  reads the failure records through a cursor, a fourth candidate event
+  that wins ties;
 * ``_srpt_core``  — the preemptive ServerFilling-SRPT / FirstFit-SRPT
   2J-event scan over a Q-slot table (``sim_jax._srpt_make_step``, the
   reference step, not its XLA:CPU rewrite ``_srpt_fast_make_step``).
@@ -84,6 +91,50 @@ def _fcfs_core(arrival, need, service, k: int):
     return starts
 
 
+def _kw_drain(W, t_up):
+    """One drain event per lane on sorted free-time vectors ``W`` [R, k].
+
+    A breakdown claims the earliest-free capacity unit until ``t_up``:
+    ``W[0] := max(W[0], t_up)``, re-sorted by the roll-and-insert of
+    :func:`_fcfs_sorted_step` with n = 1.  ``t_up = 0`` is the identity
+    (the no-op padding rows of a merged failure stream).
+    """
+    k = W.shape[1]
+    comp_f = torch.maximum(W[:, 0], t_up)
+    p = torch.searchsorted(W, comp_f[:, None], right=True) - 1
+    i = torch.arange(k, device=W.device)[None, :]
+    return torch.where(i == p, comp_f[:, None],
+                       W.gather(1, torch.where(i < p, i + 1, i)))
+
+
+def _fcfs_fail_step(W, t_prev, t, n, svc, tu, isf):
+    """One merged arrival-or-failure row per lane of the FCFS drain scan.
+
+    Rows with ``isf`` drain W (:func:`_kw_drain`); arrival rows are the
+    ordinary Kiefer–Wolfowitz step.  Failures never touch ``t_prev``.
+    Returns ``(W', t_prev', start)``; ``start`` of a failure row is the
+    step's value all the same (the host reads arrival rows only).
+    """
+    W_a, start = _fcfs_sorted_step(W, t_prev, t, n, svc)
+    W_new = torch.where(isf[:, None], _kw_drain(W, tu), W_a)
+    return W_new, torch.where(isf, t_prev, start), start
+
+
+def _fcfs_fail_core(t, n, svc, t_up, is_fail, k: int):
+    """Start times [R, L] of R FCFS paths over merged arrival+failure
+    streams (``sim_jax._fcfs_fail_core``), from an empty system."""
+    R, L = t.shape
+    W = torch.zeros(R, k, dtype=_F64, device=t.device)
+    t_prev = torch.zeros(R, dtype=_F64, device=t.device)
+    n = n.long()
+    starts = torch.empty(R, L, dtype=_F64, device=t.device)
+    for j in range(L):
+        W, t_prev, starts[:, j] = _fcfs_fail_step(
+            W, t_prev, t[:, j], n[:, j], svc[:, j], t_up[:, j],
+            is_fail[:, j])
+    return starts
+
+
 # --------------------------------------------------------------------------
 # ModifiedBS-π with π = FCFS
 # --------------------------------------------------------------------------
@@ -141,6 +192,58 @@ def _modbs_core(arrival, cls, need, service, slots, s_max: int, h: int):
         W, t_prev, blocked[:, j], starts[:, j] = _modbs_step(
             comp, W, t_prev, arrival[:, j], cls[:, j], need[:, j],
             service[:, j])
+    return blocked, starts
+
+
+def _modbs_fail_step(comp, W, t_prev, t, c, n, svc, tu, isf, C: int):
+    """One merged arrival-or-failure row per lane of the ModBS drain scan
+    (``sim_jax._modbs_fail_step`` statement for statement); ``comp`` is
+    updated in place.
+
+    Failure rows carry the target block in the class column: ``c < C``
+    extends the argmin completion entry of class row c to ``t_up``;
+    ``c == C`` drains the helper W.  Padding rows are helper drains with
+    ``t_up = 0``, the identity.
+    """
+    R = comp.shape[0]
+    s_max = comp.shape[2]
+    lanes = torch.arange(R, device=comp.device)
+    helper_fail = isf & (c == C)
+    class_fail = isf & ~helper_fail
+    cc = c.clamp(max=C - 1)
+    row = comp[lanes, cc]
+    busy = (row > t[:, None]).sum(1)
+    blocked = busy >= s_max
+    idx = row.argmin(1)
+    old = row[lanes, idx]
+    new_val = torch.where(class_fail, torch.maximum(old, tu),
+                          torch.where(blocked, old, t + svc))
+    touch = class_fail | ~isf
+    comp[lanes, cc, idx] = torch.where(touch, new_val, old)
+    W_upd, start_h = _fcfs_sorted_step(W, t_prev, t, n, svc)
+    engage = ~isf & blocked
+    W_new = torch.where(helper_fail[:, None], _kw_drain(W, tu),
+                        torch.where(engage[:, None], W_upd, W))
+    t_prev_new = torch.where(engage, start_h, t_prev)
+    start = torch.where(blocked, start_h, t)
+    return W_new, t_prev_new, blocked & ~isf, start
+
+
+def _modbs_fail_core(t, c, n, svc, t_up, is_fail, slots, s_max: int,
+                     h: int):
+    """ModBS-FCFS over merged arrival+failure streams [R, L]
+    (``sim_jax._modbs_fail_core``) -> (blocked [R, L], starts [R, L])."""
+    R, L = t.shape
+    C = slots.shape[0]
+    comp, W, t_prev = _modbs_init(slots, s_max, h, R)
+    c = c.long()
+    n = n.long()
+    blocked = torch.empty(R, L, dtype=torch.bool, device=t.device)
+    starts = torch.empty(R, L, dtype=_F64, device=t.device)
+    for j in range(L):
+        W, t_prev, blocked[:, j], starts[:, j] = _modbs_fail_step(
+            comp, W, t_prev, t[:, j], c[:, j], n[:, j], svc[:, j],
+            t_up[:, j], is_fail[:, j], C)
     return blocked, starts
 
 
@@ -311,6 +414,182 @@ def _bs_core(arrival, cls, need, service, slots, s_max: int, h: int,
     for e in range(2 * J):
         tagged[:, e], rec_t[:, e] = _bs_step(s, arrival, service, cls, need,
                                              C, s_max, h, q_cap)
+    return tagged, rec_t, s["ovf"]
+
+
+def _bs_fail_step(s, arrival, service, cls, need, ft, ftgt, fup, C: int,
+                  s_max: int, h: int, q_cap: int):
+    """One BS-FCFS drain-mode event per lane
+    (``sim_jax._bs_fail_make_step`` statement for statement); updates the
+    state dict ``s`` (with the failure cursor ``fi``) and returns the event
+    record ``(tagged, rec_t)``.
+
+    A fourth candidate event, the next breakdown (Tf), wins ties and
+    claims the earliest-free capacity unit of its target block: the
+    helper's W (target C), a free A slot of its class (which then fires
+    as an ordinary A completion at ``t_up``, the repair), or, with the
+    class fully busy, the argmin completion entry extended to ``t_up``.
+    Trailing steps past a lane's events are no-ops: completions need
+    ``Tc`` below ``0.5 * _BIG`` and arrivals need ``ai < J``.
+    """
+    R, J = arrival.shape
+    F = ft.shape[1]
+    dev = arrival.device
+    lanes = torch.arange(R, device=dev)
+    st, comp, ring, heads, W = s["st"], s["comp"], s["ring"], s["heads"], \
+        s["W"]
+    ai, fi, t_prev, t_hol = s["ai"], s["fi"], s["t_prev"], s["t_hol"]
+
+    j_arr = ai.clamp(max=J - 1)
+    Ta = torch.where(ai < J, arrival[lanes, j_arr], _INF)
+    cm = comp[:, :C * s_max].argmin(1)
+    Tc = comp[lanes, cm]
+    gh_job = heads[:, :C].min(1).values
+    has_head = gh_job < J
+    jh = gh_job.clamp(max=J - 1)
+    nh = need[lanes, jh]
+    Wn = W[lanes, (nh - 1).clamp(0, h - 1)]
+    Th = torch.where(has_head,
+                     torch.maximum(torch.maximum(arrival[lanes, jh], t_hol),
+                                   torch.maximum(t_prev, Wn)),
+                     _INF)
+    fi_c = fi.clamp(max=F - 1)
+    Tf = torch.where(fi < F, ft[lanes, fi_c], _INF)
+    fc = ftgt[lanes, fi_c]
+    fu = fup[lanes, fi_c]
+
+    is_fail = (Tf <= Ta) & (Tf <= Tc) & (Tf <= Th) & (Tf < _INF)
+    is_commit = ~is_fail & (Th <= Tc) & (Th <= Ta)
+    is_comp = ~is_fail & ~is_commit & (Tc < Ta) & (Tc < 0.5 * _BIG)
+    is_arr = ~is_fail & ~is_commit & ~is_comp & (ai < J)
+    s["fi"] = fi + is_fail.long()
+
+    # arrival (rule 1), as in _bs_step
+    c_arr = cls[lanes, j_arr]
+    free_c = st[lanes, c_arr]
+    head_c = st[lanes, C + c_arr]
+    tail_c = st[lanes, 2 * C + c_arr]
+    has_slot = is_arr & (free_c > 0)
+    enq = is_arr & ~has_slot
+    ring[lanes, torch.where(enq, c_arr * q_cap + tail_c % q_cap,
+                            C * q_cap)] = j_arr
+    s["ovf"] = s["ovf"] | (enq & (tail_c + 1 - head_c > q_cap))
+    s["ai"] = ai + is_arr.long()
+
+    # A completion: rule-3 pull
+    c_comp = cm // s_max
+    pull = heads[lanes, c_comp]
+    can_pull = is_comp & (pull < J)
+    jp = pull.clamp(max=J - 1)
+    s["t_hol"] = torch.where(can_pull & (pull == gh_job),
+                             torch.maximum(t_hol, Tc), t_hol)
+
+    # failure target: the helper (fc == C) or class row fcc
+    ar_s = torch.arange(s_max, device=dev)[None, :]
+    fcc = fc.clamp(max=C - 1)
+    helper_fail = is_fail & (fc == C)
+    class_fail = is_fail & ~helper_fail
+    free_f = st[lanes, fcc]
+    row_f = comp.gather(1, fcc[:, None] * s_max + ar_s)
+    pos_free = row_f.argmax(1)
+    cmf = row_f.argmin(1)
+    vmin = row_f[lanes, cmf]
+    fail_free = class_fail & (free_f > 0)
+    fail_busy = class_fail & ~(free_f > 0)
+
+    # comp: the two entries of _bs_step plus the failure entry (disjoint:
+    # on a failure step the first two drop)
+    ins = has_slot | can_pull
+    j_ins = torch.where(is_arr, j_arr, jp)
+    t_ins = torch.where(is_arr, Ta, Tc)
+    svc_ins = service[lanes, j_ins]
+    row = comp.gather(1, c_arr[:, None] * s_max + ar_s)
+    pos = row.argmax(1)
+    oobc = C * s_max
+    idx3 = torch.stack(
+        [torch.where(is_comp & ~can_pull, cm, oobc),
+         torch.where(has_slot, c_arr * s_max + pos,
+                     torch.where(can_pull, cm, oobc)),
+         torch.where(fail_free, fcc * s_max + pos_free,
+                     torch.where(fail_busy, fcc * s_max + cmf, oobc))], 1)
+    val3 = torch.stack([torch.full_like(t_ins, _BIG), t_ins + svc_ins,
+                        torch.where(fail_free, fu,
+                                    torch.maximum(vmin, fu))], 1)
+    comp.scatter_(1, idx3, val3)
+
+    # helper commit and helper drain (disjoint lane masks), both from the
+    # W of the step's start
+    comp_h = Th + service[lanes, jh]
+    p = (W <= comp_h[:, None]).sum(1)[:, None] - nh[:, None]
+    ar = torch.arange(h, device=dev)[None, :]
+    nh_ = nh[:, None]
+    W_roll = W.gather(1, torch.where(ar < p, ar + nh_, ar).clamp(max=h - 1))
+    W2 = torch.where((ar >= p) & (ar < p + nh_), comp_h[:, None], W_roll)
+    comp_f = torch.maximum(W[:, 0], fu)
+    pf = (W <= comp_f[:, None]).sum(1)[:, None] - 1
+    W_roll_f = W.gather(1, torch.where(ar < pf, ar + 1, ar).clamp(max=h - 1))
+    Wf = torch.where(ar == pf, comp_f[:, None], W_roll_f)
+    s["W"] = torch.where(is_commit[:, None], W2,
+                         torch.where(helper_fail[:, None], Wf, W))
+    s["t_prev"] = torch.where(is_commit, Th, t_prev)
+
+    # counters: the three entries of _bs_step plus a class drain's claim
+    # of a free slot
+    did_pop = can_pull | is_commit
+    pop_c = torch.where(can_pull, c_comp, cls[lanes, jh])
+    oobs = 3 * C
+    idx4 = torch.stack(
+        [torch.where(is_arr, c_arr, torch.where(is_comp, c_comp, oobs)),
+         torch.where(enq, 2 * C + c_arr, oobs),
+         torch.where(did_pop, C + pop_c, oobs),
+         torch.where(fail_free, fcc, oobs)], 1)
+    one = torch.ones_like(ai)
+    val4 = torch.stack(
+        [torch.where(has_slot, -1, 0) + (is_comp & ~can_pull).long(),
+         one, one, -one], 1)
+    st.scatter_add_(1, idx4, val4)
+
+    # per-class head jobs, as in _bs_step
+    g0 = st[lanes, C + pop_c]
+    g1 = st[lanes, 2 * C + pop_c]
+    nxt = torch.where(g0 < g1, ring[lanes, pop_c * q_cap + g0 % q_cap], J)
+    hidx = torch.stack(
+        [torch.where(enq & (head_c == tail_c), c_arr, C),
+         torch.where(did_pop, pop_c, C)], 1)
+    heads.scatter_(1, hidx, torch.stack([j_arr, nxt], 1))
+
+    tagged = torch.where(is_commit, jh + 2 * J,
+                         torch.where(ins, j_ins,
+                                     torch.where(enq, j_arr + J, -1)))
+    rec_t = torch.where(is_commit, Th, t_ins)
+    return tagged, rec_t
+
+
+def _bs_fail_core(arrival, cls, need, service, ft, ftgt, fup, slots,
+                  s_max: int, h: int, q_cap: int, length: int):
+    """BS-FCFS sample paths with drained-capacity failure events
+    (``sim_jax._bs_fail_core``).
+
+    ``ft``/``ftgt``/``fup`` [R, F] are the chronological failure records
+    of :func:`repro_torch.core.failures.partition_targets` (F >= 1; pad
+    rows carry ``ft = +inf`` and never fire).  The scan runs ``length`` =
+    2J + F + F_A steps.  Returns ``(tagged [R, length] int32,
+    rec_t [R, length] float64, ovf [R] bool)``.
+    """
+    R, J = arrival.shape
+    C = slots.shape[0]
+    s = _bs_init(R, J, C, s_max, h, q_cap, slots)
+    s["fi"] = torch.zeros(R, dtype=torch.int64, device=arrival.device)
+    cls = cls.long()
+    need = need.long()
+    ftgt = ftgt.long()
+    tagged = torch.empty(R, length, dtype=torch.int32,
+                         device=arrival.device)
+    rec_t = torch.empty(R, length, dtype=_F64, device=arrival.device)
+    for e in range(length):
+        tagged[:, e], rec_t[:, e] = _bs_fail_step(
+            s, arrival, service, cls, need, ft, ftgt, fup, C, s_max, h,
+            q_cap)
     return tagged, rec_t, s["ovf"]
 
 

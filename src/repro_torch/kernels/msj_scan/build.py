@@ -112,6 +112,11 @@ def load_library() -> ctypes.CDLL:
         "msj_fcfs_scan": [P, P, P, P, I, I, I, P],
         "msj_modbs_scan": [P, P, P, P, P, P, P, I, I, I, I, I, P],
         "msj_bs_scan": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P],
+        "msj_fcfs_fail_scan": [P, P, P, P, P, P, I, I, I, P],
+        "msj_modbs_fail_scan": [P, P, P, P, P, P, P, P, P, I, I, I, I, I,
+                                P],
+        "msj_bs_fail_scan": [P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I,
+                             I, I, I, I, P],
         "msj_srpt_scan": [P, P, P, P, P, I, P, P, P, P, P, P, P, P, I, I, I,
                           I, P],
         "msj_stable_sort": [P, P, P, P, P, P, I, I, P],

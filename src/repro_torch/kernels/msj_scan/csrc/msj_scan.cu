@@ -1,13 +1,21 @@
 // Multiserver-job event scans for Hopper (sm_90a): FCFS, ModifiedBS-pi and
-// BS-pi (Definition 1), one thread block per replication.
+// BS-pi (Definition 1), one thread block per replication, each with and
+// without drain-mode server failures.
 //
-// Replaces the Pallas kernels of the JAX reference package:
-//   fcfs_scan   <- repro/kernels/msj_scan/kernel.py  fcfs_scan_fwd  (_fcfs_kernel)
-//   modbs_scan  <- repro/kernels/msj_scan/kernel.py  modbs_scan_fwd (_modbs_kernel)
-//   bs_scan     <- repro/kernels/msj_scan/kernel.py  bs_scan_fwd    (_bs_kernel)
+// Replaces the Pallas kernels of the JAX reference package
+// (repro/kernels/msj_scan/kernel.py):
+//   fcfs_scan        <- fcfs_scan_fwd        (_fcfs_kernel)
+//   fcfs_fail_scan   <- fcfs_fail_scan_fwd   (_fcfs_fail_kernel)
+//   modbs_scan       <- modbs_scan_fwd       (_modbs_kernel)
+//   modbs_fail_scan  <- modbs_fail_scan_fwd  (_modbs_fail_kernel)
+//   bs_scan          <- bs_scan_fwd          (_bs_kernel)
+//   bs_fail_scan     <- bs_fail_scan_fwd     (_bs_fail_kernel)
 // and computes, bit for bit, the steps of repro/core/sim_jax.py
-// (_fcfs_sorted_step, _modbs_step, _bs_make_step) and of their plain
-// PyTorch versions in repro_torch/core/sim_torch.py.
+// (_fcfs_sorted_step, _fcfs_fail_step, _modbs_step, _modbs_fail_step,
+// _bs_make_step, _bs_fail_make_step) and of their plain PyTorch versions
+// in repro_torch/core/sim_torch.py.  Each kernel body is a template on
+// kDrain: the clean scan is the kDrain = false instantiation, whose code
+// the drain branches (if constexpr) leave untouched.
 //
 // What bounds these kernels.  Each replication is a chain of J (BS: 2J)
 // dependent event steps; a step reads a few words of the trace and does
@@ -40,6 +48,23 @@
 //   * Class and need travel as float64 in the reference's packed job
 //     record and are cast back to int; here they are read as int32, which
 //     is the same value for every valid id.
+// Drain mode (failures merged into the event stream on the host):
+//   * A drain on a sorted free-time vector is W[0] := max(W[0], t_up),
+//     re-sorted: the n = 1 case of the roll-and-insert.  Pad rows
+//     (t = +inf, t_up = 0) are the identity; a drain never moves t_prev.
+//   * FCFS and ModBS write the start of every merged row, failure rows
+//     included, as the plain step computes it, so the raw outputs compare
+//     whole.  ModBS: cls == C is a helper drain; a class drain extends the
+//     row's first argmin to max(entry, t_up); only class drains and
+//     arrivals write the row; the output is blocked && !is_fail.
+//   * BS: a failure cursor fi adds the candidate Tf, which wins ties
+//     (Tf <= Ta, Tc, Th and Tf < inf).  Completions need Tc < 0.5 * BIG and
+//     arrivals ai < J, because trailing steps past a lane's events are
+//     no-ops that still record tagged = -1 and rec_t = t_ins (maybe BIG).
+//     A class drain on a free slot writes t_up at the row's first max (a
+//     BIG entry) and takes one free slot; on a full row it extends the
+//     first argmin to max(vmin, t_up).  A helper drain rolls the W of the
+//     step's start.  The host passes length = 2J + F + F_A.
 // Indices that come from the trace (class ids, needs) are clamped to their
 // buffers, so malformed input cannot touch memory outside them; the host
 // validates the trace before launch, and valid input is never clamped.
@@ -142,12 +167,16 @@ __device__ __forceinline__ void warp_roll_insert(const double* src, double* dst,
 // Per job: every thread reads W[n-1] and forms start and comp; a block-wide
 // ballot count gives p = count(W <= comp) - n (searchsorted "right" on the
 // sorted W); each thread writes its entries of the rolled vector.  Two
-// barriers per job.
+// barriers per job.  kDrain: J counts merged rows; a failure row inserts
+// one copy of max(W[0], t_up) instead (the drain).
 // ---------------------------------------------------------------------------
 
+template <bool kDrain>
 __global__ void fcfs_scan_kernel(const double* __restrict__ arrival,
                                  const int* __restrict__ need,
                                  const double* __restrict__ service,
+                                 const double* __restrict__ t_up,
+                                 const bool* __restrict__ is_fail,
                                  double* __restrict__ starts, int J, int k) {
   extern __shared__ double smem[];
   double* Wa = smem;
@@ -170,7 +199,16 @@ __global__ void fcfs_scan_kernel(const double* __restrict__ arrival,
     const double svc = sv[j];
     const double nth = Wa[clampi(n - 1, 0, k - 1)];
     const double start = fmax(fmax(t, t_prev), nth);
-    const double comp = __dadd_rn(start, svc);
+    double comp = __dadd_rn(start, svc);
+    int m = n;
+    bool drain = false;
+    if constexpr (kDrain) {
+      drain = is_fail[off + j];
+      if (drain) {
+        comp = fmax(Wa[0], t_up[off + j]);
+        m = 1;
+      }
+    }
     int cnt = 0;
     for (int base = 0; base < k; base += nthr) {
       const int i = base + tid;
@@ -180,18 +218,18 @@ __global__ void fcfs_scan_kernel(const double* __restrict__ arrival,
     __syncthreads();
     int total = 0;
     for (int w = 0; w < nwarps; ++w) total += wsum[w];
-    const int p = total - n;
+    const int p = total - m;
     for (int i = tid; i < k; i += nthr) {
       double v;
-      if (i >= p && i < p + n) {
+      if (i >= p && i < p + m) {
         v = comp;
       } else {
-        v = Wa[min(i < p ? i + n : i, k - 1)];
+        v = Wa[min(i < p ? i + m : i, k - 1)];
       }
       Wb[i] = v;
     }
     if (tid == 0) out[j] = start;
-    t_prev = start;
+    if (!drain) t_prev = start;
     __syncthreads();
     double* tmp = Wa; Wa = Wb; Wb = tmp;
   }
@@ -203,12 +241,17 @@ __global__ void fcfs_scan_kernel(const double* __restrict__ arrival,
 // permanently busy) and the helper free-time vector W [h], double-buffered.
 // Per job: busy = count(row > t), blocked = busy >= s_max, the row's argmin
 // takes t + svc unless blocked; a blocked job runs the FCFS step on W.
+// kDrain: J counts merged rows; a failure row with cls == C drains W, one
+// with cls < C extends its row's argmin entry to max(entry, t_up).
 // ---------------------------------------------------------------------------
 
+template <bool kDrain>
 __global__ void modbs_scan_kernel(const double* __restrict__ arrival,
                                   const int* __restrict__ cls,
                                   const int* __restrict__ need,
                                   const double* __restrict__ service,
+                                  const double* __restrict__ t_up,
+                                  const bool* __restrict__ is_fail,
                                   const int* __restrict__ slots,
                                   bool* __restrict__ blocked_out,
                                   double* __restrict__ starts, int J, int C,
@@ -231,27 +274,48 @@ __global__ void modbs_scan_kernel(const double* __restrict__ arrival,
   __syncwarp();
   for (int j = 0; j < J; ++j) {
     const double t = a[j];
-    const int c = clampi(cl[j], 0, C - 1);
+    // a failure row's class column is its target block, C = the helper
+    const int c = clampi(cl[j], 0, kDrain ? C : C - 1);
     const int n = nd[j];
     const double svc = sv[j];
-    double* row = comp + c * s_max;
+    double* row = comp + (kDrain ? min(c, C - 1) : c) * s_max;
     const bool blocked = warp_count_gt(row, s_max, t) >= s_max;
     double rmin;
     const int idx = warp_argmin(row, s_max, &rmin);
     double start;
+    bool isf = false;
     __syncwarp();
-    if (!blocked) {
-      if (lane == 0) row[idx] = __dadd_rn(t, svc);
-      start = t;
+    if constexpr (!kDrain) {
+      if (!blocked) {
+        if (lane == 0) row[idx] = __dadd_rn(t, svc);
+        start = t;
+      } else {
+        const double nth = Wa[clampi(n - 1, 0, h - 1)];
+        start = fmax(fmax(t, t_prev), nth);
+        warp_roll_insert(Wa, Wb, h, n, __dadd_rn(start, svc));
+        double* tmp = Wa; Wa = Wb; Wb = tmp;
+        t_prev = start;
+      }
     } else {
-      const double nth = Wa[clampi(n - 1, 0, h - 1)];
-      start = fmax(fmax(t, t_prev), nth);
-      warp_roll_insert(Wa, Wb, h, n, __dadd_rn(start, svc));
-      double* tmp = Wa; Wa = Wb; Wb = tmp;
-      t_prev = start;
+      isf = is_fail[off + j];
+      const double tu = t_up[off + j];
+      const bool helper_fail = isf && c == C;
+      const bool class_fail = isf && !helper_fail;
+      const double start_h = fmax(fmax(t, t_prev), Wa[clampi(n - 1, 0, h - 1)]);
+      if (lane == 0 && (class_fail || !isf))
+        row[idx] = class_fail ? fmax(rmin, tu) : (blocked ? rmin : __dadd_rn(t, svc));
+      if (helper_fail) {
+        warp_roll_insert(Wa, Wb, h, 1, fmax(Wa[0], tu));
+        double* tmp = Wa; Wa = Wb; Wb = tmp;
+      } else if (!isf && blocked) {
+        warp_roll_insert(Wa, Wb, h, n, __dadd_rn(start_h, svc));
+        double* tmp = Wa; Wa = Wb; Wb = tmp;
+        t_prev = start_h;
+      }
+      start = blocked ? start_h : t;
     }
     if (lane == 0) {
-      blocked_out[off + j] = blocked;
+      blocked_out[off + j] = blocked && !isf;
       starts[off + j] = start;
     }
     __syncwarp();
@@ -267,19 +331,27 @@ __global__ void modbs_scan_kernel(const double* __restrict__ arrival,
 // live in registers, identical in every lane.  The per-class helper-wait
 // rings [C*q_cap] live in global scratch.  Every lane computes the step's
 // scalars from the same shared state; lane 0 alone writes scalar state,
-// and __syncwarp orders the writes before the next reads.
+// and __syncwarp orders the writes before the next reads.  kDrain
+// (sim_jax._bs_fail_make_step): the [F] failure record (time, target,
+// t_up) is read from global memory at the cursor fi, and the scan runs
+// `length` = 2J + F + F_A steps (2J without failures).
 // ---------------------------------------------------------------------------
 
+template <bool kDrain>
 __global__ void bs_scan_kernel(const double* __restrict__ arrival,
                                const int* __restrict__ cls,
                                const int* __restrict__ need,
                                const double* __restrict__ service,
+                               const double* __restrict__ fail_t,
+                               const int* __restrict__ fail_tgt,
+                               const double* __restrict__ fail_up,
                                const int* __restrict__ slots,
                                int* __restrict__ tagged_out,
                                double* __restrict__ rec_t_out,
                                bool* __restrict__ ovf_out,
-                               int* __restrict__ ring_scratch, int J, int C,
-                               int s_max, int h, int q_cap) {
+                               int* __restrict__ ring_scratch, int J, int F,
+                               int C, int s_max, int h, int q_cap,
+                               int length) {
   extern __shared__ double smem[];
   const int CS = C * s_max;
   double* comp = smem;
@@ -294,8 +366,9 @@ __global__ void bs_scan_kernel(const double* __restrict__ arrival,
   const int* nd = need + off;
   const double* sv = service + off;
   int* ring = ring_scratch + (size_t)blockIdx.x * C * q_cap;
-  int* tagged = tagged_out + 2 * off;
-  double* rec_t = rec_t_out + 2 * off;
+  int* tagged = tagged_out + (size_t)blockIdx.x * length;
+  double* rec_t = rec_t_out + (size_t)blockIdx.x * length;
+  const size_t off_f = (size_t)blockIdx.x * F;
 
   for (int i = lane; i < CS; i += 32) comp[i] = kBig;
   for (int i = lane; i < h; i += 32) Wa[i] = 0.0;
@@ -305,12 +378,12 @@ __global__ void bs_scan_kernel(const double* __restrict__ arrival,
     st[2 * C + i] = 0;
     heads[i] = J;
   }
-  int ai = 0;
+  int ai = 0, fi = 0;
   double t_prev = 0.0, t_hol = 0.0;
   bool ovf = false;
   __syncwarp();
 
-  for (int e = 0; e < 2 * J; ++e) {
+  for (int e = 0; e < length; ++e) {
     const int j_arr = min(ai, J - 1);
     const double Ta = ai < J ? a[j_arr] : INFINITY;
     double Tc;
@@ -323,9 +396,32 @@ __global__ void bs_scan_kernel(const double* __restrict__ arrival,
     const double Th = has_head
         ? fmax(fmax(a[jh], t_hol), fmax(t_prev, Wa[nh - 1])) : INFINITY;
 
-    const bool is_commit = (Th <= Tc) && (Th <= Ta);
-    const bool is_comp = !is_commit && (Tc < Ta);
-    const bool is_arr = !is_commit && !is_comp;
+    // drain mode: the next breakdown wins ties and claims the earliest-free
+    // unit of its target block (C = the helper)
+    bool is_fail = false, helper_fail = false;
+    bool fail_free = false, fail_busy = false;
+    int fcc = 0, pos_free = 0, cmf = 0;
+    double fu = 0.0, vmin = 0.0;
+    if constexpr (kDrain) {
+      const int fi_c = min(fi, F - 1);
+      const double Tf = fi < F ? fail_t[off_f + fi_c] : INFINITY;
+      const int fc = clampi(fail_tgt[off_f + fi_c], 0, C);
+      fu = fail_up[off_f + fi_c];
+      is_fail = (Tf <= Ta) && (Tf <= Tc) && (Tf <= Th) && (Tf < INFINITY);
+      fi += is_fail ? 1 : 0;
+      fcc = min(fc, C - 1);
+      helper_fail = is_fail && fc == C;
+      const bool class_fail = is_fail && !helper_fail;
+      fail_free = class_fail && st[fcc] > 0;
+      fail_busy = class_fail && !(st[fcc] > 0);
+      if (fail_free) pos_free = warp_argmax(comp + fcc * s_max, s_max);
+      if (fail_busy) cmf = warp_argmin(comp + fcc * s_max, s_max, &vmin);
+    }
+    const bool is_commit = !is_fail && (Th <= Tc) && (Th <= Ta);
+    bool is_comp = !is_fail && !is_commit && (Tc < Ta);
+    if constexpr (kDrain) is_comp = is_comp && Tc < 0.5 * kBig;
+    bool is_arr = !is_fail && !is_commit && !is_comp;
+    if constexpr (kDrain) is_arr = is_arr && ai < J;
 
     // arrival (rule 1): a free A_i slot starts the job, else it enqueues
     const int c_arr = clampi(cl[j_arr], 0, C - 1);
@@ -359,6 +455,10 @@ __global__ void bs_scan_kernel(const double* __restrict__ arrival,
       if (is_comp && !can_pull) comp[cm] = kBig;
       if (has_slot) comp[c_arr * s_max + pos] = v;
       else if (can_pull) comp[cm] = v;
+      if constexpr (kDrain) {
+        if (fail_free) comp[fcc * s_max + pos_free] = fu;
+        else if (fail_busy) comp[fcc * s_max + cmf] = fmax(vmin, fu);
+      }
     }
 
     // helper commit: the global head starts on H at Th (pi = FCFS)
@@ -367,6 +467,12 @@ __global__ void bs_scan_kernel(const double* __restrict__ arrival,
       double* tmp = Wa; Wa = Wb; Wb = tmp;
       t_prev = Th;
     }
+    if constexpr (kDrain) {   // helper drain (never on a commit step)
+      if (helper_fail) {
+        warp_roll_insert(Wa, Wb, h, 1, fmax(Wa[0], fu));
+        double* tmp = Wa; Wa = Wb; Wb = tmp;
+      }
+    }
 
     // counters, then the per-class head jobs
     const bool did_pop = can_pull || is_commit;
@@ -374,6 +480,9 @@ __global__ void bs_scan_kernel(const double* __restrict__ arrival,
       if (is_arr) st[c_arr] += has_slot ? -1 : 0;
       else if (is_comp) st[c_comp] += can_pull ? 0 : 1;
       if (enq) st[2 * C + c_arr] += 1;
+      if constexpr (kDrain) {
+        if (fail_free) st[fcc] -= 1;
+      }
       if (did_pop) {
         const int g0 = ++st[C + pop_c];
         const int g1 = st[2 * C + pop_c];
@@ -404,7 +513,7 @@ cudaError_t prepare_smem(K kernel, size_t bytes) {
                               (int)bytes);
 }
 
-// Shared-memory bytes and block sizes of the three kernels.
+// Shared-memory bytes and block sizes of the kernels.
 size_t msj_fcfs_smem(int k, int threads) {
   return 2 * (size_t)k * sizeof(double) + (threads / 32) * sizeof(int);
 }
@@ -432,10 +541,22 @@ int msj_fcfs_scan(const double* arrival, const int* need, const double* service,
                   double* starts, int R, int J, int k, void* stream) {
   const int threads = msj_fcfs_threads(k);
   const size_t smem = msj_fcfs_smem(k, threads);
-  cudaError_t err = prepare_smem(fcfs_scan_kernel, smem);
+  cudaError_t err = prepare_smem(fcfs_scan_kernel<false>, smem);
   if (err != cudaSuccess) return (int)err;
-  fcfs_scan_kernel<<<R, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      arrival, need, service, starts, J, k);
+  fcfs_scan_kernel<false><<<R, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      arrival, need, service, nullptr, nullptr, starts, J, k);
+  return (int)cudaGetLastError();
+}
+
+int msj_fcfs_fail_scan(const double* t, const int* need, const double* svc,
+                       const double* t_up, const bool* is_fail, double* starts,
+                       int R, int L, int k, void* stream) {
+  const int threads = msj_fcfs_threads(k);
+  const size_t smem = msj_fcfs_smem(k, threads);
+  cudaError_t err = prepare_smem(fcfs_scan_kernel<true>, smem);
+  if (err != cudaSuccess) return (int)err;
+  fcfs_scan_kernel<true><<<R, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      t, need, svc, t_up, is_fail, starts, L, k);
   return (int)cudaGetLastError();
 }
 
@@ -444,10 +565,23 @@ int msj_modbs_scan(const double* arrival, const int* cls, const int* need,
                    double* starts, int R, int J, int C, int s_max, int h,
                    void* stream) {
   const size_t smem = msj_modbs_smem(C, s_max, h);
-  cudaError_t err = prepare_smem(modbs_scan_kernel, smem);
+  cudaError_t err = prepare_smem(modbs_scan_kernel<false>, smem);
   if (err != cudaSuccess) return (int)err;
-  modbs_scan_kernel<<<R, 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      arrival, cls, need, service, slots, blocked, starts, J, C, s_max, h);
+  modbs_scan_kernel<false><<<R, 32, smem, static_cast<cudaStream_t>(stream)>>>(
+      arrival, cls, need, service, nullptr, nullptr, slots, blocked, starts, J, C,
+      s_max, h);
+  return (int)cudaGetLastError();
+}
+
+int msj_modbs_fail_scan(const double* t, const int* cls, const int* need,
+                        const double* svc, const double* t_up, const bool* is_fail,
+                        const int* slots, bool* blocked, double* starts, int R,
+                        int L, int C, int s_max, int h, void* stream) {
+  const size_t smem = msj_modbs_smem(C, s_max, h);
+  cudaError_t err = prepare_smem(modbs_scan_kernel<true>, smem);
+  if (err != cudaSuccess) return (int)err;
+  modbs_scan_kernel<true><<<R, 32, smem, static_cast<cudaStream_t>(stream)>>>(
+      t, cls, need, svc, t_up, is_fail, slots, blocked, starts, L, C, s_max, h);
   return (int)cudaGetLastError();
 }
 
@@ -456,11 +590,26 @@ int msj_bs_scan(const double* arrival, const int* cls, const int* need,
                 double* rec_t, bool* ovf, int* ring_scratch, int R, int J,
                 int C, int s_max, int h, int q_cap, void* stream) {
   const size_t smem = msj_bs_smem(C, s_max, h);
-  cudaError_t err = prepare_smem(bs_scan_kernel, smem);
+  cudaError_t err = prepare_smem(bs_scan_kernel<false>, smem);
   if (err != cudaSuccess) return (int)err;
-  bs_scan_kernel<<<R, 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      arrival, cls, need, service, slots, tagged, rec_t, ovf, ring_scratch, J,
-      C, s_max, h, q_cap);
+  bs_scan_kernel<false><<<R, 32, smem, static_cast<cudaStream_t>(stream)>>>(
+      arrival, cls, need, service, nullptr, nullptr, nullptr, slots, tagged,
+      rec_t, ovf, ring_scratch, J, 0, C, s_max, h, q_cap, 2 * J);
+  return (int)cudaGetLastError();
+}
+
+int msj_bs_fail_scan(const double* arrival, const int* cls, const int* need,
+                     const double* service, const double* fail_t,
+                     const int* fail_tgt, const double* fail_up, const int* slots,
+                     int* tagged, double* rec_t, bool* ovf, int* ring_scratch,
+                     int R, int J, int F, int C, int s_max, int h, int q_cap,
+                     int length, void* stream) {
+  const size_t smem = msj_bs_smem(C, s_max, h);
+  cudaError_t err = prepare_smem(bs_scan_kernel<true>, smem);
+  if (err != cudaSuccess) return (int)err;
+  bs_scan_kernel<true><<<R, 32, smem, static_cast<cudaStream_t>(stream)>>>(
+      arrival, cls, need, service, fail_t, fail_tgt, fail_up, slots, tagged,
+      rec_t, ovf, ring_scratch, J, F, C, s_max, h, q_cap, length);
   return (int)cudaGetLastError();
 }
 

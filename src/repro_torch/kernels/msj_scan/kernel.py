@@ -6,8 +6,11 @@ ids and needs; float64 needs for SRPT) plus the partition's ``slots`` [C]
 int32 or the SRPT servers ``kk`` [R], exactly the signatures and outputs
 of the reference's Pallas kernels (``repro/kernels/msj_scan/kernel.py``,
 ``srpt.py``; ``stable_sort_fwd`` is the standalone entry to the SRPT
-kernel's sort, the counterpart of ``sort.py``'s ``bitonic_sort``).  It
-checks device, dtype, shape and contiguity, then
+kernel's sort, the counterpart of ``sort.py``'s ``bitonic_sort``).  The
+drain-mode ``*_fail_scan_fwd`` wrappers take the host-merged
+arrival+failure stream [R, L] (``t_up`` float64, ``is_fail`` bool), or for
+BS-π the trace plus the failure records [R, F].  It checks device, dtype,
+shape and contiguity, then
 
 * for CPU tensors returns its plain version (``*_ref``: the
   :mod:`repro_torch.core.sim_torch` event scans);
@@ -60,6 +63,26 @@ def bs_scan_ref(arrival, cls, need, service, slots, *, s_max: int, h: int,
                               q_cap)
 
 
+def fcfs_fail_scan_ref(t, need, svc, t_up, is_fail, *, k: int):
+    """Plain FCFS drain scan: merged [R, L] stream -> starts [R, L]."""
+    return sim_torch._fcfs_fail_core(t, need, svc, t_up, is_fail, k)
+
+
+def modbs_fail_scan_ref(t, cls, need, svc, t_up, is_fail, slots, *,
+                        s_max: int, h: int):
+    """Plain ModifiedBS-π drain scan -> (blocked [R, L], starts [R, L])."""
+    return sim_torch._modbs_fail_core(t, cls, need, svc, t_up, is_fail,
+                                      slots, s_max, h)
+
+
+def bs_fail_scan_ref(arrival, cls, need, service, ft, ftgt, fup, slots, *,
+                     s_max: int, h: int, q_cap: int, length: int):
+    """Plain BS-π drain scan -> (tagged [R, length] int32,
+    rec_t [R, length], ovf [R] bool)."""
+    return sim_torch._bs_fail_core(arrival, cls, need, service, ft, ftgt,
+                                   fup, slots, s_max, h, q_cap, length)
+
+
 def srpt_scan_ref(arrival, need, service, kk, *, Q: int, NU: tuple,
                   sf: bool):
     """Plain SRPT event scan -> (job_ev, t_ev, fs_ev [R, 2J] float64,
@@ -78,14 +101,17 @@ def stable_sort_ref(*operands, num_keys: int):
 # -- checks and launch plumbing ---------------------------------------------
 
 
-_DTYPES = {"arrival": _F64, "service": _F64, "cls": _I32, "need": _I32}
+_DTYPES = {"arrival": _F64, "service": _F64, "cls": _I32, "need": _I32,
+           "t": _F64, "svc": _F64, "t_up": _F64, "is_fail": torch.bool,
+           "ft": _F64, "ftgt": _I32, "fup": _F64}
 _SRPT_DTYPES = dict(_DTYPES, need=_F64)
 _SORT_W_MAX = 4096
 
 
 def _check(slots=None, dtypes=_DTYPES, **named) -> torch.device:
-    """Validate the [R, J] inputs (and ``slots``); their common device."""
-    first = named["arrival"]
+    """Validate the [R, J] inputs (and ``slots``); their common device.
+    The first named tensor sets the shape the others must have."""
+    first = next(iter(named.values()))
     if first.dim() != 2:
         raise ValueError(f"trace arrays must be [R, J], got "
                          f"{tuple(first.shape)}")
@@ -333,8 +359,127 @@ def stable_sort_fwd(*operands, num_keys: int):
     return outs
 
 
+def fcfs_fail_scan_fwd(t, need, svc, t_up, is_fail, *, k: int):
+    """Merged [R, L] arrival+failure stream -> start times [R, L] float64.
+
+    Row j is an arrival (``is_fail`` False: the FCFS step of
+    :func:`fcfs_scan_fwd`) or a drain (``is_fail`` True: the earliest-free
+    server is held until ``t_up``; pad rows have ``t = +inf, t_up = 0``).
+    Every row's start is written, failure rows included; the host reads
+    the arrival rows (``MergedStream.job_pos``).
+    """
+    dev = _check(t=t, need=need, svc=svc, t_up=t_up, is_fail=is_fail)
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    if dev.type == "cpu":
+        return fcfs_fail_scan_ref(t, need, svc, t_up, is_fail, k=k)
+    R, L = t.shape
+    starts = torch.empty_like(t)
+    if R == 0 or L == 0:
+        return starts
+    lib = build.load_library()
+    with torch.cuda.device(dev):
+        rc = lib.msj_fcfs_fail_scan(_ptr(t), _ptr(need), _ptr(svc),
+                                    _ptr(t_up), _ptr(is_fail), _ptr(starts),
+                                    R, L, k, _stream(dev))
+    _raise_on(lib, rc, "fcfs_fail_scan", f"R={R} L={L} k={k}")
+    fcfs_fail_scan_fwd.launches += 1
+    return starts
+
+
+def modbs_fail_scan_fwd(t, cls, need, svc, t_up, is_fail, slots, *,
+                        s_max: int, h: int):
+    """Merged [R, L] stream + slots [C] -> (blocked [R, L] bool,
+    starts [R, L] float64).
+
+    Failure rows carry their target block in ``cls``: ``cls == C`` drains
+    the helper's free-time vector, ``cls < C`` extends the class row's
+    earliest completion to ``t_up``.  ``blocked`` is False on failure rows.
+    """
+    dev = _check(slots, t=t, cls=cls, need=need, svc=svc, t_up=t_up,
+                 is_fail=is_fail)
+    if s_max < 1 or h < 1:
+        raise ValueError(f"s_max and h must be >= 1, got {s_max}, {h}")
+    if dev.type == "cpu":
+        return modbs_fail_scan_ref(t, cls, need, svc, t_up, is_fail, slots,
+                                   s_max=s_max, h=h)
+    R, L = t.shape
+    blocked = torch.empty(R, L, dtype=torch.bool, device=dev)
+    starts = torch.empty_like(t)
+    if R == 0 or L == 0:
+        return blocked, starts
+    C = slots.shape[0]
+    lib = build.load_library()
+    with torch.cuda.device(dev):
+        rc = lib.msj_modbs_fail_scan(_ptr(t), _ptr(cls), _ptr(need),
+                                     _ptr(svc), _ptr(t_up), _ptr(is_fail),
+                                     _ptr(slots), _ptr(blocked),
+                                     _ptr(starts), R, L, C, s_max, h,
+                                     _stream(dev))
+    _raise_on(lib, rc, "modbs_fail_scan",
+              f"R={R} L={L} C={C} s_max={s_max} h={h}")
+    modbs_fail_scan_fwd.launches += 1
+    return blocked, starts
+
+
+def bs_fail_scan_fwd(arrival, cls, need, service, ft, ftgt, fup, slots, *,
+                     s_max: int, h: int, q_cap: int, length: int):
+    """[R, J] trace arrays + failure records ft/fup float64, ftgt int32
+    [R, F] + slots [C] -> (tagged [R, length] int32, rec_t [R, length]
+    float64, ovf [R] bool).
+
+    Drain-mode BS-π: the event scan of :func:`bs_scan_fwd` with a fourth
+    candidate event, the next failure (chronological per replication, pad
+    rows ``ft = +inf``; F >= 1), which wins ties and claims the
+    earliest-free capacity unit of its target block (``ftgt == C``: the
+    helper).  ``length`` = 2J + F + F_A steps; the caller must raise on
+    ``ovf``.
+    """
+    dev = _check(slots, arrival=arrival, cls=cls, need=need,
+                 service=service)
+    R, J = arrival.shape
+    if ft.dim() != 2 or ft.shape[0] != R or ft.shape[1] < 1:
+        raise ValueError(f"failure records must be [R={R}, F>=1], got "
+                         f"{tuple(ft.shape)}")
+    _check(ft=ft, ftgt=ftgt, fup=fup)
+    if ft.device != dev:
+        raise ValueError(f"failure records are on {ft.device}, expected "
+                         f"{dev}")
+    if s_max < 1 or h < 1 or q_cap < 1:
+        raise ValueError(f"s_max, h and q_cap must be >= 1, got {s_max}, "
+                         f"{h}, {q_cap}")
+    if not 0 <= length < 2**31:
+        raise ValueError(f"length={length} outside [0, 2**31)")
+    if dev.type == "cpu":
+        return bs_fail_scan_ref(arrival, cls, need, service, ft, ftgt, fup,
+                                slots, s_max=s_max, h=h, q_cap=q_cap,
+                                length=length)
+    F = ft.shape[1]
+    C = slots.shape[0]
+    tagged = torch.empty(R, length, dtype=_I32, device=dev)
+    rec_t = torch.empty(R, length, dtype=_F64, device=dev)
+    ovf = torch.zeros(R, dtype=torch.bool, device=dev)
+    if R == 0 or J == 0 or length == 0:
+        return tagged, rec_t, ovf
+    ring = torch.zeros(R, C * q_cap, dtype=_I32, device=dev)
+    lib = build.load_library()
+    with torch.cuda.device(dev):
+        rc = lib.msj_bs_fail_scan(_ptr(arrival), _ptr(cls), _ptr(need),
+                                  _ptr(service), _ptr(ft), _ptr(ftgt),
+                                  _ptr(fup), _ptr(slots), _ptr(tagged),
+                                  _ptr(rec_t), _ptr(ovf), _ptr(ring), R, J,
+                                  F, C, s_max, h, q_cap, length,
+                                  _stream(dev))
+    _raise_on(lib, rc, "bs_fail_scan",
+              f"R={R} J={J} F={F} C={C} s_max={s_max} h={h} q_cap={q_cap} "
+              f"length={length}")
+    bs_fail_scan_fwd.launches += 1
+    return tagged, rec_t, ovf
+
+
 WRAPPERS = (fcfs_scan_fwd, modbs_scan_fwd, bs_scan_fwd, srpt_scan_fwd,
-            stable_sort_fwd)
+            stable_sort_fwd, fcfs_fail_scan_fwd, modbs_fail_scan_fwd,
+            bs_fail_scan_fwd)
 for _w in WRAPPERS:
     _w.launches = 0
 

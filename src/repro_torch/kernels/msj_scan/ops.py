@@ -6,6 +6,12 @@ kernel wrapper (which runs the CUDA kernel on a CUDA tensor and the plain
 PyTorch version on a CPU tensor) and assembles the result on the host with
 the helpers of :mod:`repro_torch.core.sim_batch` — so the result is the
 same on either device, and the same as the reference's engines.
+
+With ``failures=`` (drain mode) FCFS, ModBS and BS-π take the reference's
+drain flow: the failure stream is merged with the arrivals on the host
+(:mod:`repro_torch.core.failures`), the ``*_fail_scan`` kernel runs it,
+and FCFS/ModBS outputs are gathered back to job order by
+``MergedStream.job_pos``.
 """
 
 from __future__ import annotations
@@ -13,11 +19,17 @@ from __future__ import annotations
 import torch
 
 from ...core import engines
-from ...core.sim_batch import (_bs_result, _class_inputs, _fcfs_inputs,
-                               _fcfs_result, _modbs_result, _partition_args,
-                               _srpt_no_failures, _srpt_nu, _srpt_result)
+from ...core import failures as flr
+from ...core.sim_batch import (_bs_fail_args, _bs_result, _class_inputs,
+                               _fcfs_inputs, _fcfs_result,
+                               _merged_class_inputs, _merged_fcfs_inputs,
+                               _merged_tensors, _modbs_result,
+                               _partition_args, _srpt_no_failures, _srpt_nu,
+                               _srpt_result, _unmerge, _with_drain_obs)
 from ...core.sim_torch import _bs_args, _srpt_args
-from .kernel import bs_scan_fwd, fcfs_scan_fwd, modbs_scan_fwd, srpt_scan_fwd
+from .kernel import (bs_fail_scan_fwd, bs_scan_fwd, fcfs_fail_scan_fwd,
+                     fcfs_scan_fwd, modbs_fail_scan_fwd, modbs_scan_fwd,
+                     srpt_scan_fwd)
 
 
 def _host(*ts):
@@ -25,32 +37,58 @@ def _host(*ts):
 
 
 @engines.register("fcfs", "torch")
-def _fcfs_torch(batch, *, device, partition=None, wl=None):
+def _fcfs_torch(batch, *, device, partition=None, wl=None, failures=None):
     """Multiserver-job FCFS over all replications at once."""
-    (starts,) = _host(fcfs_scan_fwd(*_fcfs_inputs(batch, device),
-                                    k=batch.k))
-    return _fcfs_result(batch, starts)
+    if failures is None:
+        (starts,) = _host(fcfs_scan_fwd(*_fcfs_inputs(batch, device),
+                                        k=batch.k))
+        return _fcfs_result(batch, starts)
+    flr.require_drain(failures, "torch")
+    ms = _merged_fcfs_inputs(batch, failures)
+    t, _, n, v, tu, isf = _merged_tensors(ms, device)
+    (starts,) = _unmerge(ms, *_host(fcfs_fail_scan_fwd(t, n, v, tu, isf,
+                                                       k=batch.k)))
+    return _with_drain_obs(_fcfs_result(batch, starts), batch, failures)
 
 
 @engines.register("modbs-fcfs", "torch")
-def _modbs_torch(batch, *, device, partition=None, wl=None):
+def _modbs_torch(batch, *, device, partition=None, wl=None, failures=None):
     """ModifiedBS-FCFS (Definition 2) over all replications."""
     slots, s_max, h = _partition_args(batch, partition, wl)
     sl = torch.tensor(slots, dtype=torch.int32, device=device)
-    blocked, starts = _host(*modbs_scan_fwd(*_class_inputs(batch, device),
-                                            sl, s_max=s_max, h=h))
-    return _modbs_result(batch, blocked, starts)
+    if failures is None:
+        blocked, starts = _host(*modbs_scan_fwd(
+            *_class_inputs(batch, device), sl, s_max=s_max, h=h))
+        return _modbs_result(batch, blocked, starts)
+    flr.require_drain(failures, "torch")
+    ms = _merged_class_inputs(batch, failures, partition, wl)
+    blocked, starts = _unmerge(ms, *_host(*modbs_fail_scan_fwd(
+        *_merged_tensors(ms, device), sl, s_max=s_max, h=h)))
+    return _with_drain_obs(_modbs_result(batch, blocked, starts), batch,
+                           failures)
 
 
 @engines.register("bs-fcfs", "torch")
-def _bs_torch(batch, *, device, partition=None, wl=None, queue_cap=None):
+def _bs_torch(batch, *, device, partition=None, wl=None, queue_cap=None,
+              failures=None):
     """BS-FCFS (Definition 1) event scan over all replications."""
     slots, s_max, h, q_cap = _bs_args(batch, partition, wl, queue_cap)
     sl = torch.tensor(slots, dtype=torch.int32, device=device)
-    tagged, rec_t, ovf = _host(*bs_scan_fwd(*_class_inputs(batch, device),
-                                            sl, s_max=s_max, h=h,
-                                            q_cap=q_cap))
-    return _bs_result(batch, tagged, rec_t, ovf, q_cap)
+    if failures is None:
+        tagged, rec_t, ovf = _host(*bs_scan_fwd(
+            *_class_inputs(batch, device), sl, s_max=s_max, h=h,
+            q_cap=q_cap))
+        return _bs_result(batch, tagged, rec_t, ovf, q_cap)
+    flr.require_drain(failures, "torch")
+    ft, ftgt, fup, length = _bs_fail_args(batch, failures, partition, wl)
+    f64 = dict(dtype=torch.float64, device=device)
+    tagged, rec_t, ovf = _host(*bs_fail_scan_fwd(
+        *_class_inputs(batch, device), torch.tensor(ft, **f64),
+        torch.tensor(ftgt, dtype=torch.int32, device=device),
+        torch.tensor(fup, **f64), sl, s_max=s_max, h=h, q_cap=q_cap,
+        length=length))
+    return _with_drain_obs(_bs_result(batch, tagged, rec_t, ovf, q_cap),
+                           batch, failures)
 
 
 def _srpt_torch(sf: bool, batch, *, device, partition=None, wl=None,

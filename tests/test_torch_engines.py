@@ -24,6 +24,7 @@ from _torch_jaxref import port_batch, ref_engines, ref_workload
 from repro.core import sim_batch as ref_sim_batch
 
 from repro_torch.core import engines, sim_batch, workload
+from repro_torch.core.failures import FailureProcess
 
 POLICIES = ("fcfs", "modbs-fcfs", "bs-fcfs")
 FIELDS = ("response", "wait", "start", "blocked", "p_helper", "p_routed")
@@ -127,11 +128,13 @@ def test_loud_errors():
         engines.simulate("fcfs", batch, engine="jax", device="cpu")
     with pytest.raises(ValueError, match="unsupported device"):
         engines.simulate("fcfs", batch, device="meta")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        engines.simulate("fcfs", batch, device="cpu", failures=object())
-    with pytest.raises(NotImplementedError, match="item 9"):
+    kill = FailureProcess(mtbf=5.0, mttr=1.0, mode="kill")
+    with pytest.raises(NotImplementedError, match="python engine"):
+        engines.simulate("fcfs", batch, device="cpu",
+                         failures=kill.sample(32, 20.0, 1))
+    with pytest.raises(NotImplementedError, match="python engine"):
         sim_batch.sweep_many_server(workload.figure1_workload, (32,),
-                                    device="cpu", failures=object())
+                                    device="cpu", failures=kill)
     with pytest.raises(NotImplementedError, match="item 10"):
         sim_batch.sweep_many_server(workload.figure1_workload, (32,),
                                     device="cpu", ckpt_dir="ckpt")
@@ -163,13 +166,18 @@ _PURITY = """
 import sys
 import numpy as np
 import repro_torch
-from repro_torch.core import engines, partition, sim_batch, sim_torch, workload
+from repro_torch.core import (engines, failures, partition, sim_batch,
+                              sim_torch, workload)
 from repro_torch.kernels.msj_scan import build, kernel, ops
 from repro_torch.bench import fig3_traces
 from repro_torch.data import swf
 res = sim_batch.sweep_many_server(workload.figure1_workload, (32,),
                                   num_jobs=50, reps=2, device="cpu")
 assert np.isfinite(res.mean_response).all()
+res = sim_batch.sweep_many_server(
+    workload.figure1_workload, (32,), num_jobs=50, reps=2, device="cpu",
+    failures=failures.FailureProcess(mtbf=20.0, mttr=2.0))
+assert np.isfinite(res.mean_response).all() and (res.availability < 1).all()
 rows = fig3_traces.run(num_jobs=60, reps=2, ks=(128,), loads=(0.7,),
                        device="cpu")
 assert len(rows) == 10 and all(np.isfinite(r["mean_response"]) for r in rows)

@@ -150,7 +150,8 @@ def test_wrappers_check_inputs_and_count_only_kernel_launches():
     msj_scan.bs_scan_fwd(a, c, n, v, sl, s_max=s_max, h=h, q_cap=q_cap)
     assert K.launches() == {"fcfs_scan_fwd": 0, "modbs_scan_fwd": 0,
                             "bs_scan_fwd": 0, "srpt_scan_fwd": 0,
-                            "stable_sort_fwd": 0}
+                            "stable_sort_fwd": 0, "fcfs_fail_scan_fwd": 0,
+                            "modbs_fail_scan_fwd": 0, "bs_fail_scan_fwd": 0}
     with pytest.raises(TypeError, match="need must be torch.int32"):
         msj_scan.fcfs_scan_fwd(a, n.long(), v, k=32)
     with pytest.raises(TypeError, match="arrival must be torch.float64"):
