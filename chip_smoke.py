@@ -64,6 +64,30 @@ The drain-mode failure slice adds:
 4. each fail kernel timed at k = 2048, R = 16, J = 100 000 (BS-π with
    q_cap = J).
 
+The LLM serving slice adds (``serving_path``):
+
+1. the attention library (``flash_attention/csrc/flash_attention.cu`` and
+   ``decode_attention/csrc/decode_attention.cu``), built in the same
+   parallel step as msj_scan's, with ptxas' report;
+2. ``flash_attention`` at B = 1, S = 2048, causal, at yi-9b's heads
+   (H 32, Kh 4, D 128) and stablelm-3b's (H 32, Kh 32, D 80) in bfloat16
+   and at yi-9b's in float32, and ``decode_attention`` at B in {1, 4},
+   Sk = 8192, random pos, at both head shapes in bfloat16 and at yi-9b's
+   (B = 4) in float32, each within tests/test_kernels.py's tolerance
+   (bfloat16 2e-2, float32 2e-5) of its plain version on the card;
+3. a ``ServingEngine`` on the card with test_substrate's request classes
+   at full width (stablelm-3b on 2 chips, yi-9b on 8, fleet 64, bucket
+   8192): 20 arrivals, then one admitted request of each class at each
+   prompt length (512, 2048) runs end to end (32 tokens), with the launch
+   counts set to 0 just before and read just after: flash_attention must
+   launch L times per prefill and decode_attention L times per token
+   after the first; tokens lie in the vocabulary, logits are finite,
+   prefill(511) + decode equals prefill(512) within 0.25 at full width,
+   and a reduced float32 engine with the same weights gives the same
+   tokens on the card as on the CPU;
+4. each attention kernel's time beside its plain version's, the
+   ``scaled_dot_product_attention`` yardstick's and its bound.
+
 Then it prints the card's name and power limit, one ``{"kernels": [...]}``
 line and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the repository around it, it exits non-zero and prints no
@@ -200,6 +224,347 @@ def sort_bound(R: int, W: int, num_keys: int) -> tuple[float, str]:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+ATTN = {  # name -> (CUDA source, TPU kernel it replaces)
+    "flash_attention": (
+        "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/kernel.py:74"),
+    "decode_attention": (
+        "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
+        "src/repro/kernels/decode_attention/kernel.py:69"),
+}
+# H100 SXM peaks (NVIDIA data sheet): dense bf16 on the tensor cores, and
+# float32 outside them (the float32 kernels are held to float32 precision)
+OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+# Kernel against plain version: |out - ref| <= atol + rtol |ref| for every
+# element.  Both round one float32 result to the dtype, so in bfloat16 they
+# differ by at most one unit in the last place (2^-7 |ref|); the limit
+# allows two, plus the float32 sums' own difference (atol), far below what
+# reading one position past pos or dropping one split moves.  float32 keeps
+# tests/test_kernels.py's 2e-5
+ATTN_TOLS = {"bfloat16": (1e-5, 2.0 ** -6), "float32": (2e-5, 2e-5)}
+HEADS = {"yi_9b": (32, 4, 128), "stablelm_3b": (32, 32, 80)}  # H, Kh, D
+FLASH_S, DECODE_SK, DECODE_BS = 2048, 8192, (1, 4)
+# tests/test_substrate.py's request classes: (name, arch, bucket, chips,
+# mean service s, arrival mix), served at full width on the one card
+SERVE_CLASSES = (("small", "stablelm_3b", 8192, 2, 1.0, 0.8),
+                 ("big", "yi_9b", 8192, 8, 4.0, 0.2))
+SERVE_PROMPTS, SERVE_NEW, SERVE_ARRIVALS = (512, 2048), 32, 20
+
+
+def _roofline(nbytes: float, ops: float, dtype: str) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / OPS_PER_S[dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def flash_bound(B, Sq, Sk, H, Kh, D, Dv, causal, dtype):
+    """Least time for one flash_attention call: q, k, v read once and o
+    written once; 2 (D + Dv) flops for each (query, key) pair the mask
+    keeps (causal: key <= query), at the dtype's peak."""
+    item = 2 if dtype == "bfloat16" else 4
+    nbytes = item * (B * Sq * H * (D + Dv) + B * Sk * Kh * (D + Dv))
+    if not causal:
+        kept = Sq * Sk
+    elif Sq <= Sk:
+        kept = Sq * (Sq + 1) // 2
+    else:
+        kept = Sk * (Sk + 1) // 2 + (Sq - Sk) * Sk
+    return _roofline(nbytes, 2 * B * H * kept * (D + Dv), dtype)
+
+
+def decode_bound(H, Kh, D, Dv, Sk, pos, dtype):
+    """Least time for one decode_attention call: q read and o written
+    once, and each cache row this run's ``pos`` keeps (positions <= pos)
+    read once; 2 (D + Dv) flops per kept row and query head."""
+    item = 2 if dtype == "bfloat16" else 4
+    B = len(pos)
+    rows = sum(Sk if p < 0 else min(p + 1, Sk) for p in pos)
+    nbytes = item * (B * H * (D + Dv) + rows * Kh * (D + Dv)) + 4 * B
+    return _roofline(nbytes, 2 * H * (D + Dv) * rows, dtype)
+
+
+def serving_path(dev) -> dict:
+    """The LLM serving path: the two attention kernels against their plain
+    versions at the served models' shapes, ``ServingEngine`` at the full
+    width of stablelm-3b and yi-9b with the launch counts set to 0 just
+    before and read just after, card == CPU on a reduced float32 engine,
+    and the kernels' times.  Returns the two kernels' report entries."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import (decode_attention_fwd,
+                                                      decode_attention_ref)
+    from repro_torch.kernels.flash_attention import (flash_attention_fwd,
+                                                     flash_attention_ref)
+    from repro_torch.models.layers import tree_map
+    from repro_torch.models.model import init_cache
+    from repro_torch.serve import engine as E
+
+    # float32 matmuls in full float32 (PyTorch's default, set explicitly)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def randn(*shape, dtype):
+        return torch.randn(*shape, generator=gen, device=dev).to(
+            getattr(torch, dtype))
+
+    def check(name, out, ref, dtype, what):
+        atol, rtol = ATTN_TOLS[dtype]
+        ref = ref.float()
+        d = (out.float() - ref).abs()
+        err = d.max().item()
+        worst = (d / (atol + rtol * ref.abs())).max().item()
+        print(f"[kernel] {name} {what}: max abs err {err:.3g}; limit "
+              f"{atol:g} + {rtol:g} |ref| per element, largest err/limit "
+              f"{worst:.3g}; mean |ref| {ref.abs().mean().item():.3g}")
+        if not worst <= 1.0:
+            fail(f"{name} {what} differs from its plain version: max abs "
+                 f"err {err}, largest err/limit {worst}")
+        return err
+
+    # -- [kernel] flash_attention: B = 1, S = 2048, causal ------------------
+    flash_cases = []
+    for arch, dtype in (("yi_9b", "bfloat16"), ("stablelm_3b", "bfloat16"),
+                        ("yi_9b", "float32"), ("stablelm_3b", "float32")):
+        H, Kh, D = HEADS[arch]
+        q = randn(1, FLASH_S, H, D, dtype=dtype)
+        k = randn(1, FLASH_S, Kh, D, dtype=dtype)
+        v = randn(1, FLASH_S, Kh, D, dtype=dtype)
+        what = f"{arch} B=1 S={FLASH_S} H={H} Kh={Kh} D={D} {dtype} causal"
+        out = flash_attention_fwd(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        err = check("flash_attention", out, flash_attention_ref(
+            q, k, v, causal=True), dtype, what)
+        flash_cases.append(dict(arch=arch, dtype=dtype, what=what, err=err,
+                                args=(q, k, v), shape=(1, FLASH_S, FLASH_S,
+                                                       H, Kh, D, D)))
+
+    # -- [kernel] decode_attention: B in {1, 4}, Sk = 8192, random pos ------
+    decode_cases = []
+    for arch, B, dtype in ([(a, b, "bfloat16") for a in HEADS
+                            for b in DECODE_BS]
+                           + [(a, 4, "float32") for a in HEADS]):
+        H, Kh, D = HEADS[arch]
+        q = randn(B, H, D, dtype=dtype)
+        k = randn(B, DECODE_SK, Kh, D, dtype=dtype)
+        v = randn(B, DECODE_SK, Kh, D, dtype=dtype)
+        pos = torch.randint(0, DECODE_SK, (B,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        what = (f"{arch} B={B} Sk={DECODE_SK} H={H} Kh={Kh} D={D} {dtype} "
+                f"pos={pos.tolist()}")
+        out = decode_attention_fwd(q, k, v, pos)
+        torch.cuda.synchronize()
+        err = check("decode_attention", out,
+                    decode_attention_ref(q, k, v, pos), dtype, what)
+        decode_cases.append(dict(arch=arch, dtype=dtype, what=what, err=err,
+                                 args=(q, k, v, pos)))
+
+    # -- [serve] ServingEngine at full width ---------------------------------
+    classes = [E.RequestClass(n, get_config(a), b, c, s, al)
+               for n, a, b, c, s, al in SERVE_CLASSES]
+    eng = E.ServingEngine(classes, fleet_chips=64, seed=0, device=dev)
+    eng.partition.validate()
+    rng = np.random.default_rng(5)
+    for i in range(SERVE_ARRIVALS):
+        name = "small" if i % 5 else "big"
+        S = SERVE_PROMPTS[i % 2]
+        eng.submit(E.Request(rid=i, cls_name=name, prompt=rng.integers(
+            1, eng._model(name).cfg.vocab_size, S),
+            max_new_tokens=SERVE_NEW), now=float(i) * 0.01)
+    print(f"[serve] {eng.partition.summary()}".replace("\n", "\n[serve] "))
+    print(f"[serve] after {SERVE_ARRIVALS} arrivals: metrics {eng.metrics}, "
+          f"p_helper {eng.p_helper:.6f}, running {len(eng.sched.running)}, "
+          f"waiting on the helper {len(eng.sched.helper_wait)}")
+    runs = {}
+    for jid in sorted(eng.sched.running):
+        req = eng._jobs[jid]
+        runs.setdefault((req.cls_name, len(req.prompt)), jid)
+    if len(runs) != 4:
+        fail(f"admitted requests do not cover both classes at prompts "
+             f"{SERVE_PROMPTS}: {sorted(runs)}")
+    t0 = time.time()
+    for name, *_ in SERVE_CLASSES[::-1]:
+        eng._get_params(name)             # weights on the card: set-up
+    torch.cuda.synchronize()
+    gb = torch.cuda.memory_allocated() / 1e9
+    print(f"[serve] weights made on the card in bfloat16 in "
+          f"{time.time() - t0:.1f} s; {gb:.2f} GB allocated")
+    flash_attention_fwd.launches = decode_attention_fwd.launches = 0
+    t0 = time.time()
+    walls = {}
+    for key, jid in sorted(runs.items()):
+        t1 = time.time()
+        req = eng.run_request(jid)
+        torch.cuda.synchronize()
+        walls[key] = time.time() - t1
+        vocab = eng._model(req.cls_name).cfg.vocab_size
+        if len(req.output) != SERVE_NEW or not all(
+                0 <= t < vocab for t in req.output):
+            fail(f"request {req.rid} ({key}) gave tokens {req.output}")
+        print(f"[serve] request {req.rid} class {key[0]} prompt {key[1]}: "
+              f"{SERVE_NEW} tokens in {walls[key]:.3f} s, first "
+              f"{req.output[:8]}")
+    counts = {"flash_attention": flash_attention_fwd.launches,
+              "decode_attention": decode_attention_fwd.launches}
+    layers = {n: eng._model(n).cfg.num_layers for n, *_ in SERVE_CLASSES}
+    want = {"flash_attention": sum(layers[n] for n, _ in runs),
+            "decode_attention": sum(layers[n] * (SERVE_NEW - 1)
+                                    for n, _ in runs)}
+    print(f"[serve] {len(runs)} requests end to end in "
+          f"{time.time() - t0:.1f} s; launches {counts} (expected {want}: "
+          f"L per prefill, L per generated token after the first)")
+    if counts != want or min(counts.values()) < 1:
+        fail(f"launch counts {counts} differ from {want}")
+    for key, jid in sorted(runs.items()):
+        eng.complete(jid, 1.0)
+    print(f"[serve] after completing them: metrics {eng.metrics}, p_helper "
+          f"{eng.p_helper:.6f}, mean wait {eng.mean_wait():.6f}")
+
+    # per-request prefill and per-token decode wall time (host clock around
+    # work that ends in a synchronise), and decode-vs-forward at full width
+    for name, arch, *_ in SERVE_CLASSES:
+        model, params = eng._model(name), eng._params[name]
+        cfg = model.cfg
+        toks = torch.tensor(rng.integers(1, cfg.vocab_size,
+                                         max(SERVE_PROMPTS)), device=dev)
+        for S in SERVE_PROMPTS:
+            torch.cuda.synchronize()
+            t1 = time.time()
+            logits, pre = model.prefill(params, {"tokens": toks[None, :S]})
+            torch.cuda.synchronize()
+            t_pre = time.time() - t1
+            caches = E._seed_caches(init_cache(cfg, 1, S + SERVE_NEW,
+                                               device=dev), pre, S)
+            tok = logits.argmax(-1)[:, None]
+            t1 = time.time()
+            for t in range(S, S + SERVE_NEW - 1):
+                logits, caches = model.decode_step(params, caches, tok, t)
+                tok = logits.argmax(-1)[:, None]
+            torch.cuda.synchronize()
+            t_dec = (time.time() - t1) / (SERVE_NEW - 1)
+            if not torch.isfinite(logits).all():
+                fail(f"{arch} non-finite logits")
+            print(f"[serve] {arch} ({cfg.num_layers} layers, d={cfg.d_model}"
+                  f"): prefill of {S} tokens {t_pre * 1e3:.1f} ms, decode "
+                  f"{t_dec * 1e3:.2f} ms per token")
+        S = SERVE_PROMPTS[0] - 1
+        full, _ = model.prefill(params, {"tokens": toks[None, :S + 1]})
+        _, pre = model.prefill(params, {"tokens": toks[None, :S]})
+        caches = E._seed_caches(init_cache(cfg, 1, S + 8, device=dev), pre, S)
+        step, _ = model.decode_step(params, caches, toks[None, S:S + 1], S)
+        diff = (full.float() - step.float()).abs().max().item()
+        if not (torch.isfinite(full).all() and torch.isfinite(step).all()):
+            fail(f"{arch}: non-finite logits")
+        print(f"[serve] {arch} decode-vs-forward: prefill({S}) + decode vs "
+              f"prefill({S + 1}) last logits max abs diff {diff:.4f} "
+              f"(bound 0.25, tests/test_models.py's); largest logit "
+              f"{full.float().abs().max().item():.3f}")
+        if not diff < 0.25:
+            fail(f"{arch} decode-vs-forward diff {diff} >= 0.25")
+
+    # card == CPU: a reduced float32 engine with the same weights
+    small = [E.RequestClass(n, dataclasses.replace(
+        get_config(a), compute_dtype="float32").reduced(), b, c, s, al)
+        for n, a, b, c, s, al in SERVE_CLASSES]
+    on_cpu = E.ServingEngine(small, fleet_chips=64, seed=0, device="cpu")
+    on_card = E.ServingEngine(small, fleet_chips=64, seed=0, device=dev)
+    for name, *_ in SERVE_CLASSES:
+        on_card._params[name] = tree_map(lambda t: t.to(dev),
+                                         on_cpu._get_params(name))
+    rng_small = np.random.default_rng(6)
+    for i in range(SERVE_ARRIVALS):
+        name = "small" if i % 5 else "big"
+        prompt = rng_small.integers(1, 512, (64, 128)[i % 2])
+        for e in (on_cpu, on_card):
+            e.submit(E.Request(rid=i, cls_name=name, prompt=prompt,
+                               max_new_tokens=8), now=float(i) * 0.01)
+    n_cmp = 0
+    for jid in sorted(on_cpu.sched.running):
+        a = on_cpu.run_request(jid).output
+        b = on_card.run_request(jid).output
+        if a != b:
+            fail(f"reduced float32 engine: request {jid} gives {b} on the "
+                 f"card and {a} on the CPU")
+        n_cmp += 1
+    print(f"[serve] reduced float32 engines (stablelm/yi smoke configs, "
+          f"prompts 64/128, 8 tokens): card == CPU token for token on all "
+          f"{n_cmp} admitted requests; metrics equal: "
+          f"{on_card.metrics == on_cpu.metrics}")
+    if on_card.metrics != on_cpu.metrics:
+        fail("reduced engines: admission metrics differ")
+
+    # -- [time] each kernel at the [kernel] shapes ---------------------------
+    report = {}
+    for c in flash_cases:
+        q, k, v = c["args"]
+        ms = cuda_ms(lambda: flash_attention_fwd(q, k, v, causal=True), 5)
+        plain_ms = cuda_ms(lambda: flash_attention_ref(q, k, v, causal=True),
+                           3)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), 5)
+        b_ms, b_by = flash_bound(*c["shape"], True, c["dtype"])
+        c.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                 bound_by=b_by)
+        print(f"[time] flash_attention {c['what']}: {ms:.4f} ms per launch, "
+              f"plain version {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound "
+              f"{b_ms:.5f} ms ({b_by})")
+    for c in decode_cases:
+        q, k, v, pos = c["args"]
+        B, H, D = q.shape
+        Kh = k.shape[2]
+        ms = cuda_ms(lambda: decode_attention_fwd(q, k, v, pos), 20)
+        plain_ms = cuda_ms(lambda: decode_attention_ref(q, k, v, pos), 5)
+        mask = (torch.arange(DECODE_SK, device=dev)[None, :]
+                <= pos[:, None])[:, None, None, :]
+        qs = q[:, :, None, :]
+        ks, vs = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask, enable_gqa=True), 20)
+        b_ms, b_by = decode_bound(H, Kh, D, D, DECODE_SK, pos.tolist(),
+                                  c["dtype"])
+        c.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                 bound_by=b_by)
+        print(f"[time] decode_attention {c['what']}: {ms:.4f} ms per launch "
+              f"(split + combine), plain version {plain_ms:.4f} ms, SDPA "
+              f"{lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+    for name, cases in (("flash_attention", flash_cases),
+                        ("decode_attention", decode_cases)):
+        top = cases[0]                  # yi-9b, bfloat16 (B = 1 for decode)
+        report[name] = dict(
+            name=name, route="cuda", source=ATTN[name][0],
+            replaces=ATTN[name][1], launches=counts[name],
+            max_abs_err=max(c["err"] for c in cases), ms=top["ms"],
+            plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
+            bound_by=top["bound_by"], library_ms=top["library_ms"],
+            shape=top["what"],
+            configs=[{k: v for k, v in c.items() if k != "args"}
+                     for c in cases])
+    report["flash_attention"]["serve_walls_s"] = {
+        f"{n} {S}": w for (n, S), w in sorted(walls.items())}
+    return report
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean CUDA-event time of ``fn`` over ``reps`` calls, after one
+    warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script; "
@@ -233,14 +598,22 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
 
-    # -- 1. build ---------------------------------------------------------
+    # -- 1. build: both libraries at once, each source in its own nvcc ----
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.kernels import attention_build
+
     t0 = time.time()
-    lib_path = build.build_library()
-    build.load_library()
-    print(f"[build] {lib_path.relative_to(ROOT)} in {time.time() - t0:.1f} s")
-    for line in (lib_path.parent / "build.log").read_text().splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            print(f"[build] {line.strip()}")
+    libs = (build.LIBRARY, attention_build.LIBRARY)
+    with ThreadPoolExecutor(len(libs)) as pool:
+        paths = list(pool.map(lambda lib: lib.build(), libs))
+    for lib, lib_path in zip(libs, paths):
+        lib.load()
+        print(f"[build] {lib_path.relative_to(ROOT)} (built with the other "
+              f"library; both in {time.time() - t0:.1f} s)")
+        for line in (lib_path.parent / "build.log").read_text().splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                print(f"[build] {line.strip()}")
 
     def inputs(k: int, J: int, seed: int):
         wl = figure1_workload(k)
@@ -282,18 +655,6 @@ def main() -> int:
             d = torch.where(o == r, 0.0, (o - r).abs())
             err = max(err, d.max().item())
         return err
-
-    def cuda_ms(fn, reps: int) -> float:
-        fn()
-        torch.cuda.synchronize()
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        for _ in range(reps):
-            fn()
-        e1.record()
-        torch.cuda.synchronize()
-        return e0.elapsed_time(e1) / reps
 
     # -- 2. kernels against their plain versions --------------------------
     report = {}
@@ -767,6 +1128,8 @@ def main() -> int:
         max_abs_err=max(sort_errs), ms=ms, plain_ms=plain_ms,
         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
         shape=f"R={SORT_R} W={SORT_WS[0]} keys=2")
+
+    report.update(serving_path(dev))
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

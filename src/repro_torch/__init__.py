@@ -15,4 +15,10 @@ Entry points run on the card unless the caller asks for the CPU::
 
 ``device="cpu"`` runs the plain PyTorch versions of the kernels instead.
 The Fig. 3 entry point is ``python -m repro_torch.bench.fig3_traces``.
+
+It also serves LLM requests with BS-π admission (``serve.engine.
+ServingEngine``) on the dense decoder of ``models/`` (``chip_smoke.py``
+runs stablelm-3b and yi-9b at full width on the card), whose prefill and
+decode attention are the hand-written ``flash_attention`` and
+``decode_attention`` kernels.
 """

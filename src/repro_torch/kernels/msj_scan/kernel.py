@@ -149,13 +149,6 @@ def _stream(dev: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
 
-def _raise_on(lib, rc: int, kernel: str, shape: str) -> None:
-    if rc != 0:
-        msg = lib.msj_error_string(rc).decode()
-        raise RuntimeError(f"{kernel} launch failed at {shape}: "
-                           f"cudaError {rc} ({msg})")
-
-
 # -- wrappers ----------------------------------------------------------------
 
 
@@ -175,11 +168,11 @@ def fcfs_scan_fwd(arrival, need, service, *, k: int):
     starts = torch.empty_like(arrival)
     if R == 0 or J == 0:
         return starts
-    lib = build.load_library()
+    lib = build.LIBRARY.load()
     with torch.cuda.device(dev):
         rc = lib.msj_fcfs_scan(_ptr(arrival), _ptr(need), _ptr(service),
                                _ptr(starts), R, J, k, _stream(dev))
-    _raise_on(lib, rc, "fcfs_scan", f"R={R} J={J} k={k}")
+    build.LIBRARY.raise_on(rc, "fcfs_scan", f"R={R} J={J} k={k}")
     fcfs_scan_fwd.launches += 1
     return starts
 
@@ -206,13 +199,14 @@ def modbs_scan_fwd(arrival, cls, need, service, slots, *, s_max: int,
     if R == 0 or J == 0:
         return blocked, starts
     C = slots.shape[0]
-    lib = build.load_library()
+    lib = build.LIBRARY.load()
     with torch.cuda.device(dev):
         rc = lib.msj_modbs_scan(_ptr(arrival), _ptr(cls), _ptr(need),
                                 _ptr(service), _ptr(slots), _ptr(blocked),
                                 _ptr(starts), R, J, C, s_max, h,
                                 _stream(dev))
-    _raise_on(lib, rc, "modbs_scan", f"R={R} J={J} C={C} s_max={s_max} h={h}")
+    build.LIBRARY.raise_on(rc, "modbs_scan",
+                           f"R={R} J={J} C={C} s_max={s_max} h={h}")
     modbs_scan_fwd.launches += 1
     return blocked, starts
 
@@ -244,14 +238,14 @@ def bs_scan_fwd(arrival, cls, need, service, slots, *, s_max: int, h: int,
     if R == 0 or J == 0:
         return tagged, rec_t, ovf
     ring = torch.zeros(R, C * q_cap, dtype=_I32, device=dev)
-    lib = build.load_library()
+    lib = build.LIBRARY.load()
     with torch.cuda.device(dev):
         rc = lib.msj_bs_scan(_ptr(arrival), _ptr(cls), _ptr(need),
                              _ptr(service), _ptr(slots), _ptr(tagged),
                              _ptr(rec_t), _ptr(ovf), _ptr(ring), R, J, C,
                              s_max, h, q_cap, _stream(dev))
-    _raise_on(lib, rc, "bs_scan",
-              f"R={R} J={J} C={C} s_max={s_max} h={h} q_cap={q_cap}")
+    build.LIBRARY.raise_on(rc, "bs_scan", f"R={R} J={J} C={C} s_max={s_max} "
+                           f"h={h} q_cap={q_cap}")
     bs_scan_fwd.launches += 1
     return tagged, rec_t, ovf
 
@@ -298,14 +292,14 @@ def srpt_scan_fwd(arrival, need, service, kk, *, Q: int, NU: tuple,
     if not bool(torch.isin(need, nu.to(_F64)).all()):
         raise ValueError(f"every need must be one of NU={NU}")
     fstart = torch.zeros(R, Q, dtype=_F64, device=dev)
-    lib = build.load_library()
+    lib = build.LIBRARY.load()
     with torch.cuda.device(dev):
         rc = lib.msj_srpt_scan(_ptr(arrival), _ptr(need), _ptr(service),
                                _ptr(kk), _ptr(nu), len(NU), _ptr(job_ev),
                                _ptr(t_ev), _ptr(fs_ev), _ptr(ovf),
                                _ptr(npre), _ptr(ne), _ptr(peak),
                                _ptr(fstart), R, J, Q, int(sf), _stream(dev))
-    _raise_on(lib, rc, "srpt_scan", f"R={R} J={J} Q={Q} sf={sf}")
+    build.LIBRARY.raise_on(rc, "srpt_scan", f"R={R} J={J} Q={Q} sf={sf}")
     srpt_scan_fwd.launches += 1
     return job_ev, t_ev, fs_ev, ovf, npre, ne, peak
 
@@ -347,14 +341,15 @@ def stable_sort_fwd(*operands, num_keys: int):
         return outs
     k2, k2_out = ((operands[1], outs[1]) if num_keys == 2
                   else (None, None))
-    lib = build.load_library()
+    lib = build.LIBRARY.load()
     with torch.cuda.device(dev):
         rc = lib.msj_stable_sort(
             _ptr(operands[0]), None if k2 is None else _ptr(k2),
             _ptr(operands[-1]), _ptr(outs[0]),
             None if k2_out is None else _ptr(k2_out), _ptr(outs[-1]), R, W,
             _stream(dev))
-    _raise_on(lib, rc, "stable_sort", f"R={R} W={W} num_keys={num_keys}")
+    build.LIBRARY.raise_on(rc, "stable_sort",
+                           f"R={R} W={W} num_keys={num_keys}")
     stable_sort_fwd.launches += 1
     return outs
 
@@ -377,12 +372,12 @@ def fcfs_fail_scan_fwd(t, need, svc, t_up, is_fail, *, k: int):
     starts = torch.empty_like(t)
     if R == 0 or L == 0:
         return starts
-    lib = build.load_library()
+    lib = build.LIBRARY.load()
     with torch.cuda.device(dev):
         rc = lib.msj_fcfs_fail_scan(_ptr(t), _ptr(need), _ptr(svc),
                                     _ptr(t_up), _ptr(is_fail), _ptr(starts),
                                     R, L, k, _stream(dev))
-    _raise_on(lib, rc, "fcfs_fail_scan", f"R={R} L={L} k={k}")
+    build.LIBRARY.raise_on(rc, "fcfs_fail_scan", f"R={R} L={L} k={k}")
     fcfs_fail_scan_fwd.launches += 1
     return starts
 
@@ -409,15 +404,15 @@ def modbs_fail_scan_fwd(t, cls, need, svc, t_up, is_fail, slots, *,
     if R == 0 or L == 0:
         return blocked, starts
     C = slots.shape[0]
-    lib = build.load_library()
+    lib = build.LIBRARY.load()
     with torch.cuda.device(dev):
         rc = lib.msj_modbs_fail_scan(_ptr(t), _ptr(cls), _ptr(need),
                                      _ptr(svc), _ptr(t_up), _ptr(is_fail),
                                      _ptr(slots), _ptr(blocked),
                                      _ptr(starts), R, L, C, s_max, h,
                                      _stream(dev))
-    _raise_on(lib, rc, "modbs_fail_scan",
-              f"R={R} L={L} C={C} s_max={s_max} h={h}")
+    build.LIBRARY.raise_on(rc, "modbs_fail_scan",
+                           f"R={R} L={L} C={C} s_max={s_max} h={h}")
     modbs_fail_scan_fwd.launches += 1
     return blocked, starts
 
@@ -462,7 +457,7 @@ def bs_fail_scan_fwd(arrival, cls, need, service, ft, ftgt, fup, slots, *,
     if R == 0 or J == 0 or length == 0:
         return tagged, rec_t, ovf
     ring = torch.zeros(R, C * q_cap, dtype=_I32, device=dev)
-    lib = build.load_library()
+    lib = build.LIBRARY.load()
     with torch.cuda.device(dev):
         rc = lib.msj_bs_fail_scan(_ptr(arrival), _ptr(cls), _ptr(need),
                                   _ptr(service), _ptr(ft), _ptr(ftgt),
@@ -470,9 +465,9 @@ def bs_fail_scan_fwd(arrival, cls, need, service, ft, ftgt, fup, slots, *,
                                   _ptr(rec_t), _ptr(ovf), _ptr(ring), R, J,
                                   F, C, s_max, h, q_cap, length,
                                   _stream(dev))
-    _raise_on(lib, rc, "bs_fail_scan",
-              f"R={R} J={J} F={F} C={C} s_max={s_max} h={h} q_cap={q_cap} "
-              f"length={length}")
+    build.LIBRARY.raise_on(rc, "bs_fail_scan",
+                           f"R={R} J={J} F={F} C={C} s_max={s_max} h={h} "
+                           f"q_cap={q_cap} length={length}")
     bs_fail_scan_fwd.launches += 1
     return tagged, rec_t, ovf
 

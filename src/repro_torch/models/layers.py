@@ -1,0 +1,213 @@
+"""Shared building blocks: parameter defs, norms, RoPE, attention.
+
+The port's counterpart of ``repro/models/layers.py``, for the dense
+decoder.  Parameters are declared as :class:`PDef` (shape + logical axes
++ initializer) in a nested tree of dicts and tuples; :func:`init_params`
+materializes one from a ``torch.Generator``.
+
+The cast points follow the reference line for line: ``rms_norm`` and
+``apply_rope`` work in float32 and cast back to the input's dtype, the
+matmuls run in the activations' dtype (weights cast to it at use), and
+attention scores, softmax and P.V run in float32 with one cast of the
+output.  The two attention functions dispatch to the port's hand-written
+kernels: :func:`flash_attention` (prefill) to
+``kernels/flash_attention`` and :func:`attention_decode` (decode) to
+``kernels/decode_attention``; on CPU tensors those wrappers run their
+plain PyTorch versions.  The reference's ``_act`` sharding constraint is
+a no-op on one device and is left out.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.decode_attention import decode_attention_fwd
+from ..kernels.flash_attention import flash_attention_fwd
+
+NEG_INF = -1e30
+
+
+# --------------------------------------------------------------------------
+# Parameter definition trees
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class PDef:
+    shape: tuple[int, ...]
+    axes: tuple[str | None, ...]
+    init: str = "normal"           # normal | zeros | ones | scaled
+    dtype: str = "float32"
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} vs axes {self.axes}")
+
+
+def tree_map(fn, tree):
+    """Apply ``fn`` to every leaf of a tree of dicts, tuples and lists."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a tree, in :func:`tree_map`'s order (dict insertion
+    order)."""
+    out: list = []
+    tree_map(out.append, tree)
+    return out
+
+
+def stack_defs(defs, num: int):
+    """Prepend a ('layers') dimension to every PDef in a tree."""
+    return tree_map(
+        lambda d: PDef((num,) + d.shape, ("layers",) + d.axes, d.init,
+                       d.dtype), defs)
+
+
+def dtype_of(name: str) -> torch.dtype:
+    """The torch dtype of a config's dtype string ("float32", ...)."""
+    return getattr(torch, name)
+
+
+def _init_one(d: PDef, generator: torch.Generator, dtype):
+    dev = generator.device
+    dt = dtype or dtype_of(d.dtype)
+    fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
+    if d.init == "zeros":
+        return torch.zeros(d.shape, dtype=dt, device=dev)
+    if d.init == "ones":
+        return torch.ones(d.shape, dtype=dt, device=dev)
+    if d.init in ("normal", "scaled"):
+        # stacked [layers, ...] leaves are drawn one layer at a time: a
+        # float32 draw of a whole stack can pass 2^31 elements (yi-9b's
+        # w_gate) and would double the peak memory of the cast
+        out = torch.empty(d.shape, dtype=dt, device=dev)
+        for part in (out if len(d.shape) >= 3 else [out]):
+            x = torch.randn(part.shape, generator=generator,
+                            dtype=torch.float32, device=dev)
+            part.copy_(x * 0.02 if d.init == "normal"
+                       else x / math.sqrt(fan_in))
+        return out
+    raise NotImplementedError(f"init {d.init!r} belongs to a model family "
+                              f"the port does not run yet")
+
+
+def init_params(defs, generator: torch.Generator, *, dtype=None):
+    """Materialize a PDef tree on the generator's device, leaf by leaf in
+    tree order; ``dtype`` overrides each PDef's dtype (the cast happens
+    per leaf, so a float32 copy of the whole tree never exists).  The
+    numbers differ from the reference's ``jax.random`` ones for the same
+    seed: tests carry weights across with ``convert.params_from_jax``."""
+    return tree_map(lambda d: _init_one(d, generator, dtype), defs)
+
+
+# --------------------------------------------------------------------------
+# Basic ops
+# --------------------------------------------------------------------------
+
+
+def rms_norm(x, gamma, eps: float):
+    dt = x.dtype
+    xf = x.float()
+    y = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    return (y * gamma.float()).to(dt)
+
+
+def swiglu(x, w_gate, w_up, w_down):
+    """SwiGLU MLP: down( silu(x @ gate) * (x @ up) ).  x: [B, S, D]."""
+    g = x @ w_gate.to(x.dtype)
+    u = x @ w_up.to(x.dtype)
+    return (F.silu(g) * u) @ w_down.to(x.dtype)
+
+
+def rope_angles(positions, dim: int, theta: float):
+    """positions [..., S] -> (sin, cos) of shape [..., S, dim/2]."""
+    ar = torch.arange(0, dim, 2, dtype=torch.float32,
+                      device=positions.device)
+    freqs = 1.0 / (theta ** (ar / dim))
+    ang = positions[..., None].float() * freqs
+    return torch.sin(ang), torch.cos(ang)
+
+
+def apply_rope(x, sin, cos):
+    """x [..., S, H, D]; sin/cos [..., S, D/2] broadcast over heads."""
+    x1, x2 = x.float().chunk(2, dim=-1)
+    s, c = sin[..., None, :], cos[..., None, :]
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# Attention
+# --------------------------------------------------------------------------
+
+
+def flash_attention(q, k, v, *, causal: bool, chunk_q: int, chunk_k: int):
+    """Softmax attention with an online (max, sum) softmax: the
+    hand-written flash-attention kernel on the card, its plain version on
+    the CPU.
+
+    q: [B, Sq, H, D];  k: [B, Sk, Kh, D];  v: [B, Sk, Kh, Dv]; H % Kh == 0.
+    Returns [B, Sq, H, Dv].  The kernel picks its own tiles; the chunk
+    lengths keep the reference's contract that they divide the sequence
+    lengths (``ValueError`` otherwise).
+    """
+    Sq, Sk = q.shape[1], v.shape[1]
+    chunk_q = min(chunk_q, Sq)
+    chunk_k = min(chunk_k, Sk)
+    if Sq % chunk_q or Sk % chunk_k:
+        raise ValueError(f"seq lengths ({Sq},{Sk}) not divisible by chunks "
+                         f"({chunk_q},{chunk_k})")
+    return flash_attention_fwd(q.contiguous(), k.contiguous(),
+                               v.contiguous(), causal=causal)
+
+
+def attention_ref(q, k, v, *, causal: bool, q_offset: int = 0):
+    """Naive O(S²)-memory attention in float32 — tests only."""
+    B, Sq, H, D = q.shape
+    _, Sk, Kh, Dv = v.shape
+    G = H // Kh
+    qr = q.reshape(B, Sq, Kh, G, D).float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qr, k.float()) / math.sqrt(D)
+    if causal:
+        qp = q_offset + torch.arange(Sq, device=q.device)
+        mask = qp[:, None] >= torch.arange(Sk, device=q.device)[None, :]
+        s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bkhv->bhgqv", p, v.float())
+    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, Dv).to(q.dtype)
+
+
+def attention_decode(q, k_cache, v_cache, pos):
+    """Single-token attention against a KV cache: the hand-written
+    flash-decoding kernel on the card, its plain version on the CPU.
+
+    q: [B, 1, H, Dq];  k_cache: [B, S, Kh, Dq];  v_cache: [B, S, Kh, Dv];
+    pos: an int or a [B] int32 tensor — positions > pos are masked out.
+    """
+    B, _, H, Dq = q.shape
+    Dv = v_cache.shape[-1]
+    if not torch.is_tensor(pos):
+        pos = torch.full((B,), pos, dtype=torch.int32, device=q.device)
+    o = decode_attention_fwd(q.reshape(B, H, Dq).contiguous(), k_cache,
+                             v_cache, pos)
+    return o.reshape(B, 1, H, Dv)
+
+
+def cache_update(cache_kv, new, pos: int):
+    """Write ``new`` [B, S_new, ...] into ``cache_kv`` [B, S_max, ...] at
+    ``pos``, in place, and return the cache.  The start is placed as
+    ``lax.dynamic_update_slice`` places it: a negative ``pos`` counts from
+    the end, then the start is clamped to [0, S_max - S_new]."""
+    n, s_max = new.shape[1], cache_kv.shape[1]
+    pos = int(pos)
+    start = min(max(pos + s_max if pos < 0 else pos, 0), s_max - n)
+    cache_kv[:, start:start + n] = new.to(cache_kv.dtype)
+    return cache_kv

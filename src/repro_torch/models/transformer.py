@@ -1,0 +1,209 @@
+"""Decoder machinery of the port: the dense family's stages and layers.
+
+The counterpart of ``repro/models/transformer.py`` for the ``dense``
+family: one stage whose pattern is a single (attn, dense) layer, repeated
+``num_layers`` times.  Parameters and KV caches keep the reference's
+layout, stacked over the repeat dimension on axis 0 (``stages[i]["l0"]``),
+and the stage body runs as a Python loop over the layers where the
+reference runs ``lax.scan``.  Two modes share one code path:
+
+  prefill  — full sequence, causal flash attention, returns the KV caches
+  decode   — one token against the caches at position ``pos``; the caches
+             are updated in place (the reference returns new ones)
+
+Other families (moe, hybrid, ssm, vlm, encdec) raise
+``NotImplementedError``: their layers and kernels are still to port.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from .config import ArchConfig
+from .layers import (PDef, apply_rope, attention_decode, cache_update,
+                     dtype_of, flash_attention, rms_norm, stack_defs, swiglu,
+                     tree_map)
+
+
+def require_dense(cfg: ArchConfig) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"repro_torch runs the dense family only; {cfg.name} is "
+            f"{cfg.family!r}, still to port (ROADMAP.md Queue 1 item 0; its "
+            f"kernels are Queue 2 rows 11-13)")
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerSpec:
+    kind: str                 # "attn" (the only kind the port runs)
+    cross: bool = False       # extra cross-attn sublayer (enc-dec decoder)
+    ffn: str = "dense"        # "dense" (the only ffn the port runs)
+    causal: bool = True       # False for encoder self-attention
+
+
+@dataclasses.dataclass(frozen=True)
+class Stage:
+    pattern: tuple[LayerSpec, ...]
+    repeats: int
+
+    @property
+    def num_layers(self) -> int:
+        return len(self.pattern) * self.repeats
+
+
+def decoder_stages(cfg: ArchConfig) -> tuple[Stage, ...]:
+    """The stage structure of the decoder: (attn, dense) x num_layers."""
+    require_dense(cfg)
+    return (Stage((LayerSpec("attn"),), cfg.num_layers),)
+
+
+# --------------------------------------------------------------------------
+# Parameter defs
+# --------------------------------------------------------------------------
+
+
+def gqa_param_defs(cfg: ArchConfig) -> dict[str, Any]:
+    d, H, Kh, Dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    return {
+        "wq": PDef((d, H, Dh), ("fsdp", "heads", None), "scaled"),
+        "wk": PDef((d, Kh, Dh), ("fsdp", "kv_heads", None), "scaled"),
+        "wv": PDef((d, Kh, Dh), ("fsdp", "kv_heads", None), "scaled"),
+        "wo": PDef((H, Dh, d), ("heads", None, "fsdp"), "scaled"),
+    }
+
+
+def dense_ffn_param_defs(cfg: ArchConfig) -> dict[str, Any]:
+    d, f = cfg.d_model, cfg.d_ff
+    return {
+        "w_gate": PDef((d, f), ("fsdp", "tp"), "scaled"),
+        "w_up": PDef((d, f), ("fsdp", "tp"), "scaled"),
+        "w_down": PDef((f, d), ("tp", "fsdp"), "scaled"),
+    }
+
+
+def layer_param_defs(cfg: ArchConfig, spec: LayerSpec) -> dict[str, Any]:
+    if spec.kind != "attn" or spec.cross or spec.ffn != "dense":
+        raise NotImplementedError(f"layer {spec} is not ported (dense "
+                                  f"family only)")
+    d = cfg.d_model
+    return {"norm_attn": PDef((d,), (None,), "ones"),
+            "attn": gqa_param_defs(cfg),
+            "norm_ffn": PDef((d,), (None,), "ones"),
+            "ffn": dense_ffn_param_defs(cfg)}
+
+
+def stage_param_defs(cfg: ArchConfig, stage: Stage) -> dict[str, Any]:
+    return {f"l{j}": stack_defs(layer_param_defs(cfg, spec), stage.repeats)
+            for j, spec in enumerate(stage.pattern)}
+
+
+# --------------------------------------------------------------------------
+# Apply
+# --------------------------------------------------------------------------
+
+
+def _proj(x, w):
+    """einsum("bsd,dhe->bshe", x, w) as one matmul (w cast to x's dtype)."""
+    d, h, e = w.shape
+    return (x @ w.to(x.dtype).reshape(d, h * e)).view(*x.shape[:-1], h, e)
+
+
+def gqa_apply(cfg: ArchConfig, p, x, ctx, cache, spec: LayerSpec):
+    """Self-attention (GQA + RoPE).  Returns (out, new_cache)."""
+    mode = ctx["mode"]
+    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+    sin, cos = ctx["rope"]
+    q = apply_rope(q, sin, cos)
+    k = apply_rope(k, sin, cos)
+    if mode == "decode":
+        pos = ctx["pos"]
+        ck = cache_update(cache["k"], k, pos)
+        cv = cache_update(cache["v"], v, pos)
+        o = attention_decode(q, ck, cv, ctx["pos_b"])
+        new_cache = {"k": ck, "v": cv}
+    else:
+        o = flash_attention(q, k, v, causal=spec.causal,
+                            chunk_q=cfg.attn_chunk, chunk_k=cfg.attn_chunk)
+        dt = dtype_of(cfg.compute_dtype)
+        new_cache = ({"k": k.to(dt), "v": v.to(dt)} if mode == "prefill"
+                     else None)
+    wo = p["wo"].to(x.dtype)
+    out = o.reshape(*o.shape[:2], -1) @ wo.reshape(-1, wo.shape[-1])
+    return out, new_cache
+
+
+def apply_layer(cfg: ArchConfig, spec: LayerSpec, p, x, ctx, cache):
+    """One (attn, dense) layer.  Returns (x, new_cache_or_None)."""
+    h = rms_norm(x, p["norm_attn"], cfg.norm_eps)
+    o, c = gqa_apply(cfg, p["attn"], h, ctx, (cache or {}).get("attn"), spec)
+    x = x + o
+    h = rms_norm(x, p["norm_ffn"], cfg.norm_eps)
+    f = p["ffn"]
+    x = x + swiglu(h, f["w_gate"], f["w_up"], f["w_down"])
+    return x, {"attn": c}
+
+
+def _stack(trees: list):
+    """Stack a list of same-shaped trees leaf by leaf on a new axis 0."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    if first is None:
+        return None
+    return torch.stack(trees)
+
+
+def run_stage(cfg: ArchConfig, stage: Stage, sparams, x, ctx, scache):
+    """The stage body over its repeat dimension, layer by layer.  Prefill
+    returns the stacked caches, decode the (updated) ``scache``."""
+    mode = ctx["mode"]
+    caches = []
+    for r in range(stage.repeats):
+        p_r = tree_map(lambda a: a[r], sparams)
+        c_r = tree_map(lambda a: a[r], scache) if scache is not None else {}
+        out_c = {}
+        for j, spec in enumerate(stage.pattern):
+            key = f"l{j}"
+            x, out_c[key] = apply_layer(cfg, spec, p_r[key], x, ctx,
+                                        c_r.get(key))
+        caches.append(out_c)
+    if mode == "decode":
+        return x, scache
+    return x, _stack(caches) if mode == "prefill" else None
+
+
+def run_stages(cfg: ArchConfig, stages, params, x, ctx, caches=None):
+    """params/caches: tuple (one entry per stage).  Returns (x, caches)."""
+    new_caches = []
+    for si, stage in enumerate(stages):
+        sc = caches[si] if caches is not None else None
+        x, nc = run_stage(cfg, stage, params[si], x, ctx, sc)
+        new_caches.append(nc)
+    return x, tuple(new_caches)
+
+
+# --------------------------------------------------------------------------
+# Caches (mirror run_stage's tree: tuple of stage dicts)
+# --------------------------------------------------------------------------
+
+
+def cache_template(cfg: ArchConfig, stages, batch: int, seq: int, *,
+                   device) -> tuple:
+    """Zero KV caches in the compute dtype, [repeats, batch, seq, Kh, Dh]
+    per leaf; ``device="meta"`` gives shapes and dtypes without memory."""
+    dt = dtype_of(cfg.compute_dtype)
+    shape = (batch, seq, cfg.num_kv_heads, cfg.head_dim)
+    out = []
+    for stage in stages:
+        sc = {}
+        for j, spec in enumerate(stage.pattern):
+            if spec.kind != "attn" or spec.cross:
+                raise NotImplementedError(f"cache of layer {spec}")
+            sc[f"l{j}"] = {"attn": {
+                name: torch.zeros((stage.repeats,) + shape, dtype=dt,
+                                  device=device) for name in ("k", "v")}}
+        out.append(sc)
+    return tuple(out)

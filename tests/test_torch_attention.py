@@ -1,0 +1,188 @@
+"""The attention kernels' plain versions against the JAX reference.
+
+On this CPU the wrappers ``flash_attention_fwd`` / ``decode_attention_fwd``
+run their plain PyTorch versions.  Each is held, on the same inputs made
+with numpy, to the reference's Pallas kernel run in interpret mode (as
+``tests/test_kernels.py`` runs it) and to the reference model's own jnp
+function (``layers.flash_attention`` / ``layers.attention_decode``), at
+``tests/test_kernels.py``'s tolerances: float32 2e-5, bfloat16 2e-2
+(atol = rtol).  The shapes are that file's (GQA, Dv != D, non-causal with
+Sq != Sk, MQA) plus head dim 80, stablelm-3b's.  The CUDA kernels are held
+to the same plain versions on the card by ``chip_smoke.py`` and by the
+card-only test at the end of this file.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import _torch_jaxref  # noqa: F401  (the R1 alias, before any repro import)
+
+import jax.numpy as jnp
+from repro.kernels.decode_attention import decode_attention
+from repro.kernels.flash_attention import flash_attention
+from repro.models import layers as ref_layers
+
+from repro_torch.kernels.decode_attention import (decode_attention_fwd,
+                                                  decode_attention_ref)
+from repro_torch.kernels.flash_attention import (flash_attention_fwd,
+                                                 flash_attention_ref)
+from repro_torch.models import layers
+
+TOLS = {"float32": 2e-5, "bfloat16": 2e-2}
+# CUDA kernel against its plain version, as (atol, rtol): both round one
+# float32 result to the dtype, so in bfloat16 they differ by at most one
+# unit in the last place (2^-7 |ref|); the limit allows two, plus the
+# float32 sums' own difference
+PLAIN_TOLS = {"float32": (2e-5, 2e-5), "bfloat16": (1e-5, 2.0 ** -6)}
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+FLASH_SHAPES = [
+    (2, 256, 256, 4, 2, 64, 64, True),
+    (1, 128, 256, 4, 4, 128, 128, False),
+    (2, 256, 256, 6, 3, 64, 32, True),
+    (1, 512, 512, 8, 1, 64, 64, True),     # MQA
+    (1, 128, 128, 4, 2, 80, 80, True),     # stablelm-3b's head dim
+]
+DECODE_SHAPES = [
+    (2, 1024, 8, 2, 64, 64, 128),
+    (3, 512, 4, 4, 128, 64, 256),
+    (1, 256, 16, 2, 64, 128, 64),
+    (2, 512, 8, 8, 80, 80, 128),           # stablelm-3b's head dim, MHA
+]
+
+
+def _both(rng, shape, dtype):
+    """The same normal sample as a jax and a torch array of ``dtype``."""
+    x = rng.normal(size=shape).astype(np.float32)
+    jdt, tdt = DTYPES[dtype]
+    return jnp.asarray(x, jdt), torch.tensor(x).to(tdt)
+
+
+def _close(port, ref, dtype):
+    tol = TOLS[dtype]
+    np.testing.assert_allclose(port.float().numpy(),
+                               np.asarray(ref, np.float32), atol=tol,
+                               rtol=tol)
+
+
+def _close_plain(out, ref, dtype):
+    atol, rtol = PLAIN_TOLS[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,Kh,D,Dv,causal", FLASH_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_plain_matches_reference(B, Sq, Sk, H, Kh, D, Dv, causal,
+                                       dtype, rng):
+    jq, q = _both(rng, (B, Sq, H, D), dtype)
+    jk, k = _both(rng, (B, Sk, Kh, D), dtype)
+    jv, v = _both(rng, (B, Sk, Kh, Dv), dtype)
+    out = flash_attention_fwd(q, k, v, causal=causal)
+    assert out.shape == (B, Sq, H, Dv) and out.dtype == q.dtype
+    _close(out, flash_attention(jq, jk, jv, causal=causal, block_q=64,
+                                block_k=64), dtype)
+    _close(out, ref_layers.flash_attention(jq, jk, jv, causal=causal,
+                                           chunk_q=64, chunk_k=64), dtype)
+    # the port model's entry point reaches the same function, and the
+    # port's naive oracle is the reference's
+    naive = ref_layers.attention_ref(jq, jk, jv, causal=causal)
+    _close(layers.flash_attention(q, k, v, causal=causal, chunk_q=64,
+                                  chunk_k=64), naive, dtype)
+    _close(layers.attention_ref(q, k, v, causal=causal), naive, dtype)
+
+
+@pytest.mark.parametrize("B,Sk,H,Kh,D,Dv,bk", DECODE_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_plain_matches_reference(B, Sk, H, Kh, D, Dv, bk, dtype,
+                                        rng):
+    jq, q = _both(rng, (B, H, D), dtype)
+    jk, k = _both(rng, (B, Sk, Kh, D), dtype)
+    jv, v = _both(rng, (B, Sk, Kh, Dv), dtype)
+    pos = rng.integers(1, Sk, size=B).astype(np.int32)
+    out = decode_attention_fwd(q, k, v, torch.tensor(pos))
+    assert out.shape == (B, H, Dv) and out.dtype == q.dtype
+    _close(out, decode_attention(jq, jk, jv, jnp.asarray(pos), block_k=bk),
+           dtype)
+    # the model's function takes one scalar position for the whole batch
+    p0 = int(pos[0])
+    port = layers.attention_decode(q[:, None], k, v, p0)
+    ref = ref_layers.attention_decode(jq[:, None], jk, jv, jnp.int32(p0))
+    assert port.shape == (B, 1, H, Dv)
+    _close(port, ref, dtype)
+
+
+def test_decode_negative_pos_masks_everything_as_the_reference(rng):
+    """pos < 0 masks every position to -1e30: the softmax is uniform."""
+    jq, q = _both(rng, (2, 4, 32), "float32")
+    jk, k = _both(rng, (2, 64, 2, 32), "float32")
+    jv, v = _both(rng, (2, 64, 2, 16), "float32")
+    pos = np.array([-1, 10], np.int32)
+    out = decode_attention_fwd(q, k, v, torch.tensor(pos))
+    from repro.kernels.decode_attention import ref as ref_decode
+    _close(out, ref_decode.decode_attention_ref(jq, jk, jv,
+                                                jnp.asarray(pos)),
+           "float32")
+    np.testing.assert_allclose(out[0].numpy(),
+                               v[0].mean(0).repeat_interleave(2, 0).numpy(),
+                               atol=2e-5)
+
+
+def test_flash_chunk_contract_and_wrapper_checks(rng):
+    _, q = _both(rng, (1, 96, 4, 32), "float32")
+    _, k = _both(rng, (1, 96, 2, 32), "float32")
+    with pytest.raises(ValueError, match="not divisible by chunks"):
+        layers.flash_attention(q, k, k, causal=True, chunk_q=64, chunk_k=64)
+    with pytest.raises(ValueError, match="not divisible by chunks"):
+        ref_layers.flash_attention(jnp.asarray(q.numpy()),
+                                   jnp.asarray(k.numpy()),
+                                   jnp.asarray(k.numpy()), causal=True,
+                                   chunk_q=64, chunk_k=64)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_attention_fwd(q, k.double(), k.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_fwd(q, k.transpose(1, 2).contiguous().transpose(1, 2),
+                            k)
+    with pytest.raises(ValueError, match="multiple"):
+        flash_attention_fwd(torch.zeros(1, 8, 3, 32), k[:, :8], k[:, :8])
+    with pytest.raises(ValueError, match="exceed"):
+        flash_attention_fwd(torch.zeros(1, 8, 2, 32),
+                            torch.zeros(1, 8, 2, 32),
+                            torch.zeros(1, 8, 2, 160))
+    qd = q[:, 0]
+    with pytest.raises(TypeError, match="int32"):
+        decode_attention_fwd(qd, k, k, torch.zeros(1, dtype=torch.int64))
+    with pytest.raises(ValueError, match="kv head exceed"):
+        decode_attention_fwd(torch.zeros(1, 65, 8), torch.zeros(1, 4, 1, 8),
+                             torch.zeros(1, 4, 1, 8),
+                             torch.zeros(1, dtype=torch.int32))
+    before = (flash_attention_fwd.launches, decode_attention_fwd.launches)
+    flash_attention_fwd(q, k, k)
+    decode_attention_fwd(qd, k, k, torch.zeros(1, dtype=torch.int32))
+    assert (flash_attention_fwd.launches,
+            decode_attention_fwd.launches) == before   # CPU: no launch
+
+
+@pytest.mark.cuda
+def test_cuda_attention_kernels_match_plain_versions_on_the_card(rng):
+    """Card only: each CUDA kernel against its plain version on the card,
+    at ``PLAIN_TOLS`` (two bfloat16 units in the last place)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    dev = torch.device("cuda", 0)
+    for dtype in ("float32", "bfloat16"):
+        for B, Sq, Sk, H, Kh, D, Dv, causal in FLASH_SHAPES:
+            q, k, v = (_both(rng, s, dtype)[1].to(dev) for s in (
+                (B, Sq, H, D), (B, Sk, Kh, D), (B, Sk, Kh, Dv)))
+            _close_plain(flash_attention_fwd(q, k, v, causal=causal).cpu(),
+                         flash_attention_ref(q, k, v, causal=causal).cpu(),
+                         dtype)
+        for B, Sk, H, Kh, D, Dv, _ in DECODE_SHAPES:
+            q, k, v = (_both(rng, s, dtype)[1].to(dev) for s in (
+                (B, H, D), (B, Sk, Kh, D), (B, Sk, Kh, Dv)))
+            pos = torch.tensor(rng.integers(-1, Sk + 2, size=B),
+                               dtype=torch.int32, device=dev)
+            _close_plain(decode_attention_fwd(q, k, v, pos).cpu(),
+                         decode_attention_ref(q, k, v, pos).cpu(), dtype)

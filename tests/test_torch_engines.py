@@ -171,6 +171,13 @@ from repro_torch.core import (engines, failures, partition, sim_batch,
 from repro_torch.kernels.msj_scan import build, kernel, ops
 from repro_torch.bench import fig3_traces
 from repro_torch.data import swf
+from repro_torch import configs
+from repro_torch.kernels import _build, attention_build
+from repro_torch.kernels.decode_attention import kernel as decode_kernel
+from repro_torch.kernels.flash_attention import kernel as flash_kernel
+from repro_torch.models import config, convert, layers, model, transformer
+from repro_torch.sched import cluster, gang
+from repro_torch.serve import engine, kv_cache
 res = sim_batch.sweep_many_server(workload.figure1_workload, (32,),
                                   num_jobs=50, reps=2, device="cpu")
 assert np.isfinite(res.mean_response).all()
@@ -181,6 +188,11 @@ assert np.isfinite(res.mean_response).all() and (res.availability < 1).all()
 rows = fig3_traces.run(num_jobs=60, reps=2, ks=(128,), loads=(0.7,),
                        device="cpu")
 assert len(rows) == 10 and all(np.isfinite(r["mean_response"]) for r in rows)
+eng = engine.ServingEngine([engine.RequestClass(
+    "s", configs.get_config("yi_9b"), 8192, 2, 1.0, 1.0)], 8, device="cpu")
+eng.submit(engine.Request(0, "s", np.arange(1, 9), max_new_tokens=3))
+assert len(eng.run_request(0).output) == 3
+assert kv_cache.chips_needed(configs.get_config("stablelm_3b"), 1, 8192) >= 1
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro."))

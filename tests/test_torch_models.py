@@ -1,0 +1,217 @@
+"""The port's dense decoder against the JAX reference model.
+
+Weights are carried across with ``convert.params_from_jax`` from the
+reference's own random init, and the same token ids go to both sides, on
+``yi_9b.reduced()`` (GQA, 4 layers, d = 128) and ``stablelm_3b.reduced()``
+(MHA).
+
+Conditioning.  The reference's "scaled" init divides by the fan-in it
+reads off ``shape[-2]``, which for ``wq`` / ``wk`` [d, heads, Dh] is the
+head count, not d: queries and keys come out sqrt(d / heads) too large
+(std 5.6 here), attention scores have std ~30 and the softmax is nearly an
+argmax.  At those weights the reference's own logits move by 0.34 (yi) and
+1.4 (stablelm) in bfloat16 under a 1e-4 relative weight perturbation, and
+its float32 logits differ from its float64 ones by 4.0e-4 (stablelm): no
+bound below that noise can tell a right port from a wrong one.  So the
+tight comparisons rescale ``wq`` and ``wk`` to fan-in d (both sides get
+the same weights), and one test keeps the reference's exact init.
+
+Tolerances, stated with their reasons:
+
+* float32 compute, rescaled weights: the greedy tokens are equal at every
+  step and the logits agree to 1e-4 (float32 sums in another order:
+  ~1e-6 measured).
+* float32 compute, the reference's exact weights: the greedy tokens are
+  equal and the logits agree to 1e-2, far above that init's rounding noise
+  (above) and far below what a wrong attention does to the logits (O(1)).
+* bfloat16 compute (the configs' own), rescaled weights, teacher-forced:
+  logits within 5e-2.  Each side rounds activations to bfloat16 after
+  every matmul and norm, and sums in another order, so a value can round
+  one ulp apart (3.9e-3 relative); at logits of scale ~4 one ulp is
+  1.6e-2, and 5e-2 allows about three.
+* the port's own decode-vs-forward property at ``tests/test_models.py``'s
+  bound: max abs < 0.25.
+"""
+
+import dataclasses
+import math
+
+import numpy as np
+import pytest
+import torch
+
+import _torch_jaxref  # noqa: F401  (the R1 alias, before any repro import)
+
+import jax
+import jax.numpy as jnp
+from repro.configs import get_config as ref_get_config
+from repro.models import model as ref_model
+
+from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.models import layers
+from repro_torch.models.convert import params_from_jax
+from repro_torch.models.model import Model, init_cache, num_params
+from repro_torch.serve.engine import _seed_caches
+
+ARCHS = ("yi_9b", "stablelm_3b")
+DENSE = tuple(a for a in ARCH_IDS if get_config(a).family == "dense")
+PROMPT, STEPS = 32, 5
+
+
+def _pair(arch, *, rescale=True, **over):
+    """(reference model, reference params, port model, port params) on the
+    reduced config with ``over`` replaced, weights carried across;
+    ``rescale`` puts ``wq`` and ``wk`` at fan-in d (see the docstring)."""
+    rcfg = dataclasses.replace(ref_get_config(arch), **over).reduced()
+    pcfg = dataclasses.replace(get_config(arch), **over).reduced()
+    rm = ref_model.Model(rcfg)
+    rp = rm.init(jax.random.PRNGKey(1))
+    if rescale:
+        a = rp["stages"][0]["l0"]["attn"]
+        d = rcfg.d_model
+        rp["stages"][0]["l0"]["attn"] = dict(
+            a, wq=a["wq"] * math.sqrt(rcfg.num_heads / d),
+            wk=a["wk"] * math.sqrt(rcfg.num_kv_heads / d))
+    return rm, rp, Model(pcfg), params_from_jax(jax.tree.map(np.asarray, rp))
+
+
+def _ref_seed(caches, pre):
+    def f(dst, src):
+        if dst.shape == src.shape:
+            return src.astype(dst.dtype)
+        return jax.lax.dynamic_update_slice_in_dim(
+            dst, src.astype(dst.dtype), 0, axis=2)
+    return jax.tree.map(f, caches, pre)
+
+
+def _prompt(cfg, n, seed=2):
+    return np.random.default_rng(seed).integers(1, cfg.vocab_size, (1, n))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_params_from_jax_carries_every_leaf(arch):
+    rm, rp, pm, pp = _pair(arch)
+    ref_leaves = jax.tree_util.tree_leaves_with_path(rp)
+    port_leaves = layers.tree_leaves(pp)
+    assert len(ref_leaves) == len(port_leaves) == len(
+        layers.tree_leaves(pm.param_defs()))
+    for path, leaf in ref_leaves:
+        node = pp
+        for key in path:
+            node = node[key.key if hasattr(key, "key") else key.idx]
+        assert torch.equal(node, torch.from_numpy(np.asarray(leaf))), path
+    assert pp["stages"][0]["l0"]["attn"]["wq"].shape == (
+        pm.cfg.num_layers, pm.cfg.d_model, pm.cfg.num_heads,
+        pm.cfg.head_dim)
+    bf = params_from_jax(jax.tree.map(
+        lambda a: np.asarray(a.astype(jnp.bfloat16)), rp))
+    assert torch.equal(bf["head"], pp["head"].to(torch.bfloat16))
+
+
+def _greedy_pair(arch, rescale, atol):
+    """Greedy decode on both sides in float32 compute: equal tokens and
+    logits within ``atol`` at every step."""
+    rm, rp, pm, pp = _pair(arch, rescale=rescale, compute_dtype="float32")
+    cfg = pm.cfg
+    toks = _prompt(cfg, PROMPT)
+    r_logits, r_pre = rm.prefill(rp, {"tokens": jnp.asarray(toks, jnp.int32)})
+    p_logits, p_pre = pm.prefill(pp, {"tokens": torch.tensor(toks)})
+    r_cache = _ref_seed(ref_model.init_cache(rm.cfg, 1, PROMPT + STEPS),
+                        r_pre)
+    p_cache = _seed_caches(init_cache(cfg, 1, PROMPT + STEPS), p_pre,
+                           PROMPT)
+    for step in range(STEPS):
+        r = np.asarray(r_logits)
+        p = p_logits.numpy()
+        assert p.shape == r.shape == (1, cfg.vocab_size)
+        assert np.abs(p - r).max() <= atol, (step, np.abs(p - r).max())
+        r_tok, p_tok = int(np.argmax(r)), int(p_logits.argmax())
+        assert r_tok == p_tok, step
+        pos = PROMPT + step
+        r_logits, r_cache = rm.decode_step(
+            rp, r_cache, jnp.asarray([[r_tok]], jnp.int32), jnp.int32(pos))
+        p_logits, p_cache = pm.decode_step(pp, p_cache,
+                                           torch.tensor([[p_tok]]), pos)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_float32_greedy_decode_matches_reference(arch):
+    _greedy_pair(arch, rescale=True, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_float32_greedy_tokens_match_reference_at_its_own_init(arch):
+    _greedy_pair(arch, rescale=False, atol=1e-2)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_bfloat16_teacher_forced_logits_match_reference(arch):
+    rm, rp, pm, pp = _pair(arch)
+    assert pm.cfg.compute_dtype == "bfloat16"
+    toks = _prompt(pm.cfg, PROMPT + STEPS)
+    r_logits, r_pre = rm.prefill(
+        rp, {"tokens": jnp.asarray(toks[:, :PROMPT], jnp.int32)})
+    p_logits, p_pre = pm.prefill(pp, {"tokens": torch.tensor(
+        toks[:, :PROMPT])})
+    assert p_logits.dtype == torch.bfloat16
+    r_cache = _ref_seed(ref_model.init_cache(rm.cfg, 1, PROMPT + STEPS),
+                        r_pre)
+    p_cache = _seed_caches(init_cache(pm.cfg, 1, PROMPT + STEPS), p_pre,
+                           PROMPT)
+    for step in range(STEPS):
+        err = np.abs(p_logits.float().numpy()
+                     - np.asarray(r_logits, np.float32)).max()
+        assert err < 5e-2, (step, err)
+        if step == STEPS - 1:
+            break
+        pos = PROMPT + step
+        tok = toks[:, pos:pos + 1]
+        r_logits, r_cache = rm.decode_step(rp, r_cache,
+                                           jnp.asarray(tok, jnp.int32),
+                                           jnp.int32(pos))
+        p_logits, p_cache = pm.decode_step(pp, p_cache, torch.tensor(tok),
+                                           pos)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_decode_matches_forward(arch):
+    """prefill(S) + decode(token S) == prefill(S + 1)'s last logits, on
+    the port's own random weights (bfloat16 compute)."""
+    cfg = get_config(arch).reduced()
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(1))
+    S = 32
+    toks = torch.tensor(_prompt(cfg, S + 1))
+    full, _ = model.prefill(params, {"tokens": toks})
+    _, pre = model.prefill(params, {"tokens": toks[:, :S]})
+    caches = _seed_caches(init_cache(cfg, 1, S + 8), pre, S)
+    step, _ = model.decode_step(params, caches, toks[:, S:S + 1], S)
+    a, b = full.float().numpy(), step.float().numpy()
+    assert np.abs(a - b).max() < 0.25
+
+
+def test_cache_update_clamps_like_dynamic_update_slice():
+    cache = torch.zeros(1, 6, 1, 1)
+    new = torch.ones(1, 2, 1, 1)
+    for pos, start in ((-3, 3), (-9, 0), (2, 2), (5, 4), (99, 4)):
+        got = layers.cache_update(cache.clone(), new, pos)
+        want = jax.lax.dynamic_update_slice_in_dim(
+            jnp.zeros((1, 6, 1, 1)), jnp.ones((1, 2, 1, 1)), pos, axis=1)
+        assert np.array_equal(got.numpy(), np.asarray(want)), pos
+        assert got[0, start:start + 2].eq(1).all()
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_param_counts_equal_reference(arch):
+    assert num_params(get_config(arch)) == ref_model.num_params(
+        ref_get_config(arch))
+    assert get_config(arch).num_params() == num_params(get_config(arch))
+
+
+def test_other_families_raise_naming_the_roadmap():
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        assert cfg == dataclasses.replace(cfg)          # configs are data
+        if cfg.family != "dense":
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                Model(cfg).param_defs()

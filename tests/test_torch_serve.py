@@ -1,0 +1,142 @@
+"""The port's serving engine against the JAX reference engine.
+
+The scenario of ``tests/test_substrate.py``'s serving test — stablelm-3b
+requests (2 chips) and yi-9b requests (8 chips) on a 64-chip fleet, 20
+arrivals — runs through both engines on the CPU (where both serve the
+``reduced()`` configs).  Admission is pure bookkeeping, so everything is
+held equal: the partition, the metrics, the placement and start of every
+job, p_helper, and the pull-backs after completions.  Then ``run_request``
+runs one job of each class with the reference's weights carried into both
+engines' ``_params``; in float32 compute the outputs are equal token for
+token (``tests/test_torch_models.py`` states why the logits are compared
+there, not here).  ``chips_needed`` and ``cache_bytes`` equal the
+reference's for every dense config.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import _torch_jaxref  # noqa: F401  (the R1 alias, before any repro import)
+
+import jax
+from repro.configs import get_config as ref_get_config
+from repro.serve import engine as ref_engine
+from repro.serve import kv_cache as ref_kv
+
+from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.models.convert import params_from_jax
+from repro_torch.serve import engine, kv_cache
+
+DENSE = tuple(a for a in ARCH_IDS if get_config(a).family == "dense")
+# (name, arch, bucket, chips, mean service s, arrival mix): test_substrate's
+CLASSES = (("small", "stablelm_3b", 8192, 2, 1.0, 0.8),
+           ("big", "yi_9b", 8192, 8, 4.0, 0.2))
+
+
+def _engines(**over):
+    """The reference's and the port's engine on the CPU, same classes."""
+    def classes(mod, get):
+        return [mod.RequestClass(n, dataclasses.replace(get(a), **over), b,
+                                 c, s, al) for n, a, b, c, s, al in CLASSES]
+    ref = ref_engine.ServingEngine(classes(ref_engine, ref_get_config),
+                                   fleet_chips=64, seed=0)
+    port = engine.ServingEngine(classes(engine, get_config), fleet_chips=64,
+                                seed=0, device="cpu")
+    return ref, port
+
+
+def _submit(eng, mod, n=20, max_new_tokens=4):
+    rng = np.random.default_rng(0)
+    for i in range(n):
+        eng.submit(mod.Request(rid=i, cls_name="small" if i % 5 else "big",
+                               prompt=rng.integers(1, 100, 8),
+                               max_new_tokens=max_new_tokens),
+                   now=float(i) * 0.01)
+
+
+def _state(eng):
+    s = eng.sched
+    jobs = {jid: (r.rid, r.cls_name, r.admitted_at)
+            for jid, r in eng._jobs.items()}
+    running = {jid: (j.cls, j.need, j.arrival, j.start, j.placement)
+               for jid, j in s.running.items()}
+    return (dict(eng.metrics), jobs, running, [j.jid for j in s.helper_wait],
+            [list(f) for f in s.free_slots], s.helper_free,
+            dict(s.helper_used), s.n_arrivals, s.n_helper_served,
+            eng.p_helper, eng.mean_wait())
+
+
+def test_admission_equals_reference_event_for_event():
+    ref, port = _engines()
+    assert port.device.type == "cpu"
+    for a, b in zip(ref.partition.slices + (ref.partition.helper,),
+                    port.partition.slices + (port.partition.helper,)):
+        assert (a.name, a.start, a.size, a.need) == (b.name, b.start,
+                                                     b.size, b.need)
+    assert ref.partition.psi == port.partition.psi
+    port.partition.validate()
+    _submit(ref, ref_engine)
+    _submit(port, engine)
+    assert port.metrics["admitted_direct"] > 0
+    assert _state(ref) == _state(port)
+    # completions in a fixed order: slots freed, rule-3 pull-backs and
+    # helper FCFS decisions must agree after every event
+    t = 1.0
+    while ref.sched.running:
+        jid = min(ref.sched.running)
+        t += 0.25
+        ref.complete(jid, t)
+        port.complete(jid, t)
+        assert _state(ref) == _state(port), jid
+    assert port.metrics["completed"] == 20 and not port.sched.helper_wait
+
+
+def test_run_request_equals_reference_token_for_token():
+    ref, port = _engines(compute_dtype="float32")
+    _submit(ref, ref_engine, n=10, max_new_tokens=4)
+    _submit(port, engine, n=10, max_new_tokens=4)
+    ran = set()
+    for jid, job in sorted(port.sched.running.items()):
+        name = port._jobs[jid].cls_name
+        if name in ran:
+            continue
+        ran.add(name)
+        port._params[name] = params_from_jax(
+            jax.tree.map(np.asarray, ref._get_params(name)))
+        out_ref = ref.run_request(jid).output
+        out_port = port.run_request(jid).output
+        assert len(out_port) == 4
+        assert out_port == out_ref, name
+        assert all(0 <= t < port._model(name).cfg.vocab_size
+                   for t in out_port)
+    assert ran == {"small", "big"}
+
+
+def test_run_request_on_the_engines_own_weights():
+    """The port's engine makes its own weights from ``seed`` (bfloat16 on
+    load, the configs' compute dtype) and serves the test_substrate
+    request: four tokens in the vocabulary."""
+    _, port = _engines()
+    _submit(port, engine)
+    jid = next(iter(port.sched.running))
+    out = port.run_request(jid)
+    assert len(out.output) == 4
+    name = out.cls_name
+    assert port._params[name]["head"].dtype == torch.bfloat16
+    assert all(0 <= t < port._model(name).cfg.vocab_size
+               for t in out.output)
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_chips_needed_and_cache_bytes_equal_reference(arch):
+    cfg, rcfg = get_config(arch), ref_get_config(arch)
+    for batch, seq in ((1, 8192), (8, 8192), (8, 131072)):
+        assert kv_cache.cache_bytes(cfg, batch, seq) == ref_kv.cache_bytes(
+            rcfg, batch, seq)
+        assert kv_cache.chips_needed(cfg, batch, seq) == ref_kv.chips_needed(
+            rcfg, batch, seq)
+    for seq in (1, 2048, 2049, 10**6):
+        assert kv_cache.context_bucket(seq) == ref_kv.context_bucket(seq)
