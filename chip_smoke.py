@@ -70,11 +70,12 @@ The LLM serving slice adds (``serving_path``):
    ``decode_attention/csrc/decode_attention.cu``), built in the same
    parallel step as msj_scan's, with ptxas' report;
 2. ``flash_attention`` at B = 1, S = 2048, causal, at yi-9b's heads
-   (H 32, Kh 4, D 128) and stablelm-3b's (H 32, Kh 32, D 80) in bfloat16
-   and at yi-9b's in float32, and ``decode_attention`` at B in {1, 4},
-   Sk = 8192, random pos, at both head shapes in bfloat16 and at yi-9b's
-   (B = 4) in float32, each within tests/test_kernels.py's tolerance
-   (bfloat16 2e-2, float32 2e-5) of its plain version on the card;
+   (H 32, Kh 4, D 128), stablelm-3b's (H 32, Kh 32, D 80) and, for the
+   MoE slice, moonshot-v1-16b-a3b's (H 16, Kh 16, D 128) in bfloat16 and
+   in float32, and ``decode_attention`` at B in {1, 4}, Sk = 8192, random
+   pos, at the three head shapes in bfloat16 and (B = 4) in float32,
+   each within 1e-5 + 2^-6 |ref| (bfloat16: two units in the last place)
+   or 2e-5 + 2e-5 |ref| (float32) of its plain version on the card;
 3. a ``ServingEngine`` on the card with test_substrate's request classes
    at full width (stablelm-3b on 2 chips, yi-9b on 8, fleet 64, bucket
    8192): 20 arrivals, then one admitted request of each class at each
@@ -88,6 +89,36 @@ The LLM serving slice adds (``serving_path``):
 4. each attention kernel's time beside its plain version's, the
    ``scaled_dot_product_attention`` yardstick's and its bound.
 
+The MoE serving slice adds (``moe_path``, after the dense phase's weights
+are freed):
+
+1. the grouped-matmul library (``moe_gmm/csrc/moe_gmm.cu``), built in the
+   same parallel step;
+2. ``gmm`` at moonshot-v1-16b-a3b's shapes, E = 64 experts: prefill
+   (C = 240, block_m 128, M = 16 384, and at 512 tokens C = 60, block_m
+   64, M = 4096) gate/up (K 2048, N 1408) and down (K 1408, N 2048) with
+   a skewed fill that leaves some experts empty, and decode (C = 6, block_m 16, 6 experts with one row, 58 with
+   nvalid == 0), junk in every padding row and empty block, in bfloat16
+   and float32, within the attention limits of its plain version on the
+   card (float32 sums of up to 2048 terms in another order are far inside
+   them at these scales) and with skipped blocks exactly zero; each timed
+   beside its plain version, a ``torch.bmm`` over the [E, Cp, K] buffer
+   and its bound;
+3. a ``ServingEngine`` on the card with stablelm-3b (2 chips, α 0.8) and
+   moonshot-v1-16b-a3b (8 chips, α 0.2) at full width and depth (56.1 GB
+   of bf16 weights): 20 arrivals, then one admitted moonshot request at
+   each prompt length (512, 2048) runs 32 greedy tokens with the launch
+   counts set to 0 just before and read just after: gmm 3 x 48 per
+   prefill and per token after the first, flash_attention 48 per prefill,
+   decode_attention 48 per token after the first; tokens lie in the
+   vocabulary; prefill and decode times and the dropped (token, slot)
+   pairs per prefill (each prefill's MoE inputs routed again after it)
+   are printed; decode-vs-forward is held to 0.25
+   where neither pass dropped a pair (capacity C = 60 at 512 tokens can
+   drop; decode's C = 6 never does), else printed with the drop counts;
+   a reduced float32 engine with the same weights gives the same tokens
+   on the card as on the CPU; the phase's peak memory is printed.
+
 Then it prints the card's name and power limit, one ``{"kernels": [...]}``
 line and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the repository around it, it exits non-zero and prints no
@@ -97,6 +128,7 @@ result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -242,13 +274,18 @@ OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 # reading one position past pos or dropping one split moves.  float32 keeps
 # tests/test_kernels.py's 2e-5
 ATTN_TOLS = {"bfloat16": (1e-5, 2.0 ** -6), "float32": (2e-5, 2e-5)}
-HEADS = {"yi_9b": (32, 4, 128), "stablelm_3b": (32, 32, 80)}  # H, Kh, D
+HEADS = {"yi_9b": (32, 4, 128), "stablelm_3b": (32, 32, 80),  # H, Kh, D
+         "moonshot_v1_16b_a3b": (16, 16, 128)}
 FLASH_S, DECODE_SK, DECODE_BS = 2048, 8192, (1, 4)
 # tests/test_substrate.py's request classes: (name, arch, bucket, chips,
 # mean service s, arrival mix), served at full width on the one card
 SERVE_CLASSES = (("small", "stablelm_3b", 8192, 2, 1.0, 0.8),
                  ("big", "yi_9b", 8192, 8, 4.0, 0.2))
 SERVE_PROMPTS, SERVE_NEW, SERVE_ARRIVALS = (512, 2048), 32, 20
+GMM = ("src/repro_torch/kernels/moe_gmm/csrc/moe_gmm.cu",
+       "src/repro/kernels/moe_gmm/kernel.py:51")
+MOE_ARCH = "moonshot_v1_16b_a3b"
+MOE_CLASSES = (SERVE_CLASSES[0], ("big", MOE_ARCH, 8192, 8, 4.0, 0.2))
 
 
 def _roofline(nbytes: float, ops: float, dtype: str) -> tuple[float, str]:
@@ -327,8 +364,8 @@ def serving_path(dev) -> dict:
 
     # -- [kernel] flash_attention: B = 1, S = 2048, causal ------------------
     flash_cases = []
-    for arch, dtype in (("yi_9b", "bfloat16"), ("stablelm_3b", "bfloat16"),
-                        ("yi_9b", "float32"), ("stablelm_3b", "float32")):
+    for arch, dtype in ([(a, "bfloat16") for a in HEADS]
+                        + [(a, "float32") for a in HEADS]):
         H, Kh, D = HEADS[arch]
         q = randn(1, FLASH_S, H, D, dtype=dtype)
         k = randn(1, FLASH_S, Kh, D, dtype=dtype)
@@ -548,6 +585,309 @@ def serving_path(dev) -> dict:
     return report
 
 
+def gmm_bound(rows, experts, M, K, N, nblocks, dtype):
+    """Least time for one gmm call: the x rows of valid blocks and the
+    weights of the valid experts read once, the whole [M, N] output and
+    the two [nblocks] int32 maps written / read once; 2 K N flops per row
+    of a valid block, at the dtype's peak."""
+    item = 2 if dtype == "bfloat16" else 4
+    nbytes = item * (rows * K + experts * K * N + M * N) + 8 * nblocks
+    return _roofline(nbytes, 2 * rows * K * N, dtype)
+
+
+def moe_path(dev) -> dict:
+    """The MoE serving path: ``gmm`` against its plain version at
+    moonshot-v1-16b-a3b's prefill and decode shapes (and timed there),
+    ``ServingEngine`` at moonshot's full width and depth with the launch
+    counts set to 0 just before and read just after, decode-vs-forward
+    with the drop counts, and card == CPU on a reduced float32 engine.
+    Returns the gmm report entry."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import decode_attention_fwd
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.moe_gmm import gmm, gmm_ref, pad_groups
+    from repro_torch.models import moe
+    from repro_torch.models.layers import tree_map
+    from repro_torch.models.model import init_cache
+    from repro_torch.serve import engine as E
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats()
+    print(f"[serve-moe] {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+          f"allocated on entry (the dense phase's weights freed)")
+    cfg = get_config(MOE_ARCH)
+    m = cfg.moe
+    D, F_ = cfg.d_model, m.d_ff_expert
+    rng = np.random.default_rng(13)
+    gen = torch.Generator(device=dev).manual_seed(13)
+
+    # -- [kernel] / [time] gmm at moonshot's prefill and decode shapes ------
+    # (the [serve-moe] prefills of 2048 and 512 tokens, and one token)
+    T_pre, T_512 = max(SERVE_PROMPTS), min(SERVE_PROMPTS)
+    caps = {"prefill": moe._capacity(m, T_pre), "decode": moe._capacity(m, 1),
+            "prefill512": moe._capacity(m, T_512)}
+
+    def skewed_fill(T):
+        pairs = rng.multinomial(T * m.top_k, rng.dirichlet(
+            np.full(m.num_experts, 2.0)))
+        pairs[:4] = 0                              # some experts get nothing
+        return np.minimum(pairs, moe._capacity(m, T))
+
+    fills = {"prefill": skewed_fill(T_pre),
+             "decode": np.zeros(m.num_experts, np.int64)}
+    fills["decode"][rng.choice(m.num_experts, m.top_k, replace=False)] = 1
+    fills["prefill512"] = skewed_fill(T_512)
+    cases = []
+    for phase in ("prefill", "prefill512", "decode"):
+        C = caps[phase]
+        bm = moe.block_m_for(C)
+        Cp = (C + bm - 1) // bm * bm
+        be, nv = moe._fill_blocks(torch.tensor(fills[phase], device=dev), C,
+                                  bm)
+        # pad_groups' static counts: every block of every expert valid
+        _, _, nv_static = pad_groups(torch.zeros(m.num_experts, C, 1,
+                                                 device=dev), bm)
+        valid = (nv > 0).cpu().numpy()
+        rows = int(valid.sum()) * bm
+        experts = len(set(be.cpu().numpy()[valid].tolist()))
+        for proj, K, N in (("gate/up", D, F_), ("down", F_, D)):
+            for dtype in ("bfloat16", "float32"):
+                dt = getattr(torch, dtype)
+                # junk in every row (padding rows and empty blocks too)
+                x = torch.randn(m.num_experts * Cp, K, generator=gen,
+                                device=dev).to(dt)
+                w = (torch.randn(m.num_experts, K, N, generator=gen,
+                                 device=dev) / math.sqrt(K)).to(dt)
+                what = (f"{phase} {proj} E={m.num_experts} C={C} Cp={Cp} "
+                        f"block_m={bm} K={K} N={N} {dtype}: "
+                        f"{int(valid.sum())} of {len(valid)} blocks valid")
+                out = gmm(x, w, be, nv, block_m=bm)
+                torch.cuda.synchronize()
+                ref = gmm_ref(x, w, be, nv, block_m=bm)
+                atol, rtol = ATTN_TOLS[dtype]
+                d = (out.float() - ref.float()).abs()
+                err = d.max().item()
+                worst = (d / (atol + rtol * ref.float().abs())).max().item()
+                skipped = (nv == 0).repeat_interleave(bm)
+                zeros = bool((out[skipped] == 0).all())
+                print(f"[kernel] gmm {what}: max abs err {err:.3g}; limit "
+                      f"{atol:g} + {rtol:g} |ref| per element, largest "
+                      f"err/limit {worst:.3g}; mean |ref| "
+                      f"{ref.float().abs().mean().item():.3g}; skipped "
+                      f"blocks exactly zero: {zeros}")
+                if not (worst <= 1.0 and zeros):
+                    fail(f"gmm {what} differs from its plain version: max "
+                         f"abs err {err}, largest err/limit {worst}, "
+                         f"skipped blocks zero {zeros}")
+                del ref, d
+                ms = cuda_ms(lambda: gmm(x, w, be, nv, block_m=bm), 10)
+                plain_ms = cuda_ms(lambda: gmm_ref(x, w, be, nv, block_m=bm),
+                                   3)
+                static_ms = cuda_ms(lambda: gmm(x, w, be, nv_static,
+                                                block_m=bm), 10)
+                xb = x.view(m.num_experts, Cp, K)
+                lib_ms = cuda_ms(lambda: torch.bmm(xb, w), 10)
+                b_ms, b_by = gmm_bound(rows, experts, x.shape[0], K, N,
+                                       len(valid), dtype)
+                print(f"[time] gmm {what}: {ms:.4f} ms per launch "
+                      f"({static_ms:.4f} ms with pad_groups' static counts, "
+                      f"every block valid), plain version {plain_ms:.4f} "
+                      f"ms, torch.bmm over the [E, Cp, K] buffer "
+                      f"{lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+                cases.append(dict(what=what, dtype=dtype, err=err,
+                                  err_over_limit=worst, ms=ms,
+                                  static_ms=static_ms, plain_ms=plain_ms,
+                                  library_ms=lib_ms, bound_ms=b_ms,
+                                  bound_by=b_by))
+                del x, w, out, xb
+    torch.cuda.empty_cache()
+
+    # -- [serve-moe] ServingEngine at moonshot's full width and depth -------
+    classes = [E.RequestClass(n, get_config(a), b, c, s, al)
+               for n, a, b, c, s, al in MOE_CLASSES]
+    eng = E.ServingEngine(classes, fleet_chips=64, seed=0, device=dev)
+    eng.partition.validate()
+    rng_s = np.random.default_rng(5)
+    for i in range(SERVE_ARRIVALS):
+        name = "small" if i % 5 else "big"
+        S = SERVE_PROMPTS[i % 2]
+        eng.submit(E.Request(rid=i, cls_name=name, prompt=rng_s.integers(
+            1, eng._model(name).cfg.vocab_size, S),
+            max_new_tokens=SERVE_NEW), now=float(i) * 0.01)
+    print(f"[serve-moe] {eng.partition.summary()}".replace(
+        "\n", "\n[serve-moe] "))
+    print(f"[serve-moe] after {SERVE_ARRIVALS} arrivals: metrics "
+          f"{eng.metrics}, p_helper {eng.p_helper:.6f}, running "
+          f"{len(eng.sched.running)}, waiting on the helper "
+          f"{len(eng.sched.helper_wait)}")
+    runs = {}
+    for jid in sorted(eng.sched.running):
+        req = eng._jobs[jid]
+        if req.cls_name == "big":
+            runs.setdefault(len(req.prompt), jid)
+    if sorted(runs) != sorted(SERVE_PROMPTS):
+        fail(f"admitted moonshot requests do not cover prompts "
+             f"{SERVE_PROMPTS}: {sorted(runs)}")
+    model = eng._model("big")
+    cfg, m = model.cfg, model.cfg.moe
+    t0 = time.time()
+    params = eng._get_params("big")            # weights on the card: set-up
+    torch.cuda.synchronize()
+    print(f"[serve-moe] {MOE_ARCH} weights made on the card in bfloat16 in "
+          f"{time.time() - t0:.1f} s: {cfg.num_params() / 1e9:.2f} B params "
+          f"({cfg.active_params() / 1e9:.2f} B active per token), "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    L = cfg.num_layers
+
+    # dropped (token, slot) pairs: each prefill's MoE layer inputs are kept
+    # and routed again after the pass (moe_ffn's one router chunk, T <=
+    # 4096).  One token never drops: its top-k experts are distinct and C
+    # >= top-k
+    if moe._capacity(m, 1) < m.top_k:
+        fail(f"decode capacity {moe._capacity(m, 1)} < top-k {m.top_k}")
+    moe_ffn, saved = moe.moe_ffn, []
+
+    def keep_prefill_input(x, params, cfg, **kw):
+        if x.shape[0] * x.shape[1] > 1:
+            saved.append((x, params["router"]))
+        return moe_ffn(x, params, cfg, **kw)
+
+    def saved_drops():
+        """(pairs dropped over the kept layers, of them the last token's);
+        forgets the kept inputs."""
+        total = last = 0
+        for x, w in saved:
+            T = x.shape[0] * x.shape[1]
+            _, e, _ = moe.route(x.reshape(T, -1), w, m, with_aux=False)
+            d = moe._positions(e, m.num_experts, moe._capacity(m, T))[2]
+            total += int(d.sum())
+            last += int(d.reshape(T, m.top_k)[-1].sum())
+        saved.clear()
+        return total, last
+
+    moe.moe_ffn = keep_prefill_input
+    gmm.launches = flash_attention_fwd.launches = 0
+    decode_attention_fwd.launches = 0
+    t0 = time.time()
+    walls = {}
+    for S, jid in sorted(runs.items()):
+        req = eng.run_request(jid)
+        torch.cuda.synchronize()
+        dropped, _ = saved_drops()
+        if len(req.output) != SERVE_NEW or not all(
+                0 <= t < cfg.vocab_size for t in req.output):
+            fail(f"moonshot request {req.rid} (prompt {S}) gave tokens "
+                 f"{req.output}")
+        walls[S] = (req.prefill_s, req.decode_s / (SERVE_NEW - 1))
+        print(f"[serve-moe] request {req.rid} prompt {S}: prefill "
+              f"{req.prefill_s * 1e3:.1f} ms to the first token, decode "
+              f"{walls[S][1] * 1e3:.2f} ms per token; {dropped} of "
+              f"{S * m.top_k * L} (token, slot) pairs dropped in prefill "
+              f"(C = {moe._capacity(m, S)}); first tokens {req.output[:8]}")
+    counts = {"gmm": gmm.launches,
+              "flash_attention": flash_attention_fwd.launches,
+              "decode_attention": decode_attention_fwd.launches}
+    n = len(runs)
+    want = {"gmm": 3 * L * n * SERVE_NEW, "flash_attention": L * n,
+            "decode_attention": L * n * (SERVE_NEW - 1)}
+    print(f"[serve-moe] {n} moonshot requests end to end in "
+          f"{time.time() - t0:.1f} s; launches {counts} (expected {want}: "
+          f"gmm 3 L per prefill and per token after the first, flash L per "
+          f"prefill, decode L per token after the first)")
+    if counts != want:
+        fail(f"moe launch counts {counts} differ from {want}")
+    for jid in runs.values():
+        eng.complete(jid, 1.0)
+
+    # decode-vs-forward at full width, with the pairs each pass dropped
+    toks = torch.tensor(rng_s.integers(1, cfg.vocab_size, SERVE_PROMPTS[0]),
+                        device=dev)
+    S = SERVE_PROMPTS[0] - 1
+    drops = {}
+    full, _ = model.prefill(params, {"tokens": toks[None, :S + 1]})
+    drops[S + 1], last = saved_drops()
+    _, pre = model.prefill(params, {"tokens": toks[None, :S]})
+    drops[S], _ = saved_drops()
+    moe.moe_ffn = moe_ffn
+    caches = E._seed_caches(init_cache(cfg, 1, S + 8, device=dev), pre, S)
+    step, _ = model.decode_step(params, caches, toks[None, S:S + 1], S)
+    if not (torch.isfinite(full).all() and torch.isfinite(step).all()):
+        fail(f"{MOE_ARCH}: non-finite logits")
+    diff = (full.float() - step.float()).abs().max().item()
+    dropless = drops[S] == drops[S + 1] == 0
+    print(f"[serve-moe] {MOE_ARCH} decode-vs-forward: prefill({S}) + decode "
+          f"vs prefill({S + 1}) last logits max abs diff {diff:.4f}; largest "
+          f"logit {full.float().abs().max().item():.3f}; pairs dropped: "
+          f"prefill({S}) {drops[S]}, prefill({S + 1}) {drops[S + 1]} (its "
+          f"last token {last}), decode 0 (C = {moe._capacity(m, 1)} >= top-k)")
+    if dropless:
+        print("[serve-moe] no pass dropped a pair: held to 0.25")
+        if not diff < 0.25:
+            fail(f"{MOE_ARCH} decode-vs-forward diff {diff} >= 0.25")
+    else:
+        print(f"[serve-moe] not held to 0.25: at capacity factor "
+              f"{m.capacity_factor} a {S + 1}-token prefill has C = "
+              f"{moe._capacity(m, S + 1)} rows per expert and drops pairs "
+              f"that decode (C = {moe._capacity(m, 1)} for one token's "
+              f"{m.top_k}) keeps, so the two passes compute different "
+              f"functions, on the reference too")
+    print(f"[serve-moe] peak memory in the phase "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB of "
+          f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.2f} GB")
+    del eng, params, model, caches, pre
+    torch.cuda.empty_cache()
+
+    # card == CPU: a reduced float32 engine with the same weights
+    small = [E.RequestClass(n, dataclasses.replace(
+        get_config(a), compute_dtype="float32").reduced(), b, c, s, al)
+        for n, a, b, c, s, al in MOE_CLASSES]
+    on_cpu = E.ServingEngine(small, fleet_chips=64, seed=0, device="cpu")
+    on_card = E.ServingEngine(small, fleet_chips=64, seed=0, device=dev)
+    for name, *_ in MOE_CLASSES:
+        on_card._params[name] = tree_map(lambda t: t.to(dev),
+                                         on_cpu._get_params(name))
+    rng_small = np.random.default_rng(6)
+    for i in range(SERVE_ARRIVALS):
+        name = "small" if i % 5 else "big"
+        prompt = rng_small.integers(1, 512, (64, 128)[i % 2])
+        for e in (on_cpu, on_card):
+            e.submit(E.Request(rid=i, cls_name=name, prompt=prompt,
+                               max_new_tokens=8), now=float(i) * 0.01)
+    n_cmp, n_moe = 0, 0
+    before = gmm.launches
+    for jid in sorted(on_cpu.sched.running):
+        a = on_cpu.run_request(jid).output
+        b = on_card.run_request(jid).output
+        if a != b:
+            fail(f"reduced float32 moe engine: request {jid} gives {b} on "
+                 f"the card and {a} on the CPU")
+        n_cmp += 1
+        n_moe += on_cpu._jobs[jid].cls_name == "big"
+    print(f"[serve-moe] reduced float32 engines (stablelm / moonshot smoke "
+          f"configs, prompts 64/128, 8 tokens): card == CPU token for token "
+          f"on all {n_cmp} admitted requests ({n_moe} moonshot, "
+          f"{gmm.launches - before} gmm launches on the card); metrics "
+          f"equal: {on_card.metrics == on_cpu.metrics}")
+    if n_moe < 1 or gmm.launches == before:
+        fail("the reduced engines ran no moonshot request on the card")
+    if on_card.metrics != on_cpu.metrics:
+        fail("reduced moe engines: admission metrics differ")
+
+    top = cases[0]                    # prefill gate/up, bfloat16
+    return {"gmm": dict(
+        name="gmm", route="cuda", source=GMM[0], replaces=GMM[1],
+        launches=counts["gmm"], max_abs_err=max(c["err"] for c in cases),
+        ms=top["ms"], plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
+        bound_by=top["bound_by"], library_ms=top["library_ms"],
+        shape=top["what"], configs=cases,
+        moe_launches={k: v for k, v in counts.items() if k != "gmm"},
+        serve_s={f"prompt {S}": {"prefill": p, "decode_per_token": d}
+                 for S, (p, d) in sorted(walls.items())})}
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean CUDA-event time of ``fn`` over ``reps`` calls, after one
     warm-up call."""
@@ -602,15 +942,16 @@ def main() -> int:
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels import attention_build
+    from repro_torch.kernels.moe_gmm import build as gmm_build
 
     t0 = time.time()
-    libs = (build.LIBRARY, attention_build.LIBRARY)
+    libs = (build.LIBRARY, attention_build.LIBRARY, gmm_build.LIBRARY)
     with ThreadPoolExecutor(len(libs)) as pool:
         paths = list(pool.map(lambda lib: lib.build(), libs))
     for lib, lib_path in zip(libs, paths):
         lib.load()
         print(f"[build] {lib_path.relative_to(ROOT)} (built with the other "
-              f"library; both in {time.time() - t0:.1f} s)")
+              f"libraries; all in {time.time() - t0:.1f} s)")
         for line in (lib_path.parent / "build.log").read_text().splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"[build] {line.strip()}")
@@ -1130,6 +1471,9 @@ def main() -> int:
         shape=f"R={SORT_R} W={SORT_WS[0]} keys=2")
 
     report.update(serving_path(dev))
+    gc.collect()                      # the dense phase's engine and weights
+    torch.cuda.empty_cache()
+    report.update(moe_path(dev))
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

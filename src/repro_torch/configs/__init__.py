@@ -3,7 +3,8 @@
 
 ``get_config(name)`` returns the full :class:`ArchConfig`;
 ``get_config(name).reduced()`` is the CPU smoke-test variant.  The port's
-model runs the ``dense`` family only; the others are here as data.
+model runs the ``dense`` and ``moe`` families (not MLA); the others are
+here as data.
 """
 
 from __future__ import annotations

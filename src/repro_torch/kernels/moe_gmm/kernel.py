@@ -1,0 +1,120 @@
+"""Wrapper of the hand-written grouped-matmul CUDA kernel, beside its plain
+PyTorch version and the reference's static-capacity layout helper.
+
+``gmm(x, w, block_expert, nvalid, block_m=)`` takes x [M, K] (rows sorted
+by expert, M % block_m == 0), w [E, K, N] (float32 or bfloat16, one dtype,
+contiguous) and block_expert / nvalid [M // block_m] int32, and returns
+out [M, N] in x's dtype: the signature of the reference's Pallas kernel
+``repro/kernels/moe_gmm/kernel.py:gmm`` without its ``block_n`` /
+``block_k`` (the CUDA kernel picks its own tiles).  ``block_m`` must be a
+multiple of 16 (the kernel's smallest row tile).  It checks its inputs,
+then
+
+* for CPU tensors returns the plain version, :func:`gmm_ref`;
+* for CUDA tensors allocates the output, launches the kernel of
+  ``csrc/moe_gmm.cu`` on the current stream, raises if the launch is
+  refused, and adds one to ``gmm.launches``.  There is no fallback: a
+  CUDA tensor never reaches the plain version through the wrapper.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .build import LIBRARY
+
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def gmm_ref(x, w, block_expert, nvalid, *, block_m: int):
+    """Plain version: ``out[i] = x[i] @ w[block_expert[i // block_m]]``
+    with float32 products and sums and one cast to x's dtype, and zero
+    rows for blocks with ``nvalid == 0``.
+
+    It follows the Pallas kernel (``dot_general`` with
+    ``preferred_element_type=float32`` into a float32 accumulator, cast
+    once at the end), not the reference's oracle
+    ``repro/kernels/moe_gmm/ref.py:gmm_ref``, whose einsum runs in x's
+    dtype; in float32 the two are the same function."""
+    M, K = x.shape
+    N = w.shape[-1]
+    nm = M // block_m
+    out = torch.zeros(nm, block_m, N, dtype=torch.float32, device=x.device)
+    keep = torch.nonzero(nvalid > 0)[:, 0]
+    xb = x.reshape(nm, block_m, K)[keep].float()
+    out[keep] = torch.bmm(xb, w[block_expert[keep].long()].float())
+    return out.reshape(M, N).to(x.dtype)
+
+
+def pad_groups(x_groups, block_m: int):
+    """Static capacity path: x_groups [E, C, K] -> (x [E*Cp, K],
+    block_expert, nvalid) with C padded to a block_m multiple."""
+    E, C, K = x_groups.shape
+    Cp = (C + block_m - 1) // block_m * block_m
+    pad = Cp - C
+    dev = x_groups.device
+    xg = torch.nn.functional.pad(x_groups, (0, 0, 0, pad))
+    x = xg.reshape(E * Cp, K)
+    blocks_per_e = Cp // block_m
+    block_expert = torch.arange(E, dtype=torch.int32,
+                                device=dev).repeat_interleave(blocks_per_e)
+    row_valid = torch.cat([torch.ones(C, dtype=torch.int32, device=dev),
+                           torch.zeros(pad, dtype=torch.int32, device=dev)])
+    nvalid = row_valid.reshape(blocks_per_e, block_m).sum(1,
+                                                         dtype=torch.int32)
+    nvalid = nvalid.tile(E)
+    return x, block_expert, nvalid
+
+
+def _check(x, w, block_expert, nvalid, block_m: int) -> None:
+    if x.dim() != 2 or w.dim() != 3:
+        raise ValueError(f"x must be [M, K] and w [E, K, N], got "
+                         f"{tuple(x.shape)}, {tuple(w.shape)}")
+    M, K = x.shape
+    E, Kw, N = w.shape
+    if Kw != K or min(M, K, E, N) < 1:
+        raise ValueError(f"x {tuple(x.shape)} and w {tuple(w.shape)} do "
+                         f"not match")
+    if block_m < 16 or block_m % 16 or M % block_m:
+        raise ValueError(f"block_m={block_m} must be a multiple of 16 that "
+                         f"divides M={M}")
+    for name, t in (("x", x), ("w", w)):
+        if t.dtype not in _DTYPES or t.dtype != x.dtype:
+            raise TypeError(f"{name} must be float32 or bfloat16 like x, got "
+                            f"{t.dtype}")
+    for name, t in (("block_expert", block_expert), ("nvalid", nvalid)):
+        if t.dtype != torch.int32 or tuple(t.shape) != (M // block_m,):
+            raise ValueError(f"{name} must be int32 [{M // block_m}], got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    for name, t in (("x", x), ("w", w), ("block_expert", block_expert),
+                    ("nvalid", nvalid)):
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, expected {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}")
+
+
+def gmm(x, w, block_expert, nvalid, *, block_m: int = 128):
+    """x [M, K]; w [E, K, N]; block_expert / nvalid [M // block_m] int32
+    -> out [M, N]."""
+    _check(x, w, block_expert, nvalid, block_m)
+    if x.device.type == "cpu":
+        return gmm_ref(x, w, block_expert, nvalid, block_m=block_m)
+    M, K = x.shape
+    E, _, N = w.shape
+    out = torch.empty(M, N, dtype=x.dtype, device=x.device)
+    lib = LIBRARY.load()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.moe_gmm(x.data_ptr(), w.data_ptr(), block_expert.data_ptr(),
+                         nvalid.data_ptr(), out.data_ptr(), M, K, N, E,
+                         block_m, int(x.dtype == torch.bfloat16), stream)
+    LIBRARY.raise_on(rc, "gmm", f"M={M} K={K} N={N} E={E} "
+                     f"block_m={block_m} {x.dtype}")
+    gmm.launches += 1
+    return out
+
+
+gmm.launches = 0

@@ -1,1 +1,2 @@
-"""Models of the port: the dense decoder (config, layers, stages, facade)."""
+"""Models of the port: the dense and MoE decoders (config, layers, moe,
+stages, facade)."""

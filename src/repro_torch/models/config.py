@@ -13,8 +13,8 @@ The port's copy of ``repro/models/config.py``.  A single
 * ``vlm``    — decoder with interleaved cross-attention layers
   (llama-3.2-vision backbone)
 
-The port's model runs ``dense`` only; the other families' configs are
-data here.  ``reduced()`` returns a tiny same-family config for CPU smoke
+The port's model runs ``dense`` and ``moe`` (without MLA); the other
+families' configs are data here.  ``reduced()`` returns a tiny same-family config for CPU smoke
 tests.
 """
 
@@ -111,6 +111,11 @@ class ArchConfig:
         ``NotImplementedError`` for a family the port does not run)."""
         from .model import num_params
         return num_params(self)
+
+    def active_params(self) -> int:
+        """Active (per-token) params — differs for MoE."""
+        from .model import active_param_count
+        return active_param_count(self)
 
     def reduced(self) -> "ArchConfig":
         """Tiny same-family config for CPU smoke tests."""

@@ -1,12 +1,15 @@
 """Model facade: embeddings, stages, head, prefill/decode entry points.
 
-The counterpart of ``repro/models/model.py`` for the dense family:
+The counterpart of ``repro/models/model.py`` for the dense and MoE
+families:
 
   ``prefill(params, {"tokens": [B, S]})``    -> (last logits, caches)
   ``decode_step(params, caches, tok, pos)``  -> (logits, caches)
 
 Logits are cut to ``vocab_size`` from the padded head, as in the
-reference.  Parameters are a tree of tensors with the reference's names,
+reference; neither entry point computes the MoE router's auxiliary loss,
+which only training reads.  Parameters are a tree of tensors with the
+reference's names,
 shapes and layouts (``convert.params_from_jax`` carries a reference tree
 across unchanged); decode updates the caches in place.
 """
@@ -42,6 +45,19 @@ def param_defs(cfg: ArchConfig) -> dict[str, Any]:
 
 def num_params(cfg: ArchConfig) -> int:
     return sum(math.prod(d.shape) for d in tree_leaves(param_defs(cfg)))
+
+
+def active_param_count(cfg: ArchConfig) -> int:
+    """Per-token active params (= total minus inactive routed experts)."""
+    total = num_params(cfg)
+    if cfg.moe is None:
+        return total
+    m = cfg.moe
+    n_moe = sum(sum(1 for spec in s.pattern if spec.ffn == "moe") * s.repeats
+                for s in T.decoder_stages(cfg))
+    inactive = n_moe * (m.num_experts - m.top_k) * 3 * cfg.d_model * \
+        m.d_ff_expert
+    return total - inactive
 
 
 # --------------------------------------------------------------------------
@@ -98,7 +114,9 @@ def decode_step(cfg: ArchConfig, params, caches, tokens, pos):
     return _logits(cfg, params, x), caches
 
 
-def init_cache(cfg: ArchConfig, batch: int, seq: int, *, device="cpu"):
+def init_cache(cfg: ArchConfig, batch: int, seq: int, *, device="cuda"):
+    """Zero KV caches on ``device`` (the card unless the caller asks for
+    the CPU or ``"meta"``)."""
     return T.cache_template(cfg, T.decoder_stages(cfg), batch, seq,
                             device=device)
 
@@ -128,3 +146,6 @@ class Model:
 
     def num_params(self) -> int:
         return num_params(self.cfg)
+
+    def active_params(self) -> int:
+        return active_param_count(self.cfg)

@@ -1,17 +1,26 @@
-"""Decoder machinery of the port: the dense family's stages and layers.
+"""Decoder machinery of the port: the dense and MoE families' stages and
+layers.
 
-The counterpart of ``repro/models/transformer.py`` for the ``dense``
-family: one stage whose pattern is a single (attn, dense) layer, repeated
-``num_layers`` times.  Parameters and KV caches keep the reference's
-layout, stacked over the repeat dimension on axis 0 (``stages[i]["l0"]``),
-and the stage body runs as a Python loop over the layers where the
-reference runs ``lax.scan``.  Two modes share one code path:
+The counterpart of ``repro/models/transformer.py`` for the ``dense`` and
+``moe`` families (GQA attention, not MLA):
+
+  dense (starcoder2):    [(attn, dense)] x num_layers
+  moe (moonshot):        [(attn, dense)] x first_dense, then
+                         [(attn, moe)] x (num_layers - first_dense)
+
+Parameters and KV caches keep the reference's layout, stacked over the
+repeat dimension on axis 0 (``stages[i]["l0"]``), and the stage body runs
+as a Python loop over the layers where the reference runs ``lax.scan``.
+Two modes share one code path:
 
   prefill  — full sequence, causal flash attention, returns the KV caches
   decode   — one token against the caches at position ``pos``; the caches
              are updated in place (the reference returns new ones)
 
-Other families (moe, hybrid, ssm, vlm, encdec) raise
+The reference's layers also return the MoE router's auxiliary loss, a
+training term; these serving paths read no loss, so a MoE layer asks
+``moe_ffn`` for none (``with_aux=False``).  Other families (hybrid, ssm,
+vlm, encdec) and MLA attention (deepseek-v3) raise
 ``NotImplementedError``: their layers and kernels are still to port.
 """
 
@@ -23,24 +32,31 @@ from typing import Any
 import torch
 
 from .config import ArchConfig
+from . import moe as _moe
 from .layers import (PDef, apply_rope, attention_decode, cache_update,
                      dtype_of, flash_attention, rms_norm, stack_defs, swiglu,
                      tree_map)
 
 
-def require_dense(cfg: ArchConfig) -> None:
-    if cfg.family != "dense":
+def require_ported(cfg: ArchConfig) -> None:
+    """Raise ``NotImplementedError`` unless the port runs ``cfg``: the
+    dense family, or the MoE family with GQA attention."""
+    if cfg.family == "moe" and cfg.mla is not None:
         raise NotImplementedError(
-            f"repro_torch runs the dense family only; {cfg.name} is "
+            f"{cfg.name} uses MLA attention, still to port (ROADMAP.md "
+            f"Queue 1 item 13)")
+    if cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(
+            f"repro_torch runs the dense and moe families; {cfg.name} is "
             f"{cfg.family!r}, still to port (ROADMAP.md Queue 1 item 0; its "
-            f"kernels are Queue 2 rows 11-13)")
+            f"kernels are Queue 2 rows 12-13)")
 
 
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
     kind: str                 # "attn" (the only kind the port runs)
     cross: bool = False       # extra cross-attn sublayer (enc-dec decoder)
-    ffn: str = "dense"        # "dense" (the only ffn the port runs)
+    ffn: str = "dense"        # "dense" | "moe"
     causal: bool = True       # False for encoder self-attention
 
 
@@ -55,9 +71,18 @@ class Stage:
 
 
 def decoder_stages(cfg: ArchConfig) -> tuple[Stage, ...]:
-    """The stage structure of the decoder: (attn, dense) x num_layers."""
-    require_dense(cfg)
-    return (Stage((LayerSpec("attn"),), cfg.num_layers),)
+    """The stage structure of the decoder."""
+    require_ported(cfg)
+    if cfg.family == "dense":
+        return (Stage((LayerSpec("attn"),), cfg.num_layers),)
+    m = cfg.moe
+    stages = []
+    if m.first_dense:
+        stages.append(Stage((LayerSpec("attn", ffn="dense"),),
+                            m.first_dense))
+    stages.append(Stage((LayerSpec("attn", ffn="moe"),),
+                        cfg.num_layers - m.first_dense))
+    return tuple(stages)
 
 
 # --------------------------------------------------------------------------
@@ -85,14 +110,15 @@ def dense_ffn_param_defs(cfg: ArchConfig) -> dict[str, Any]:
 
 
 def layer_param_defs(cfg: ArchConfig, spec: LayerSpec) -> dict[str, Any]:
-    if spec.kind != "attn" or spec.cross or spec.ffn != "dense":
-        raise NotImplementedError(f"layer {spec} is not ported (dense "
-                                  f"family only)")
+    if spec.kind != "attn" or spec.cross or spec.ffn not in ("dense", "moe"):
+        raise NotImplementedError(f"layer {spec} is not ported (dense and "
+                                  f"moe families only)")
     d = cfg.d_model
     return {"norm_attn": PDef((d,), (None,), "ones"),
             "attn": gqa_param_defs(cfg),
             "norm_ffn": PDef((d,), (None,), "ones"),
-            "ffn": dense_ffn_param_defs(cfg)}
+            "ffn": (dense_ffn_param_defs(cfg) if spec.ffn == "dense"
+                    else _moe.moe_param_defs(cfg))}
 
 
 def stage_param_defs(cfg: ArchConfig, stage: Stage) -> dict[str, Any]:
@@ -136,13 +162,16 @@ def gqa_apply(cfg: ArchConfig, p, x, ctx, cache, spec: LayerSpec):
 
 
 def apply_layer(cfg: ArchConfig, spec: LayerSpec, p, x, ctx, cache):
-    """One (attn, dense) layer.  Returns (x, new_cache_or_None)."""
+    """One (attn, dense | moe) layer.  Returns (x, new_cache_or_None)."""
     h = rms_norm(x, p["norm_attn"], cfg.norm_eps)
     o, c = gqa_apply(cfg, p["attn"], h, ctx, (cache or {}).get("attn"), spec)
     x = x + o
     h = rms_norm(x, p["norm_ffn"], cfg.norm_eps)
     f = p["ffn"]
-    x = x + swiglu(h, f["w_gate"], f["w_up"], f["w_down"])
+    if spec.ffn == "moe":
+        x = x + _moe.moe_ffn(h, f, cfg, with_aux=False)[0]
+    else:
+        x = x + swiglu(h, f["w_gate"], f["w_up"], f["w_down"])
     return x, {"attn": c}
 
 

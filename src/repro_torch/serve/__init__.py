@@ -1,1 +1,1 @@
-"""LLM serving with Balanced-Splitting admission (dense models)."""
+"""LLM serving with Balanced-Splitting admission (dense and MoE models)."""

@@ -10,8 +10,9 @@ i.e. *exactly* the multiserver-job classes of the paper.  The engine:
 2. admits each request per BS-π: a free slot in its class slice, else the
    helper block under π=FCFS (GangScheduler);
 3. on slot granting, ``run_request`` runs prefill once and then greedy
-   decode steps of the model, whose attention runs in the hand-written
-   flash-attention and flash-decoding kernels on the card.
+   decode steps of the model (dense or MoE), whose attention runs in the
+   hand-written flash-attention and flash-decoding kernels and whose MoE
+   expert products run in the hand-written grouped matmul on the card.
 
 The engine runs on ``device`` ("cuda" unless the caller asks for the CPU).
 As in the reference, where the backend is the CPU the models are the
@@ -24,6 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+import time
 from typing import Sequence
 
 import numpy as np
@@ -47,6 +49,11 @@ class Request:
     output: list = dataclasses.field(default_factory=list)
     admitted_at: float | None = None
     finished_at: float | None = None
+    # wall seconds of run_request: prompt to first token on the host, and
+    # the greedy steps after it (each token is read back, so both end on
+    # finished device work)
+    prefill_s: float | None = None
+    decode_s: float | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,11 +98,13 @@ class ServingEngine:
         at first use (or placed in ``_params`` by the caller).
 
         The weights are cast to the model's ``compute_dtype`` once, here
-        at load: the reference casts each float32 weight to the
-        activations' dtype at every use (``p["wq"].astype(x.dtype)``),
-        which gives the same numbers, and holding bf16 halves the card's
-        memory (yi-9b: 17.7 GB instead of 35.3 GB).  The model's functions
-        still cast at use, a no-op on these."""
+        at load, one layer of each stacked leaf at a time: the reference
+        casts each float32 weight to the activations' dtype at every use
+        (``p["wq"].astype(x.dtype)``), which gives the same numbers, and
+        holding bf16 halves the card's memory (yi-9b: 17.7 GB instead of
+        35.3 GB; moonshot-v1-16b-a3b: 56.1 GB, its expert stack ``w_gate``
+        alone [48, 64, 2048, 1408]).  The model's functions still cast at
+        use, a no-op on these."""
         if cls_name not in self._params:
             m = self._model(cls_name)
             g = torch.Generator(device=self.device).manual_seed(self.seed)
@@ -133,15 +142,18 @@ class ServingEngine:
                                  device=self.device)[None, :]
         S = prompt.shape[1]
         total = S + req.max_new_tokens
+        t0 = time.perf_counter()
         caches = init_cache(cfg, 1, total, device=self.device)
         logits, pre = model.prefill(params, {"tokens": prompt})
         caches = _seed_caches(caches, pre, S)
         tok = torch.argmax(logits, -1)[:, None]
         req.output.append(int(tok[0, 0]))
+        t1 = time.perf_counter()
         for t in range(S, S + req.max_new_tokens - 1):
             logits, caches = model.decode_step(params, caches, tok, t)
             tok = torch.argmax(logits, -1)[:, None]
             req.output.append(int(tok[0, 0]))
+        req.prefill_s, req.decode_s = t1 - t0, time.perf_counter() - t1
         return req
 
     def complete(self, jid: int, now: float) -> None:

@@ -175,7 +175,10 @@ from repro_torch import configs
 from repro_torch.kernels import _build, attention_build
 from repro_torch.kernels.decode_attention import kernel as decode_kernel
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
-from repro_torch.models import config, convert, layers, model, transformer
+from repro_torch.kernels.moe_gmm import build as gmm_build
+from repro_torch.kernels.moe_gmm import kernel as gmm_kernel
+from repro_torch.models import (config, convert, layers, model, moe,
+                                transformer)
 from repro_torch.sched import cluster, gang
 from repro_torch.serve import engine, kv_cache
 res = sim_batch.sweep_many_server(workload.figure1_workload, (32,),
@@ -191,6 +194,11 @@ assert len(rows) == 10 and all(np.isfinite(r["mean_response"]) for r in rows)
 eng = engine.ServingEngine([engine.RequestClass(
     "s", configs.get_config("yi_9b"), 8192, 2, 1.0, 1.0)], 8, device="cpu")
 eng.submit(engine.Request(0, "s", np.arange(1, 9), max_new_tokens=3))
+assert len(eng.run_request(0).output) == 3
+eng = engine.ServingEngine([engine.RequestClass(
+    "m", configs.get_config("moonshot_v1_16b_a3b"), 8192, 8, 1.0, 1.0)], 8,
+    device="cpu")
+eng.submit(engine.Request(0, "m", np.arange(1, 9), max_new_tokens=3))
 assert len(eng.run_request(0).output) == 3
 assert kv_cache.chips_needed(configs.get_config("stablelm_3b"), 1, 8192) >= 1
 bad = sorted(m for m in sys.modules

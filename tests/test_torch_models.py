@@ -1,9 +1,10 @@
-"""The port's dense decoder against the JAX reference model.
+"""The port's dense and MoE decoders against the JAX reference model.
 
 Weights are carried across with ``convert.params_from_jax`` from the
 reference's own random init, and the same token ids go to both sides, on
-``yi_9b.reduced()`` (GQA, 4 layers, d = 128) and ``stablelm_3b.reduced()``
-(MHA).
+``yi_9b.reduced()`` (GQA, 4 layers, d = 128), ``stablelm_3b.reduced()``
+(MHA) and ``moonshot_v1_16b_a3b.reduced()`` (MoE: 8 experts, top-2, expert
+d_ff 64, capacity factor 4, so prefill and decode drop no pair).
 
 Conditioning.  The reference's "scaled" init divides by the fan-in it
 reads off ``shape[-2]``, which for ``wq`` / ``wk`` [d, heads, Dh] is the
@@ -50,11 +51,13 @@ from repro.models import model as ref_model
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.models import layers
 from repro_torch.models.convert import params_from_jax
-from repro_torch.models.model import Model, init_cache, num_params
+from repro_torch.models.model import (Model, active_param_count, init_cache,
+                                      num_params)
 from repro_torch.serve.engine import _seed_caches
 
-ARCHS = ("yi_9b", "stablelm_3b")
-DENSE = tuple(a for a in ARCH_IDS if get_config(a).family == "dense")
+ARCHS = ("yi_9b", "stablelm_3b", "moonshot_v1_16b_a3b")
+PORTED = tuple(a for a in ARCH_IDS if get_config(a).family == "dense"
+               or (get_config(a).family == "moe" and get_config(a).mla is None))
 PROMPT, STEPS = 32, 5
 
 
@@ -118,8 +121,8 @@ def _greedy_pair(arch, rescale, atol):
     p_logits, p_pre = pm.prefill(pp, {"tokens": torch.tensor(toks)})
     r_cache = _ref_seed(ref_model.init_cache(rm.cfg, 1, PROMPT + STEPS),
                         r_pre)
-    p_cache = _seed_caches(init_cache(cfg, 1, PROMPT + STEPS), p_pre,
-                           PROMPT)
+    p_cache = _seed_caches(init_cache(cfg, 1, PROMPT + STEPS, device="cpu"),
+                           p_pre, PROMPT)
     for step in range(STEPS):
         r = np.asarray(r_logits)
         p = p_logits.numpy()
@@ -156,8 +159,8 @@ def test_bfloat16_teacher_forced_logits_match_reference(arch):
     assert p_logits.dtype == torch.bfloat16
     r_cache = _ref_seed(ref_model.init_cache(rm.cfg, 1, PROMPT + STEPS),
                         r_pre)
-    p_cache = _seed_caches(init_cache(pm.cfg, 1, PROMPT + STEPS), p_pre,
-                           PROMPT)
+    p_cache = _seed_caches(init_cache(pm.cfg, 1, PROMPT + STEPS,
+                                      device="cpu"), p_pre, PROMPT)
     for step in range(STEPS):
         err = np.abs(p_logits.float().numpy()
                      - np.asarray(r_logits, np.float32)).max()
@@ -184,7 +187,7 @@ def test_decode_matches_forward(arch):
     toks = torch.tensor(_prompt(cfg, S + 1))
     full, _ = model.prefill(params, {"tokens": toks})
     _, pre = model.prefill(params, {"tokens": toks[:, :S]})
-    caches = _seed_caches(init_cache(cfg, 1, S + 8), pre, S)
+    caches = _seed_caches(init_cache(cfg, 1, S + 8, device="cpu"), pre, S)
     step, _ = model.decode_step(params, caches, toks[:, S:S + 1], S)
     a, b = full.float().numpy(), step.float().numpy()
     assert np.abs(a - b).max() < 0.25
@@ -201,17 +204,33 @@ def test_cache_update_clamps_like_dynamic_update_slice():
         assert got[0, start:start + 2].eq(1).all()
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", PORTED)
 def test_param_counts_equal_reference(arch):
     assert num_params(get_config(arch)) == ref_model.num_params(
         ref_get_config(arch))
     assert get_config(arch).num_params() == num_params(get_config(arch))
+    assert get_config(arch).active_params() == active_param_count(
+        get_config(arch)) == ref_model.active_param_count(
+            ref_get_config(arch))
+
+
+def test_moonshot_full_config_counts_without_materialising():
+    """moonshot-v1-16b-a3b at full width: 28.06 B params, 3.97 B active
+    per token, counted from the defs (nothing is allocated)."""
+    cfg = get_config("moonshot_v1_16b_a3b")
+    assert num_params(cfg) == ref_model.num_params(ref_get_config(
+        "moonshot_v1_16b_a3b")) == 28_057_995_264
+    assert active_param_count(cfg) == 3_974_301_696
+    defs = Model(cfg).param_defs()
+    assert defs["stages"][0]["l0"]["ffn"]["w_gate"].shape == (
+        48, 64, 2048, 1408)
 
 
 def test_other_families_raise_naming_the_roadmap():
     for arch in ARCH_IDS:
         cfg = get_config(arch)
         assert cfg == dataclasses.replace(cfg)          # configs are data
-        if cfg.family != "dense":
+        if arch not in PORTED:
             with pytest.raises(NotImplementedError, match="ROADMAP"):
                 Model(cfg).param_defs()
+    assert "deepseek_v3_671b" not in PORTED             # MoE with MLA

@@ -9,8 +9,9 @@ job, p_helper, and the pull-backs after completions.  Then ``run_request``
 runs one job of each class with the reference's weights carried into both
 engines' ``_params``; in float32 compute the outputs are equal token for
 token (``tests/test_torch_models.py`` states why the logits are compared
-there, not here).  ``chips_needed`` and ``cache_bytes`` equal the
-reference's for every dense config.
+there, not here).  The same two checks run with moonshot-v1-16b-a3b
+(MoE) in place of yi-9b.  ``chips_needed`` and ``cache_bytes`` equal the
+reference's for every config the port runs.
 """
 
 import dataclasses
@@ -30,17 +31,19 @@ from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.models.convert import params_from_jax
 from repro_torch.serve import engine, kv_cache
 
-DENSE = tuple(a for a in ARCH_IDS if get_config(a).family == "dense")
+PORTED = tuple(a for a in ARCH_IDS if get_config(a).family == "dense"
+               or (get_config(a).family == "moe" and get_config(a).mla is None))
 # (name, arch, bucket, chips, mean service s, arrival mix): test_substrate's
 CLASSES = (("small", "stablelm_3b", 8192, 2, 1.0, 0.8),
            ("big", "yi_9b", 8192, 8, 4.0, 0.2))
+MOE_CLASSES = (CLASSES[0], ("big", "moonshot_v1_16b_a3b", 8192, 8, 4.0, 0.2))
 
 
-def _engines(**over):
+def _engines(classes_=CLASSES, **over):
     """The reference's and the port's engine on the CPU, same classes."""
     def classes(mod, get):
         return [mod.RequestClass(n, dataclasses.replace(get(a), **over), b,
-                                 c, s, al) for n, a, b, c, s, al in CLASSES]
+                                 c, s, al) for n, a, b, c, s, al in classes_]
     ref = ref_engine.ServingEngine(classes(ref_engine, ref_get_config),
                                    fleet_chips=64, seed=0)
     port = engine.ServingEngine(classes(engine, get_config), fleet_chips=64,
@@ -70,7 +73,15 @@ def _state(eng):
 
 
 def test_admission_equals_reference_event_for_event():
-    ref, port = _engines()
+    _admission_event_for_event(CLASSES)
+
+
+def test_moe_admission_equals_reference_event_for_event():
+    _admission_event_for_event(MOE_CLASSES)
+
+
+def _admission_event_for_event(classes):
+    ref, port = _engines(classes)
     assert port.device.type == "cpu"
     for a, b in zip(ref.partition.slices + (ref.partition.helper,),
                     port.partition.slices + (port.partition.helper,)):
@@ -95,7 +106,16 @@ def test_admission_equals_reference_event_for_event():
 
 
 def test_run_request_equals_reference_token_for_token():
-    ref, port = _engines(compute_dtype="float32")
+    _token_for_token(CLASSES)
+
+
+def test_moe_run_request_equals_reference_token_for_token():
+    port = _token_for_token(MOE_CLASSES)
+    assert port._model("big").cfg.family == "moe"
+
+
+def _token_for_token(classes):
+    ref, port = _engines(classes, compute_dtype="float32")
     _submit(ref, ref_engine, n=10, max_new_tokens=4)
     _submit(port, engine, n=10, max_new_tokens=4)
     ran = set()
@@ -112,7 +132,10 @@ def test_run_request_equals_reference_token_for_token():
         assert out_port == out_ref, name
         assert all(0 <= t < port._model(name).cfg.vocab_size
                    for t in out_port)
+        req = port._jobs[jid]
+        assert req.prefill_s > 0 and req.decode_s > 0
     assert ran == {"small", "big"}
+    return port
 
 
 def test_run_request_on_the_engines_own_weights():
@@ -130,7 +153,7 @@ def test_run_request_on_the_engines_own_weights():
                for t in out.output)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", PORTED)
 def test_chips_needed_and_cache_bytes_equal_reference(arch):
     cfg, rcfg = get_config(arch), ref_get_config(arch)
     for batch, seq in ((1, 8192), (8, 8192), (8, 131072)):
@@ -140,3 +163,16 @@ def test_chips_needed_and_cache_bytes_equal_reference(arch):
             rcfg, batch, seq)
     for seq in (1, 2048, 2049, 10**6):
         assert kv_cache.context_bucket(seq) == ref_kv.context_bucket(seq)
+
+
+@pytest.mark.parametrize("arch", ["yi_9b", "moonshot_v1_16b_a3b"])
+def test_decode_step_bench_runs_on_the_cpu(arch):
+    """bench/decode_step.run (the prefill and per-step decode timer) on a
+    reduced float32 config, asked for the CPU."""
+    from repro_torch.bench import decode_step
+    cfg = dataclasses.replace(get_config(arch).reduced(),
+                              compute_dtype="float32")
+    r = decode_step.run(cfg, 16, 3, 0, device="cpu")
+    assert r["arch"] == cfg.name and r["device"] == "cpu"
+    assert len(r["decode_ms"]) == 3 and r["prefill_ms"] > 0
+    assert min(r["decode_ms"]) == r["decode_ms_min"] > 0
