@@ -119,6 +119,30 @@ are freed):
    a reduced float32 engine with the same weights gives the same tokens
    on the card as on the CPU; the phase's peak memory is printed.
 
+The RWKV6 serving slice adds (``rwkv_path``, after the MoE phase's
+weights are freed):
+
+1. the WKV library (``rwkv6/csrc/wkv.cu``), built in the same parallel
+   step;
+2. ``wkv`` at rwkv6-7b's prefill shapes (B 1, S 2048, H 64, N 64, chunk
+   64) with bfloat16 and with float32 r / k / v (float32 logw, u and
+   state), zero and carried state, log decays from the model's init range
+   and from [-1, -0.01], and a ragged S = 2047: y within 5e-4 + 1e-3
+   |ref| of its plain version on the card, plus two units in the last
+   place in bfloat16, and s_T within 5e-4 + 1e-3 |ref|; timed beside its
+   plain version and its bound (no PyTorch call computes it);
+3. a ``ServingEngine`` on the card with stablelm-3b (2 chips, α 0.8) and
+   rwkv6-7b at its ``chips_needed`` (2 chips, α 0.2) at full width and
+   depth (15.1 GB of bf16 weights, seed 0): 20 arrivals, then one admitted
+   rwkv request at each prompt length (512, 2048) runs 32 greedy tokens
+   with the launch counts set to 0 just before and read just after: wkv
+   exactly L per prefill and none per decoded token, the attention and
+   gmm kernels none; tokens lie in the vocabulary, logits are finite,
+   prefill(511) + decode equals prefill(512) within 0.25 (the 511-token
+   prefill ends in a ragged chunk), and a reduced float32 engine gives
+   the same tokens on the card as on the CPU; prefill and decode times
+   and the phase's peak memory are printed.
+
 Then it prints the card's name and power limit, one ``{"kernels": [...]}``
 line and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the repository around it, it exits non-zero and prints no
@@ -286,6 +310,19 @@ GMM = ("src/repro_torch/kernels/moe_gmm/csrc/moe_gmm.cu",
        "src/repro/kernels/moe_gmm/kernel.py:51")
 MOE_ARCH = "moonshot_v1_16b_a3b"
 MOE_CLASSES = (SERVE_CLASSES[0], ("big", MOE_ARCH, 8192, 8, 4.0, 0.2))
+WKV = ("src/repro_torch/kernels/rwkv6/csrc/wkv.cu",
+       "src/repro/kernels/rwkv6/kernel.py:70")
+RWKV_ARCH = "rwkv6_7b"
+# WKV against its plain version: y in float32 and s_T (always float32)
+# within tests/test_kernels.py's limit for the chunked form (float32 sums
+# of terms up to ~100 in another order, and e^{+-c} factors that cost a
+# few digits at fast decays); y in bfloat16 within that limit plus two
+# units in the last place, since each side rounds its float32 y once (an
+# output near zero that cancels large terms keeps the float32 sums'
+# absolute difference, so the attention kernels' atol of 1e-5 does not
+# hold here)
+WKV_TOLS = {"bfloat16": (5e-4, 1e-3 + 2.0 ** -6), "float32": (5e-4, 1e-3)}
+WKV_S, WKV_CHUNK = 2048, 64
 
 
 def _roofline(nbytes: float, ops: float, dtype: str) -> tuple[float, str]:
@@ -888,6 +925,269 @@ def moe_path(dev) -> dict:
                  for S, (p, d) in sorted(walls.items())})}
 
 
+def wkv_bound(B, S, H, N, chunk, dtype):
+    """Least time for one wkv call: r / k / v read in their dtype, logw,
+    u and s0 read once in float32, y written in r's dtype and s_T in
+    float32; per chunk of Tc steps and head, 2 Tc N^2 flops each for
+    r_dec S and the state update and Tc (Tc + 1) N each for the causal
+    scores (diagonal included) and their product with v, at the float32
+    CUDA-core peak (the function is float32 arithmetic in both dtypes)."""
+    item = 2 if dtype == "bfloat16" else 4
+    elems = B * S * H * N
+    nbytes = item * 4 * elems + 4 * elems + 4 * H * N + 4 * 2 * B * H * N * N
+    ops = 0
+    for c0 in range(0, S, chunk):
+        Tc = min(chunk, S - c0)
+        ops += 4 * Tc * N * N + 2 * Tc * (Tc + 1) * N
+    return _roofline(nbytes, ops * B * H, "float32")
+
+
+def rwkv_path(dev) -> dict:
+    """The RWKV6 serving path: ``wkv`` against its plain version at
+    rwkv6-7b's prefill shapes (and timed there), ``ServingEngine`` at
+    rwkv6-7b's full width and depth with the launch counts set to 0 just
+    before and read just after, decode-vs-forward over a ragged last
+    chunk, and card == CPU on a reduced float32 engine.  Returns the wkv
+    report entry."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import decode_attention_fwd
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.moe_gmm import gmm
+    from repro_torch.kernels.rwkv6 import wkv_chunked_ref, wkv_fwd
+    from repro_torch.models import rwkv
+    from repro_torch.models.layers import tree_leaves, tree_map
+    from repro_torch.models.model import init_cache
+    from repro_torch.serve import engine as E
+    from repro_torch.serve import kv_cache
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats()
+    print(f"[serve-rwkv] {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+          f"allocated on entry (the MoE phase's weights freed)")
+    cfg = get_config(RWKV_ARCH)
+    H, N = rwkv._dims(cfg)
+    gen = torch.Generator(device=dev).manual_seed(17)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    # -- [kernel] / [time] wkv at rwkv6-7b's prefill shapes -----------------
+    # inputs as tests/test_kernels.py makes them (k x 0.3, u x 0.1); log
+    # decays from the model's init range (-exp(U[-8, -4])) and from that
+    # test's [-1, -0.01]; zero and carried state; a ragged S
+    def logw_of(kind, S):
+        u01 = torch.rand(1, S, H, N, generator=gen, device=dev)
+        if kind == "init":
+            return -torch.exp(u01 * 4.0 - 8.0)
+        return -(0.01 + 0.99 * u01)
+
+    cases = []
+    for S, kind, carried in ((WKV_S, "init", False), (WKV_S, "init", True),
+                             (WKV_S, "fast", True), (WKV_S - 1, "init", True)):
+        r, k, v = randn(1, S, H, N), randn(1, S, H, N, scale=0.3), randn(
+            1, S, H, N)
+        logw, u = logw_of(kind, S), randn(H, N, scale=0.1)
+        s0 = randn(1, H, N, N, scale=0.5) if carried else None
+        for dtype in ("bfloat16", "float32"):
+            dt = getattr(torch, dtype)
+            rr, kk, vv = (a.to(dt) for a in (r, k, v))
+            decays = ("in the init range" if kind == "init"
+                      else "in [-1, -0.01]")
+            what = (f"B=1 S={S} H={H} N={N} chunk={WKV_CHUNK} {dtype} r/k/v, "
+                    f"logw {decays}, s0 {'carried' if carried else 'zero'}")
+            y, s_T = wkv_fwd(rr, kk, vv, logw, u, s0, chunk=WKV_CHUNK)
+            torch.cuda.synchronize()
+            ry, rs = wkv_chunked_ref(rr, kk, vv, logw, u, s0,
+                                     chunk=WKV_CHUNK)
+            worst, errs = 0.0, {}
+            for name, out, ref, tol in (("y", y, ry, WKV_TOLS[dtype]),
+                                        ("s_T", s_T, rs, WKV_TOLS["float32"])):
+                ref = ref.float()
+                d = (out.float() - ref).abs()
+                errs[name] = d.max().item()
+                ratio = (d / (tol[0] + tol[1] * ref.abs())).max().item()
+                worst = max(worst, ratio)
+                print(f"[kernel] wkv {what}: {name} max abs err "
+                      f"{errs[name]:.3g}; limit {tol[0]:g} + {tol[1]:g} "
+                      f"|ref|, largest err/limit {ratio:.3g}; mean |ref| "
+                      f"{ref.abs().mean().item():.3g}")
+            if not (worst <= 1.0 and torch.isfinite(y).all()
+                    and torch.isfinite(s_T).all()):
+                fail(f"wkv {what} differs from its plain version: "
+                     f"{errs}, largest err/limit {worst}")
+            case = dict(what=what, dtype=dtype, err=max(errs.values()),
+                        err_over_limit=worst)
+            if S == WKV_S and kind == "init" and carried:
+                ms = cuda_ms(lambda: wkv_fwd(rr, kk, vv, logw, u, s0,
+                                             chunk=WKV_CHUNK), 20)
+                plain_ms = cuda_ms(lambda: wkv_chunked_ref(
+                    rr, kk, vv, logw, u, s0, chunk=WKV_CHUNK), 3)
+                b_ms, b_by = wkv_bound(1, S, H, N, WKV_CHUNK, dtype)
+                print(f"[time] wkv {what}: {ms:.4f} ms per launch, plain "
+                      f"version {plain_ms:.4f} ms, no PyTorch call computes "
+                      f"the recurrence, bound {b_ms:.5f} ms ({b_by})")
+                case.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                            bound_by=b_by)
+            cases.append(case)
+            del y, s_T, ry, rs
+    torch.cuda.empty_cache()
+
+    # -- [serve-rwkv] ServingEngine at rwkv6-7b's full width and depth ------
+    chips = kv_cache.chips_needed(cfg, 1, 8192)
+    rwkv_classes = (SERVE_CLASSES[0], ("big", RWKV_ARCH, 8192, chips, 4.0,
+                                       0.2))
+    classes = [E.RequestClass(n, get_config(a), b, c, s, al)
+               for n, a, b, c, s, al in rwkv_classes]
+    eng = E.ServingEngine(classes, fleet_chips=64, seed=0, device=dev)
+    eng.partition.validate()
+    rng_s = np.random.default_rng(5)
+    for i in range(SERVE_ARRIVALS):
+        name = "small" if i % 5 else "big"
+        S = SERVE_PROMPTS[i % 2]
+        eng.submit(E.Request(rid=i, cls_name=name, prompt=rng_s.integers(
+            1, eng._model(name).cfg.vocab_size, S),
+            max_new_tokens=SERVE_NEW), now=float(i) * 0.01)
+    print(f"[serve-rwkv] {RWKV_ARCH} needs {chips} chips at bucket 8192 "
+          f"(state cache {kv_cache.cache_bytes(cfg, 1, 8192) / 1e6:.1f} MB)")
+    print(f"[serve-rwkv] {eng.partition.summary()}".replace(
+        "\n", "\n[serve-rwkv] "))
+    print(f"[serve-rwkv] after {SERVE_ARRIVALS} arrivals: metrics "
+          f"{eng.metrics}, p_helper {eng.p_helper:.6f}, running "
+          f"{len(eng.sched.running)}, waiting on the helper "
+          f"{len(eng.sched.helper_wait)}")
+    runs = {}
+    for jid in sorted(eng.sched.running):
+        req = eng._jobs[jid]
+        if req.cls_name == "big":
+            runs.setdefault(len(req.prompt), jid)
+    if sorted(runs) != sorted(SERVE_PROMPTS):
+        fail(f"admitted rwkv requests do not cover prompts "
+             f"{SERVE_PROMPTS}: {sorted(runs)}")
+    model = eng._model("big")
+    cfg = model.cfg
+    t0 = time.time()
+    params = eng._get_params("big")            # weights on the card: set-up
+    torch.cuda.synchronize()
+    f32 = sum(t.numel() for t in tree_leaves(params)
+              if t.dtype == torch.float32)
+    print(f"[serve-rwkv] {RWKV_ARCH} weights made on the card in "
+          f"{time.time() - t0:.1f} s: {cfg.num_params() / 1e9:.2f} B params "
+          f"({f32 / 1e6:.1f} M kept in float32, the leaves read in "
+          f"float32), {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    L = cfg.num_layers
+    wkv_fwd.launches = gmm.launches = flash_attention_fwd.launches = 0
+    decode_attention_fwd.launches = 0
+    t0 = time.time()
+    walls = {}
+    for S, jid in sorted(runs.items()):
+        before = wkv_fwd.launches
+        req = eng.run_request(jid)
+        torch.cuda.synchronize()
+        if len(req.output) != SERVE_NEW or not all(
+                0 <= t < cfg.vocab_size for t in req.output):
+            fail(f"rwkv request {req.rid} (prompt {S}) gave tokens "
+                 f"{req.output}")
+        walls[S] = (req.prefill_s, req.decode_s / (SERVE_NEW - 1))
+        print(f"[serve-rwkv] request {req.rid} prompt {S}: prefill "
+              f"{req.prefill_s * 1e3:.1f} ms to the first token, decode "
+              f"{walls[S][1] * 1e3:.2f} ms per token; "
+              f"{wkv_fwd.launches - before} wkv launches; first tokens "
+              f"{req.output[:8]}")
+    counts = {"wkv": wkv_fwd.launches, "gmm": gmm.launches,
+              "flash_attention": flash_attention_fwd.launches,
+              "decode_attention": decode_attention_fwd.launches}
+    n = len(runs)
+    want = {"wkv": L * n, "gmm": 0, "flash_attention": 0,
+            "decode_attention": 0}
+    print(f"[serve-rwkv] {n} rwkv requests end to end in "
+          f"{time.time() - t0:.1f} s; launches {counts} (expected {want}: "
+          f"wkv L per prefill and none per decoded token)")
+    if counts != want:
+        fail(f"rwkv launch counts {counts} differ from {want}")
+    for jid in runs.values():
+        eng.complete(jid, 1.0)
+
+    # decode-vs-forward at full width; prefill(511) ends in a ragged chunk
+    toks = torch.tensor(rng_s.integers(1, cfg.vocab_size, SERVE_PROMPTS[0]),
+                        device=dev)
+    S = SERVE_PROMPTS[0] - 1
+    full, _ = model.prefill(params, {"tokens": toks[None, :S + 1]})
+    _, pre = model.prefill(params, {"tokens": toks[None, :S]})
+    caches = E._seed_caches(init_cache(cfg, 1, S + 8, device=dev), pre, S)
+    step, _ = model.decode_step(params, caches, toks[None, S:S + 1], S)
+    if not (torch.isfinite(full).all() and torch.isfinite(step).all()):
+        fail(f"{RWKV_ARCH}: non-finite logits")
+    diff = (full.float() - step.float()).abs().max().item()
+    print(f"[serve-rwkv] {RWKV_ARCH} decode-vs-forward: prefill({S}, last "
+          f"chunk {S % WKV_CHUNK} steps) + decode vs prefill({S + 1}) last "
+          f"logits max abs diff {diff:.4f} (bound 0.25); largest logit "
+          f"{full.float().abs().max().item():.3f}")
+    if not diff < 0.25:
+        fail(f"{RWKV_ARCH} decode-vs-forward diff {diff} >= 0.25")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[serve-rwkv] peak memory in the phase {peak:.2f} GB of "
+          f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.2f} GB")
+    del eng, params, model, caches, pre, full, step
+    torch.cuda.empty_cache()
+
+    # card == CPU: a reduced float32 engine with the same weights
+    small = [E.RequestClass(n, dataclasses.replace(
+        get_config(a), compute_dtype="float32").reduced(), b, c, s, al)
+        for n, a, b, c, s, al in rwkv_classes]
+    on_cpu = E.ServingEngine(small, fleet_chips=64, seed=0, device="cpu")
+    on_card = E.ServingEngine(small, fleet_chips=64, seed=0, device=dev)
+    for name, *_ in rwkv_classes:
+        on_card._params[name] = tree_map(lambda t: t.to(dev),
+                                         on_cpu._get_params(name))
+    rng_small = np.random.default_rng(6)
+    for i in range(SERVE_ARRIVALS):
+        name = "small" if i % 5 else "big"
+        # rwkv prompts of 100 end in a ragged chunk; attention's must divide
+        # its chunk of 64
+        prompt = rng_small.integers(1, 512, (64, 128 if name == "small"
+                                             else 100)[i % 2])
+        for e in (on_cpu, on_card):
+            e.submit(E.Request(rid=i, cls_name=name, prompt=prompt,
+                               max_new_tokens=8), now=float(i) * 0.01)
+    n_cmp, n_rwkv = 0, 0
+    before = wkv_fwd.launches
+    for jid in sorted(on_cpu.sched.running):
+        a = on_cpu.run_request(jid).output
+        b = on_card.run_request(jid).output
+        if a != b:
+            fail(f"reduced float32 rwkv engine: request {jid} gives {b} on "
+                 f"the card and {a} on the CPU")
+        n_cmp += 1
+        n_rwkv += on_cpu._jobs[jid].cls_name == "big"
+    print(f"[serve-rwkv] reduced float32 engines (stablelm / rwkv6 smoke "
+          f"configs, prompts 64/128, rwkv 64/100, 8 tokens): card == CPU "
+          f"token for token on all {n_cmp} admitted requests ({n_rwkv} rwkv, "
+          f"{wkv_fwd.launches - before} wkv launches on the card); metrics "
+          f"equal: {on_card.metrics == on_cpu.metrics}")
+    if n_rwkv < 1 or wkv_fwd.launches == before:
+        fail("the reduced engines ran no rwkv request on the card")
+    if on_card.metrics != on_cpu.metrics:
+        fail("reduced rwkv engines: admission metrics differ")
+
+    top = next(c for c in cases if "ms" in c and c["dtype"] == "bfloat16")
+    f32_case = next(c for c in cases if "ms" in c and c["dtype"] == "float32")
+    return {"wkv": dict(
+        name="wkv", route="cuda", source=WKV[0], replaces=WKV[1],
+        launches=counts["wkv"], max_abs_err=max(c["err"] for c in cases),
+        ms=top["ms"], plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
+        bound_by=top["bound_by"], library_ms=None, shape=top["what"],
+        float32=dict(ms=f32_case["ms"], plain_ms=f32_case["plain_ms"],
+                     bound_ms=f32_case["bound_ms"]),
+        configs=cases,
+        rwkv_launches={k: v for k, v in counts.items() if k != "wkv"},
+        peak_gb=peak,
+        serve_s={f"prompt {S}": {"prefill": p, "decode_per_token": d}
+                 for S, (p, d) in sorted(walls.items())})}
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean CUDA-event time of ``fn`` over ``reps`` calls, after one
     warm-up call."""
@@ -943,9 +1243,11 @@ def main() -> int:
 
     from repro_torch.kernels import attention_build
     from repro_torch.kernels.moe_gmm import build as gmm_build
+    from repro_torch.kernels.rwkv6 import build as wkv_build
 
     t0 = time.time()
-    libs = (build.LIBRARY, attention_build.LIBRARY, gmm_build.LIBRARY)
+    libs = (build.LIBRARY, attention_build.LIBRARY, gmm_build.LIBRARY,
+            wkv_build.LIBRARY)
     with ThreadPoolExecutor(len(libs)) as pool:
         paths = list(pool.map(lambda lib: lib.build(), libs))
     for lib, lib_path in zip(libs, paths):
@@ -1474,6 +1776,9 @@ def main() -> int:
     gc.collect()                      # the dense phase's engine and weights
     torch.cuda.empty_cache()
     report.update(moe_path(dev))
+    gc.collect()                      # the MoE phase's engine and weights
+    torch.cuda.empty_cache()
+    report.update(rwkv_path(dev))
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -17,9 +17,10 @@ Entry points run on the card unless the caller asks for the CPU::
 The Fig. 3 entry point is ``python -m repro_torch.bench.fig3_traces``.
 
 It also serves LLM requests with BS-π admission (``serve.engine.
-ServingEngine``) on the dense and MoE decoders of ``models/``
-(``chip_smoke.py`` runs stablelm-3b, yi-9b and moonshot-v1-16b-a3b at
-full width on the card), whose prefill and decode attention are the
-hand-written ``flash_attention`` and ``decode_attention`` kernels and
-whose MoE expert products are the hand-written grouped matmul ``gmm``.
+ServingEngine``) on the dense, MoE and RWKV6 decoders of ``models/``
+(``chip_smoke.py`` runs stablelm-3b, yi-9b, moonshot-v1-16b-a3b and
+rwkv6-7b at full width on the card), whose prefill and decode attention
+are the hand-written ``flash_attention`` and ``decode_attention``
+kernels, whose MoE expert products are the hand-written grouped matmul
+``gmm`` and whose RWKV6 prefill runs the hand-written chunked ``wkv``.
 """

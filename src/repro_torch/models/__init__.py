@@ -1,2 +1,2 @@
-"""Models of the port: the dense and MoE decoders (config, layers, moe,
-stages, facade)."""
+"""Models of the port: the dense, MoE and RWKV6 decoders (config, layers,
+moe, rwkv, stages, facade)."""

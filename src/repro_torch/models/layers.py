@@ -38,10 +38,18 @@ NEG_INF = -1e30
 
 @dataclasses.dataclass(frozen=True)
 class PDef:
+    """A parameter leaf: shape, logical axes, initializer and dtype.
+
+    ``read_f32`` marks a leaf the model reads in float32 (the reference
+    casts it with ``.astype(jnp.float32)`` at use, never to the
+    activations' dtype): :func:`init_params` keeps it float32 when asked
+    for a compute dtype, since a cast at load would round it and change
+    the function."""
     shape: tuple[int, ...]
     axes: tuple[str | None, ...]
-    init: str = "normal"           # normal | zeros | ones | scaled
+    init: str = "normal"   # normal | zeros | ones | scaled | rwkv_decay
     dtype: str = "float32"
+    read_f32: bool = False
 
     def __post_init__(self):
         if len(self.shape) != len(self.axes):
@@ -68,8 +76,8 @@ def tree_leaves(tree) -> list:
 def stack_defs(defs, num: int):
     """Prepend a ('layers') dimension to every PDef in a tree."""
     return tree_map(
-        lambda d: PDef((num,) + d.shape, ("layers",) + d.axes, d.init,
-                       d.dtype), defs)
+        lambda d: dataclasses.replace(d, shape=(num,) + d.shape,
+                                      axes=("layers",) + d.axes), defs)
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -96,17 +104,24 @@ def _init_one(d: PDef, generator: torch.Generator, dtype):
             part.copy_(x * 0.02 if d.init == "normal"
                        else x / math.sqrt(fan_in))
         return out
+    if d.init == "rwkv_decay":     # U[-8, -4]
+        x = torch.rand(d.shape, generator=generator, dtype=torch.float32,
+                       device=dev)
+        return (x * 4.0 - 8.0).to(dt)
     raise NotImplementedError(f"init {d.init!r} belongs to a model family "
                               f"the port does not run yet")
 
 
 def init_params(defs, generator: torch.Generator, *, dtype=None):
     """Materialize a PDef tree on the generator's device, leaf by leaf in
-    tree order; ``dtype`` overrides each PDef's dtype (the cast happens
-    per leaf, so a float32 copy of the whole tree never exists).  The
-    numbers differ from the reference's ``jax.random`` ones for the same
-    seed: tests carry weights across with ``convert.params_from_jax``."""
-    return tree_map(lambda d: _init_one(d, generator, dtype), defs)
+    tree order; ``dtype`` overrides the dtype of each PDef not marked
+    ``read_f32`` (the cast happens per leaf, so a float32 copy of the
+    whole tree never exists, and the draws do not depend on ``dtype``).
+    The numbers differ from the reference's ``jax.random`` ones for the
+    same seed: tests carry weights across with
+    ``convert.params_from_jax``."""
+    return tree_map(lambda d: _init_one(
+        d, generator, None if d.read_f32 else dtype), defs)
 
 
 # --------------------------------------------------------------------------

@@ -1,7 +1,7 @@
 """Model facade: embeddings, stages, head, prefill/decode entry points.
 
-The counterpart of ``repro/models/model.py`` for the dense and MoE
-families:
+The counterpart of ``repro/models/model.py`` for the dense, MoE and
+ssm (RWKV6) families:
 
   ``prefill(params, {"tokens": [B, S]})``    -> (last logits, caches)
   ``decode_step(params, caches, tok, pos)``  -> (logits, caches)
@@ -38,7 +38,7 @@ def param_defs(cfg: ArchConfig) -> dict[str, Any]:
     return {
         "embed": PDef((Vp, d), ("vocab", "fsdp"), "normal"),
         "stages": tuple(T.stage_param_defs(cfg, s) for s in stages),
-        "final_norm": PDef((d,), (None,), "ones"),
+        "final_norm": PDef((d,), (None,), "ones", read_f32=True),
         "head": PDef((d, Vp), ("fsdp", "vocab"), "scaled"),
     }
 

@@ -40,7 +40,9 @@ def moe_param_defs(cfg: ArchConfig) -> dict[str, Any]:
     m = cfg.moe
     d, f = cfg.d_model, m.d_ff_expert
     defs: dict[str, Any] = {
-        "router": PDef((d, m.num_experts), (None, None), "scaled"),
+        # read in float32 (route)
+        "router": PDef((d, m.num_experts), (None, None), "scaled",
+                       read_f32=True),
         "w_gate": PDef((m.num_experts, d, f), ("expert", "fsdp", None),
                        "scaled"),
         "w_up": PDef((m.num_experts, d, f), ("expert", "fsdp", None),

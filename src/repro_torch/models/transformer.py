@@ -1,27 +1,30 @@
-"""Decoder machinery of the port: the dense and MoE families' stages and
-layers.
+"""Decoder machinery of the port: the dense, MoE and RWKV (ssm) families'
+stages and layers.
 
-The counterpart of ``repro/models/transformer.py`` for the ``dense`` and
-``moe`` families (GQA attention, not MLA):
+The counterpart of ``repro/models/transformer.py`` for the ``dense``,
+``moe`` (GQA attention, not MLA) and ``ssm`` families:
 
   dense (starcoder2):    [(attn, dense)] x num_layers
   moe (moonshot):        [(attn, dense)] x first_dense, then
                          [(attn, moe)] x (num_layers - first_dense)
+  ssm (rwkv6):           [(rwkv, channelmix)] x num_layers
 
-Parameters and KV caches keep the reference's layout, stacked over the
+Parameters and caches keep the reference's layout, stacked over the
 repeat dimension on axis 0 (``stages[i]["l0"]``), and the stage body runs
 as a Python loop over the layers where the reference runs ``lax.scan``.
 Two modes share one code path:
 
-  prefill  — full sequence, causal flash attention, returns the KV caches
+  prefill  — full sequence (causal flash attention, or the chunked WKV
+             kernel), returns the caches: KV, or the RWKV state
   decode   — one token against the caches at position ``pos``; the caches
-             are updated in place (the reference returns new ones)
+             are updated in place (the reference returns new ones): the
+             KV rows at ``pos``, and the whole RWKV state (S, x_prev)
 
 The reference's layers also return the MoE router's auxiliary loss, a
 training term; these serving paths read no loss, so a MoE layer asks
-``moe_ffn`` for none (``with_aux=False``).  Other families (hybrid, ssm,
-vlm, encdec) and MLA attention (deepseek-v3) raise
-``NotImplementedError``: their layers and kernels are still to port.
+``moe_ffn`` for none (``with_aux=False``).  Other families (hybrid, vlm,
+encdec) and MLA attention (deepseek-v3) raise ``NotImplementedError``:
+their layers and kernels are still to port.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import torch
 
 from .config import ArchConfig
 from . import moe as _moe
+from . import rwkv as _rwkv
 from .layers import (PDef, apply_rope, attention_decode, cache_update,
                      dtype_of, flash_attention, rms_norm, stack_defs, swiglu,
                      tree_map)
@@ -40,23 +44,24 @@ from .layers import (PDef, apply_rope, attention_decode, cache_update,
 
 def require_ported(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` unless the port runs ``cfg``: the
-    dense family, or the MoE family with GQA attention."""
+    dense family, the MoE family with GQA attention, or the ssm (RWKV6)
+    family."""
     if cfg.family == "moe" and cfg.mla is not None:
         raise NotImplementedError(
             f"{cfg.name} uses MLA attention, still to port (ROADMAP.md "
             f"Queue 1 item 13)")
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "ssm"):
         raise NotImplementedError(
-            f"repro_torch runs the dense and moe families; {cfg.name} is "
-            f"{cfg.family!r}, still to port (ROADMAP.md Queue 1 item 0; its "
-            f"kernels are Queue 2 rows 12-13)")
+            f"repro_torch runs the dense, moe and ssm families; {cfg.name} "
+            f"is {cfg.family!r}, still to port (ROADMAP.md Queue 1 item 0; "
+            f"the hybrid family's kernel is Queue 2 row 12)")
 
 
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
-    kind: str                 # "attn" (the only kind the port runs)
+    kind: str                 # "attn" | "rwkv" (the kinds the port runs)
     cross: bool = False       # extra cross-attn sublayer (enc-dec decoder)
-    ffn: str = "dense"        # "dense" | "moe"
+    ffn: str = "dense"        # "dense" | "moe" | "channelmix"
     causal: bool = True       # False for encoder self-attention
 
 
@@ -75,6 +80,9 @@ def decoder_stages(cfg: ArchConfig) -> tuple[Stage, ...]:
     require_ported(cfg)
     if cfg.family == "dense":
         return (Stage((LayerSpec("attn"),), cfg.num_layers),)
+    if cfg.family == "ssm":
+        return (Stage((LayerSpec("rwkv", ffn="channelmix"),),
+                      cfg.num_layers),)
     m = cfg.moe
     stages = []
     if m.first_dense:
@@ -109,16 +117,21 @@ def dense_ffn_param_defs(cfg: ArchConfig) -> dict[str, Any]:
     }
 
 
+_MIXERS = {"attn": gqa_param_defs, "rwkv": _rwkv.rwkv_time_param_defs}
+_FFNS = {"dense": dense_ffn_param_defs, "moe": _moe.moe_param_defs,
+         "channelmix": _rwkv.rwkv_channel_param_defs}
+
+
 def layer_param_defs(cfg: ArchConfig, spec: LayerSpec) -> dict[str, Any]:
-    if spec.kind != "attn" or spec.cross or spec.ffn not in ("dense", "moe"):
-        raise NotImplementedError(f"layer {spec} is not ported (dense and "
-                                  f"moe families only)")
+    if spec.kind not in _MIXERS or spec.cross or spec.ffn not in _FFNS:
+        raise NotImplementedError(f"layer {spec} is not ported (dense, moe "
+                                  f"and ssm families only)")
     d = cfg.d_model
-    return {"norm_attn": PDef((d,), (None,), "ones"),
-            "attn": gqa_param_defs(cfg),
-            "norm_ffn": PDef((d,), (None,), "ones"),
-            "ffn": (dense_ffn_param_defs(cfg) if spec.ffn == "dense"
-                    else _moe.moe_param_defs(cfg))}
+    # the norm gains are read in float32 (rms_norm)
+    return {"norm_attn": PDef((d,), (None,), "ones", read_f32=True),
+            "attn": _MIXERS[spec.kind](cfg),
+            "norm_ffn": PDef((d,), (None,), "ones", read_f32=True),
+            "ffn": _FFNS[spec.ffn](cfg)}
 
 
 def stage_param_defs(cfg: ArchConfig, stage: Stage) -> dict[str, Any]:
@@ -161,18 +174,41 @@ def gqa_apply(cfg: ArchConfig, p, x, ctx, cache, spec: LayerSpec):
     return out, new_cache
 
 
+def _store(cache: dict, new: dict) -> dict:
+    """Copy a decode step's new state into ``cache`` in place."""
+    for name, t in new.items():
+        cache[name].copy_(t)
+    return cache
+
+
 def apply_layer(cfg: ArchConfig, spec: LayerSpec, p, x, ctx, cache):
-    """One (attn, dense | moe) layer.  Returns (x, new_cache_or_None)."""
+    """One (attn, dense | moe) or (rwkv, channelmix) layer.  Returns
+    (x, new_cache_or_None); decode updates ``cache`` in place."""
+    mode = ctx["mode"]
+    cache = cache or {}
     h = rms_norm(x, p["norm_attn"], cfg.norm_eps)
-    o, c = gqa_apply(cfg, p["attn"], h, ctx, (cache or {}).get("attn"), spec)
+    if spec.kind == "rwkv":
+        if mode == "decode":
+            o, c = _rwkv.rwkv_time_step(p["attn"], h, cfg, cache["attn"])
+            c = _store(cache["attn"], c)
+        else:
+            o, c = _rwkv.rwkv_time_mix(p["attn"], h, cfg,
+                                       state=cache.get("attn"))
+    else:
+        o, c = gqa_apply(cfg, p["attn"], h, ctx, cache.get("attn"), spec)
     x = x + o
+    new_cache = {"attn": c}
     h = rms_norm(x, p["norm_ffn"], cfg.norm_eps)
     f = p["ffn"]
     if spec.ffn == "moe":
         x = x + _moe.moe_ffn(h, f, cfg, with_aux=False)[0]
+    elif spec.ffn == "channelmix":
+        y, c = _rwkv.rwkv_channel_mix(f, h, cfg, state=cache.get("ffn"))
+        x = x + y
+        new_cache["ffn"] = _store(cache["ffn"], c) if mode == "decode" else c
     else:
         x = x + swiglu(h, f["w_gate"], f["w_up"], f["w_down"])
-    return x, {"attn": c}
+    return x, new_cache
 
 
 def _stack(trees: list):
@@ -219,20 +255,33 @@ def run_stages(cfg: ArchConfig, stages, params, x, ctx, caches=None):
 # --------------------------------------------------------------------------
 
 
+def _layer_cache(cfg: ArchConfig, spec: LayerSpec, batch: int,
+                 seq: int) -> dict:
+    """One layer's cache on the ``meta`` device (shapes and dtypes only):
+    KV [batch, seq, Kh, Dh] in the compute dtype, or the RWKV state
+    (time-mix S float32 [batch, H, N, N] and x_prev, channel-mix x_prev
+    [batch, 1, d], in the compute dtype)."""
+    dt = dtype_of(cfg.compute_dtype)
+    if spec.kind == "rwkv" and spec.ffn == "channelmix":
+        return {"attn": _rwkv.init_rwkv_time_state(cfg, batch, dt,
+                                                   device="meta"),
+                "ffn": {"x_prev": torch.zeros(batch, 1, cfg.d_model,
+                                              dtype=dt, device="meta")}}
+    if spec.kind != "attn" or spec.cross:
+        raise NotImplementedError(f"cache of layer {spec}")
+    shape = (batch, seq, cfg.num_kv_heads, cfg.head_dim)
+    return {"attn": {name: torch.zeros(shape, dtype=dt, device="meta")
+                     for name in ("k", "v")}}
+
+
 def cache_template(cfg: ArchConfig, stages, batch: int, seq: int, *,
                    device) -> tuple:
-    """Zero KV caches in the compute dtype, [repeats, batch, seq, Kh, Dh]
-    per leaf; ``device="meta"`` gives shapes and dtypes without memory."""
-    dt = dtype_of(cfg.compute_dtype)
-    shape = (batch, seq, cfg.num_kv_heads, cfg.head_dim)
-    out = []
-    for stage in stages:
-        sc = {}
-        for j, spec in enumerate(stage.pattern):
-            if spec.kind != "attn" or spec.cross:
-                raise NotImplementedError(f"cache of layer {spec}")
-            sc[f"l{j}"] = {"attn": {
-                name: torch.zeros((stage.repeats,) + shape, dtype=dt,
-                                  device=device) for name in ("k", "v")}}
-        out.append(sc)
-    return tuple(out)
+    """Zero caches, each layer's leaves stacked over the stage's repeats
+    on axis 0; ``device="meta"`` gives shapes and dtypes without
+    memory."""
+    return tuple(
+        {f"l{j}": tree_map(lambda t: torch.zeros(
+            (stage.repeats,) + t.shape, dtype=t.dtype, device=device),
+            _layer_cache(cfg, spec, batch, seq))
+         for j, spec in enumerate(stage.pattern)}
+        for stage in stages)

@@ -1,1 +1,2 @@
-"""LLM serving with Balanced-Splitting admission (dense and MoE models)."""
+"""LLM serving with Balanced-Splitting admission (dense, MoE and RWKV6
+models)."""

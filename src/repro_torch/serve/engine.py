@@ -10,9 +10,11 @@ i.e. *exactly* the multiserver-job classes of the paper.  The engine:
 2. admits each request per BS-π: a free slot in its class slice, else the
    helper block under π=FCFS (GangScheduler);
 3. on slot granting, ``run_request`` runs prefill once and then greedy
-   decode steps of the model (dense or MoE), whose attention runs in the
-   hand-written flash-attention and flash-decoding kernels and whose MoE
-   expert products run in the hand-written grouped matmul on the card.
+   decode steps of the model (dense, MoE or RWKV6), whose attention runs
+   in the hand-written flash-attention and flash-decoding kernels, whose
+   MoE expert products run in the hand-written grouped matmul and whose
+   RWKV prefill runs its WKV recurrence in the hand-written chunked WKV
+   kernel on the card.
 
 The engine runs on ``device`` ("cuda" unless the caller asks for the CPU).
 As in the reference, where the backend is the CPU the models are the
@@ -97,14 +99,20 @@ class ServingEngine:
         """The class's weights on the engine's device, made from ``seed``
         at first use (or placed in ``_params`` by the caller).
 
-        The weights are cast to the model's ``compute_dtype`` once, here
-        at load, one layer of each stacked leaf at a time: the reference
-        casts each float32 weight to the activations' dtype at every use
-        (``p["wq"].astype(x.dtype)``), which gives the same numbers, and
-        holding bf16 halves the card's memory (yi-9b: 17.7 GB instead of
-        35.3 GB; moonshot-v1-16b-a3b: 56.1 GB, its expert stack ``w_gate``
-        alone [48, 64, 2048, 1408]).  The model's functions still cast at
-        use, a no-op on these."""
+        A weight the reference casts to the activations' dtype at every
+        use (``p["wq"].astype(x.dtype)``) is cast to the model's
+        ``compute_dtype`` once, here at load, one layer of each stacked
+        leaf at a time, which gives the same numbers and halves the card's
+        memory (yi-9b: 17.7 GB instead of 35.3 GB; moonshot-v1-16b-a3b:
+        56.1 GB, its expert stack ``w_gate`` alone [48, 64, 2048, 1408]).
+        A leaf the reference reads in float32 stays float32: the rule is
+        its ``PDef``'s ``read_f32`` flag, set beside the model code (the
+        norm gains, the MoE router, RWKV's decay LoRA, decay bias, bonus
+        and group-norm gain), since a cast at load would round it and
+        change the function (RWKV's decay bias ~ U[-8, -4] rounds to
+        steps of 2^-5 in bfloat16, moving each decay exp(bias) by up to
+        ~1.6 %).  The model's functions still cast at use, a no-op on
+        these."""
         if cls_name not in self._params:
             m = self._model(cls_name)
             g = torch.Generator(device=self.device).manual_seed(self.seed)

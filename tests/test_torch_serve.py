@@ -10,8 +10,10 @@ runs one job of each class with the reference's weights carried into both
 engines' ``_params``; in float32 compute the outputs are equal token for
 token (``tests/test_torch_models.py`` states why the logits are compared
 there, not here).  The same two checks run with moonshot-v1-16b-a3b
-(MoE) in place of yi-9b.  ``chips_needed`` and ``cache_bytes`` equal the
-reference's for every config the port runs.
+(MoE) and with rwkv6-7b (RWKV6, at its own chip need) in place of yi-9b.
+``chips_needed`` and ``cache_bytes`` equal the reference's for every
+config the port runs.  A bfloat16 engine keeps in float32 exactly the
+leaves the reference reads in float32.
 """
 
 import dataclasses
@@ -31,12 +33,15 @@ from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.models.convert import params_from_jax
 from repro_torch.serve import engine, kv_cache
 
-PORTED = tuple(a for a in ARCH_IDS if get_config(a).family == "dense"
+PORTED = tuple(a for a in ARCH_IDS
+               if get_config(a).family in ("dense", "ssm")
                or (get_config(a).family == "moe" and get_config(a).mla is None))
 # (name, arch, bucket, chips, mean service s, arrival mix): test_substrate's
 CLASSES = (("small", "stablelm_3b", 8192, 2, 1.0, 0.8),
            ("big", "yi_9b", 8192, 8, 4.0, 0.2))
 MOE_CLASSES = (CLASSES[0], ("big", "moonshot_v1_16b_a3b", 8192, 8, 4.0, 0.2))
+# rwkv6-7b at its own chip need at bucket 8192 (2 chips)
+RWKV_CLASSES = (CLASSES[0], ("big", "rwkv6_7b", 8192, 2, 4.0, 0.2))
 
 
 def _engines(classes_=CLASSES, **over):
@@ -80,6 +85,13 @@ def test_moe_admission_equals_reference_event_for_event():
     _admission_event_for_event(MOE_CLASSES)
 
 
+def test_rwkv_admission_equals_reference_event_for_event():
+    assert RWKV_CLASSES[1][3] == kv_cache.chips_needed(
+        get_config("rwkv6_7b"), 1, 8192) == ref_kv.chips_needed(
+            ref_get_config("rwkv6_7b"), 1, 8192) == 2
+    _admission_event_for_event(RWKV_CLASSES)
+
+
 def _admission_event_for_event(classes):
     ref, port = _engines(classes)
     assert port.device.type == "cpu"
@@ -112,6 +124,11 @@ def test_run_request_equals_reference_token_for_token():
 def test_moe_run_request_equals_reference_token_for_token():
     port = _token_for_token(MOE_CLASSES)
     assert port._model("big").cfg.family == "moe"
+
+
+def test_rwkv_run_request_equals_reference_token_for_token():
+    port = _token_for_token(RWKV_CLASSES)
+    assert port._model("big").cfg.family == "ssm"
 
 
 def _token_for_token(classes):
@@ -153,6 +170,51 @@ def test_run_request_on_the_engines_own_weights():
                for t in out.output)
 
 
+# the leaves the reference reads in float32 (layers.py:115's norm gains,
+# moe.py's router, rwkv.py's decay LoRA, decay bias, bonus and ln_x)
+F32_LEAVES = {"norm_attn", "norm_ffn", "final_norm", "router", "ln_x",
+              "decay_w1", "decay_w2", "decay_bias", "bonus_u"}
+
+
+@pytest.mark.parametrize("classes", [MOE_CLASSES, RWKV_CLASSES])
+def test_bfloat16_engine_keeps_float32_read_leaves(classes):
+    """A bfloat16 engine (the configs' own compute dtype) on the CPU keeps
+    exactly the leaves the reference reads in float32 in float32, equal
+    to the same seed's float32 init, and casts every other leaf to
+    bfloat16 (the float32 init rounded)."""
+    _, port = _engines(classes)
+    _, port32 = _engines(classes, compute_dtype="float32")
+    name = "big"
+    got, want = port._get_params(name), port32._get_params(name)
+    assert port._model(name).cfg.compute_dtype == "bfloat16"
+
+    def walk(a, b, path=()):
+        if isinstance(a, dict):
+            for key in a:
+                yield from walk(a[key], b[key], path + (key,))
+        elif isinstance(a, (tuple, list)):
+            for i, (x, y) in enumerate(zip(a, b)):
+                yield from walk(x, y, path + (i,))
+        else:
+            yield path, a, b
+
+    seen = set()
+    for path, a, b in walk(got, want):
+        leaf = path[-1]
+        assert b.dtype == torch.float32, path
+        if leaf in F32_LEAVES:
+            seen.add(leaf)
+            assert a.dtype == torch.float32, path
+            assert torch.equal(a, b), path
+        else:
+            assert a.dtype == torch.bfloat16, path
+            assert torch.equal(a, b.to(torch.bfloat16)), path
+    family = port._model(name).cfg.family
+    assert seen == ({"norm_attn", "norm_ffn", "final_norm", "router"}
+                    if family == "moe" else
+                    F32_LEAVES - {"router"}), seen
+
+
 @pytest.mark.parametrize("arch", PORTED)
 def test_chips_needed_and_cache_bytes_equal_reference(arch):
     cfg, rcfg = get_config(arch), ref_get_config(arch)
@@ -165,7 +227,8 @@ def test_chips_needed_and_cache_bytes_equal_reference(arch):
         assert kv_cache.context_bucket(seq) == ref_kv.context_bucket(seq)
 
 
-@pytest.mark.parametrize("arch", ["yi_9b", "moonshot_v1_16b_a3b"])
+@pytest.mark.parametrize("arch", ["yi_9b", "moonshot_v1_16b_a3b",
+                                  "rwkv6_7b"])
 def test_decode_step_bench_runs_on_the_cpu(arch):
     """bench/decode_step.run (the prefill and per-step decode timer) on a
     reduced float32 config, asked for the CPU."""
