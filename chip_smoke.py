@@ -71,9 +71,10 @@ The LLM serving slice adds (``serving_path``):
    parallel step as msj_scan's, with ptxas' report;
 2. ``flash_attention`` at B = 1, S = 2048, causal, at yi-9b's heads
    (H 32, Kh 4, D 128), stablelm-3b's (H 32, Kh 32, D 80) and, for the
-   MoE slice, moonshot-v1-16b-a3b's (H 16, Kh 16, D 128) in bfloat16 and
+   MoE and hybrid slices, moonshot-v1-16b-a3b's (H 16, Kh 16, D 128) and
+   jamba-1.5-large's (H 64, Kh 8, D 128) in bfloat16 and
    in float32, and ``decode_attention`` at B in {1, 4}, Sk = 8192, random
-   pos, at the three head shapes in bfloat16 and (B = 4) in float32,
+   pos, at the four head shapes in bfloat16 and (B = 4) in float32,
    each within 1e-5 + 2^-6 |ref| (bfloat16: two units in the last place)
    or 2e-5 + 2e-5 |ref| (float32) of its plain version on the card;
 3. a ``ServingEngine`` on the card with test_substrate's request classes
@@ -142,6 +143,41 @@ weights are freed):
    prefill ends in a ragged chunk), and a reduced float32 engine gives
    the same tokens on the card as on the CPU; prefill and decode times
    and the phase's peak memory are printed.
+
+The hybrid serving slice adds (``hybrid_path``, after the RWKV phase's
+weights are freed):
+
+1. the selective-scan library (``mamba_scan/csrc/mamba_scan.cu``), built
+   in the same parallel step; the attention checks of the dense phase
+   also run at jamba's heads (H 64, Kh 8, D 128);
+2. ``mamba_scan`` at jamba-1.5-large's layer (B 1, S 2048, d_inner
+   16384, N 16): the fused entry the model calls (dt, A, Bm, C float32,
+   u bfloat16 or float32) with zero and carried h0, decays from the
+   model's init (``mamba_dt``, ``mamba_A``) and with a in [0.5, 0.99], and
+   a ragged S = 2047, y and h_T within 1e-4 + 1e-4 |ref| of its plain
+   version on the card; the reference kernel's entry on pre-discretised
+   a / b in float32 and bfloat16 (y bfloat16: plus two units in the last
+   place); each entry timed beside its plain version and its bound (no
+   PyTorch call computes the scan); ``gmm`` at the cut's expert shapes (8
+   held experts of 8192 x 24576: a 2048-token prefill's gate/up and
+   down, one token's gate/up) against its plain version one expert at a
+   time, timed beside ``torch.bmm`` and its bound;
+3. a ``ServingEngine`` on the card with stablelm-3b (2 chips, α 0.8) and
+   the cut of jamba-1.5-large that ``hybrid_cut`` states (one block of 8
+   layers at full width, 8 of 16 experts held; 25.9 B params, 52.3 GB on
+   the card): 20 arrivals, then one admitted jamba request at each prompt
+   length (512, 2048) runs 32 greedy bf16 tokens with the launch counts
+   set to 0 just before and read just after: ``mamba_scan`` exactly 7 per
+   prefill and none per token, ``flash_attention`` 1 per prefill,
+   ``decode_attention`` 1 per token after the first, ``gmm`` 3 x 4 per
+   prefill and per token after the first, ``wkv`` none; tokens lie in the
+   vocabulary, logits are finite; the dropped (token, slot) pairs and
+   those routed to the experts held elsewhere are printed per prefill;
+   decode-vs-forward after prefill(511) is held to 0.25 where neither
+   pass dropped a pair, else printed with the drop counts; a reduced
+   float32 engine (4 of 8 experts held) gives the same tokens on the card
+   as on the CPU; prefill and decode times and the phase's peak memory
+   are printed.
 
 Then it prints the card's name and power limit, one ``{"kernels": [...]}``
 line and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -299,7 +335,8 @@ OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 # tests/test_kernels.py's 2e-5
 ATTN_TOLS = {"bfloat16": (1e-5, 2.0 ** -6), "float32": (2e-5, 2e-5)}
 HEADS = {"yi_9b": (32, 4, 128), "stablelm_3b": (32, 32, 80),  # H, Kh, D
-         "moonshot_v1_16b_a3b": (16, 16, 128)}
+         "moonshot_v1_16b_a3b": (16, 16, 128),
+         "jamba_1_5_large_398b": (64, 8, 128)}
 FLASH_S, DECODE_SK, DECODE_BS = 2048, 8192, (1, 4)
 # tests/test_substrate.py's request classes: (name, arch, bucket, chips,
 # mean service s, arrival mix), served at full width on the one card
@@ -323,6 +360,32 @@ RWKV_ARCH = "rwkv6_7b"
 # hold here)
 WKV_TOLS = {"bfloat16": (5e-4, 1e-3 + 2.0 ** -6), "float32": (5e-4, 1e-3)}
 WKV_S, WKV_CHUNK = 2048, 64
+MAMBA = ("src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu",
+         "src/repro/kernels/mamba_scan/kernel.py:54")
+HYBRID_ARCH = "jamba_1_5_large_398b"
+# Selective scan against its plain version: tests/test_kernels.py's limit,
+# 1e-4 + 1e-4 |ref| (float32 sums of the same terms, FMAs on the card),
+# plus two units in the last place where y is bfloat16 (each side rounds
+# its float32 y once)
+MAMBA_TOLS = (1e-4, 1e-4)
+MAMBA_S = 2048
+
+
+def hybrid_cut(cfg):
+    """The served cut of jamba-1.5-large (configs/jamba_1_5_large_398b.py:
+    72 layers = 9 blocks of 8, 16 experts top-2; 398.6 B params, 797 GB in
+    bf16, which no single H100 holds).  Every width stays as published (d
+    8192, d_inner 16384, d_state 16, d_conv 4, dt_rank 512, 64 heads / 8
+    KV heads of 128, d_ff and d_ff_expert 24576, a router with 16 outputs,
+    top-2, capacity factor 1.25, the 65 536 vocabulary); the depth is one
+    whole block of 8 layers (repeats 9 -> 1: the other blocks would be
+    further pipeline stages), and the card holds experts 0..7 of each MoE
+    layer (rank 0 of a 2-way expert-parallel deployment: 9 stages x 2
+    cards = 18 H100s), routing and capacity still over all 16."""
+    return dataclasses.replace(
+        cfg, name=f"{cfg.name}-block0-ep0of2", num_layers=cfg.attn_every,
+        moe=dataclasses.replace(cfg.moe,
+                                experts_held=cfg.moe.num_experts // 2))
 
 
 def _roofline(nbytes: float, ops: float, dtype: str) -> tuple[float, str]:
@@ -632,6 +695,130 @@ def gmm_bound(rows, experts, M, K, N, nblocks, dtype):
     return _roofline(nbytes, 2 * rows * K * N, dtype)
 
 
+def admitted_big_runs(classes, tag: str, dev):
+    """A ``ServingEngine`` on ``dev`` over ``classes`` ("small" and
+    "big"), the serving phases' arrivals (every 5th one "big", prompts
+    alternating over SERVE_PROMPTS, SERVE_NEW tokens each), with the
+    partition and the admission metrics printed under ``[tag]``.  Returns
+    (engine, {prompt length: jid} of one admitted "big" request per
+    prompt length, the arrivals' generator)."""
+    import numpy as np
+
+    from repro_torch.serve import engine as E
+
+    eng = E.ServingEngine(classes, fleet_chips=64, seed=0, device=dev)
+    eng.partition.validate()
+    rng = np.random.default_rng(5)
+    for i in range(SERVE_ARRIVALS):
+        name = "small" if i % 5 else "big"
+        S = SERVE_PROMPTS[i % 2]
+        eng.submit(E.Request(rid=i, cls_name=name, prompt=rng.integers(
+            1, eng._model(name).cfg.vocab_size, S),
+            max_new_tokens=SERVE_NEW), now=float(i) * 0.01)
+    print(f"[{tag}] {eng.partition.summary()}".replace("\n", f"\n[{tag}] "))
+    print(f"[{tag}] after {SERVE_ARRIVALS} arrivals: metrics {eng.metrics}, "
+          f"p_helper {eng.p_helper:.6f}, running {len(eng.sched.running)}, "
+          f"waiting on the helper {len(eng.sched.helper_wait)}")
+    runs = {}
+    for jid in sorted(eng.sched.running):
+        req = eng._jobs[jid]
+        if req.cls_name == "big":
+            runs.setdefault(len(req.prompt), jid)
+    if sorted(runs) != sorted(SERVE_PROMPTS):
+        fail(f"[{tag}] admitted big requests do not cover prompts "
+             f"{SERVE_PROMPTS}: {sorted(runs)}")
+    return eng, runs, rng
+
+
+def card_equals_cpu(classes, tag: str, big_prompts, kernel, dev) -> None:
+    """card == CPU: ``classes`` (reduced float32 configs) served by an
+    engine on the CPU and one on ``dev`` given the CPU engine's weights,
+    with the same 20 arrivals (prompts 64 / 128 for "small",
+    ``big_prompts`` for "big", 8 tokens each).  Fails unless every
+    admitted request gives the same tokens on both, the admission metrics
+    are equal and the card ran a "big" request through ``kernel`` (a
+    wrapper with a launch count)."""
+    import numpy as np
+
+    from repro_torch.models.layers import tree_map
+    from repro_torch.serve import engine as E
+
+    on_cpu = E.ServingEngine(classes, fleet_chips=64, seed=0, device="cpu")
+    on_card = E.ServingEngine(classes, fleet_chips=64, seed=0, device=dev)
+    for c in classes:
+        on_card._params[c.name] = tree_map(lambda t: t.to(dev),
+                                           on_cpu._get_params(c.name))
+    rng = np.random.default_rng(6)
+    for i in range(SERVE_ARRIVALS):
+        name = "small" if i % 5 else "big"
+        prompt = rng.integers(1, 512, ((64, 128) if name == "small"
+                                       else big_prompts)[i % 2])
+        for e in (on_cpu, on_card):
+            e.submit(E.Request(rid=i, cls_name=name, prompt=prompt,
+                               max_new_tokens=8), now=float(i) * 0.01)
+    n_cmp, n_big = 0, 0
+    before = kernel.launches
+    for jid in sorted(on_cpu.sched.running):
+        a = on_cpu.run_request(jid).output
+        b = on_card.run_request(jid).output
+        if a != b:
+            fail(f"[{tag}] reduced float32 engine: request {jid} gives {b} "
+                 f"on the card and {a} on the CPU")
+        n_cmp += 1
+        n_big += on_cpu._jobs[jid].cls_name == "big"
+    print(f"[{tag}] reduced float32 engines ({classes[0].cfg.name} / "
+          f"{classes[1].cfg.name}, prompts 64/128, big "
+          f"{big_prompts[0]}/{big_prompts[1]}, 8 tokens): card == CPU token "
+          f"for token on all {n_cmp} admitted requests ({n_big} big, "
+          f"{kernel.launches - before} {kernel.__name__} launches on the "
+          f"card); metrics equal: {on_card.metrics == on_cpu.metrics}")
+    if n_big < 1 or kernel.launches == before:
+        fail(f"[{tag}] the reduced engines ran no big request on the card")
+    if on_card.metrics != on_cpu.metrics:
+        fail(f"[{tag}] reduced engines: admission metrics differ")
+
+
+class KeptMoEInputs:
+    """While active (``with``), keeps each prefill's MoE layer inputs
+    (``models.moe.moe_ffn`` wrapped; one token is not kept) so that
+    :meth:`drops` can route them again after the pass."""
+
+    def __init__(self, moe, m):
+        self.moe, self.m, self.saved = moe, m, []
+
+    def __enter__(self):
+        ffn = self.ffn = self.moe.moe_ffn
+
+        def keep(x, params, cfg, **kw):
+            if x.shape[0] * x.shape[1] > 1:
+                self.saved.append((x, params["router"]))
+            return ffn(x, params, cfg, **kw)
+
+        self.moe.moe_ffn = keep
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.moe_ffn = self.ffn
+
+    def drops(self, held: int):
+        """(pairs dropped at capacity over the kept layers, of them the
+        last token's, pairs routed to experts at or past ``held``, which a
+        card holding experts [0, held) skips); forgets the kept inputs.
+        Each kept input is one router chunk (T <= 4096)."""
+        moe, m = self.moe, self.m
+        total = last = absent = 0
+        for x, w in self.saved:
+            T = x.shape[0] * x.shape[1]
+            _, e, _ = moe.route(x.reshape(T, -1), w, m, with_aux=False)
+            flat_e, _, d, _ = moe._positions(e, m.num_experts,
+                                             moe._capacity(m, T))
+            total += int(d.sum())
+            last += int(d.reshape(T, m.top_k)[-1].sum())
+            absent += int(((flat_e >= held) & ~d).sum())
+        self.saved.clear()
+        return total, last, absent
+
+
 def moe_path(dev) -> dict:
     """The MoE serving path: ``gmm`` against its plain version at
     moonshot-v1-16b-a3b's prefill and decode shapes (and timed there),
@@ -647,7 +834,6 @@ def moe_path(dev) -> dict:
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.kernels.moe_gmm import gmm, gmm_ref, pad_groups
     from repro_torch.models import moe
-    from repro_torch.models.layers import tree_map
     from repro_torch.models.model import init_cache
     from repro_torch.serve import engine as E
 
@@ -745,29 +931,7 @@ def moe_path(dev) -> dict:
     # -- [serve-moe] ServingEngine at moonshot's full width and depth -------
     classes = [E.RequestClass(n, get_config(a), b, c, s, al)
                for n, a, b, c, s, al in MOE_CLASSES]
-    eng = E.ServingEngine(classes, fleet_chips=64, seed=0, device=dev)
-    eng.partition.validate()
-    rng_s = np.random.default_rng(5)
-    for i in range(SERVE_ARRIVALS):
-        name = "small" if i % 5 else "big"
-        S = SERVE_PROMPTS[i % 2]
-        eng.submit(E.Request(rid=i, cls_name=name, prompt=rng_s.integers(
-            1, eng._model(name).cfg.vocab_size, S),
-            max_new_tokens=SERVE_NEW), now=float(i) * 0.01)
-    print(f"[serve-moe] {eng.partition.summary()}".replace(
-        "\n", "\n[serve-moe] "))
-    print(f"[serve-moe] after {SERVE_ARRIVALS} arrivals: metrics "
-          f"{eng.metrics}, p_helper {eng.p_helper:.6f}, running "
-          f"{len(eng.sched.running)}, waiting on the helper "
-          f"{len(eng.sched.helper_wait)}")
-    runs = {}
-    for jid in sorted(eng.sched.running):
-        req = eng._jobs[jid]
-        if req.cls_name == "big":
-            runs.setdefault(len(req.prompt), jid)
-    if sorted(runs) != sorted(SERVE_PROMPTS):
-        fail(f"admitted moonshot requests do not cover prompts "
-             f"{SERVE_PROMPTS}: {sorted(runs)}")
+    eng, runs, rng_s = admitted_big_runs(classes, "serve-moe", dev)
     model = eng._model("big")
     cfg, m = model.cfg, model.cfg.moe
     t0 = time.time()
@@ -780,75 +944,54 @@ def moe_path(dev) -> dict:
     L = cfg.num_layers
 
     # dropped (token, slot) pairs: each prefill's MoE layer inputs are kept
-    # and routed again after the pass (moe_ffn's one router chunk, T <=
-    # 4096).  One token never drops: its top-k experts are distinct and C
-    # >= top-k
+    # and routed again after the pass.  One token never drops: its top-k
+    # experts are distinct and C >= top-k
     if moe._capacity(m, 1) < m.top_k:
         fail(f"decode capacity {moe._capacity(m, 1)} < top-k {m.top_k}")
-    moe_ffn, saved = moe.moe_ffn, []
+    with KeptMoEInputs(moe, m) as kept:
+        gmm.launches = flash_attention_fwd.launches = 0
+        decode_attention_fwd.launches = 0
+        t0 = time.time()
+        walls = {}
+        for S, jid in sorted(runs.items()):
+            req = eng.run_request(jid)
+            torch.cuda.synchronize()
+            dropped = kept.drops(m.num_experts)[0]
+            if len(req.output) != SERVE_NEW or not all(
+                    0 <= t < cfg.vocab_size for t in req.output):
+                fail(f"moonshot request {req.rid} (prompt {S}) gave tokens "
+                     f"{req.output}")
+            walls[S] = (req.prefill_s, req.decode_s / (SERVE_NEW - 1))
+            print(f"[serve-moe] request {req.rid} prompt {S}: prefill "
+                  f"{req.prefill_s * 1e3:.1f} ms to the first token, decode "
+                  f"{walls[S][1] * 1e3:.2f} ms per token; {dropped} of "
+                  f"{S * m.top_k * L} (token, slot) pairs dropped in "
+                  f"prefill (C = {moe._capacity(m, S)}); first tokens "
+                  f"{req.output[:8]}")
+        counts = {"gmm": gmm.launches,
+                  "flash_attention": flash_attention_fwd.launches,
+                  "decode_attention": decode_attention_fwd.launches}
+        n = len(runs)
+        want = {"gmm": 3 * L * n * SERVE_NEW, "flash_attention": L * n,
+                "decode_attention": L * n * (SERVE_NEW - 1)}
+        print(f"[serve-moe] {n} moonshot requests end to end in "
+              f"{time.time() - t0:.1f} s; launches {counts} (expected "
+              f"{want}: gmm 3 L per prefill and per token after the first, "
+              f"flash L per prefill, decode L per token after the first)")
+        if counts != want:
+            fail(f"moe launch counts {counts} differ from {want}")
+        for jid in runs.values():
+            eng.complete(jid, 1.0)
 
-    def keep_prefill_input(x, params, cfg, **kw):
-        if x.shape[0] * x.shape[1] > 1:
-            saved.append((x, params["router"]))
-        return moe_ffn(x, params, cfg, **kw)
-
-    def saved_drops():
-        """(pairs dropped over the kept layers, of them the last token's);
-        forgets the kept inputs."""
-        total = last = 0
-        for x, w in saved:
-            T = x.shape[0] * x.shape[1]
-            _, e, _ = moe.route(x.reshape(T, -1), w, m, with_aux=False)
-            d = moe._positions(e, m.num_experts, moe._capacity(m, T))[2]
-            total += int(d.sum())
-            last += int(d.reshape(T, m.top_k)[-1].sum())
-        saved.clear()
-        return total, last
-
-    moe.moe_ffn = keep_prefill_input
-    gmm.launches = flash_attention_fwd.launches = 0
-    decode_attention_fwd.launches = 0
-    t0 = time.time()
-    walls = {}
-    for S, jid in sorted(runs.items()):
-        req = eng.run_request(jid)
-        torch.cuda.synchronize()
-        dropped, _ = saved_drops()
-        if len(req.output) != SERVE_NEW or not all(
-                0 <= t < cfg.vocab_size for t in req.output):
-            fail(f"moonshot request {req.rid} (prompt {S}) gave tokens "
-                 f"{req.output}")
-        walls[S] = (req.prefill_s, req.decode_s / (SERVE_NEW - 1))
-        print(f"[serve-moe] request {req.rid} prompt {S}: prefill "
-              f"{req.prefill_s * 1e3:.1f} ms to the first token, decode "
-              f"{walls[S][1] * 1e3:.2f} ms per token; {dropped} of "
-              f"{S * m.top_k * L} (token, slot) pairs dropped in prefill "
-              f"(C = {moe._capacity(m, S)}); first tokens {req.output[:8]}")
-    counts = {"gmm": gmm.launches,
-              "flash_attention": flash_attention_fwd.launches,
-              "decode_attention": decode_attention_fwd.launches}
-    n = len(runs)
-    want = {"gmm": 3 * L * n * SERVE_NEW, "flash_attention": L * n,
-            "decode_attention": L * n * (SERVE_NEW - 1)}
-    print(f"[serve-moe] {n} moonshot requests end to end in "
-          f"{time.time() - t0:.1f} s; launches {counts} (expected {want}: "
-          f"gmm 3 L per prefill and per token after the first, flash L per "
-          f"prefill, decode L per token after the first)")
-    if counts != want:
-        fail(f"moe launch counts {counts} differ from {want}")
-    for jid in runs.values():
-        eng.complete(jid, 1.0)
-
-    # decode-vs-forward at full width, with the pairs each pass dropped
-    toks = torch.tensor(rng_s.integers(1, cfg.vocab_size, SERVE_PROMPTS[0]),
-                        device=dev)
-    S = SERVE_PROMPTS[0] - 1
-    drops = {}
-    full, _ = model.prefill(params, {"tokens": toks[None, :S + 1]})
-    drops[S + 1], last = saved_drops()
-    _, pre = model.prefill(params, {"tokens": toks[None, :S]})
-    drops[S], _ = saved_drops()
-    moe.moe_ffn = moe_ffn
+        # decode-vs-forward at full width, with the pairs each pass dropped
+        toks = torch.tensor(rng_s.integers(1, cfg.vocab_size,
+                                           SERVE_PROMPTS[0]), device=dev)
+        S = SERVE_PROMPTS[0] - 1
+        drops = {}
+        full, _ = model.prefill(params, {"tokens": toks[None, :S + 1]})
+        drops[S + 1], last, _ = kept.drops(m.num_experts)
+        _, pre = model.prefill(params, {"tokens": toks[None, :S]})
+        drops[S] = kept.drops(m.num_experts)[0]
     caches = E._seed_caches(init_cache(cfg, 1, S + 8, device=dev), pre, S)
     step, _ = model.decode_step(params, caches, toks[None, S:S + 1], S)
     if not (torch.isfinite(full).all() and torch.isfinite(step).all()):
@@ -878,40 +1021,10 @@ def moe_path(dev) -> dict:
     torch.cuda.empty_cache()
 
     # card == CPU: a reduced float32 engine with the same weights
-    small = [E.RequestClass(n, dataclasses.replace(
+    card_equals_cpu([E.RequestClass(n, dataclasses.replace(
         get_config(a), compute_dtype="float32").reduced(), b, c, s, al)
-        for n, a, b, c, s, al in MOE_CLASSES]
-    on_cpu = E.ServingEngine(small, fleet_chips=64, seed=0, device="cpu")
-    on_card = E.ServingEngine(small, fleet_chips=64, seed=0, device=dev)
-    for name, *_ in MOE_CLASSES:
-        on_card._params[name] = tree_map(lambda t: t.to(dev),
-                                         on_cpu._get_params(name))
-    rng_small = np.random.default_rng(6)
-    for i in range(SERVE_ARRIVALS):
-        name = "small" if i % 5 else "big"
-        prompt = rng_small.integers(1, 512, (64, 128)[i % 2])
-        for e in (on_cpu, on_card):
-            e.submit(E.Request(rid=i, cls_name=name, prompt=prompt,
-                               max_new_tokens=8), now=float(i) * 0.01)
-    n_cmp, n_moe = 0, 0
-    before = gmm.launches
-    for jid in sorted(on_cpu.sched.running):
-        a = on_cpu.run_request(jid).output
-        b = on_card.run_request(jid).output
-        if a != b:
-            fail(f"reduced float32 moe engine: request {jid} gives {b} on "
-                 f"the card and {a} on the CPU")
-        n_cmp += 1
-        n_moe += on_cpu._jobs[jid].cls_name == "big"
-    print(f"[serve-moe] reduced float32 engines (stablelm / moonshot smoke "
-          f"configs, prompts 64/128, 8 tokens): card == CPU token for token "
-          f"on all {n_cmp} admitted requests ({n_moe} moonshot, "
-          f"{gmm.launches - before} gmm launches on the card); metrics "
-          f"equal: {on_card.metrics == on_cpu.metrics}")
-    if n_moe < 1 or gmm.launches == before:
-        fail("the reduced engines ran no moonshot request on the card")
-    if on_card.metrics != on_cpu.metrics:
-        fail("reduced moe engines: admission metrics differ")
+        for n, a, b, c, s, al in MOE_CLASSES], "serve-moe", (64, 128), gmm,
+        dev)
 
     top = cases[0]                    # prefill gate/up, bfloat16
     return {"gmm": dict(
@@ -949,7 +1062,6 @@ def rwkv_path(dev) -> dict:
     before and read just after, decode-vs-forward over a ragged last
     chunk, and card == CPU on a reduced float32 engine.  Returns the wkv
     report entry."""
-    import numpy as np
     import torch
 
     from repro_torch.configs import get_config
@@ -958,7 +1070,7 @@ def rwkv_path(dev) -> dict:
     from repro_torch.kernels.moe_gmm import gmm
     from repro_torch.kernels.rwkv6 import wkv_chunked_ref, wkv_fwd
     from repro_torch.models import rwkv
-    from repro_torch.models.layers import tree_leaves, tree_map
+    from repro_torch.models.layers import tree_leaves
     from repro_torch.models.model import init_cache
     from repro_torch.serve import engine as E
     from repro_torch.serve import kv_cache
@@ -1041,31 +1153,9 @@ def rwkv_path(dev) -> dict:
                                        0.2))
     classes = [E.RequestClass(n, get_config(a), b, c, s, al)
                for n, a, b, c, s, al in rwkv_classes]
-    eng = E.ServingEngine(classes, fleet_chips=64, seed=0, device=dev)
-    eng.partition.validate()
-    rng_s = np.random.default_rng(5)
-    for i in range(SERVE_ARRIVALS):
-        name = "small" if i % 5 else "big"
-        S = SERVE_PROMPTS[i % 2]
-        eng.submit(E.Request(rid=i, cls_name=name, prompt=rng_s.integers(
-            1, eng._model(name).cfg.vocab_size, S),
-            max_new_tokens=SERVE_NEW), now=float(i) * 0.01)
     print(f"[serve-rwkv] {RWKV_ARCH} needs {chips} chips at bucket 8192 "
           f"(state cache {kv_cache.cache_bytes(cfg, 1, 8192) / 1e6:.1f} MB)")
-    print(f"[serve-rwkv] {eng.partition.summary()}".replace(
-        "\n", "\n[serve-rwkv] "))
-    print(f"[serve-rwkv] after {SERVE_ARRIVALS} arrivals: metrics "
-          f"{eng.metrics}, p_helper {eng.p_helper:.6f}, running "
-          f"{len(eng.sched.running)}, waiting on the helper "
-          f"{len(eng.sched.helper_wait)}")
-    runs = {}
-    for jid in sorted(eng.sched.running):
-        req = eng._jobs[jid]
-        if req.cls_name == "big":
-            runs.setdefault(len(req.prompt), jid)
-    if sorted(runs) != sorted(SERVE_PROMPTS):
-        fail(f"admitted rwkv requests do not cover prompts "
-             f"{SERVE_PROMPTS}: {sorted(runs)}")
+    eng, runs, rng_s = admitted_big_runs(classes, "serve-rwkv", dev)
     model = eng._model("big")
     cfg = model.cfg
     t0 = time.time()
@@ -1133,44 +1223,13 @@ def rwkv_path(dev) -> dict:
     del eng, params, model, caches, pre, full, step
     torch.cuda.empty_cache()
 
-    # card == CPU: a reduced float32 engine with the same weights
-    small = [E.RequestClass(n, dataclasses.replace(
+    # card == CPU: a reduced float32 engine with the same weights; rwkv
+    # prompts of 100 end in a ragged chunk (attention's must divide its
+    # chunk of 64)
+    card_equals_cpu([E.RequestClass(n, dataclasses.replace(
         get_config(a), compute_dtype="float32").reduced(), b, c, s, al)
-        for n, a, b, c, s, al in rwkv_classes]
-    on_cpu = E.ServingEngine(small, fleet_chips=64, seed=0, device="cpu")
-    on_card = E.ServingEngine(small, fleet_chips=64, seed=0, device=dev)
-    for name, *_ in rwkv_classes:
-        on_card._params[name] = tree_map(lambda t: t.to(dev),
-                                         on_cpu._get_params(name))
-    rng_small = np.random.default_rng(6)
-    for i in range(SERVE_ARRIVALS):
-        name = "small" if i % 5 else "big"
-        # rwkv prompts of 100 end in a ragged chunk; attention's must divide
-        # its chunk of 64
-        prompt = rng_small.integers(1, 512, (64, 128 if name == "small"
-                                             else 100)[i % 2])
-        for e in (on_cpu, on_card):
-            e.submit(E.Request(rid=i, cls_name=name, prompt=prompt,
-                               max_new_tokens=8), now=float(i) * 0.01)
-    n_cmp, n_rwkv = 0, 0
-    before = wkv_fwd.launches
-    for jid in sorted(on_cpu.sched.running):
-        a = on_cpu.run_request(jid).output
-        b = on_card.run_request(jid).output
-        if a != b:
-            fail(f"reduced float32 rwkv engine: request {jid} gives {b} on "
-                 f"the card and {a} on the CPU")
-        n_cmp += 1
-        n_rwkv += on_cpu._jobs[jid].cls_name == "big"
-    print(f"[serve-rwkv] reduced float32 engines (stablelm / rwkv6 smoke "
-          f"configs, prompts 64/128, rwkv 64/100, 8 tokens): card == CPU "
-          f"token for token on all {n_cmp} admitted requests ({n_rwkv} rwkv, "
-          f"{wkv_fwd.launches - before} wkv launches on the card); metrics "
-          f"equal: {on_card.metrics == on_cpu.metrics}")
-    if n_rwkv < 1 or wkv_fwd.launches == before:
-        fail("the reduced engines ran no rwkv request on the card")
-    if on_card.metrics != on_cpu.metrics:
-        fail("reduced rwkv engines: admission metrics differ")
+        for n, a, b, c, s, al in rwkv_classes], "serve-rwkv", (64, 100),
+        wkv_fwd, dev)
 
     top = next(c for c in cases if "ms" in c and c["dtype"] == "bfloat16")
     f32_case = next(c for c in cases if "ms" in c and c["dtype"] == "float32")
@@ -1186,6 +1245,412 @@ def rwkv_path(dev) -> dict:
         peak_gb=peak,
         serve_s={f"prompt {S}": {"prefill": p, "decode_per_token": d}
                  for S, (p, d) in sorted(walls.items())})}
+
+
+def mamba_bound(B, S, d_in, N, *, fused, dtype, carried=True):
+    """Least time for one selective-scan call.  Fused entry: dt read in
+    float32 and u in its dtype, A, Bm, C (and h0 when carried) once, y and
+    h_T written in float32; per (t, d, n) one exponential and 7 float32
+    operations (dt A, dt Bm, x u, a h + b, h C + y).  Reference entry: a and
+    b read in their dtype and c once, y written in a's dtype; 4 float32
+    operations per (t, d, n).  Operations at the float32 CUDA-core peak
+    (an exponential counted as one operation)."""
+    item = 2 if dtype == "bfloat16" else 4
+    steps = B * S * d_in * N
+    if fused:
+        nbytes = (4 * B * S * d_in + item * B * S * d_in + 4 * d_in * N
+                  + 2 * 4 * B * S * N + 4 * B * S * d_in
+                  + 4 * B * d_in * N * (2 if carried else 1))
+        ops = 8 * steps
+    else:
+        nbytes = 2 * item * steps + 4 * B * S * N + item * B * S * d_in
+        ops = 4 * steps
+    return _roofline(nbytes, ops, "float32")
+
+
+def hybrid_path(dev) -> dict:
+    """The hybrid serving path: ``mamba_scan`` (both entries) against its
+    plain versions at jamba-1.5-large's layer shape (and timed there),
+    ``gmm`` at the cut's expert shapes, ``ServingEngine`` on the cut
+    (``hybrid_cut``) with the launch counts set to 0 just before and read
+    just after, decode-vs-forward with the drop counts, and card == CPU on
+    a reduced float32 engine.  Returns (the mamba_scan report entry, the
+    gmm cases at the cut's shapes)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import decode_attention_fwd
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.mamba_scan import (mamba_scan_fused,
+                                                mamba_scan_fused_ref,
+                                                mamba_scan_fwd,
+                                                mamba_scan_ref)
+    from repro_torch.kernels.moe_gmm import gmm, gmm_ref
+    from repro_torch.kernels.rwkv6 import wkv_fwd
+    from repro_torch.models import mamba, moe
+    from repro_torch.models.layers import PDef, init_params, tree_leaves
+    from repro_torch.models.model import init_cache
+    from repro_torch.models.transformer import decoder_stages
+    from repro_torch.serve import engine as E
+    from repro_torch.serve import kv_cache
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats()
+    print(f"[serve-hybrid] {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+          f"allocated on entry (the RWKV phase's weights freed)")
+    full = get_config(HYBRID_ARCH)
+    cut = hybrid_cut(full)
+    d_in, N, _, _ = mamba._dims(cut)
+    gen = torch.Generator(device=dev).manual_seed(19)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    def check(name, what, out, ref, bf16=False):
+        ref = ref.float()
+        d = (out.float() - ref).abs()
+        limit = MAMBA_TOLS[0] + MAMBA_TOLS[1] * ref.abs()
+        if bf16:   # two bfloat16 units in the last place of |ref|
+            limit = limit + 2 * torch.exp2(torch.floor(torch.log2(
+                ref.abs().clamp_min(1e-30))) - 7)
+        err, ratio = d.max().item(), (d / limit).max().item()
+        print(f"[kernel] {name} {what}: max abs err {err:.3g}; limit "
+              f"{MAMBA_TOLS[0]:g} + {MAMBA_TOLS[1]:g} |ref|"
+              f"{' + 2 bf16 units' if bf16 else ''}, largest err/limit "
+              f"{ratio:.3g}; mean |ref| {ref.abs().mean().item():.3g}")
+        if not (ratio <= 1.0 and torch.isfinite(out).all()):
+            fail(f"{name} {what} differs from its plain version: max abs "
+                 f"err {err}, largest err/limit {ratio}")
+        return err, ratio
+
+    # -- [kernel] / [time] mamba_scan at jamba's layer (B 1, S 2048) --------
+    # decays from the model's init (dt = softplus of a mamba_dt draw, A =
+    # -exp(mamba_A) = -(1..16)) and from tests/test_kernels.py's a in
+    # [0.5, 0.99] (A = -1, dt = -log a); zero and carried state; S = 2047
+    A_init = -torch.exp(init_params(PDef((d_in, N), (None, None), "mamba_A"),
+                                    gen))
+    A_fast = -torch.ones(d_in, N, device=dev)
+
+    def decays(kind, S):
+        if kind == "init":
+            bias = init_params(PDef((1, S, d_in), (None,) * 3, "mamba_dt"),
+                               gen)
+            return F.softplus(bias), A_init
+        a = torch.rand(1, S, d_in, generator=gen, device=dev) * 0.49 + 0.5
+        return -torch.log(a), A_fast
+
+    cases, timed = [], {}
+    for S, kind, carried, dtype in (
+            (MAMBA_S, "init", False, "bfloat16"),
+            (MAMBA_S, "init", True, "bfloat16"),
+            (MAMBA_S, "init", True, "float32"),
+            (MAMBA_S, "fast", True, "bfloat16"),
+            (MAMBA_S - 1, "init", True, "bfloat16"),
+            (MAMBA_S - 1, "fast", False, "float32")):
+        dt, A = decays(kind, S)
+        Bm, C = randn(1, S, N), randn(1, S, N)
+        u = randn(1, S, d_in).to(getattr(torch, dtype))
+        h0 = randn(1, d_in, N, scale=0.5) if carried else None
+        src = "from the init" if kind == "init" else "with a in [0.5, 0.99]"
+        what = (f"fused B=1 S={S} d_in={d_in} N={N} u {dtype}, dt / A "
+                f"{src}, h0 {'carried' if carried else 'zero'}")
+        y, h_T = mamba_scan_fused(dt, A, Bm, u, C, h0)
+        torch.cuda.synchronize()
+        ry, rh = mamba_scan_fused_ref(dt, A, Bm, u, C, h0)
+        ey, qy = check("mamba_scan", what + ": y", y, ry)
+        eh, qh = check("mamba_scan", what + ": h_T", h_T, rh)
+        case = dict(entry="fused", what=what, dtype=dtype, err=max(ey, eh),
+                    err_over_limit=max(qy, qh))
+        if S == MAMBA_S and kind == "init" and carried:
+            ms = cuda_ms(lambda: mamba_scan_fused(dt, A, Bm, u, C, h0), 20)
+            plain_ms = cuda_ms(lambda: mamba_scan_fused_ref(
+                dt, A, Bm, u, C, h0), 2)
+            b_ms, b_by = mamba_bound(1, S, d_in, N, fused=True, dtype=dtype)
+            print(f"[time] mamba_scan {what}: {ms:.4f} ms per launch, plain "
+                  f"version {plain_ms:.4f} ms, no PyTorch call computes the "
+                  f"scan, bound {b_ms:.5f} ms ({b_by})")
+            case.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                        bound_by=b_by)
+            timed[("fused", dtype)] = case
+        cases.append(case)
+        if kind == "init" and S == MAMBA_S and not carried:
+            # the reference entry on the same decays, discretised here
+            init_abc = (torch.exp(dt[..., None] * A),
+                        (dt[..., None] * Bm[:, :, None, :])
+                        * u.float()[..., None], C)
+        del y, h_T, ry, rh
+    torch.cuda.empty_cache()
+
+    for kind in ("init", "fast"):
+        S = MAMBA_S
+        if kind == "init":
+            a, b, c = init_abc
+            del init_abc
+        else:   # tests/test_kernels.py's inputs
+            a = torch.rand(1, S, d_in, N, generator=gen, device=dev) * 0.49 \
+                + 0.5
+            b = randn(1, S, d_in, N, scale=0.2)
+            c = randn(1, S, N)
+        for dtype in ("float32", "bfloat16"):
+            aa, bb = (x.to(getattr(torch, dtype)) for x in (a, b))
+            src = "from the init" if kind == "init" else "in [0.5, 0.99]"
+            what = (f"reference entry B=1 S={S} d_in={d_in} N={N} a/b "
+                    f"{dtype}, a {src}")
+            y = mamba_scan_fwd(aa, bb, c, chunk=128)
+            torch.cuda.synchronize()
+            err, q = check("mamba_scan", what, y, mamba_scan_ref(aa, bb, c),
+                           bf16=dtype == "bfloat16")
+            case = dict(entry="reference", what=what, dtype=dtype, err=err,
+                        err_over_limit=q)
+            if kind == "init":
+                ms = cuda_ms(lambda: mamba_scan_fwd(aa, bb, c, chunk=128), 10)
+                plain_ms = cuda_ms(lambda: mamba_scan_ref(aa, bb, c), 2)
+                b_ms, b_by = mamba_bound(1, S, d_in, N, fused=False,
+                                         dtype=dtype)
+                print(f"[time] mamba_scan {what}: {ms:.4f} ms per launch, "
+                      f"plain version {plain_ms:.4f} ms, bound {b_ms:.5f} ms "
+                      f"({b_by})")
+                case.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                            bound_by=b_by)
+                timed[("reference", dtype)] = case
+            cases.append(case)
+            del aa, bb, y
+        del a, b
+    torch.cuda.empty_cache()
+
+    # -- [kernel] / [time] gmm at the cut's expert shapes -------------------
+    # 8 held experts of K 8192 x N 24576 (gate/up) and 24576 x 8192 (down):
+    # a 2048-token prefill (C = 320, block_m 128) with a skewed fill, and
+    # one decoded token (C = 2, block_m 16, two rows in one expert); the
+    # plain version runs one expert at a time (its float32 weight gather
+    # of a whole [8, 8192, 24576] stack would take 6.4 GB per block)
+    m = cut.moe
+    H = moe.experts_held(m)
+    rng = np.random.default_rng(19)
+    gmm_cases = []
+    for phase, T in (("prefill", MAMBA_S), ("decode", 1)):
+        C = moe._capacity(m, T)
+        bm = moe.block_m_for(C)
+        Cp = (C + bm - 1) // bm * bm
+        if T > 1:
+            fill = rng.multinomial(T * m.top_k // 2, rng.dirichlet(
+                np.full(H, 2.0)))
+            fill[0] = 0                            # one expert gets nothing
+        else:
+            fill = np.zeros(H, np.int64)
+            fill[3] = m.top_k
+        fill = np.minimum(fill, C)
+        be, nv = moe._fill_blocks(torch.tensor(fill, device=dev), C, bm)
+        valid = (nv > 0).cpu().numpy()
+        rows = int(valid.sum()) * bm
+        experts = int((fill > 0).sum())
+        projs = ((("gate/up", cut.d_model, m.d_ff_expert),
+                  ("down", m.d_ff_expert, cut.d_model)) if T > 1
+                 else (("gate/up", cut.d_model, m.d_ff_expert),))
+        for proj, Kd, Nd in projs:
+            x = randn(H * Cp, Kd).to(torch.bfloat16)
+            w = torch.empty(H, Kd, Nd, dtype=torch.bfloat16, device=dev)
+            for e in range(H):
+                w[e] = randn(Kd, Nd, scale=1 / math.sqrt(Kd))
+            what = (f"jamba cut {phase} {proj} held {H} of "
+                    f"{m.num_experts} experts, C={C} Cp={Cp} block_m={bm} "
+                    f"K={Kd} N={Nd} bfloat16: {int(valid.sum())} of "
+                    f"{len(valid)} blocks valid")
+            out = gmm(x, w, be, nv, block_m=bm)
+            torch.cuda.synchronize()
+            atol, rtol = ATTN_TOLS["bfloat16"]
+            worst, err = 0.0, 0.0
+            for e in range(H):
+                sl = slice(e * Cp, (e + 1) * Cp)
+                bs = slice(e * Cp // bm, (e + 1) * Cp // bm)
+                ref = gmm_ref(x[sl], w[e:e + 1], torch.zeros_like(be[bs]),
+                              nv[bs].contiguous(), block_m=bm).float()
+                d = (out[sl].float() - ref).abs()
+                err = max(err, d.max().item())
+                worst = max(worst, (d / (atol + rtol * ref.abs())).max()
+                            .item())
+                del ref, d
+            skipped = (nv == 0).repeat_interleave(bm)
+            zeros = bool((out[skipped] == 0).all())
+            print(f"[kernel] gmm {what}: max abs err {err:.3g}; limit "
+                  f"{atol:g} + {rtol:g} |ref| per element (plain version "
+                  f"one expert at a time), largest err/limit {worst:.3g}; "
+                  f"skipped blocks exactly zero: {zeros}")
+            if not (worst <= 1.0 and zeros):
+                fail(f"gmm {what} differs from its plain version: max abs "
+                     f"err {err}, largest err/limit {worst}, skipped blocks "
+                     f"zero {zeros}")
+            ms = cuda_ms(lambda: gmm(x, w, be, nv, block_m=bm), 3)
+            xb = x.view(H, Cp, Kd)
+            lib_ms = cuda_ms(lambda: torch.bmm(xb, w), 3)
+            b_ms, b_by = gmm_bound(rows, experts, x.shape[0], Kd, Nd,
+                                   len(valid), "bfloat16")
+            print(f"[time] gmm {what}: {ms:.4f} ms per launch, torch.bmm "
+                  f"over the [H, Cp, K] buffer {lib_ms:.4f} ms, bound "
+                  f"{b_ms:.5f} ms ({b_by})")
+            gmm_cases.append(dict(what=what, dtype="bfloat16", err=err,
+                                  err_over_limit=worst, ms=ms,
+                                  library_ms=lib_ms, bound_ms=b_ms,
+                                  bound_by=b_by))
+            del x, w, out, xb
+    torch.cuda.empty_cache()
+
+    # -- [serve-hybrid] ServingEngine on the cut ----------------------------
+    chips = kv_cache.chips_needed(cut, 1, 8192)
+    classes = [E.RequestClass(SERVE_CLASSES[0][0],
+                              get_config(SERVE_CLASSES[0][1]),
+                              *SERVE_CLASSES[0][2:]),
+               E.RequestClass("big", cut, 8192, chips, 4.0, 0.2)]
+    print(f"[serve-hybrid] {cut.name}: {full.name} cut to one block of "
+          f"{cut.num_layers} layers at full width, {H} of "
+          f"{m.num_experts} experts held; needs {chips} chips at bucket 8192 "
+          f"(cache {kv_cache.cache_bytes(cut, 1, 8192) / 1e6:.1f} MB); the "
+          f"uncut model {full.num_params() / 1e9:.1f} B params")
+    eng, runs, rng_s = admitted_big_runs(classes, "serve-hybrid", dev)
+    model = eng._model("big")
+    cfg = model.cfg
+    t0 = time.time()
+    params = eng._get_params("big")            # weights on the card: set-up
+    torch.cuda.synchronize()
+    f32 = sum(t.numel() for t in tree_leaves(params)
+              if t.dtype == torch.float32)
+    init_peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[serve-hybrid] weights made on the card in {time.time() - t0:.1f}"
+          f" s: {cfg.num_params() / 1e9:.2f} B params ({f32 / 1e6:.1f} M "
+          f"kept in float32, the leaves read in float32; "
+          f"{cfg.active_params() / 1e9:.2f} B active per token on this "
+          f"card), {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+          f"{init_peak:.2f} GB peak while drawing them")
+    torch.cuda.reset_peak_memory_stats()
+    specs = [s for st in decoder_stages(cfg) for s in st.pattern
+             for _ in range(st.repeats)]
+    n_moe = sum(s.ffn == "moe" for s in specs)
+    n_mamba = sum(s.kind == "mamba" for s in specs)
+    n_attn = sum(s.kind == "attn" for s in specs)
+
+    # dropped and absent (token, slot) pairs: each prefill's MoE layer
+    # inputs are kept and routed again after the pass.  One token never
+    # drops (C >= top-k); pairs routed to the experts held elsewhere add
+    # nothing in every pass alike
+    if moe._capacity(m, 1) < m.top_k:
+        fail(f"decode capacity {moe._capacity(m, 1)} < top-k {m.top_k}")
+    with KeptMoEInputs(moe, m) as kept:
+        mamba_scan_fused.launches = mamba_scan_fwd.launches = 0
+        gmm.launches = wkv_fwd.launches = flash_attention_fwd.launches = 0
+        decode_attention_fwd.launches = 0
+        t0 = time.time()
+        walls = {}
+        for S, jid in sorted(runs.items()):
+            before = mamba_scan_fused.launches
+            req = eng.run_request(jid)
+            torch.cuda.synchronize()
+            dropped, _, absent = kept.drops(H)
+            if len(req.output) != SERVE_NEW or not all(
+                    0 <= t < cfg.vocab_size for t in req.output):
+                fail(f"jamba request {req.rid} (prompt {S}) gave tokens "
+                     f"{req.output}")
+            walls[S] = (req.prefill_s, req.decode_s / (SERVE_NEW - 1))
+            print(f"[serve-hybrid] request {req.rid} prompt {S}: prefill "
+                  f"{req.prefill_s * 1e3:.1f} ms to the first token, decode "
+                  f"{walls[S][1] * 1e3:.2f} ms per token; "
+                  f"{mamba_scan_fused.launches - before} mamba_scan "
+                  f"launches; {dropped} of {S * m.top_k * n_moe} (token, "
+                  f"slot) pairs dropped in prefill (C = "
+                  f"{moe._capacity(m, S)}), {absent} routed to the experts "
+                  f"held elsewhere; first tokens {req.output[:8]}")
+        counts = {"mamba_scan": mamba_scan_fused.launches,
+                  "mamba_scan_reference_entry": mamba_scan_fwd.launches,
+                  "gmm": gmm.launches,
+                  "flash_attention": flash_attention_fwd.launches,
+                  "decode_attention": decode_attention_fwd.launches,
+                  "wkv": wkv_fwd.launches}
+        n = len(runs)
+        want = {"mamba_scan": n_mamba * n, "mamba_scan_reference_entry": 0,
+                "gmm": 3 * n_moe * n * SERVE_NEW,
+                "flash_attention": n_attn * n,
+                "decode_attention": n_attn * n * (SERVE_NEW - 1), "wkv": 0}
+        print(f"[serve-hybrid] {n} jamba requests end to end in "
+              f"{time.time() - t0:.1f} s; launches {counts} (expected "
+              f"{want}: mamba_scan {n_mamba} per prefill and none per "
+              f"token, gmm 3 x {n_moe} per prefill and per token after the "
+              f"first, flash {n_attn} per prefill, decode {n_attn} per "
+              f"token after the first)")
+        if counts != want:
+            fail(f"hybrid launch counts {counts} differ from {want}")
+        for jid in runs.values():
+            eng.complete(jid, 1.0)
+
+        # decode-vs-forward at full width, with the pairs each pass dropped
+        toks = torch.tensor(rng_s.integers(1, cfg.vocab_size,
+                                           SERVE_PROMPTS[0]), device=dev)
+        S = SERVE_PROMPTS[0] - 1
+        drops = {}
+        full_logits, _ = model.prefill(params,
+                                       {"tokens": toks[None, :S + 1]})
+        drops[S + 1], last, _ = kept.drops(H)
+        _, pre = model.prefill(params, {"tokens": toks[None, :S]})
+        drops[S] = kept.drops(H)[0]
+    caches = E._seed_caches(init_cache(cfg, 1, S + 8, device=dev), pre, S)
+    step, _ = model.decode_step(params, caches, toks[None, S:S + 1], S)
+    if not (torch.isfinite(full_logits).all()
+            and torch.isfinite(step).all()):
+        fail(f"{cut.name}: non-finite logits")
+    diff = (full_logits.float() - step.float()).abs().max().item()
+    print(f"[serve-hybrid] {cut.name} decode-vs-forward: prefill({S}) + "
+          f"decode vs prefill({S + 1}) last logits max abs diff {diff:.4f}; "
+          f"largest logit {full_logits.float().abs().max().item():.3f}; "
+          f"pairs dropped: prefill({S}) {drops[S]}, prefill({S + 1}) "
+          f"{drops[S + 1]} (its last token {last}), decode 0 (C = "
+          f"{moe._capacity(m, 1)} >= top-k)")
+    if drops[S] == drops[S + 1] == 0:
+        print("[serve-hybrid] no pass dropped a pair: held to 0.25")
+        if not diff < 0.25:
+            fail(f"{cut.name} decode-vs-forward diff {diff} >= 0.25")
+    else:
+        print(f"[serve-hybrid] not held to 0.25: at capacity factor "
+              f"{m.capacity_factor} a {S + 1}-token prefill has C = "
+              f"{moe._capacity(m, S + 1)} rows per expert and drops pairs "
+              f"that decode keeps, so the two passes compute different "
+              f"functions, on the reference too")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[serve-hybrid] peak memory while serving {peak:.2f} GB of "
+          f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.2f} GB "
+          f"({init_peak:.2f} GB while drawing the weights)")
+    del eng, params, model, caches, pre, full_logits, step
+    torch.cuda.empty_cache()
+
+    # card == CPU: a reduced float32 engine with the same weights (the
+    # reduced cut holds 4 of its 8 experts); jamba prompts of 40 end in a
+    # ragged scan chunk (chunk 16)
+    card_equals_cpu([E.RequestClass(SERVE_CLASSES[0][0], dataclasses.replace(
+        get_config(SERVE_CLASSES[0][1]), compute_dtype="float32").reduced(),
+        *SERVE_CLASSES[0][2:]),
+        E.RequestClass("big", dataclasses.replace(
+            cut, compute_dtype="float32").reduced(), 8192, chips, 4.0, 0.2)],
+        "serve-hybrid", (64, 40), mamba_scan_fused, dev)
+
+    top = timed[("fused", "bfloat16")]
+    return dict(
+        name="mamba_scan", route="cuda", source=MAMBA[0], replaces=MAMBA[1],
+        launches=counts["mamba_scan"],
+        max_abs_err=max(c["err"] for c in cases), ms=top["ms"],
+        plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
+        bound_by=top["bound_by"], library_ms=None,
+        shape=top["what"] + " (mamba_scan_fused, the model's entry)",
+        float32={k: timed[("fused", "float32")][k]
+                 for k in ("ms", "plain_ms", "bound_ms")},
+        reference_entry={dt: {k: timed[("reference", dt)][k]
+                              for k in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by")}
+                         for dt in ("float32", "bfloat16")},
+        configs=cases,
+        hybrid_launches={k: v for k, v in counts.items()
+                         if k != "mamba_scan"},
+        peak_gb=peak, weights_init_peak_gb=init_peak,
+        serve_s={f"prompt {S}": {"prefill": p, "decode_per_token": d}
+                 for S, (p, d) in sorted(walls.items())}), gmm_cases
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -1242,12 +1707,13 @@ def main() -> int:
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels import attention_build
+    from repro_torch.kernels.mamba_scan import build as mamba_build
     from repro_torch.kernels.moe_gmm import build as gmm_build
     from repro_torch.kernels.rwkv6 import build as wkv_build
 
     t0 = time.time()
     libs = (build.LIBRARY, attention_build.LIBRARY, gmm_build.LIBRARY,
-            wkv_build.LIBRARY)
+            wkv_build.LIBRARY, mamba_build.LIBRARY)
     with ThreadPoolExecutor(len(libs)) as pool:
         paths = list(pool.map(lambda lib: lib.build(), libs))
     for lib, lib_path in zip(libs, paths):
@@ -1779,6 +2245,9 @@ def main() -> int:
     gc.collect()                      # the MoE phase's engine and weights
     torch.cuda.empty_cache()
     report.update(rwkv_path(dev))
+    gc.collect()                      # the RWKV phase's engine and weights
+    torch.cuda.empty_cache()
+    report["mamba_scan"], report["gmm"]["jamba_cut"] = hybrid_path(dev)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -17,10 +17,13 @@ Entry points run on the card unless the caller asks for the CPU::
 The Fig. 3 entry point is ``python -m repro_torch.bench.fig3_traces``.
 
 It also serves LLM requests with BS-π admission (``serve.engine.
-ServingEngine``) on the dense, MoE and RWKV6 decoders of ``models/``
-(``chip_smoke.py`` runs stablelm-3b, yi-9b, moonshot-v1-16b-a3b and
-rwkv6-7b at full width on the card), whose prefill and decode attention
+ServingEngine``) on the dense, MoE, RWKV6 and hybrid decoders of
+``models/`` (``chip_smoke.py`` runs stablelm-3b, yi-9b,
+moonshot-v1-16b-a3b and rwkv6-7b at full width on the card, and one block
+of jamba-1.5-large at full width), whose prefill and decode attention
 are the hand-written ``flash_attention`` and ``decode_attention``
 kernels, whose MoE expert products are the hand-written grouped matmul
-``gmm`` and whose RWKV6 prefill runs the hand-written chunked ``wkv``.
+``gmm``, whose RWKV6 prefill runs the hand-written chunked ``wkv`` and
+whose Mamba prefill runs the hand-written selective scan
+``mamba_scan``.
 """

@@ -1,2 +1,2 @@
-"""Models of the port: the dense, MoE and RWKV6 decoders (config, layers,
-moe, rwkv, stages, facade)."""
+"""Models of the port: the dense, MoE, RWKV6 and hybrid decoders (config,
+layers, moe, rwkv, mamba, stages, facade)."""

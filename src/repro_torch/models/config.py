@@ -13,9 +13,11 @@ The port's copy of ``repro/models/config.py``.  A single
 * ``vlm``    — decoder with interleaved cross-attention layers
   (llama-3.2-vision backbone)
 
-The port's model runs ``dense`` and ``moe`` (without MLA); the other
-families' configs are data here.  ``reduced()`` returns a tiny same-family config for CPU smoke
-tests.
+The port's model runs ``dense``, ``moe`` (without MLA), ``ssm`` and
+``hybrid``; the other families' configs are data here.  ``MoECfg`` adds
+one field to the reference's, ``experts_held``, the share of an
+expert-parallel layer that one card holds.  ``reduced()`` returns a tiny
+same-family config for CPU smoke tests.
 """
 
 from __future__ import annotations
@@ -36,6 +38,10 @@ class MoECfg:
     first_dense: int = 0         # deepseek: first 3 layers dense
     capacity_factor: float = 1.25
     router_aux_weight: float = 0.001
+    # the port's one-card share of an expert-parallel layer: this card
+    # holds ``experts_held`` consecutive experts (0: all of them); routing
+    # and capacity still count all ``num_experts`` (models/moe.py)
+    experts_held: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,11 +141,15 @@ class ArchConfig:
         if self.moe is not None:
             # capacity_factor 4: the smoke configs must be *dropless* so
             # prefill+decode exactly matches the full forward pass
+            m = self.moe
             kw["moe"] = dataclasses.replace(
-                self.moe, num_experts=8, top_k=2, d_ff_expert=64,
-                num_shared=min(1, self.moe.num_shared),
-                first_dense=min(1, self.moe.first_dense),
-                capacity_factor=4.0)
+                m, num_experts=8, top_k=2, d_ff_expert=64,
+                num_shared=min(1, m.num_shared),
+                first_dense=min(1, m.first_dense),
+                capacity_factor=4.0,
+                # a share keeps its fraction of the experts
+                experts_held=(max(1, m.experts_held * 8 // m.num_experts)
+                              if m.experts_held else 0))
             kw["num_layers"] = 4
         if self.mla is not None:
             kw["mla"] = MLACfg(q_lora_rank=64, kv_lora_rank=32, rope_dim=16,

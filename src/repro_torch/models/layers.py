@@ -47,7 +47,8 @@ class PDef:
     the function."""
     shape: tuple[int, ...]
     axes: tuple[str | None, ...]
-    init: str = "normal"   # normal | zeros | ones | scaled | rwkv_decay
+    init: str = "normal"   # normal | zeros | ones | scaled | rwkv_decay |
+    #                        mamba_A | mamba_dt
     dtype: str = "float32"
     read_f32: bool = False
 
@@ -108,8 +109,43 @@ def _init_one(d: PDef, generator: torch.Generator, dtype):
         x = torch.rand(d.shape, generator=generator, dtype=torch.float32,
                        device=dev)
         return (x * 4.0 - 8.0).to(dt)
+    if d.init == "mamba_A":        # log(1..N) along the last axis (S4D-real)
+        n = torch.arange(1, d.shape[-1] + 1, dtype=torch.float32, device=dev)
+        return _xla_log(n).expand(d.shape).to(dt).contiguous()
+    if d.init == "mamba_dt":       # softplus^-1(dt), dt = e^U[ln 1e-3, ln 0.1]
+        x = torch.rand(d.shape, generator=generator, dtype=torch.float32,
+                       device=dev)
+        lo, hi = math.log(1e-3), math.log(1e-1)
+        t = torch.exp(x * (hi - lo) + lo)
+        return (t + torch.log(-torch.expm1(-t))).to(dt)
     raise NotImplementedError(f"init {d.init!r} belongs to a model family "
                               f"the port does not run yet")
+
+
+def _xla_log(x):
+    """float32 log as the reference's XLA CPU backend computes it (the
+    Cephes polynomial, each operation rounded to float32), so that
+    ``mamba_A`` equals the reference's init exactly: that log is not
+    correctly rounded (log 7 lies one unit above ``torch.log``'s).  Checked
+    equal to ``jnp.log`` on every integer 1..11 047."""
+    f = torch.float32
+    m, e = torch.frexp(x.to(f))
+    e = e.to(f)
+    low = m < 0.707106781186547524
+    e = e - low.to(f)
+    x = (m - 1.0) + torch.where(low, m, torch.zeros_like(m))
+    x2 = x * x
+    x3 = x2 * x
+    p = (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1,
+         -1.2420140846e-1, 1.4249322787e-1, -1.6668057665e-1,
+         2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1)
+    y = (p[0] * x + p[1]) * x + p[2]
+    y1 = (p[3] * x + p[4]) * x + p[5]
+    y2 = (p[6] * x + p[7]) * x + p[8]
+    y = ((y * x3 + y1) * x3 + y2) * x3
+    y = y + e * -2.12194440e-4
+    x = x - x2 * 0.5
+    return (x + y) + e * 0.693359375
 
 
 def init_params(defs, generator: torch.Generator, *, dtype=None):

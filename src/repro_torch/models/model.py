@@ -1,7 +1,7 @@
 """Model facade: embeddings, stages, head, prefill/decode entry points.
 
-The counterpart of ``repro/models/model.py`` for the dense, MoE and
-ssm (RWKV6) families:
+The counterpart of ``repro/models/model.py`` for the dense, MoE, ssm
+(RWKV6) and hybrid (Mamba / attention, jamba) families:
 
   ``prefill(params, {"tokens": [B, S]})``    -> (last logits, caches)
   ``decode_step(params, caches, tok, pos)``  -> (logits, caches)
@@ -25,6 +25,7 @@ import torch
 from .config import ArchConfig
 from .layers import (PDef, dtype_of, init_params, rms_norm, rope_angles,
                      tree_leaves)
+from . import moe as _moe
 from . import transformer as T
 
 
@@ -55,7 +56,8 @@ def active_param_count(cfg: ArchConfig) -> int:
     m = cfg.moe
     n_moe = sum(sum(1 for spec in s.pattern if spec.ffn == "moe") * s.repeats
                 for s in T.decoder_stages(cfg))
-    inactive = n_moe * (m.num_experts - m.top_k) * 3 * cfg.d_model * \
+    held = _moe.experts_held(m)       # a one-card share holds fewer
+    inactive = n_moe * (held - min(m.top_k, held)) * 3 * cfg.d_model * \
         m.d_ff_expert
     return total - inactive
 
@@ -115,8 +117,8 @@ def decode_step(cfg: ArchConfig, params, caches, tokens, pos):
 
 
 def init_cache(cfg: ArchConfig, batch: int, seq: int, *, device="cuda"):
-    """Zero KV caches on ``device`` (the card unless the caller asks for
-    the CPU or ``"meta"``)."""
+    """Zero caches (KV, RWKV or Mamba state) on ``device`` (the card unless
+    the caller asks for the CPU or ``"meta"``)."""
     return T.cache_template(cfg, T.decoder_stages(cfg), batch, seq,
                             device=device)
 

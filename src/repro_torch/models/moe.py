@@ -20,7 +20,14 @@ of moonshot's 64 experts).  Empty rows of the buffer are zero and a
 skipped block gives zeros, so the result is the reference's.
 
 Expert parallelism over a mesh (the reference's ``_moe_ffn_shard_map``)
-is not ported: the port runs on one card.
+is not ported: the port runs on one card.  What one card of such a
+deployment computes is: with ``MoECfg.experts_held = h`` (0: all) the
+layer holds the weights of experts [expert0, expert0 + h) only ([h, d, f]
+stacks), routes over all ``num_experts`` with the router at its full
+width, computes the capacity with all of them, and returns the part of
+the result its experts give: a pair routed to an absent expert adds
+nothing, as if dropped.  The shares of all cards sum to the uncut layer.
+No exchange between cards stands in for the absent ones.
 """
 
 from __future__ import annotations
@@ -38,17 +45,14 @@ from .layers import PDef, dtype_of, swiglu
 def moe_param_defs(cfg: ArchConfig) -> dict[str, Any]:
     """Per-layer MoE params (stacked over layers by the caller)."""
     m = cfg.moe
-    d, f = cfg.d_model, m.d_ff_expert
+    d, f, held = cfg.d_model, m.d_ff_expert, experts_held(m)
     defs: dict[str, Any] = {
         # read in float32 (route)
         "router": PDef((d, m.num_experts), (None, None), "scaled",
                        read_f32=True),
-        "w_gate": PDef((m.num_experts, d, f), ("expert", "fsdp", None),
-                       "scaled"),
-        "w_up": PDef((m.num_experts, d, f), ("expert", "fsdp", None),
-                     "scaled"),
-        "w_down": PDef((m.num_experts, f, d), ("expert", None, "fsdp"),
-                       "scaled"),
+        "w_gate": PDef((held, d, f), ("expert", "fsdp", None), "scaled"),
+        "w_up": PDef((held, d, f), ("expert", "fsdp", None), "scaled"),
+        "w_down": PDef((held, f, d), ("expert", None, "fsdp"), "scaled"),
     }
     if m.num_shared:
         fs = f * m.num_shared
@@ -56,6 +60,15 @@ def moe_param_defs(cfg: ArchConfig) -> dict[str, Any]:
         defs["shared_up"] = PDef((d, fs), ("fsdp", "tp"), "scaled")
         defs["shared_down"] = PDef((fs, d), ("tp", "fsdp"), "scaled")
     return defs
+
+
+def experts_held(m: MoECfg) -> int:
+    """The number of experts whose weights this card holds."""
+    held = m.experts_held or m.num_experts
+    if not 0 < held <= m.num_experts:
+        raise ValueError(f"experts_held={m.experts_held} must lie in "
+                         f"0..{m.num_experts}")
+    return held
 
 
 def _capacity(m: MoECfg, tokens: int) -> int:
@@ -127,42 +140,48 @@ def _fill_blocks(counts, C: int, block_m: int):
 
 
 def _dispatch_combine(xc, weights, experts, w_gate, w_up, w_down, m: MoECfg,
-                      compute_dtype):
-    """One chunk: xc [T, D] -> [T, D] through capacity-C expert buffers."""
+                      compute_dtype, expert0: int = 0):
+    """One chunk: xc [T, D] -> [T, D] through capacity-C expert buffers of
+    the held experts [expert0, expert0 + w_gate.shape[0])."""
     T, D = xc.shape
-    E, k = m.num_experts, m.top_k
+    E, k, H = m.num_experts, m.top_k, w_gate.shape[0]
     C = _capacity(m, T)
     bm = block_m_for(C)
     Cp = (C + bm - 1) // bm * bm
     flat_e, pos, dropped, counts = _positions(experts, E, C)
+    local = flat_e - expert0
+    # a pair adds nothing if dropped or routed to an expert not held here
+    skip = dropped | (local < 0) | (local >= H)
 
-    # scatter tokens -> [E*Cp + 1, D]; the last row collects drops and is
-    # cut off (each kept (expert, pos) is written once)
-    row = torch.where(dropped, E * Cp, flat_e * Cp + pos)
+    # scatter tokens -> [H*Cp + 1, D]; the last row collects skipped pairs
+    # and is cut off (each kept (expert, pos) is written once)
+    row = torch.where(skip, H * Cp, local * Cp + pos)
     src = xc.repeat_interleave(k, dim=0).to(compute_dtype)      # [T*k, D]
-    buf = torch.zeros(E * Cp + 1, D, dtype=compute_dtype, device=xc.device)
+    buf = torch.zeros(H * Cp + 1, D, dtype=compute_dtype, device=xc.device)
     buf.index_put_((row,), src)
-    buf = buf[:E * Cp]
+    buf = buf[:H * Cp]
 
-    # expert SwiGLU: three gmm launches over the padded buffer [E*Cp, D]
-    be, nv = _fill_blocks(counts, C, bm)
+    # expert SwiGLU: three gmm launches over the padded buffer [H*Cp, D]
+    be, nv = _fill_blocks(counts[expert0:expert0 + H], C, bm)
     g = gmm(buf, w_gate.to(compute_dtype).contiguous(), be, nv, block_m=bm)
     u = gmm(buf, w_up.to(compute_dtype).contiguous(), be, nv, block_m=bm)
     y = gmm(F.silu(g) * u, w_down.to(compute_dtype).contiguous(), be, nv,
             block_m=bm)
 
-    # gather back + weighted combine (dropped pairs add zero)
-    out = torch.where(dropped[:, None], 0.0,
-                      y[flat_e * Cp + pos.clamp(max=C - 1)])
-    w = torch.where(dropped, 0.0, weights.reshape(-1)).to(compute_dtype)
+    # gather back + weighted combine (skipped pairs add zero)
+    out = torch.where(skip[:, None], 0.0,
+                      y[local.clamp(0, H - 1) * Cp + pos.clamp(max=C - 1)])
+    w = torch.where(skip, 0.0, weights.reshape(-1)).to(compute_dtype)
     return (out * w[:, None]).reshape(T, k, D).sum(dim=1)
 
 
 def moe_ffn(x, params, cfg: ArchConfig, *, chunk: int = 4096,
-            with_aux: bool = True):
+            with_aux: bool = True, expert0: int = 0):
     """x: [B, S, D] -> ([B, S, D], aux_loss), the loss None with
     ``with_aux=False`` (the serving path, which reads none, so the router
-    skips its work).
+    skips its work).  ``params`` hold the experts [expert0, expert0 +
+    experts_held) (all of them by default; the module docstring says what
+    a share computes).
 
     The router runs over chunks of ``chunk`` tokens (one chunk when the
     token count is not a multiple of it, as in the reference), each with
@@ -170,6 +189,10 @@ def moe_ffn(x, params, cfg: ArchConfig, *, chunk: int = 4096,
     (:func:`block_m_for`), and the result does not depend on it.
     """
     m = cfg.moe
+    if not 0 <= expert0 <= m.num_experts - experts_held(m):
+        raise ValueError(f"expert0={expert0}: the share of "
+                         f"{experts_held(m)} experts must lie within "
+                         f"{m.num_experts}")
     B, S, D = x.shape
     dt = dtype_of(cfg.compute_dtype)
     xf = x.reshape(B * S, D)
@@ -183,7 +206,8 @@ def moe_ffn(x, params, cfg: ArchConfig, *, chunk: int = 4096,
     for xc in xf.split(chunk):
         w, e, a = route(xc, params["router"], m, with_aux=with_aux)
         ys.append(_dispatch_combine(xc, w, e, params["w_gate"],
-                                    params["w_up"], params["w_down"], m, dt))
+                                    params["w_up"], params["w_down"], m, dt,
+                                    expert0))
         if with_aux:
             aux = aux + a
     out = torch.cat(ys).reshape(B, S, D).to(x.dtype)

@@ -1,30 +1,34 @@
-"""Decoder machinery of the port: the dense, MoE and RWKV (ssm) families'
-stages and layers.
+"""Decoder machinery of the port: the dense, MoE, RWKV (ssm) and hybrid
+families' stages and layers.
 
 The counterpart of ``repro/models/transformer.py`` for the ``dense``,
-``moe`` (GQA attention, not MLA) and ``ssm`` families:
+``moe`` (GQA attention, not MLA), ``ssm`` and ``hybrid`` families:
 
   dense (starcoder2):    [(attn, dense)] x num_layers
   moe (moonshot):        [(attn, dense)] x first_dense, then
                          [(attn, moe)] x (num_layers - first_dense)
   ssm (rwkv6):           [(rwkv, channelmix)] x num_layers
+  hybrid (jamba):        [(mamba | attn at attn_every // 2, dense | moe on
+                         every moe.every-th)] blocks of attn_every layers
 
 Parameters and caches keep the reference's layout, stacked over the
 repeat dimension on axis 0 (``stages[i]["l0"]``), and the stage body runs
 as a Python loop over the layers where the reference runs ``lax.scan``.
 Two modes share one code path:
 
-  prefill  — full sequence (causal flash attention, or the chunked WKV
-             kernel), returns the caches: KV, or the RWKV state
+  prefill  — full sequence (causal flash attention, the chunked WKV
+             kernel, or the selective-scan kernel), returns the caches:
+             KV, the RWKV state, or the Mamba state
   decode   — one token against the caches at position ``pos``; the caches
              are updated in place (the reference returns new ones): the
-             KV rows at ``pos``, and the whole RWKV state (S, x_prev)
+             KV rows at ``pos``, and the whole RWKV state (S, x_prev) or
+             Mamba state (h, conv)
 
 The reference's layers also return the MoE router's auxiliary loss, a
 training term; these serving paths read no loss, so a MoE layer asks
-``moe_ffn`` for none (``with_aux=False``).  Other families (hybrid, vlm,
+``moe_ffn`` for none (``with_aux=False``).  Other families (vlm,
 encdec) and MLA attention (deepseek-v3) raise ``NotImplementedError``:
-their layers and kernels are still to port.
+their layers are still to port.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from typing import Any
 import torch
 
 from .config import ArchConfig
+from . import mamba as _mamba
 from . import moe as _moe
 from . import rwkv as _rwkv
 from .layers import (PDef, apply_rope, attention_decode, cache_update,
@@ -44,22 +49,22 @@ from .layers import (PDef, apply_rope, attention_decode, cache_update,
 
 def require_ported(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` unless the port runs ``cfg``: the
-    dense family, the MoE family with GQA attention, or the ssm (RWKV6)
-    family."""
+    dense family, the MoE family with GQA attention, the ssm (RWKV6) or
+    the hybrid (jamba) family."""
     if cfg.family == "moe" and cfg.mla is not None:
         raise NotImplementedError(
             f"{cfg.name} uses MLA attention, still to port (ROADMAP.md "
             f"Queue 1 item 13)")
-    if cfg.family not in ("dense", "moe", "ssm"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
-            f"repro_torch runs the dense, moe and ssm families; {cfg.name} "
-            f"is {cfg.family!r}, still to port (ROADMAP.md Queue 1 item 0; "
-            f"the hybrid family's kernel is Queue 2 row 12)")
+            f"repro_torch runs the dense, moe, ssm and hybrid families; "
+            f"{cfg.name} is {cfg.family!r}, still to port (ROADMAP.md "
+            f"Queue 1 item 13)")
 
 
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
-    kind: str                 # "attn" | "rwkv" (the kinds the port runs)
+    kind: str                 # "attn" | "rwkv" | "mamba" (the port's kinds)
     cross: bool = False       # extra cross-attn sublayer (enc-dec decoder)
     ffn: str = "dense"        # "dense" | "moe" | "channelmix"
     causal: bool = True       # False for encoder self-attention
@@ -83,6 +88,17 @@ def decoder_stages(cfg: ArchConfig) -> tuple[Stage, ...]:
     if cfg.family == "ssm":
         return (Stage((LayerSpec("rwkv", ffn="channelmix"),),
                       cfg.num_layers),)
+    if cfg.family == "hybrid":
+        # attn:mamba 1:7 interleave, attention in the middle of the block;
+        # MoE on every `cfg.moe.every`-th layer
+        P, every = cfg.attn_every, cfg.moe.every
+        if cfg.num_layers % P:
+            raise ValueError(f"{cfg.name}: {cfg.num_layers} layers are not "
+                             f"whole blocks of {P}")
+        pat = tuple(LayerSpec("attn" if j == P // 2 else "mamba",
+                              ffn="moe" if j % every == every - 1
+                              else "dense") for j in range(P))
+        return (Stage(pat, cfg.num_layers // P),)
     m = cfg.moe
     stages = []
     if m.first_dense:
@@ -117,15 +133,16 @@ def dense_ffn_param_defs(cfg: ArchConfig) -> dict[str, Any]:
     }
 
 
-_MIXERS = {"attn": gqa_param_defs, "rwkv": _rwkv.rwkv_time_param_defs}
+_MIXERS = {"attn": gqa_param_defs, "rwkv": _rwkv.rwkv_time_param_defs,
+           "mamba": _mamba.mamba_param_defs}
 _FFNS = {"dense": dense_ffn_param_defs, "moe": _moe.moe_param_defs,
          "channelmix": _rwkv.rwkv_channel_param_defs}
 
 
 def layer_param_defs(cfg: ArchConfig, spec: LayerSpec) -> dict[str, Any]:
     if spec.kind not in _MIXERS or spec.cross or spec.ffn not in _FFNS:
-        raise NotImplementedError(f"layer {spec} is not ported (dense, moe "
-                                  f"and ssm families only)")
+        raise NotImplementedError(f"layer {spec} is not ported (dense, moe, "
+                                  f"ssm and hybrid families only)")
     d = cfg.d_model
     # the norm gains are read in float32 (rms_norm)
     return {"norm_attn": PDef((d,), (None,), "ones", read_f32=True),
@@ -182,12 +199,19 @@ def _store(cache: dict, new: dict) -> dict:
 
 
 def apply_layer(cfg: ArchConfig, spec: LayerSpec, p, x, ctx, cache):
-    """One (attn, dense | moe) or (rwkv, channelmix) layer.  Returns
-    (x, new_cache_or_None); decode updates ``cache`` in place."""
+    """One (attn | mamba, dense | moe) or (rwkv, channelmix) layer.
+    Returns (x, new_cache_or_None); decode updates ``cache`` in place."""
     mode = ctx["mode"]
     cache = cache or {}
     h = rms_norm(x, p["norm_attn"], cfg.norm_eps)
-    if spec.kind == "rwkv":
+    if spec.kind == "mamba":
+        if mode == "decode":
+            o, c = _mamba.mamba_decode(p["attn"], h, cfg, cache["attn"])
+            c = _store(cache["attn"], c)
+        else:
+            o, c = _mamba.mamba_apply(p["attn"], h, cfg,
+                                      state=cache.get("attn"))
+    elif spec.kind == "rwkv":
         if mode == "decode":
             o, c = _rwkv.rwkv_time_step(p["attn"], h, cfg, cache["attn"])
             c = _store(cache["attn"], c)
@@ -258,10 +282,14 @@ def run_stages(cfg: ArchConfig, stages, params, x, ctx, caches=None):
 def _layer_cache(cfg: ArchConfig, spec: LayerSpec, batch: int,
                  seq: int) -> dict:
     """One layer's cache on the ``meta`` device (shapes and dtypes only):
-    KV [batch, seq, Kh, Dh] in the compute dtype, or the RWKV state
+    KV [batch, seq, Kh, Dh] in the compute dtype, the RWKV state
     (time-mix S float32 [batch, H, N, N] and x_prev, channel-mix x_prev
-    [batch, 1, d], in the compute dtype)."""
+    [batch, 1, d], in the compute dtype), or the Mamba state (h float32
+    [batch, d_in, N], conv [batch, K-1, d_in] in the compute dtype)."""
     dt = dtype_of(cfg.compute_dtype)
+    if spec.kind == "mamba":
+        return {"attn": _mamba.init_mamba_state(cfg, batch, dt,
+                                                device="meta")}
     if spec.kind == "rwkv" and spec.ffn == "channelmix":
         return {"attn": _rwkv.init_rwkv_time_state(cfg, batch, dt,
                                                    device="meta"),

@@ -10,11 +10,12 @@ i.e. *exactly* the multiserver-job classes of the paper.  The engine:
 2. admits each request per BS-π: a free slot in its class slice, else the
    helper block under π=FCFS (GangScheduler);
 3. on slot granting, ``run_request`` runs prefill once and then greedy
-   decode steps of the model (dense, MoE or RWKV6), whose attention runs
-   in the hand-written flash-attention and flash-decoding kernels, whose
-   MoE expert products run in the hand-written grouped matmul and whose
-   RWKV prefill runs its WKV recurrence in the hand-written chunked WKV
-   kernel on the card.
+   decode steps of the model (dense, MoE, RWKV6 or hybrid), whose
+   attention runs in the hand-written flash-attention and flash-decoding
+   kernels, whose MoE expert products run in the hand-written grouped
+   matmul, whose RWKV prefill runs its WKV recurrence in the hand-written
+   chunked WKV kernel and whose Mamba prefill runs the hand-written
+   selective-scan kernel on the card.
 
 The engine runs on ``device`` ("cuda" unless the caller asks for the CPU).
 As in the reference, where the backend is the CPU the models are the

@@ -1,12 +1,17 @@
-"""The port's dense, MoE and RWKV decoders against the JAX reference model.
+"""The port's dense, MoE, RWKV and hybrid decoders against the JAX
+reference model.
 
 Weights are carried across with ``convert.params_from_jax`` from the
 reference's own random init, and the same token ids go to both sides, on
 ``yi_9b.reduced()`` (GQA, 4 layers, d = 128), ``stablelm_3b.reduced()``
 (MHA), ``moonshot_v1_16b_a3b.reduced()`` (MoE: 8 experts, top-2, expert
-d_ff 64, capacity factor 4, so prefill and decode drop no pair) and
+d_ff 64, capacity factor 4, so prefill and decode drop no pair),
 ``rwkv6_7b.reduced()`` (RWKV6: 4 layers, d 128, H 4, N 32; prefill's WKV
-in the kernel's plain version, decode's in ``wkv_step``).
+in the kernel's plain version, decode's in ``wkv_step``) and
+``jamba_1_5_large_398b.reduced()`` (hybrid: one block of 8 layers, Mamba
+d_inner 256, d_state 8, scan chunk 16, attention at layer 4, MoE of 8
+experts top-2 at capacity factor 4 on every 2nd layer; prefill's scan in
+the kernel's plain version, decode's in ``mamba_decode``).
 
 Conditioning.  The reference's "scaled" init divides by the fan-in it
 reads off ``shape[-2]``, which for ``wq`` / ``wk`` [d, heads, Dh] is the
@@ -18,7 +23,8 @@ its float32 logits differ from its float64 ones by 4.0e-4 (stablelm): no
 bound below that noise can tell a right port from a wrong one.  So the
 tight comparisons rescale ``wq`` and ``wk`` to fan-in d (both sides get
 the same weights), and one test keeps the reference's exact init.  RWKV
-has no attention, so its two inits are the same.
+has no attention, so its two inits are the same; jamba's one attention
+layer (``l4``) is rescaled like the others.
 
 Tolerances, stated with their reasons:
 
@@ -39,7 +45,18 @@ Tolerances, stated with their reasons:
   norm, and the reference's own bfloat16 logits lie 0.06-0.10 from its
   float32 ones (measured over four prompts), so 5e-2 alone is below its
   own rounding noise; the port's bfloat16 logits lie as far from the
-  float32 ones as the reference's do.
+  float32 ones as the reference's do.  The same holds for the reduced
+  jamba: seven Mamba layers feed bfloat16-rounded activations through
+  softplus and exp(dt A) decays, and the reference's own bfloat16 logits
+  lie 0.27-0.53 from its float32 ones over four prompts (the port's
+  0.22-0.55 from its own), so it is held to the same rule.  Its bfloat16
+  test also zeroes the routers on both sides: at the reference's router
+  weights bfloat16 rounding flips a token's top-2 experts in both
+  packages alike (1-4 tokens per MoE layer against float32), a discrete
+  jump that no tolerance separates from a fault; with all router logits
+  0 every token goes to experts 0 and 1 with weight 0.5 on both sides
+  (ties keep the lower expert, ``moe.route``), so the MoE path still
+  runs.  The float32 tests keep the reference's routers.
 * the port's own decode-vs-forward property at ``tests/test_models.py``'s
   bound: max abs < 0.25.
 """
@@ -65,29 +82,37 @@ from repro_torch.models.model import (Model, active_param_count, init_cache,
                                       num_params)
 from repro_torch.serve.engine import _seed_caches
 
-ARCHS = ("yi_9b", "stablelm_3b", "moonshot_v1_16b_a3b", "rwkv6_7b")
+ARCHS = ("yi_9b", "stablelm_3b", "moonshot_v1_16b_a3b", "rwkv6_7b",
+         "jamba_1_5_large_398b")
 PORTED = tuple(a for a in ARCH_IDS
-               if get_config(a).family in ("dense", "ssm")
+               if get_config(a).family in ("dense", "ssm", "hybrid")
                or (get_config(a).family == "moe" and get_config(a).mla is None))
 PROMPT, STEPS = 32, 5
 # held to 5e-2 plus the reference's own bf16-vs-f32 distance (docstring)
-BF16_NOISY = ("rwkv6_7b",)
+BF16_NOISY = ("rwkv6_7b", "jamba_1_5_large_398b")
+# bfloat16 test with the routers zeroed on both sides (docstring)
+BF16_TIED_ROUTER = ("jamba_1_5_large_398b",)
 
 
-def _pair(arch, *, rescale=True, **over):
+def _pair(arch, *, rescale=True, tie_router=False, **over):
     """(reference model, reference params, port model, port params) on the
     reduced config with ``over`` replaced, weights carried across;
-    ``rescale`` puts ``wq`` and ``wk`` at fan-in d (see the docstring)."""
+    ``rescale`` puts ``wq`` and ``wk`` at fan-in d and ``tie_router``
+    zeroes the MoE routers (see the docstring)."""
     rcfg = dataclasses.replace(ref_get_config(arch), **over).reduced()
     pcfg = dataclasses.replace(get_config(arch), **over).reduced()
     rm = ref_model.Model(rcfg)
     rp = rm.init(jax.random.PRNGKey(1))
-    if rescale and "wq" in rp["stages"][0]["l0"]["attn"]:
-        a = rp["stages"][0]["l0"]["attn"]
-        d = rcfg.d_model
-        rp["stages"][0]["l0"]["attn"] = dict(
-            a, wq=a["wq"] * math.sqrt(rcfg.num_heads / d),
-            wk=a["wk"] * math.sqrt(rcfg.num_kv_heads / d))
+    for stage in rp["stages"]:
+        for key, lay in stage.items():
+            if tie_router and "router" in lay["ffn"]:
+                lay["ffn"]["router"] = jnp.zeros_like(lay["ffn"]["router"])
+            if rescale and "wq" in lay["attn"]:
+                a = lay["attn"]
+                d = rcfg.d_model
+                stage[key]["attn"] = dict(
+                    a, wq=a["wq"] * math.sqrt(rcfg.num_heads / d),
+                    wk=a["wk"] * math.sqrt(rcfg.num_kv_heads / d))
     return rm, rp, Model(pcfg), params_from_jax(jax.tree.map(np.asarray, rp))
 
 
@@ -119,6 +144,11 @@ def test_params_from_jax_carries_every_leaf(arch):
     if pm.cfg.family == "ssm":
         assert pp["stages"][0]["l0"]["attn"]["w_r"].shape == (
             pm.cfg.num_layers, pm.cfg.d_model, pm.cfg.d_model)
+    elif pm.cfg.family == "hybrid":           # one block: repeats 1
+        assert pp["stages"][0]["l0"]["attn"]["in_proj"].shape == (
+            1, pm.cfg.d_model, 4 * pm.cfg.d_model)
+        assert pp["stages"][0]["l4"]["attn"]["wq"].shape == (
+            1, pm.cfg.d_model, pm.cfg.num_heads, pm.cfg.head_dim)
     else:
         assert pp["stages"][0]["l0"]["attn"]["wq"].shape == (
             pm.cfg.num_layers, pm.cfg.d_model, pm.cfg.num_heads,
@@ -166,7 +196,8 @@ def test_float32_greedy_tokens_match_reference_at_its_own_init(arch):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_bfloat16_teacher_forced_logits_match_reference(arch):
-    rm, rp, pm, pp = _pair(arch)
+    tie = arch in BF16_TIED_ROUTER
+    rm, rp, pm, pp = _pair(arch, tie_router=tie)
     assert pm.cfg.compute_dtype == "bfloat16"
     toks = _prompt(pm.cfg, PROMPT + STEPS)
     r_logits, r_pre = rm.prefill(
@@ -180,7 +211,7 @@ def test_bfloat16_teacher_forced_logits_match_reference(arch):
                                       device="cpu"), p_pre, PROMPT)
     f_logits = None
     if arch in BF16_NOISY:
-        fm, fp = _pair(arch, compute_dtype="float32")[:2]
+        fm, fp = _pair(arch, tie_router=tie, compute_dtype="float32")[:2]
         f_logits, f_pre = fm.prefill(
             fp, {"tokens": jnp.asarray(toks[:, :PROMPT], jnp.int32)})
         f_cache = _ref_seed(ref_model.init_cache(fm.cfg, 1, PROMPT + STEPS),
@@ -272,6 +303,29 @@ def test_rwkv_full_config_counts_without_materialising():
     assert cache[0]["l0"]["ffn"]["x_prev"].shape == (32, 1, 1, 4096)
 
 
+def test_jamba_full_config_counts_and_cache_without_materialising():
+    """jamba-1.5-large at full width and depth: 398.6 B params as the
+    reference counts them, 9 blocks of [m m m m attn m m m] with MoE on
+    every 2nd layer, counted from the defs (nothing is allocated); the
+    cache holds KV for the 9 attention layers and, for the 63 Mamba
+    layers, h [B, d_inner, N] float32 and conv [B, K-1, d_inner]."""
+    cfg = get_config("jamba_1_5_large_398b")
+    assert num_params(cfg) == ref_model.num_params(ref_get_config(
+        "jamba_1_5_large_398b")) == 398_555_111_424
+    defs = Model(cfg).param_defs()
+    (stage,) = defs["stages"]
+    assert sorted(stage) == [f"l{j}" for j in range(8)]
+    assert stage["l4"]["attn"]["wq"].shape == (9, 8192, 64, 128)
+    assert stage["l1"]["ffn"]["w_gate"].shape == (9, 16, 8192, 24576)
+    assert stage["l0"]["ffn"]["w_gate"].shape == (9, 8192, 24576)
+    assert stage["l0"]["attn"]["A_log"].shape == (9, 16384, 16)
+    cache = init_cache(cfg, 1, 8192, device="meta")
+    h, conv = cache[0]["l0"]["attn"]["h"], cache[0]["l0"]["attn"]["conv"]
+    assert h.shape == (9, 1, 16384, 16) and h.dtype == torch.float32
+    assert conv.shape == (9, 1, 3, 16384) and conv.dtype == torch.bfloat16
+    assert cache[0]["l4"]["attn"]["k"].shape == (9, 1, 8192, 8, 128)
+
+
 def test_other_families_raise_naming_the_roadmap():
     for arch in ARCH_IDS:
         cfg = get_config(arch)
@@ -281,4 +335,4 @@ def test_other_families_raise_naming_the_roadmap():
                 Model(cfg).param_defs()
     assert "deepseek_v3_671b" not in PORTED             # MoE with MLA
     assert {get_config(a).family for a in ARCH_IDS if a not in PORTED} == {
-        "hybrid", "vlm", "encdec", "moe"}
+        "vlm", "encdec", "moe"}

@@ -10,7 +10,9 @@ runs one job of each class with the reference's weights carried into both
 engines' ``_params``; in float32 compute the outputs are equal token for
 token (``tests/test_torch_models.py`` states why the logits are compared
 there, not here).  The same two checks run with moonshot-v1-16b-a3b
-(MoE) and with rwkv6-7b (RWKV6, at its own chip need) in place of yi-9b.
+(MoE), with rwkv6-7b (RWKV6, at its own chip need) and with
+jamba-1.5-large (hybrid, at the chip need of the one-block cut that
+``chip_smoke.py`` serves) in place of yi-9b.
 ``chips_needed`` and ``cache_bytes`` equal the reference's for every
 config the port runs.  A bfloat16 engine keeps in float32 exactly the
 leaves the reference reads in float32.
@@ -34,7 +36,7 @@ from repro_torch.models.convert import params_from_jax
 from repro_torch.serve import engine, kv_cache
 
 PORTED = tuple(a for a in ARCH_IDS
-               if get_config(a).family in ("dense", "ssm")
+               if get_config(a).family in ("dense", "ssm", "hybrid")
                or (get_config(a).family == "moe" and get_config(a).mla is None))
 # (name, arch, bucket, chips, mean service s, arrival mix): test_substrate's
 CLASSES = (("small", "stablelm_3b", 8192, 2, 1.0, 0.8),
@@ -42,6 +44,9 @@ CLASSES = (("small", "stablelm_3b", 8192, 2, 1.0, 0.8),
 MOE_CLASSES = (CLASSES[0], ("big", "moonshot_v1_16b_a3b", 8192, 8, 4.0, 0.2))
 # rwkv6-7b at its own chip need at bucket 8192 (2 chips)
 RWKV_CLASSES = (CLASSES[0], ("big", "rwkv6_7b", 8192, 2, 4.0, 0.2))
+# jamba-1.5-large at the chip need of its one-block, 8-of-16-experts cut
+JAMBA_CLASSES = (CLASSES[0], ("big", "jamba_1_5_large_398b", 8192, 8, 4.0,
+                              0.2))
 
 
 def _engines(classes_=CLASSES, **over):
@@ -92,6 +97,10 @@ def test_rwkv_admission_equals_reference_event_for_event():
     _admission_event_for_event(RWKV_CLASSES)
 
 
+def test_hybrid_admission_equals_reference_event_for_event():
+    _admission_event_for_event(JAMBA_CLASSES)
+
+
 def _admission_event_for_event(classes):
     ref, port = _engines(classes)
     assert port.device.type == "cpu"
@@ -129,6 +138,11 @@ def test_moe_run_request_equals_reference_token_for_token():
 def test_rwkv_run_request_equals_reference_token_for_token():
     port = _token_for_token(RWKV_CLASSES)
     assert port._model("big").cfg.family == "ssm"
+
+
+def test_hybrid_run_request_equals_reference_token_for_token():
+    port = _token_for_token(JAMBA_CLASSES)
+    assert port._model("big").cfg.family == "hybrid"
 
 
 def _token_for_token(classes):
@@ -171,12 +185,20 @@ def test_run_request_on_the_engines_own_weights():
 
 
 # the leaves the reference reads in float32 (layers.py:115's norm gains,
-# moe.py's router, rwkv.py's decay LoRA, decay bias, bonus and ln_x)
-F32_LEAVES = {"norm_attn", "norm_ffn", "final_norm", "router", "ln_x",
-              "decay_w1", "decay_w2", "decay_bias", "bonus_u"}
+# moe.py's router, rwkv.py's decay LoRA, decay bias, bonus and ln_x,
+# mamba.py's dt / B / C projections, dt bias, A_log and D_skip), by family
+NORMS = {"norm_attn", "norm_ffn", "final_norm"}
+F32_LEAVES = {
+    "moe": NORMS | {"router"},
+    "ssm": NORMS | {"ln_x", "decay_w1", "decay_w2", "decay_bias",
+                    "bonus_u"},
+    "hybrid": NORMS | {"router", "x_dt", "dt_proj", "dt_bias", "x_B", "x_C",
+                       "A_log", "D_skip"},
+}
 
 
-@pytest.mark.parametrize("classes", [MOE_CLASSES, RWKV_CLASSES])
+@pytest.mark.parametrize("classes", [MOE_CLASSES, RWKV_CLASSES,
+                                     JAMBA_CLASSES])
 def test_bfloat16_engine_keeps_float32_read_leaves(classes):
     """A bfloat16 engine (the configs' own compute dtype) on the CPU keeps
     exactly the leaves the reference reads in float32 in float32, equal
@@ -198,21 +220,19 @@ def test_bfloat16_engine_keeps_float32_read_leaves(classes):
         else:
             yield path, a, b
 
+    family = port._model(name).cfg.family
     seen = set()
     for path, a, b in walk(got, want):
         leaf = path[-1]
         assert b.dtype == torch.float32, path
-        if leaf in F32_LEAVES:
+        if leaf in F32_LEAVES[family]:
             seen.add(leaf)
             assert a.dtype == torch.float32, path
             assert torch.equal(a, b), path
         else:
             assert a.dtype == torch.bfloat16, path
             assert torch.equal(a, b.to(torch.bfloat16)), path
-    family = port._model(name).cfg.family
-    assert seen == ({"norm_attn", "norm_ffn", "final_norm", "router"}
-                    if family == "moe" else
-                    F32_LEAVES - {"router"}), seen
+    assert seen == F32_LEAVES[family], seen
 
 
 @pytest.mark.parametrize("arch", PORTED)
@@ -228,7 +248,7 @@ def test_chips_needed_and_cache_bytes_equal_reference(arch):
 
 
 @pytest.mark.parametrize("arch", ["yi_9b", "moonshot_v1_16b_a3b",
-                                  "rwkv6_7b"])
+                                  "rwkv6_7b", "jamba_1_5_large_398b"])
 def test_decode_step_bench_runs_on_the_cpu(arch):
     """bench/decode_step.run (the prefill and per-step decode timer) on a
     reduced float32 config, asked for the CPU."""
