@@ -3,8 +3,8 @@
 A :class:`Library` is compiled at first use from its ``.cu`` sources (one
 ``nvcc -c`` per source, all started together, then one link) into
 ``build/`` at the repository root, under a directory named by a hash of
-the sources and the flags, so an edited source builds anew and an
-unchanged one is loaded from the cache.  Nothing here runs at import:
+the sources, the headers they include and the flags, so an edited source
+or header builds anew and an unchanged one is loaded from the cache.  Nothing here runs at import:
 the CPU-only test machines import this module without a CUDA toolkit.
 A missing ``nvcc``, a failed compile or a failed load raises
 ``RuntimeError``.
@@ -39,7 +39,8 @@ def _nvcc() -> str:
 
 
 class Library:
-    """One shared library: its sources, nvcc flags and C entry points.
+    """One shared library: its sources, the headers of the repository they
+    include, nvcc flags and C entry points.
 
     ``sigs`` maps each entry point to its ctypes argument types; every
     entry point returns an ``int`` (a ``cudaError_t``), and ``error_fn``
@@ -47,18 +48,20 @@ class Library:
     """
 
     def __init__(self, name: str, sources, flags, sigs: dict,
-                 error_fn: str):
+                 error_fn: str, headers=()):
         self.name = name
         self.sources = tuple(Path(s) for s in sources)
+        self.headers = tuple(Path(h) for h in headers)
         self.flags = tuple(flags)
         self.sigs = sigs
         self.error_fn = error_fn
         self._lib: ctypes.CDLL | None = None
 
     def path(self) -> Path:
-        """Where the library for the current sources and flags lives."""
+        """Where the library for the current sources, headers and flags
+        lives."""
         h = hashlib.sha256(" ".join(self.flags).encode())
-        for src in self.sources:
+        for src in self.sources + self.headers:
             h.update(src.read_bytes())
         return (build_dir() / f"{self.name}-{h.hexdigest()[:16]}"
                 / f"lib{self.name}.so")

@@ -20,10 +20,13 @@
 // the function is 2 S^2 H (D + Dv) / 2 flops (causal) against a few MB of
 // q, k, v and o: over 1000 flops a byte, far above the card's ridge
 // point, so the bound is operations (989 TFLOP/s on bf16 tensor cores).
-// This first kernel does its products with float32 FMAs on the CUDA cores
+// This kernel does its products with float32 FMAs on the CUDA cores
 // (67 TFLOP/s peak), fed from shared memory, so it is bound by CUDA-core
 // issue and shared-memory bandwidth, an order of magnitude above that
-// bound; wgmma with TMA-fed tiles and warp specialisation is later work.
+// bound.  It serves float32 (at float32 precision, which the tensor cores
+// would not keep) and shapes the tensor-core kernel does not take; bf16
+// with head dims of multiples of 16 up to 128 goes to
+// flash_attention_tc.cu (wgmma fed by TMA; kernel.py's _flash_route).
 //
 // Design.  One CTA of 256 threads per (64-row query tile, head, batch).
 // The query tile and each 64-key K/V tile are staged in shared memory as

@@ -23,12 +23,14 @@
 // above operations (0.095 ms at 989 TFLOP/s on bf16 tensor cores).  At
 // decode one token fills 6 of 64 experts, one row each: the function
 // reads 6 experts' weights (35 MB in bf16) and does almost no arithmetic,
-// so the bound is bytes (~10 us).  This first kernel does its products
-// with float32 FMAs on the CUDA cores (67 TFLOP/s peak), fed from shared
-// memory, so prefill runs far above its bound, limited by CUDA-core issue
-// and shared-memory bandwidth; wgmma with TMA-fed tiles is later work.  At
-// decode what the design does about the bytes bound is the skip: only
-// valid blocks read weights, so a step reads 6 experts' weights, not 64.
+// so the bound is bytes (~10 us).  This kernel does its products with
+// float32 FMAs on the CUDA cores (67 TFLOP/s peak), fed from shared
+// memory, so a prefill-sized block runs far above its bound; bf16 blocks
+// of a multiple of 64 rows go to moe_gmm_tc.cu (wgmma fed by TMA;
+// kernel.py's _gmm_route), and this one serves the decode blocks of 16
+// and 32 rows, float32 and ragged shapes.  At decode what the design does
+// about the bytes bound is the skip: only valid blocks read weights, so a
+// step reads 6 experts' weights, not 64.
 //
 // Design.  One CTA of 256 threads (16 x 16) per (TM-row tile, 64-column
 // tile); TM divides block_m, so a tile lies in one row block, whose

@@ -11,10 +11,16 @@ multiple of 16 (the kernel's smallest row tile).  It checks its inputs,
 then
 
 * for CPU tensors returns the plain version, :func:`gmm_ref`;
-* for CUDA tensors allocates the output, launches the kernel of
-  ``csrc/moe_gmm.cu`` on the current stream, raises if the launch is
-  refused, and adds one to ``gmm.launches``.  There is no fallback: a
-  CUDA tensor never reaches the plain version through the wrapper.
+* for CUDA tensors allocates the output, launches one of two kernels on
+  the current stream, raises if the launch is refused, adds one to
+  ``gmm.launches`` and records the route it took in ``gmm.last_route``.
+  :func:`_gmm_route`, a pure function of the call, picks the kernel before
+  the launch: ``"wgmma"``, ``csrc/moe_gmm_tc.cu`` on the tensor cores, for
+  bf16 prefill blocks (block_m a multiple of 64, K and N multiples of 8);
+  ``"simt"``, ``csrc/moe_gmm.cu`` on the CUDA cores, for the decode blocks
+  of 16 and 32 rows (memory-bound), float32 and ragged shapes.  Both are
+  hand-written kernels; there is no fallback: a CUDA tensor never reaches
+  the plain version through the wrapper, and a refused launch raises.
 """
 
 from __future__ import annotations
@@ -66,6 +72,16 @@ def pad_groups(x_groups, block_m: int):
     return x, block_expert, nvalid
 
 
+def _gmm_route(dtype, block_m: int, K: int, N: int) -> str:
+    """The kernel a CUDA call takes: ``"wgmma"`` (tensor cores) for bf16
+    with block_m a multiple of 64 and K and N multiples of 8 (rows of 16
+    bytes, for TMA), else ``"simt"``."""
+    if (dtype == torch.bfloat16 and block_m % 64 == 0 and K % 8 == 0
+            and N % 8 == 0):
+        return "wgmma"
+    return "simt"
+
+
 def _check(x, w, block_expert, nvalid, block_m: int) -> None:
     if x.dim() != 2 or w.dim() != 3:
         raise ValueError(f"x must be [M, K] and w [E, K, N], got "
@@ -96,25 +112,43 @@ def _check(x, w, block_expert, nvalid, block_m: int) -> None:
         raise ValueError(f"unsupported device {x.device}")
 
 
+def _launch(x, w, block_expert, nvalid, block_m: int, route: str):
+    """Launch the kernel of ``route`` on CUDA tensors that passed
+    :func:`_check` and return out; counts nothing (the wrapper counts)."""
+    M, K = x.shape
+    E, _, N = w.shape
+    if route == "wgmma" and _gmm_route(x.dtype, block_m, K, N) != "wgmma":
+        raise ValueError(f"the wgmma kernel takes bf16 with block_m a "
+                         f"multiple of 64 and K, N multiples of 8, got "
+                         f"{x.dtype} block_m={block_m} K={K} N={N}")
+    out = torch.empty(M, N, dtype=x.dtype, device=x.device)
+    lib = LIBRARY.load()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        ptrs = (x.data_ptr(), w.data_ptr(), block_expert.data_ptr(),
+                nvalid.data_ptr(), out.data_ptr())
+        if route == "wgmma":
+            rc = lib.moe_gmm_tc(*ptrs, M, K, N, E, block_m, stream)
+        else:
+            rc = lib.moe_gmm(*ptrs, M, K, N, E, block_m,
+                             int(x.dtype == torch.bfloat16), stream)
+    LIBRARY.raise_on(rc, f"gmm ({route})", f"M={M} K={K} N={N} E={E} "
+                     f"block_m={block_m} {x.dtype}")
+    return out
+
+
 def gmm(x, w, block_expert, nvalid, *, block_m: int = 128):
     """x [M, K]; w [E, K, N]; block_expert / nvalid [M // block_m] int32
     -> out [M, N]."""
     _check(x, w, block_expert, nvalid, block_m)
     if x.device.type == "cpu":
         return gmm_ref(x, w, block_expert, nvalid, block_m=block_m)
-    M, K = x.shape
-    E, _, N = w.shape
-    out = torch.empty(M, N, dtype=x.dtype, device=x.device)
-    lib = LIBRARY.load()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.moe_gmm(x.data_ptr(), w.data_ptr(), block_expert.data_ptr(),
-                         nvalid.data_ptr(), out.data_ptr(), M, K, N, E,
-                         block_m, int(x.dtype == torch.bfloat16), stream)
-    LIBRARY.raise_on(rc, "gmm", f"M={M} K={K} N={N} E={E} "
-                     f"block_m={block_m} {x.dtype}")
+    route = _gmm_route(x.dtype, block_m, x.shape[1], w.shape[2])
+    out = _launch(x, w, block_expert, nvalid, block_m, route)
     gmm.launches += 1
+    gmm.last_route = route
     return out
 
 
 gmm.launches = 0
+gmm.last_route = None

@@ -25,7 +25,8 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def params_from_jax(tree, *, device="cpu"):
+def params_from_jax(tree, *, device="cuda"):
     """The reference's param tree (numpy leaves) as the port's (tensors on
-    ``device``)."""
+    ``device``: the card unless the caller asks for the CPU, as the port's
+    other entry points)."""
     return tree_map(lambda a: _tensor(a, device), tree)

@@ -10,6 +10,14 @@ function (``layers.flash_attention`` / ``layers.attention_decode``), at
 Sq != Sk, MQA) plus head dim 80, stablelm-3b's.  The CUDA kernels are held
 to the same plain versions on the card by ``chip_smoke.py`` and by the
 card-only test at the end of this file.
+
+``flash_attention_fwd`` picks one of two CUDA kernels with the pure
+function ``_flash_route``, whose cases are pinned here.  The tensor-core
+kernel's rounding of p (three bf16 parts into P.V, each key tile's P.V
+added to O in float32), emulated in plain PyTorch by
+``bench/decode_vs_forward.emulate_flash``, is held to
+``flash_attention_ref`` within the card's bf16 limit, 1e-5 + 2^-6 |ref|,
+at ``FLASH_SHAPES`` and one 2048-token shape.
 """
 
 import numpy as np
@@ -27,6 +35,8 @@ from repro_torch.kernels.decode_attention import (decode_attention_fwd,
                                                   decode_attention_ref)
 from repro_torch.kernels.flash_attention import (flash_attention_fwd,
                                                  flash_attention_ref)
+from repro_torch.bench.decode_vs_forward import emulate_flash
+from repro_torch.kernels.flash_attention.kernel import _flash_route
 from repro_torch.models import layers
 
 TOLS = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -165,20 +175,65 @@ def test_flash_chunk_contract_and_wrapper_checks(rng):
             decode_attention_fwd.launches) == before   # CPU: no launch
 
 
+@pytest.mark.parametrize("dtype,D,Dv,route", [
+    (torch.bfloat16, 128, 128, "wgmma"),  # yi-9b, moonshot, jamba
+    (torch.bfloat16, 80, 80, "wgmma"),    # stablelm-3b
+    (torch.bfloat16, 64, 64, "wgmma"),
+    (torch.bfloat16, 64, 32, "wgmma"),
+    (torch.bfloat16, 16, 128, "wgmma"),
+    (torch.float32, 128, 128, "simt"),    # TF32 is another function
+    (torch.float32, 80, 80, "simt"),
+    (torch.bfloat16, 256, 128, "simt"),   # head dim above 128
+    (torch.bfloat16, 128, 144, "simt"),
+    (torch.bfloat16, 72, 72, "simt"),     # not a multiple of 16
+])
+def test_flash_route(dtype, D, Dv, route):
+    assert _flash_route(dtype, D, Dv) == route
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,Kh,D,Dv,causal", FLASH_SHAPES + [
+    (1, 2048, 2048, 2, 1, 128, 128, True)])
+def test_wgmma_rounding_keeps_the_bf16_limit(B, Sq, Sk, H, Kh, D, Dv,
+                                             causal, rng):
+    """p as three bf16 parts (``emulate_flash``: the rounding of p only)
+    keeps the card's bf16 limit against the plain version, which keeps p
+    in float32 (a plain bf16 p does not: PERF.md)."""
+    q, k, v = (_both(rng, s, "bfloat16")[1] for s in (
+        (B, Sq, H, D), (B, Sk, Kh, D), (B, Sk, Kh, Dv)))
+    _close_plain(emulate_flash(q, k, v, causal, bk=64),
+                 flash_attention_ref(q, k, v, causal=causal), "bfloat16")
+
+
+# shapes that reach the tensor-core kernel's edges: Sq and Sk not multiples
+# of 64 or 128, Sq != Sk, G in {1, 8}, D = Dv = 80, one warpgroup (Sq < 128)
+TC_FLASH_SHAPES = [
+    (1, 200, 200, 8, 1, 128, 128, True),
+    (2, 333, 333, 4, 4, 80, 80, True),
+    (1, 100, 250, 8, 1, 64, 64, False),
+    (1, 300, 130, 4, 4, 128, 128, False),
+    (1, 77, 77, 2, 2, 80, 80, True),
+    (1, 130, 130, 16, 2, 128, 64, False),
+    (2, 300, 130, 4, 2, 128, 128, True),       # causal, Sq > Sk
+]
+
+
 @pytest.mark.cuda
 def test_cuda_attention_kernels_match_plain_versions_on_the_card(rng):
     """Card only: each CUDA kernel against its plain version on the card,
-    at ``PLAIN_TOLS`` (two bfloat16 units in the last place)."""
+    at ``PLAIN_TOLS`` (two bfloat16 units in the last place); every bf16
+    flash call takes the tensor-core kernel."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     dev = torch.device("cuda", 0)
     for dtype in ("float32", "bfloat16"):
-        for B, Sq, Sk, H, Kh, D, Dv, causal in FLASH_SHAPES:
+        for B, Sq, Sk, H, Kh, D, Dv, causal in FLASH_SHAPES + TC_FLASH_SHAPES:
             q, k, v = (_both(rng, s, dtype)[1].to(dev) for s in (
                 (B, Sq, H, D), (B, Sk, Kh, D), (B, Sk, Kh, Dv)))
             _close_plain(flash_attention_fwd(q, k, v, causal=causal).cpu(),
                          flash_attention_ref(q, k, v, causal=causal).cpu(),
                          dtype)
+            assert flash_attention_fwd.last_route == (
+                "wgmma" if dtype == "bfloat16" else "simt")
         for B, Sk, H, Kh, D, Dv, _ in DECODE_SHAPES:
             q, k, v = (_both(rng, s, dtype)[1].to(dev) for s in (
                 (B, H, D), (B, Sk, Kh, D), (B, Sk, Kh, Dv)))

@@ -169,7 +169,7 @@ import repro_torch
 from repro_torch.core import (engines, failures, partition, sim_batch,
                               sim_torch, workload)
 from repro_torch.kernels.msj_scan import build, kernel, ops
-from repro_torch.bench import fig3_traces
+from repro_torch.bench import decode_vs_forward, fig3_traces
 from repro_torch.data import swf
 from repro_torch import configs
 from repro_torch.kernels import _build, attention_build

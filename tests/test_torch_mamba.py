@@ -241,7 +241,8 @@ def _layer(seed=3):
     # a non-zero conv bias, so its cast and add are exercised
     lay["conv_b"] = np.linspace(-0.1, 0.1, lay["conv_b"].size,
                                 dtype=np.float32)
-    return rcfg, pcfg, jax.tree.map(jnp.asarray, lay), params_from_jax(lay)
+    return (rcfg, pcfg, jax.tree.map(jnp.asarray, lay),
+            params_from_jax(lay, device="cpu"))
 
 
 def _x(rng, cfg, S, B=2):
@@ -365,7 +366,7 @@ def _moe_pair(rng):
                                 jax.random.PRNGKey(3))
     rp = jax.tree.map(np.asarray, rp)
     x = rng.normal(size=(2, 64, pcfg.d_model)).astype(np.float32)
-    return rcfg, pcfg, rp, params_from_jax(rp), x
+    return rcfg, pcfg, rp, params_from_jax(rp, device="cpu"), x
 
 
 def test_expert_shares_sum_to_the_uncut_layer(rng):

@@ -113,7 +113,8 @@ def _pair(arch, *, rescale=True, tie_router=False, **over):
                 stage[key]["attn"] = dict(
                     a, wq=a["wq"] * math.sqrt(rcfg.num_heads / d),
                     wk=a["wk"] * math.sqrt(rcfg.num_kv_heads / d))
-    return rm, rp, Model(pcfg), params_from_jax(jax.tree.map(np.asarray, rp))
+    return rm, rp, Model(pcfg), params_from_jax(
+        jax.tree.map(np.asarray, rp), device="cpu")
 
 
 def _ref_seed(caches, pre):
@@ -154,7 +155,7 @@ def test_params_from_jax_carries_every_leaf(arch):
             pm.cfg.num_layers, pm.cfg.d_model, pm.cfg.num_heads,
             pm.cfg.head_dim)
     bf = params_from_jax(jax.tree.map(
-        lambda a: np.asarray(a.astype(jnp.bfloat16)), rp))
+        lambda a: np.asarray(a.astype(jnp.bfloat16)), rp), device="cpu")
     assert torch.equal(bf["head"], pp["head"].to(torch.bfloat16))
 
 

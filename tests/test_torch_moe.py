@@ -19,6 +19,9 @@ same inputs, made with numpy, go to both packages:
   the fill-based valid-row counts against ``pad_groups``' static ones,
   and two ``block_m``, give the same output.
 
+``gmm`` picks one of two CUDA kernels with the pure function
+``_gmm_route``, whose cases are pinned here.
+
 The whole model (moonshot reduced) is held to the reference in
 ``tests/test_torch_models.py`` and the serving engine in
 ``tests/test_torch_serve.py``.  The CUDA kernel is held to the same plain
@@ -43,6 +46,7 @@ from repro.models import moe as ref_moe
 
 from repro_torch.configs import get_config
 from repro_torch.kernels.moe_gmm import gmm, gmm_ref, pad_groups
+from repro_torch.kernels.moe_gmm.kernel import _gmm_route
 from repro_torch.models import moe
 
 ARCH = "moonshot_v1_16b_a3b"
@@ -279,22 +283,43 @@ def test_capacity_and_block_m_choice():
         16, 16, 32, 64, 64, 128]
 
 
+@pytest.mark.parametrize("dtype,bm,K,N,route", [
+    (torch.bfloat16, 128, 2048, 1408, "wgmma"),   # moonshot prefill
+    (torch.bfloat16, 64, 2048, 1408, "wgmma"),    # its 512 tokens
+    (torch.bfloat16, 128, 8192, 24576, "wgmma"),  # the jamba cut
+    (torch.bfloat16, 128, 24576, 8192, "wgmma"),  # its down product
+    (torch.bfloat16, 192, 200, 136, "wgmma"),
+    (torch.bfloat16, 16, 2048, 1408, "simt"),     # decode blocks
+    (torch.bfloat16, 32, 2048, 1408, "simt"),
+    (torch.bfloat16, 48, 2048, 1408, "simt"),
+    (torch.float32, 128, 2048, 1408, "simt"),
+    (torch.bfloat16, 128, 33, 7, "simt"),         # rows not 16 bytes
+    (torch.bfloat16, 128, 2048, 1412, "simt"),
+])
+def test_gmm_route(dtype, bm, K, N, route):
+    assert _gmm_route(dtype, bm, K, N) == route
+
+
 @pytest.mark.cuda
 def test_cuda_gmm_matches_plain_version_on_the_card(rng):
-    """Card only: the CUDA kernel against its plain version on the card,
-    ragged shapes and every row tile included, with junk rows and
+    """Card only: the CUDA kernels against their plain version on the card,
+    ragged shapes and every row tile included (the tensor-core kernel's
+    ragged last K tile and N tile at K 200, N 136 too), with junk rows and
     nvalid == 0 blocks: float32 2e-5 + 2e-5 |ref|; bfloat16 two units in
-    the last place (1e-5 + 2^-6 |ref|); skipped blocks exactly zero."""
+    the last place (1e-5 + 2^-6 |ref|); skipped blocks exactly zero; each
+    call on the route ``_gmm_route`` gives."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     dev = torch.device("cuda", 0)
     tols = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-5, 2.0 ** -6)}
     for E, K, N, bm in ((8, 64, 128, 16), (8, 200, 70, 32), (4, 96, 136, 64),
-                        (5, 2048, 1408, 128), (3, 33, 7, 48)):
+                        (5, 2048, 1408, 128), (3, 33, 7, 48),
+                        (6, 200, 136, 64), (5, 200, 136, 128)):
         nb = 3 * E
         be = torch.tensor(rng.integers(0, E, nb), dtype=torch.int32)
         nv = torch.tensor(rng.integers(0, bm + 1, nb) * (
             rng.random(nb) < 0.7), dtype=torch.int32)
+        nv[0] = 0                                  # one empty block at least
         for dt in (torch.float32, torch.bfloat16):
             x = torch.tensor(rng.normal(size=(nb * bm, K)), dtype=dt)
             w = torch.tensor(rng.normal(size=(E, K, N)) / np.sqrt(K),
@@ -309,3 +334,4 @@ def test_cuda_gmm_matches_plain_version_on_the_card(rng):
                 E, K, N, bm, dt, d.max().item())
             skipped = (nv == 0).to(dev).repeat_interleave(bm)
             assert (out[skipped] == 0).all()
+            assert gmm.last_route == _gmm_route(dt, bm, K, N)

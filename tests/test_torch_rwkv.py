@@ -189,7 +189,7 @@ def _layer(rng):
         lay["attn"][name] = rng.uniform(0, 1, lay["attn"][name].shape
                                         ).astype(np.float32)
     jp = jax.tree.map(jnp.asarray, lay)
-    return rcfg, pcfg, jp, params_from_jax(lay)
+    return rcfg, pcfg, jp, params_from_jax(lay, device="cpu")
 
 
 def _x(rng, cfg, S, B=2):

@@ -156,7 +156,7 @@ def _token_for_token(classes):
             continue
         ran.add(name)
         port._params[name] = params_from_jax(
-            jax.tree.map(np.asarray, ref._get_params(name)))
+            jax.tree.map(np.asarray, ref._get_params(name)), device="cpu")
         out_ref = ref.run_request(jid).output
         out_port = port.run_request(jid).output
         assert len(out_port) == 4
@@ -259,3 +259,30 @@ def test_decode_step_bench_runs_on_the_cpu(arch):
     assert r["arch"] == cfg.name and r["device"] == "cpu"
     assert len(r["decode_ms"]) == 3 and r["prefill_ms"] > 0
     assert min(r["decode_ms"]) == r["decode_ms_min"] > 0
+
+
+@pytest.mark.parametrize("arch", ["stablelm_3b", "yi_9b"])
+def test_layer_by_layer_decode_vs_forward_catches_cache_faults(arch):
+    """bench/decode_vs_forward on a reduced float32 model on the CPU: the
+    teacher-forced decode matches the prefill layer by layer within 1e-4
+    of each row's largest element (float32 products of 1 row and of S + 1
+    rows summed in other orders; LAYER_TOL is 156 times that),
+    free-running logits agree, and a decode step at the wrong position or
+    on an unseeded cache is beyond LAYER_TOL in some layer."""
+    from repro_torch.bench import decode_vs_forward as dvf
+    from repro_torch.models.model import Model
+    cfg = dataclasses.replace(get_config(arch).reduced(),
+                              compute_dtype="float32")
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0),
+                        dtype=torch.float32)
+    S = 31
+    toks = torch.tensor(np.random.default_rng(3).integers(
+        1, cfg.vocab_size, S + 1))
+    rel = dvf.layer_by_layer(model, params, toks, S)
+    assert len(rel) == cfg.num_layers and max(rel) < 1e-4
+    assert dvf.free_running(model, params, toks, S) < 1e-3
+    assert max(dvf.layer_by_layer(model, params, toks, S,
+                                  pos=S - 1)) > dvf.LAYER_TOL
+    assert max(dvf.layer_by_layer(model, params, toks, S,
+                                  seed_cache=False)) > dvf.LAYER_TOL
