@@ -161,9 +161,9 @@ weights are freed):
    a / b in float32 and bfloat16 (y bfloat16: plus two units in the last
    place); each entry timed beside its plain version and its bound (no
    PyTorch call computes the scan); ``gmm`` at the cut's expert shapes (8
-   held experts of 8192 x 24576: a 2048-token prefill's gate/up and
-   down, one token's gate/up) against its plain version one expert at a
-   time, timed beside ``torch.bmm`` and its bound;
+   held experts of 8192 x 24576: a 2048-token prefill's and one token's
+   gate/up and down) against its plain version one expert at a time,
+   timed beside ``torch.bmm`` and its bound;
 3. a ``ServingEngine`` on the card with stablelm-3b (2 chips, α 0.8) and
    the cut of jamba-1.5-large that ``hybrid_cut`` states (one block of 8
    layers at full width, 8 of 16 experts held; 25.9 B params, 52.3 GB on
@@ -194,7 +194,7 @@ wgmma fed by TMA) adds:
 2. each ``flash_attention`` and ``gmm`` ``[kernel]`` case prints the route
    its wrapper took: every bf16 flash case and every bf16 gmm case with
    block_m a multiple of 64 (the prefills) must take ``wgmma``, every
-   float32 and decode case ``simt``; limits and launch counts as before;
+   float32 case ``simt``; limits and launch counts as before;
 3. the ``[serve]`` phase keeps each layer's flash call of the 512-token
    prefill (``bench/decode_vs_forward.keep_flash_calls``) and holds its
    output to the plain version at the bf16 limit, with the ``simt``
@@ -202,6 +202,21 @@ wgmma fed by TMA) adds:
    models' own scores, large and near-tied at the reference's init;
 4. each ``[time]`` line of a ``wgmma`` case also prints the ``simt``
    kernel it replaced on the same inputs in the same run.
+
+The decode-kernel slice (``decode_attention`` and the ``"mma"`` route of
+``gmm`` redesigned for the card's memory system) adds:
+
+1. ``moe_gmm/csrc/moe_gmm_dec.cu`` built into the gmm library; its
+   ``gmm_dec_kernel`` must hold HMMA (mma.sync) instructions in
+   ``[sass]``, as the wgmma kernels must hold HGMMA;
+2. every bf16 ``gmm`` case with block_m 16 or 32 (moonshot's decode, the
+   jamba cut's decode gate/up and down) must take ``mma``; float32 cases
+   ``simt``; ``decode_attention`` keeps its cases and limits;
+3. ``[time]`` lines of both kernels print the share of the bound the
+   kernel reached, and each decode ``gmm`` line the ``simt`` kernel's
+   time on the same call; every ``[time]`` reading is device time (the
+   calls queued behind a sleep kernel, so the host's time per call is
+   not read as the kernel's).
 
 Then it prints the card's name and power limit, one ``{"kernels": [...]}``
 line and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -373,7 +388,12 @@ GMM = ("src/repro_torch/kernels/moe_gmm/csrc/moe_gmm.cu",
 # wrappers route bf16 flash_attention and bf16 prefill gmm blocks there
 FLASH_TC = "src/repro_torch/kernels/flash_attention/csrc/flash_attention_tc.cu"
 GMM_TC = "src/repro_torch/kernels/moe_gmm/csrc/moe_gmm_tc.cu"
-TC_KERNELS = ("flash_tc_kernel", "gmm_tc_kernel")
+# the decode route of gmm: bf16 blocks of 16 or 32 rows on mma.sync
+GMM_DEC = "src/repro_torch/kernels/moe_gmm/csrc/moe_gmm_dec.cu"
+# tensor-core kernels and the instruction each must contain: wgmma (HGMMA)
+# or mma.sync (HMMA)
+TC_KERNELS = {"flash_tc_kernel": "HGMMA", "gmm_tc_kernel": "HGMMA",
+              "gmm_dec_kernel": "HMMA"}
 MOE_ARCH = "moonshot_v1_16b_a3b"
 MOE_CLASSES = (SERVE_CLASSES[0], ("big", MOE_ARCH, 8192, 8, 4.0, 0.2))
 WKV = ("src/repro_torch/kernels/rwkv6/csrc/wkv.cu",
@@ -744,8 +764,9 @@ def serving_path(dev) -> dict:
         c.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
                  bound_by=b_by)
         print(f"[time] decode_attention {c['what']}: {ms:.4f} ms per launch "
-              f"(split + combine), plain version {plain_ms:.4f} ms, SDPA "
-              f"{lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+              f"({b_ms / ms:.3f} of the {b_by} bound), plain version "
+              f"{plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound {b_ms:.5f} ms "
+              f"({b_by})")
     for name, cases in (("flash_attention", flash_cases),
                         ("decode_attention", decode_cases)):
         top = cases[0]                  # yi-9b, bfloat16 (B = 1 for decode)
@@ -764,6 +785,15 @@ def serving_path(dev) -> dict:
     report["flash_attention"]["serve_walls_s"] = {
         f"{n} {S}": w for (n, S), w in sorted(walls.items())}
     return report
+
+
+def gmm_want_route(dtype: str, block_m: int) -> str:
+    """The route a gmm case at the served shapes (K and N multiples of 8)
+    must take: bf16 prefill blocks ``wgmma``, bf16 decode blocks ``mma``,
+    float32 ``simt``."""
+    if dtype != "bfloat16":
+        return "simt"
+    return "wgmma" if block_m % 64 == 0 else "mma"
 
 
 def gmm_bound(rows, experts, M, K, N, nblocks, dtype):
@@ -973,9 +1003,9 @@ def moe_path(dev) -> dict:
                         f"block_m={bm} K={K} N={N} {dtype}: "
                         f"{int(valid.sum())} of {len(valid)} blocks valid, "
                         f"{route} kernel")
-                if route != ("wgmma" if dtype == "bfloat16" and bm % 64 == 0
-                             else "simt"):
-                    fail(f"gmm {what}: took the {route} kernel")
+                if route != gmm_want_route(dtype, bm):
+                    fail(f"gmm {what}: took the {route} kernel, not "
+                         f"{gmm_want_route(dtype, bm)}")
                 ref = gmm_ref(x, w, be, nv, block_m=bm)
                 atol, rtol = ATTN_TOLS[dtype]
                 d = (out.float() - ref.float()).abs()
@@ -1007,13 +1037,14 @@ def moe_path(dev) -> dict:
                             static_ms=static_ms, plain_ms=plain_ms,
                             library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
                 simt = ""
-                if route == "wgmma":       # the CUDA-core kernel it replaced
+                if route != "simt":        # the CUDA-core kernel it replaced
                     case["simt_ms"] = cuda_ms(lambda: gmm_kernel._launch(
-                        x, w, be, nv, bm, "simt"), 3)
+                        x, w, be, nv, bm, "simt"), 10 if bm % 64 else 3)
                     simt = (f", the simt kernel on the same call "
                             f"{case['simt_ms']:.4f} ms")
                 print(f"[time] gmm {what}: {ms:.4f} ms per launch "
-                      f"({static_ms:.4f} ms with pad_groups' static counts, "
+                      f"({b_ms / ms:.3f} of the {b_by} bound; "
+                      f"{static_ms:.4f} ms with pad_groups' static counts, "
                       f"every block valid), plain version {plain_ms:.4f} "
                       f"ms, torch.bmm over the [E, Cp, K] buffer "
                       f"{lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}){simt}")
@@ -1122,7 +1153,8 @@ def moe_path(dev) -> dict:
     top = cases[0]                    # prefill gate/up, bfloat16
     return {"gmm": dict(
         name="gmm", route="cuda", source=GMM_TC,
-        sources={"wgmma": GMM_TC, "simt": GMM[0]}, replaces=GMM[1],
+        sources={"wgmma": GMM_TC, "mma": GMM_DEC, "simt": GMM[0]},
+        replaces=GMM[1],
         launches=counts["gmm"], max_abs_err=max(c["err"] for c in cases),
         ms=top["ms"], plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
         bound_by=top["bound_by"], library_ms=top["library_ms"],
@@ -1541,10 +1573,8 @@ def hybrid_path(dev) -> dict:
         valid = (nv > 0).cpu().numpy()
         rows = int(valid.sum()) * bm
         experts = int((fill > 0).sum())
-        projs = ((("gate/up", cut.d_model, m.d_ff_expert),
-                  ("down", m.d_ff_expert, cut.d_model)) if T > 1
-                 else (("gate/up", cut.d_model, m.d_ff_expert),))
-        for proj, Kd, Nd in projs:
+        for proj, Kd, Nd in (("gate/up", cut.d_model, m.d_ff_expert),
+                             ("down", m.d_ff_expert, cut.d_model)):
             x = randn(H * Cp, Kd).to(torch.bfloat16)
             w = torch.empty(H, Kd, Nd, dtype=torch.bfloat16, device=dev)
             for e in range(H):
@@ -1556,8 +1586,9 @@ def hybrid_path(dev) -> dict:
                     f"{m.num_experts} experts, C={C} Cp={Cp} block_m={bm} "
                     f"K={Kd} N={Nd} bfloat16: {int(valid.sum())} of "
                     f"{len(valid)} blocks valid, {route} kernel")
-            if route != ("wgmma" if bm % 64 == 0 else "simt"):
-                fail(f"gmm {what}: took the {route} kernel")
+            if route != gmm_want_route("bfloat16", bm):
+                fail(f"gmm {what}: took the {route} kernel, not "
+                     f"{gmm_want_route('bfloat16', bm)}")
             atol, rtol = ATTN_TOLS["bfloat16"]
             worst, err = 0.0, 0.0
             for e in range(H):
@@ -1589,14 +1620,15 @@ def hybrid_path(dev) -> dict:
                         err=err, err_over_limit=worst, ms=ms,
                         library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
             simt = ""
-            if route == "wgmma":           # the CUDA-core kernel it replaced
+            if route != "simt":            # the CUDA-core kernel it replaced
                 case["simt_ms"] = cuda_ms(lambda: gmm_kernel._launch(
                     x, w, be, nv, bm, "simt"), 2)
                 simt = (f", the simt kernel on the same call "
                         f"{case['simt_ms']:.4f} ms")
-            print(f"[time] gmm {what}: {ms:.4f} ms per launch, torch.bmm "
-                  f"over the [H, Cp, K] buffer {lib_ms:.4f} ms, bound "
-                  f"{b_ms:.5f} ms ({b_by}){simt}")
+            print(f"[time] gmm {what}: {ms:.4f} ms per launch ({b_ms / ms:.3f} "
+                  f"of the {b_by} bound), torch.bmm over the [H, Cp, K] "
+                  f"buffer {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})"
+                  f"{simt}")
             gmm_cases.append(case)
             del x, w, out, xb
     torch.cuda.empty_cache()
@@ -1760,7 +1792,8 @@ def hybrid_path(dev) -> dict:
 def tensor_core_instructions(paths) -> None:
     """Print, for each kernel of each built library, its tensor-core
     instructions (HGMMA: wgmma; HMMA: mma.sync) in ``cuobjdump
-    --dump-sass``; fail if a tensor-core kernel (``TC_KERNELS``) has none.
+    --dump-sass``; fail if an instantiation of a tensor-core kernel
+    (``TC_KERNELS``) has none of the instruction it must use.
     Without ``cuobjdump`` in the toolkit, print that it is not
     available."""
     import os
@@ -1787,22 +1820,30 @@ def tensor_core_instructions(paths) -> None:
                 counts[fn][1] += "HMMA" in line
     for fn, (hg, hm) in counts.items():
         print(f"[sass] {fn}: {hg} HGMMA, {hm} HMMA")
-    for k in TC_KERNELS:
-        tc = [sum(c) for fn, c in counts.items() if k in fn]
+    for k, inst in TC_KERNELS.items():
+        tc = [c[0 if inst == "HGMMA" else 1] for fn, c in counts.items()
+              if k in fn]
         if not tc or min(tc) == 0:
-            fail(f"tensor-core kernel {k}: instantiations with no HGMMA / "
-                 f"HMMA instruction, or none built ({tc})")
+            fail(f"tensor-core kernel {k}: instantiations with no {inst} "
+                 f"instruction, or none built ({tc})")
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean CUDA-event time of ``fn`` over ``reps`` calls, after one
-    warm-up call."""
+    """Mean device time of ``fn`` over ``reps`` calls, after one warm-up
+    call: CUDA events around the calls, all queued behind a sleep kernel
+    that outlasts their enqueueing, so the card runs them back to back and
+    the host's time per call (Python, allocation, launch) is not read as
+    the kernels' (where one call takes longer to enqueue than to run, the
+    events would otherwise time the host)."""
     import torch
 
+    t0 = time.perf_counter()
     fn()
+    host_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(0.2, 2.0 * reps * host_s + 1e-3) * 2e9))
     e0.record()
     for _ in range(reps):
         fn()

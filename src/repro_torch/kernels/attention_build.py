@@ -32,8 +32,8 @@ LIBRARY = Library("attention", SOURCES, NVCC_FLAGS, {
     # q, k, v, o, B, Sq, Sk, H, Kh, D, Dv, scale, causal, stream (bf16)
     "attn_flash_fwd_tc": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
                           _I, _P],
-    # q, k, v, pos, part_m, part_l, part_acc, o, B, Sk, H, Kh, D, Dv, KC,
-    # n_split, scale, is_bf16, stream
-    "attn_decode_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                        _I, _I, _I, _F, _I, _P],
+    # q, k, v, pos, part, o, B, Sk, H, Kh, D, Dv, KC, cmin, nx, kt,
+    # stages, scale, is_bf16, stream
+    "attn_decode_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                        _I, _I, _I, _I, _F, _I, _P],
 }, error_fn="attn_error_string", headers=HEADERS)

@@ -1,7 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels of the
 // port (flash_attention/csrc/flash_attention_tc.cu, moe_gmm/csrc/
-// moe_gmm_tc.cu): mbarriers, TMA tile loads, wgmma descriptors and calls,
-// and the host-side encoding of a TMA tensor map.  Raw PTX, as in
+// moe_gmm_tc.cu, moe_gmm/csrc/moe_gmm_dec.cu) and the TMA loads of
+// decode_attention/csrc/decode_attention.cu: mbarriers, TMA tile loads,
+// wgmma descriptors and calls, ldmatrix and mma.sync, and the host-side
+// encoding of a TMA tensor map.  Raw PTX, as in
 // NVIDIA's PTX ISA for sm_90a; nothing here allocates or synchronises the
 // device.
 //
@@ -222,6 +224,51 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
         "n"(TRANS_B));
 }
 
+// -- mma.sync (moe_gmm_dec.cu) -----------------------------------------------
+
+// Four 8 x 8 bf16 matrices from shared memory: lanes 8i .. 8i + 7 give the
+// row addresses (16 bytes each) of matrix i, which lands in r[i].  Without
+// .trans thread t gets row t / 4, columns 2 (t % 4) and + 1 of each; with
+// .trans it gets rows 2 (t % 4) and + 1 of column t / 4.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+
+// D[16 x 8] = A[16 x 16] B[16 x 8] + C, bf16 in, float32 out.  With g =
+// lane / 4, t = lane % 4: a[0] = A[g][2t, 2t+1], a[1] = A[g+8][2t, 2t+1],
+// a[2] = A[g][2t+8, 2t+9], a[3] = A[g+8][2t+8, 2t+9]; b[0] = B[2t, 2t+1][g],
+// b[1] = B[2t+8, 2t+9][g]; d[0, 1] = D[g][2t, 2t+1], d[2, 3] = D[g+8][..].
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
+                                               const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1,
+                                               const float (&c)[4]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
+}
+
+// The byte offset of 16-byte chunk c of row r in a tile that TMA wrote with
+// the 128-byte swizzle (rows of 128 bytes, chunk c stored at c ^ (r % 8)).
+__device__ __forceinline__ uint32_t sw128(int r, int c) {
+  return r * 128 + ((c ^ (r & 7)) << 4);
+}
+
 }  // namespace hopper
 
 // -- the host side: TMA tensor maps ----------------------------------------
@@ -255,13 +302,15 @@ inline EncodeTiled encode_fn() {
   return fn;
 }
 
-// A bf16 tensor map of `rank` dims (innermost first, dims[0] contiguous),
-// byte strides of dims 1..rank-1, a box of `box` elements per dim, the
-// 128-byte swizzle; elements out of bounds read as zero.  Returns false if
-// the encoding is refused (alignment, strides, box).
-inline bool encode_bf16(CUtensorMap* map, const void* ptr, int rank,
-                        const uint64_t* dims, const uint64_t* strides,
-                        const uint32_t* box) {
+// A tensor map of `rank` dims of `dtype` elements (innermost first,
+// dims[0] contiguous), byte strides of dims 1..rank-1, a box of `box`
+// elements per dim, the 128-byte swizzle (or `swizzle`); elements out of
+// bounds read as zero.  Returns false if the encoding is refused
+// (alignment, strides, box).
+inline bool encode(CUtensorMap* map, CUtensorMapDataType dtype,
+                   const void* ptr, int rank, const uint64_t* dims,
+                   const uint64_t* strides, const uint32_t* box,
+                   CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   EncodeTiled fn = encode_fn();
   if (!fn) return false;
   cuuint64_t d[5], s[4];
@@ -272,11 +321,18 @@ inline bool encode_bf16(CUtensorMap* map, const void* ptr, int rank,
     e[i] = 1;
     if (i + 1 < rank) s[i] = strides[i];
   }
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
-            const_cast<void*>(ptr), d, s, b, e,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  return fn(map, dtype, rank, const_cast<void*>(ptr), d, s, b, e,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// encode() for bf16.
+inline bool encode_bf16(CUtensorMap* map, const void* ptr, int rank,
+                        const uint64_t* dims, const uint64_t* strides,
+                        const uint32_t* box) {
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr, rank, dims,
+                strides, box);
 }
 
 }  // namespace hopper_host

@@ -11,16 +11,18 @@ multiple of 16 (the kernel's smallest row tile).  It checks its inputs,
 then
 
 * for CPU tensors returns the plain version, :func:`gmm_ref`;
-* for CUDA tensors allocates the output, launches one of two kernels on
+* for CUDA tensors allocates the output, launches one of three kernels on
   the current stream, raises if the launch is refused, adds one to
   ``gmm.launches`` and records the route it took in ``gmm.last_route``.
   :func:`_gmm_route`, a pure function of the call, picks the kernel before
-  the launch: ``"wgmma"``, ``csrc/moe_gmm_tc.cu`` on the tensor cores, for
-  bf16 prefill blocks (block_m a multiple of 64, K and N multiples of 8);
-  ``"simt"``, ``csrc/moe_gmm.cu`` on the CUDA cores, for the decode blocks
-  of 16 and 32 rows (memory-bound), float32 and ragged shapes.  Both are
-  hand-written kernels; there is no fallback: a CUDA tensor never reaches
-  the plain version through the wrapper, and a refused launch raises.
+  the launch: for bf16 with K and N multiples of 8, ``"wgmma"``,
+  ``csrc/moe_gmm_tc.cu`` on the tensor cores, for prefill blocks (block_m
+  a multiple of 64), and ``"mma"``, ``csrc/moe_gmm_dec.cu`` (mma.sync fed
+  by TMA, split K; memory-bound), for the decode blocks of 16 and 32
+  rows; ``"simt"``, ``csrc/moe_gmm.cu`` on the CUDA cores, for float32
+  and ragged shapes.  All three are hand-written kernels; there is no
+  fallback: a CUDA tensor never reaches the plain version through the
+  wrapper, and a refused launch raises.
 """
 
 from __future__ import annotations
@@ -30,6 +32,14 @@ import torch
 from .build import LIBRARY
 
 _DTYPES = (torch.float32, torch.bfloat16)
+# csrc/moe_gmm_dec.cu's output tile width, K-stage depth and most K
+# splits, and the CTAs it may keep per SM (its grid is at most this many
+# per SM, fewer where fewer fit)
+_DEC_TN, _DEC_TK, _DEC_S_MAX, _DEC_CTAS_PER_SM = 128, 64, 16, 3
+# the "mma" route's split-K counters, one buffer per (device, stream): the
+# tile's last CTA sets its counter back to 0, so the counters are zero
+# between launches (no memset), and launches on one stream run in order
+_COUNTERS: dict[tuple[int, int], torch.Tensor] = {}
 
 
 def gmm_ref(x, w, block_expert, nvalid, *, block_m: int):
@@ -73,13 +83,33 @@ def pad_groups(x_groups, block_m: int):
 
 
 def _gmm_route(dtype, block_m: int, K: int, N: int) -> str:
-    """The kernel a CUDA call takes: ``"wgmma"`` (tensor cores) for bf16
-    with block_m a multiple of 64 and K and N multiples of 8 (rows of 16
-    bytes, for TMA), else ``"simt"``."""
-    if (dtype == torch.bfloat16 and block_m % 64 == 0 and K % 8 == 0
-            and N % 8 == 0):
-        return "wgmma"
+    """The kernel a CUDA call takes: for bf16 with K and N multiples of 8
+    (rows of 16 bytes, for TMA), ``"wgmma"`` (tensor cores, prefill) when
+    block_m is a multiple of 64 and ``"mma"`` (tensor cores, decode) when
+    it is 16 or 32; else ``"simt"``."""
+    if dtype == torch.bfloat16 and K % 8 == 0 and N % 8 == 0:
+        if block_m % 64 == 0:
+            return "wgmma"
+        if block_m in (16, 32):
+            return "mma"
     return "simt"
+
+
+def dec_splits(n_valid_blocks: int, K: int, N: int, grid: int) -> int:
+    """The K splits of the ``"mma"`` route, as each of its ``grid`` CTAs
+    derives them on the card from the count of valid blocks: enough that
+    the ``n_valid_blocks x ceil(N / 128)`` output tiles times the splits
+    fill the grid, at most one per 64-deep K tile and at most 16."""
+    if n_valid_blocks == 0:
+        return 1
+    nt, nk = -(-N // _DEC_TN), -(-K // _DEC_TK)
+    return max(1, min(grid // (n_valid_blocks * nt), nk, _DEC_S_MAX))
+
+
+def dec_split_range(K: int, S: int, s: int) -> tuple[int, int]:
+    """The 64-deep K tiles [k0, k1) that split ``s`` of ``S`` sums."""
+    nk = -(-K // _DEC_TK)
+    return s * nk // S, (s + 1) * nk // S
 
 
 def _check(x, w, block_expert, nvalid, block_m: int) -> None:
@@ -117,10 +147,9 @@ def _launch(x, w, block_expert, nvalid, block_m: int, route: str):
     :func:`_check` and return out; counts nothing (the wrapper counts)."""
     M, K = x.shape
     E, _, N = w.shape
-    if route == "wgmma" and _gmm_route(x.dtype, block_m, K, N) != "wgmma":
-        raise ValueError(f"the wgmma kernel takes bf16 with block_m a "
-                         f"multiple of 64 and K, N multiples of 8, got "
-                         f"{x.dtype} block_m={block_m} K={K} N={N}")
+    if route != "simt" and _gmm_route(x.dtype, block_m, K, N) != route:
+        raise ValueError(f"the {route} kernel does not take {x.dtype} "
+                         f"block_m={block_m} K={K} N={N} (see _gmm_route)")
     out = torch.empty(M, N, dtype=x.dtype, device=x.device)
     lib = LIBRARY.load()
     with torch.cuda.device(x.device):
@@ -129,6 +158,20 @@ def _launch(x, w, block_expert, nvalid, block_m: int, route: str):
                 nvalid.data_ptr(), out.data_ptr())
         if route == "wgmma":
             rc = lib.moe_gmm_tc(*ptrs, M, K, N, E, block_m, stream)
+        elif route == "mma":
+            grid = _DEC_CTAS_PER_SM * torch.cuda.get_device_properties(
+                x.device).multi_processor_count
+            scratch = torch.empty(grid * block_m * _DEC_TN,
+                                  dtype=torch.float32, device=x.device)
+            key = (x.device.index, stream)
+            counters = _COUNTERS.get(key)
+            if counters is None or counters.numel() < grid:
+                counters = torch.zeros(grid, dtype=torch.int32,
+                                       device=x.device)
+                _COUNTERS[key] = counters
+            rc = lib.moe_gmm_dec(*ptrs, scratch.data_ptr(),
+                                 counters.data_ptr(), M, K, N, E, block_m,
+                                 grid, stream)
         else:
             rc = lib.moe_gmm(*ptrs, M, K, N, E, block_m,
                              int(x.dtype == torch.bfloat16), stream)

@@ -36,6 +36,7 @@ from repro_torch.kernels.decode_attention import (decode_attention_fwd,
 from repro_torch.kernels.flash_attention import (flash_attention_fwd,
                                                  flash_attention_ref)
 from repro_torch.bench.decode_vs_forward import emulate_flash
+from repro_torch.kernels.decode_attention import kernel as decode_kernel
 from repro_torch.kernels.flash_attention.kernel import _flash_route
 from repro_torch.models import layers
 
@@ -217,6 +218,63 @@ TC_FLASH_SHAPES = [
 ]
 
 
+# the served models' heads (H, Kh, D): yi-9b, stablelm-3b, moonshot, jamba
+SERVED_HEADS = [(32, 4, 128), (32, 32, 80), (16, 16, 128), (64, 8, 128)]
+
+
+@pytest.mark.parametrize("H,Kh,D", SERVED_HEADS)
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_decode_plan_covers_every_kept_position(H, Kh, D, B, itemsize):
+    """The decode kernel's plan at the served heads, Sk 8192, on 132 SMs:
+    the grid is one wave ``_CTAS_PER_SM`` deep or 4 CTAs a sequence per
+    kv head, whichever is more, the scores fit,
+    each SM keeps at least 32 KB of cache rows in flight, the CTA fits;
+    and for kept positions from 1 to Sk (ragged, equal, one long and the
+    rest short) the splits of each sequence cover its kept positions
+    exactly once, in order, none longer than KC, none longer than the
+    balanced share max(cmin, ceil(R / (nx - B)) in whole tiles)."""
+    Sk, n_sm = 8192, 132
+    plan = decode_kernel.decode_plan(B, Kh, Sk, H // Kh, D, D, itemsize,
+                                     n_sm)
+    assert plan.nx >= 4 * B
+    assert n_sm <= plan.nx * Kh <= max(decode_kernel._CTAS_PER_SM * n_sm,
+                                       4 * B * Kh)
+    assert (H // Kh) * plan.kc <= decode_kernel._SCORES_MAX
+    assert plan.in_flight >= 32 * 1024 and plan.ctas_per_sm >= 2
+    assert plan.smem <= 227 * 1024
+    rng = np.random.default_rng(B * 1000 + H + itemsize)
+    cases = [[Sk] * B, [1] * B, [Sk] + [1] * (B - 1),
+             [1] * (B - 1) + [Sk], [plan.cmin + 1] * B]
+    cases += [rng.integers(1, Sk + 1, B).tolist() for _ in range(40)]
+    for n_kept in cases:
+        splits = decode_kernel.split_ranges(n_kept, plan.nx, plan.cmin,
+                                             plan.kt)
+        assert len(splits) == plan.nx
+        per = -(-sum(n_kept) // (plan.nx - B))        # ceil(R / (nx - B))
+        share = max(plan.cmin, -(-per // plan.kt) * plan.kt)
+        at = [0] * B
+        for sp in splits:
+            if sp is None:
+                continue
+            b, start, end = sp
+            assert start == at[b] and start < end <= n_kept[b]
+            assert end - start <= min(plan.kc, share)
+            at[b] = end
+        assert at == n_kept
+
+
+# decode shapes of the card-only test: the served head sets at a shorter
+# cache (G 8 and 1, D 128 and 80), a ragged Sk, D = 80 with G = 8
+DECODE_CARD_SHAPES = [
+    (4, 2048, 32, 4, 128, 128),
+    (4, 2048, 32, 32, 80, 80),
+    (2, 1000, 64, 8, 128, 128),
+    (3, 777, 16, 2, 80, 80),
+    (1, 300, 16, 16, 128, 128),
+]
+
+
 @pytest.mark.cuda
 def test_cuda_attention_kernels_match_plain_versions_on_the_card(rng):
     """Card only: each CUDA kernel against its plain version on the card,
@@ -234,7 +292,8 @@ def test_cuda_attention_kernels_match_plain_versions_on_the_card(rng):
                          dtype)
             assert flash_attention_fwd.last_route == (
                 "wgmma" if dtype == "bfloat16" else "simt")
-        for B, Sk, H, Kh, D, Dv, _ in DECODE_SHAPES:
+        for B, Sk, H, Kh, D, Dv in ([s[:6] for s in DECODE_SHAPES]
+                                    + DECODE_CARD_SHAPES):
             q, k, v = (_both(rng, s, dtype)[1].to(dev) for s in (
                 (B, H, D), (B, Sk, Kh, D), (B, Sk, Kh, Dv)))
             pos = torch.tensor(rng.integers(-1, Sk + 2, size=B),

@@ -19,8 +19,11 @@ same inputs, made with numpy, go to both packages:
   the fill-based valid-row counts against ``pad_groups``' static ones,
   and two ``block_m``, give the same output.
 
-``gmm`` picks one of two CUDA kernels with the pure function
-``_gmm_route``, whose cases are pinned here.
+``gmm`` picks one of three CUDA kernels with the pure function
+``_gmm_route``, whose cases are pinned here, and the decode route
+(``"mma"``) cuts K by ``dec_splits`` / ``dec_split_range``, whose
+coverage of K is held here, as is its order of sums (64-deep slices added
+in float32, splits added in order) against ``gmm_ref``.
 
 The whole model (moonshot reduced) is held to the reference in
 ``tests/test_torch_models.py`` and the serving engine in
@@ -46,7 +49,8 @@ from repro.models import moe as ref_moe
 
 from repro_torch.configs import get_config
 from repro_torch.kernels.moe_gmm import gmm, gmm_ref, pad_groups
-from repro_torch.kernels.moe_gmm.kernel import _gmm_route
+from repro_torch.kernels.moe_gmm.kernel import (_gmm_route, dec_split_range,
+                                                 dec_splits)
 from repro_torch.models import moe
 
 ARCH = "moonshot_v1_16b_a3b"
@@ -289,8 +293,14 @@ def test_capacity_and_block_m_choice():
     (torch.bfloat16, 128, 8192, 24576, "wgmma"),  # the jamba cut
     (torch.bfloat16, 128, 24576, 8192, "wgmma"),  # its down product
     (torch.bfloat16, 192, 200, 136, "wgmma"),
-    (torch.bfloat16, 16, 2048, 1408, "simt"),     # decode blocks
-    (torch.bfloat16, 32, 2048, 1408, "simt"),
+    (torch.bfloat16, 16, 2048, 1408, "mma"),      # moonshot decode
+    (torch.bfloat16, 32, 2048, 1408, "mma"),
+    (torch.bfloat16, 16, 1408, 2048, "mma"),      # its down product
+    (torch.bfloat16, 16, 8192, 24576, "mma"),     # the jamba cut's decode
+    (torch.bfloat16, 16, 24576, 8192, "mma"),
+    (torch.bfloat16, 32, 8192, 24576, "mma"),
+    (torch.float32, 16, 2048, 1408, "simt"),
+    (torch.bfloat16, 16, 2048, 1412, "simt"),     # rows not 16 bytes
     (torch.bfloat16, 48, 2048, 1408, "simt"),
     (torch.float32, 128, 2048, 1408, "simt"),
     (torch.bfloat16, 128, 33, 7, "simt"),         # rows not 16 bytes
@@ -298,6 +308,58 @@ def test_capacity_and_block_m_choice():
 ])
 def test_gmm_route(dtype, bm, K, N, route):
     assert _gmm_route(dtype, bm, K, N) == route
+
+
+# the "mma" route's shapes: (K, N, valid blocks): moonshot's decode gate/up
+# and down (6 of 64 blocks), the jamba cut's (1 of 8), ragged and busy ones
+DEC_SHAPES = [(2048, 1408, 6), (1408, 2048, 6), (8192, 24576, 1),
+              (24576, 8192, 1), (200, 136, 3), (24, 8, 1), (2048, 1408, 64),
+              (2048, 1408, 0)]
+
+
+@pytest.mark.parametrize("K,N,nvb", DEC_SHAPES)
+@pytest.mark.parametrize("grid", [396, 264, 1])
+def test_mma_route_split_plan_covers_k(K, N, nvb, grid):
+    """The K splits of the decode route: the 64-deep tiles of each split
+    are non-empty and together cover K exactly once, in order; split K
+    fills the grid without passing it."""
+    S = dec_splits(nvb, K, N, grid)
+    nk, nt = -(-K // 64), -(-N // 128)
+    assert 1 <= S <= min(16, nk)
+    if S > 1:
+        assert nvb * nt * S <= grid < nvb * nt * (S + 1) or S == min(16, nk)
+    edges = [dec_split_range(K, S, s) for s in range(S)]
+    assert edges[0][0] == 0 and edges[-1][1] == nk
+    assert all(k0 < k1 for k0, k1 in edges)
+    assert all(a[1] == b[0] for a, b in zip(edges, edges[1:]))
+
+
+@pytest.mark.parametrize("K,N,nvb", [s for s in DEC_SHAPES[:4]])
+def test_mma_route_sums_keep_the_bf16_limit(K, N, nvb, rng):
+    """The decode route's order of sums in plain PyTorch: each 64-deep
+    slice of K summed from zero (float32 here; the tensor cores on the
+    card), added into its split's float32 sum in order, the splits added in
+    split order, one rounding to bf16; against ``gmm_ref`` within the
+    card's bf16 limit, 1e-5 + 2^-6 |ref|, at moonshot's and the jamba
+    cut's decode K (N cut to 128 columns; the split count is the served
+    N's)."""
+    S = dec_splits(nvb, K, N, 396)
+    x = torch.tensor(rng.normal(size=(16, K)), dtype=torch.bfloat16)
+    w = torch.tensor(rng.normal(size=(1, K, 128)) / np.sqrt(K),
+                     dtype=torch.bfloat16)
+    xf, wf = x.float(), w[0].float()
+    total = None
+    for s in range(S):
+        k0, k1 = dec_split_range(K, S, s)
+        acc = torch.zeros(16, 128)
+        for kt in range(k0, k1):
+            sl = slice(64 * kt, min(64 * kt + 64, K))
+            acc = acc + xf[:, sl] @ wf[sl]
+        total = acc if total is None else total + acc
+    ref = gmm_ref(x, w, torch.zeros(1, dtype=torch.int32),
+                  torch.ones(1, dtype=torch.int32), block_m=16).float()
+    torch.testing.assert_close(total.to(torch.bfloat16).float(), ref,
+                               atol=1e-5, rtol=2.0 ** -6)
 
 
 @pytest.mark.cuda
@@ -314,7 +376,9 @@ def test_cuda_gmm_matches_plain_version_on_the_card(rng):
     tols = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-5, 2.0 ** -6)}
     for E, K, N, bm in ((8, 64, 128, 16), (8, 200, 70, 32), (4, 96, 136, 64),
                         (5, 2048, 1408, 128), (3, 33, 7, 48),
-                        (6, 200, 136, 64), (5, 200, 136, 128)):
+                        (6, 200, 136, 64), (5, 200, 136, 128),
+                        (8, 2048, 1408, 16), (4, 1408, 2048, 32),
+                        (2, 8192, 520, 16), (3, 200, 136, 32), (2, 24, 8, 16)):
         nb = 3 * E
         be = torch.tensor(rng.integers(0, E, nb), dtype=torch.int32)
         nv = torch.tensor(rng.integers(0, bm + 1, nb) * (
