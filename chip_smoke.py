@@ -29,9 +29,14 @@ The Figure-3 slice adds to each phase:
 2. ``srpt_scan`` (SF and FF) at the full width of the Fig. 3 path's
    largest cells, k in {512, 1024} with Q = 2048 / 4096 slots, on R = 4
    IID-bootstrapped SDSC-SP2 replications at load 0.85 with J cut to 2000
-   (the plain version is a Python event loop), and ``stable_sort`` at
-   W in {4096, 3000}, each ``torch.equal`` to its plain version on the card
-   and on the CPU;
+   (the plain version is a Python event loop); KIT-FH2 (78 % need-1 jobs)
+   at k = 1024, J = 1000; a burst (k = 512, Q = 2048, J = 500 in 5
+   batches of 100 equal arrival times, services from 4 values: ties on
+   arrival and rank, and hundreds of jobs in the system, the kernel's
+   large-n path); an overflowing table (Q = 4, J = 300); and
+   ``stable_sort`` at W in {4096, 3000}; each ``torch.equal`` to its plain
+   version on the card and on the CPU, with the jobs in the system per
+   event printed;
 3. ``repro_torch.bench.fig3_traces.run()`` at its defaults on the card
    (2 datasets x k in {512, 1024} x 3 loads x 5 policies, J = 15 000,
    R = 4) with the counts set to 0 just before and read just after:
@@ -39,8 +44,12 @@ The Figure-3 slice adds to each phase:
    small run on the card must equal the same run on the CPU on every
    column but ``sim_s``.  Rows are printed; no ordering between policies
    is asserted (on the reference BS-π is above FCFS at this J);
-4. ``srpt_scan`` timed at k = 1024, Q = 4096, R = 4, J = 15 000, and
-   ``stable_sort`` at [4, 4096] beside two stable ``torch.sort`` passes.
+4. ``srpt_scan`` timed at k = 1024, Q = 4096, R = 4, J = 15 000 on
+   SDSC-SP2 and KIT-FH2 and on the J = 1500 burst (time per event and the
+   jobs in the system per event), and ``stable_sort`` at [4, 4096] beside
+   two stable ``torch.sort`` passes.  (``python -m
+   repro_torch.bench.srpt_bench --parent DIR`` times another checkout's
+   kernel beside this one.)
 
 The drain-mode failure slice adds:
 
@@ -234,7 +243,6 @@ import subprocess
 import sys
 import time
 from pathlib import Path
-from types import SimpleNamespace
 
 ROOT = Path(__file__).resolve().parent
 CMP_J, REPS = 4000, 16
@@ -253,6 +261,9 @@ SRPT_SOURCE = "src/repro_torch/kernels/msj_scan/csrc/srpt_scan.cu"
 SRPT_REPLACES = "src/repro/kernels/msj_scan/srpt.py:75"
 SORT_REPLACES = "src/repro/kernels/msj_scan/sort.py:58"
 FIG3_KS, FIG3_J, FIG3_R, SRPT_CMP_J = (512, 1024), 15_000, 4, 2000
+# burst: J of the comparison (the plain version is a Python event loop)
+# and of the [time] line
+SRPT_KIT_J, SRPT_BURST_CMP_J, SRPT_BURST_J, SRPT_OVF_J = 1000, 500, 1500, 300
 SORT_WS, SORT_R = (4096, 3000), 4
 FAIL_KERNELS = {  # name -> (wrapper, TPU kernel it replaces)
     "fcfs_fail_scan": ("fcfs_fail_scan_fwd",
@@ -1829,27 +1840,11 @@ def tensor_core_instructions(paths) -> None:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` calls, after one warm-up
-    call: CUDA events around the calls, all queued behind a sleep kernel
-    that outlasts their enqueueing, so the card runs them back to back and
-    the host's time per call (Python, allocation, launch) is not read as
-    the kernels' (where one call takes longer to enqueue than to run, the
-    events would otherwise time the host)."""
-    import torch
+    """Mean device time of ``fn`` over ``reps`` calls, queued behind a
+    sleep kernel: :func:`repro_torch.bench.timing.device_ms`."""
+    from repro_torch.bench.timing import device_ms
 
-    t0 = time.perf_counter()
-    fn()
-    host_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(min(0.2, 2.0 * reps * host_s + 1e-3) * 2e9))
-    e0.record()
-    for _ in range(reps):
-        fn()
-    e1.record()
-    torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / reps
+    return device_ms(fn, reps)
 
 
 def main() -> int:
@@ -1866,7 +1861,7 @@ def main() -> int:
               "False)", file=sys.stderr)
         return 2
 
-    from repro_torch.bench import fig3_traces
+    from repro_torch.bench import fig3_traces, srpt_cases
     from repro_torch.core import engines, sim_torch
     from repro_torch.core.failures import FailureProcess
     from repro_torch.core.sim_batch import (_bs_fail_args,
@@ -1874,9 +1869,7 @@ def main() -> int:
                                             _merged_fcfs_inputs,
                                             _merged_tensors,
                                             sweep_many_server)
-    from repro_torch.core.workload import (SDSC_SP2_TABLE, BatchTrace,
-                                           figure1_workload)
-    from repro_torch.data.swf import sdsc_sp2_trace
+    from repro_torch.core.workload import SDSC_SP2_TABLE, figure1_workload
     from repro_torch.kernels.msj_scan import build
     from repro_torch.kernels.msj_scan import kernel as K
 
@@ -1986,22 +1979,19 @@ def main() -> int:
     # -- 2b. srpt_scan and stable_sort against their plain versions --------
     NU = tuple(sorted(int(row[2]) for row in SDSC_SP2_TABLE))
 
-    def srpt_inputs(k: int, J: int, seed: int):
-        """R IID bootstraps of a Table-2 trace at load 0.85, on the card,
-        and the slot-table width of the Fig. 3 path's J = 15 000 cells."""
-        b = BatchTrace.from_trace(sdsc_sp2_trace(J, k=k, load=0.85,
-                                                 seed=seed), FIG3_R,
-                                  seed=seed)
-        f64 = dict(dtype=torch.float64, device=dev)
-        t = (torch.tensor(b.arrival, **f64), torch.tensor(b.need, **f64),
-             torch.tensor(b.service, **f64),
-             torch.full((FIG3_R,), float(k), **f64))
-        Q = sim_torch._srpt_args(SimpleNamespace(num_jobs=FIG3_J, k=k), None)
-        return t, Q
+    def srpt_inputs(k: int, J: int, seed: int, dataset: str = "sdsc"):
+        """R IID bootstraps of a Table-2 (SDSC-SP2) or Table-3 (KIT-FH2)
+        trace at load 0.85, on the card, and the slot-table width of the
+        Fig. 3 path's J = 15 000 cells."""
+        t, _ = srpt_cases.table_case(dataset, J, k, FIG3_R, seed=seed,
+                                     device=dev)
+        return t, srpt_cases.slots(FIG3_J, k)
 
-    srpt_cfgs = []
-    for k in FIG3_KS:
-        t, Q = srpt_inputs(k, SRPT_CMP_J, seed=1)
+    def srpt_case(label: str, t, NU: tuple, Q: int, J: int, k: int,
+                  ovf: bool):
+        """srpt_scan SF and FF on the card against the plain version on the
+        CPU and on the card, all 7 outputs at tolerance 0 (torch.equal);
+        ``ovf``: whether every replication must overflow its Q slots."""
         for sf in (True, False):
             kw = dict(Q=Q, NU=NU, sf=sf)
             out = K.srpt_scan_fwd(*t, **kw)
@@ -2014,24 +2004,54 @@ def main() -> int:
             for o, r_cpu, r_dev in zip(out, ref_cpu, ref_dev):
                 if not (torch.equal(o.cpu(), r_cpu)
                         and torch.equal(o, r_dev)):
-                    fail(f"srpt_scan sf={sf} at k={k} Q={Q} "
-                         f"J={SRPT_CMP_J} differs from its plain version")
-            if out[3].any() or not (out[5] == 2 * SRPT_CMP_J).all():
-                fail(f"srpt_scan sf={sf} k={k}: overflow or missing events")
+                    fail(f"srpt_scan {label} sf={sf} at k={k} Q={Q} J={J} "
+                         f"differs from its plain version")
+            if ovf:
+                if not out[3].all():
+                    fail(f"srpt_scan {label} sf={sf} Q={Q}: no overflow")
+            elif out[3].any() or not (out[5] == 2 * J).all():
+                fail(f"srpt_scan {label} sf={sf} k={k}: overflow or missing "
+                     f"events")
             ms = cuda_ms(lambda: K.srpt_scan_fwd(*t, **kw), 3)
-            b_ms, b_by = srpt_bound(FIG3_R, SRPT_CMP_J, out[0].cpu().numpy())
             pol = "sf" if sf else "ff"
-            print(f"[kernel] srpt_scan {pol} k={k} Q={Q} NU={NU} R={FIG3_R} "
-                  f"J={SRPT_CMP_J} (J cut: the plain version is a Python "
-                  f"event loop): all 7 outputs equal at tolerance 0 "
+            cfg = dict(case=label, policy=pol, k=k, Q=Q, J=J, ms=ms,
+                       plain_ms=plain_ms, err=max_err(out, ref_cpu))
+            if ovf:
+                # dropped arrivals never depart: n and the bound, both read
+                # off the departure stream, do not apply
+                cfg.update(bound_ms=None, bound_by=None, n_mean=None,
+                           n_max=None)
+                n_txt = "arrivals dropped (n and bound not read)"
+            else:
+                b_ms, b_by = srpt_bound(FIG3_R, J, out[0].cpu().numpy())
+                n = srpt_cases.jobs_in_system(out[0].cpu().numpy())
+                cfg.update(bound_ms=b_ms, bound_by=b_by,
+                           n_mean=float(n.mean()), n_max=int(n.max()))
+                n_txt = (f"bound {b_ms:.5f} ms ({b_by}); jobs in system "
+                         f"per event mean {n.mean():.1f} max {n.max()}")
+            print(f"[kernel] srpt_scan {label} {pol} k={k} Q={Q} NU={NU} "
+                  f"R={FIG3_R} J={J}: all 7 outputs equal at tolerance 0 "
                   f"(torch.equal) to the plain version on CPU and on card, "
                   f"kernel {ms:.3f} ms, plain on card {plain_ms:.1f} ms, "
-                  f"bound {b_ms:.5f} ms ({b_by}); peak in system "
-                  f"{out[6].tolist()}, preemptions {out[4].tolist()}")
-            srpt_cfgs.append(dict(policy=pol, k=k, Q=Q, ms=ms,
-                                  plain_ms=plain_ms, bound_ms=b_ms,
-                                  bound_by=b_by, err=max_err(out, ref_cpu)))
-    top = srpt_cfgs[-2]          # k = 1024, SF: the largest compared shape
+                  f"{n_txt}, peak {out[6].tolist()}, preemptions "
+                  f"{out[4].tolist()}")
+            srpt_cfgs.append(cfg)
+
+    # the Fig. 3 path's widths (J cut: the plain version is a Python event
+    # loop); KIT-FH2's 78 % need-1 mix; a burst of equal arrival times with
+    # n in the hundreds to over a thousand; a table that overflows
+    srpt_cfgs = []
+    for k in FIG3_KS:
+        t, Q = srpt_inputs(k, SRPT_CMP_J, seed=1)
+        srpt_case("sdsc", t, NU, Q, SRPT_CMP_J, k, ovf=False)
+    t, Q = srpt_inputs(1024, SRPT_KIT_J, seed=1, dataset="kit")
+    srpt_case("kit", t, NU, Q, SRPT_KIT_J, 1024, ovf=False)
+    t, NU_b = srpt_cases.burst_case(SRPT_BURST_CMP_J, 512, FIG3_R,
+                                    batch=100, gap=0.5, seed=1, device=dev)
+    srpt_case("burst", t, NU_b, 2048, SRPT_BURST_CMP_J, 512, ovf=False)
+    t, _ = srpt_inputs(512, SRPT_OVF_J, seed=1)
+    srpt_case("overflow", t, NU, 4, SRPT_OVF_J, 512, ovf=True)
+    top = srpt_cfgs[2]           # k = 1024, SDSC, SF: the Fig. 3 width
     report["srpt_scan"] = dict(
         name="srpt_scan", route="cuda", source=SRPT_SOURCE,
         replaces=SRPT_REPLACES, launches=None,
@@ -2357,20 +2377,32 @@ def main() -> int:
                             main_bound_ms=b_ms,
                             main_shape=f"k={MAIN_KS[-1]} R={REPS} J={MAIN_J}")
 
-    t, Q = srpt_inputs(FIG3_KS[-1], FIG3_J, seed=0)
-    for sf in (True, False):
-        kw = dict(Q=Q, NU=NU, sf=sf)
-        out = K.srpt_scan_fwd(*t, **kw)
-        ms = cuda_ms(lambda: K.srpt_scan_fwd(*t, **kw), 2)
-        b_ms, b_by = srpt_bound(FIG3_R, FIG3_J, out[0].cpu().numpy())
-        pol = "sf" if sf else "ff"
-        print(f"[time] srpt_scan {pol} k={FIG3_KS[-1]} Q={Q} R={FIG3_R} "
-              f"J={FIG3_J}: {ms:.3f} ms per launch "
-              f"({ms * 1e3 / (2 * FIG3_J):.2f} us per event), bound "
-              f"{b_ms:.5f} ms ({b_by})")
-        report["srpt_scan"][f"main_ms_{pol}"] = ms
-        report["srpt_scan"][f"main_bound_ms_{pol}"] = b_ms
-    report["srpt_scan"]["main_shape"] = (f"k={FIG3_KS[-1]} Q={Q} "
+    timed = [("sdsc",) + srpt_inputs(FIG3_KS[-1], FIG3_J, seed=0)
+             + (NU, FIG3_KS[-1], FIG3_J),
+             ("kit",) + srpt_inputs(FIG3_KS[-1], FIG3_J, seed=0,
+                                    dataset="kit")
+             + (NU, FIG3_KS[-1], FIG3_J)]
+    t, NU_b = srpt_cases.burst_case(SRPT_BURST_J, 512, FIG3_R, batch=100,
+                                    gap=0.5, seed=0, device=dev)
+    timed.append(("burst", t, 2048, NU_b, 512, SRPT_BURST_J))
+    for label, t, Q, nu, k, J in timed:
+        for sf in (True, False):
+            kw = dict(Q=Q, NU=nu, sf=sf)
+            out = K.srpt_scan_fwd(*t, **kw)
+            ms = cuda_ms(lambda: K.srpt_scan_fwd(*t, **kw), 2)
+            b_ms, b_by = srpt_bound(FIG3_R, J, out[0].cpu().numpy())
+            n = srpt_cases.jobs_in_system(out[0].cpu().numpy())
+            pol = "sf" if sf else "ff"
+            print(f"[time] srpt_scan {label} {pol} k={k} Q={Q} R={FIG3_R} "
+                  f"J={J}: {ms:.3f} ms per launch "
+                  f"({ms * 1e3 / (2 * J):.3f} us per event), jobs in "
+                  f"system per event mean {n.mean():.1f} max {n.max()}, "
+                  f"bound {b_ms:.5f} ms ({b_by})")
+            tag = "" if label == "sdsc" else f"{label}_"
+            report["srpt_scan"][f"main_ms_{tag}{pol}"] = ms
+            report["srpt_scan"][f"main_bound_ms_{tag}{pol}"] = b_ms
+            report["srpt_scan"][f"main_n_mean_{tag}{pol}"] = float(n.mean())
+    report["srpt_scan"]["main_shape"] = (f"k={FIG3_KS[-1]} Q={timed[0][2]} "
                                          f"R={FIG3_R} J={FIG3_J}")
 
     p = fail_inputs(MAIN_KS[-1], MAIN_J, "bench", seed=0)
@@ -2415,7 +2447,9 @@ def main() -> int:
     report["stable_sort"] = dict(
         name="stable_sort", route="cuda", source=SRPT_SOURCE,
         replaces=SORT_REPLACES, launches=report["srpt_scan"]["launches"],
-        launched_in="srpt_scan (device function; the standalone entry is "
+        launched_in="srpt_scan's in-kernel sort (since the redesign "
+                    "warp odd-even passes with a warp merge sort behind "
+                    "them, same order; this block-wide bitonic entry is "
                     "not on the main path)",
         max_abs_err=max(sort_errs), ms=ms, plain_ms=plain_ms,
         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,

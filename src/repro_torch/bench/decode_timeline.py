@@ -20,7 +20,6 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import time
 from pathlib import Path
 
 import numpy as np
@@ -29,6 +28,7 @@ import torch
 from ..kernels import attention_build as ab
 from ..kernels._build import Library, build_dir
 from ..kernels.decode_attention import kernel as dk
+from .timing import device_ms, insert_at
 
 HEADS = {"yi_9b": (32, 4, 128), "stablelm_3b": (32, 32, 80),
          "moonshot_v1_16b_a3b": (16, 16, 128),
@@ -73,23 +73,16 @@ def _instrumented_source() -> str:
         '  asm volatile("mov.u64 %0, %globaltimer;" : "=l"(t));\n'
         "  return t;\n}\n"), 1)
 
-    def insert(text, line, code, before, start=0):
-        i = text.find(line, start)
-        if i < 0:
-            raise RuntimeError(f"decode_timeline: line not found in "
-                               f"{csrc.name}: {line!r}")
-        j = i if before else i + len(line)
-        return text[:j] + code + text[j:]
-
     for line, k, before in SPLIT_AT:
-        src = insert(src, line, (
+        src = insert_at(src, line, (
             f"\n  if (threadIdx.x == 0) g_split[blockIdx.y * gridDim.x + "
-            f"blockIdx.x][{k}] = now();\n"), before)
+            f"blockIdx.x][{k}] = now();\n"), before=before, source=csrc.name)
     at = src.index("decode_combine_kernel(const Params p) {")
     for line, k, before in COMBINE_AT:
-        src = insert(src, line, (
+        src = insert_at(src, line, (
             f"\n  if (threadIdx.x == 0) g_comb[blockIdx.y * gridDim.x + "
-            f"blockIdx.x][{k}] = now();\n"), before, at)
+            f"blockIdx.x][{k}] = now();\n"), before=before, start=at,
+            source=csrc.name)
     return src.replace('extern "C" {\n', (
         'extern "C" {\n'
         "int stamps_read(void* s, void* c) {\n"
@@ -100,24 +93,6 @@ def _instrumented_source() -> str:
         "  cudaMemcpyToSymbol(g_comb, zc, sizeof(zc));\n"
         "  return (int)cudaMemcpyToSymbol(g_split, zs, sizeof(zs));\n}\n"),
         1)
-
-
-def _device_ms(fn, reps: int = 20) -> float:
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    host_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(min(0.2, 2.0 * reps * host_s + 1e-3) * 2e9))
-    e0.record()
-    for _ in range(reps):
-        fn()
-    e1.record()
-    torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / reps
 
 
 def main(argv=None) -> int:
@@ -150,7 +125,8 @@ def main(argv=None) -> int:
             v = torch.randn_like(k)
             pos = torch.tensor(POS[B], device=dev, dtype=torch.int32)
             ab.LIBRARY._lib = plain
-            ms = _device_ms(lambda: dk.decode_attention_fwd(q, k, v, pos))
+            ms = device_ms(lambda: dk.decode_attention_fwd(q, k, v, pos),
+                           20)
             ab.LIBRARY._lib = lib
             dk.decode_attention_fwd(q, k, v, pos)
             torch.cuda.synchronize()

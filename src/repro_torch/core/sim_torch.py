@@ -725,6 +725,31 @@ def _srpt_first_fit(kk, need_w, cand, NU: tuple):
     return take
 
 
+def _srpt_prefix_m(kk, need_s, occ_s):
+    """ServerFilling's candidate prefix over the sort-1 order: the shortest
+    rank prefix whose cumulative need reaches ``kk`` -> (in_M [R, Q] bool,
+    has_m [R] bool; without it every job runs)."""
+    Q = need_s.shape[1]
+    pos = torch.arange(Q, device=need_s.device)[None, :]
+    cum = torch.cumsum(torch.where(occ_s, need_s, 0.0), dim=1)
+    has_m = cum[:, -1] >= kk
+    idx_m = (cum >= kk[:, None]).to(torch.int8).argmax(1)
+    return occ_s & (pos <= idx_m[:, None]), has_m
+
+
+def _srpt_sf_take(kk, rk_s, need_s, occ_s, NU: tuple):
+    """ServerFilling's running set as the reference forms it: M re-sorted
+    by (-need, rank, position) and packed first-fit.  ``rk_s``, ``need_s``,
+    ``occ_s`` [R, Q] are in sort-1 order; returns (take [R, Q] in sort-1
+    positions, has_m [R])."""
+    in_M, has_m = _srpt_prefix_m(kk, need_s, occ_s)
+    key1 = torch.where(in_M, -need_s, _BIG)
+    perm = _lexsort_perm((key1, rk_s))
+    take_w = _srpt_first_fit(kk, need_s.gather(1, perm),
+                             key1.gather(1, perm) < 0.5 * _BIG, NU)
+    return torch.zeros_like(take_w).scatter_(1, perm, take_w), has_m
+
+
 def _srpt_init(R: int, Q: int, device):
     """Empty slot table + counters: (arrival cursor, S [R, Q, 8], ovf,
     preemptions, processed events, peak in-system count)."""
@@ -746,7 +771,6 @@ def _srpt_step(carry, arrival, need, service, kk, NU: tuple, sf: bool):
     Q = S.shape[1]
     dev = S.device
     lanes = torch.arange(R, device=dev)
-    pos = torch.arange(Q, device=dev)[None, :]
     zero = torch.zeros((), dtype=_F64, device=dev)
     job, s_rem, s_rs = S[..., 0], S[..., 3], S[..., 4]
     s_run = S[..., 5] > 0
@@ -808,16 +832,8 @@ def _srpt_step(carry, arrival, need, service, kk, NU: tuple, sf: bool):
     occ_s = rk_s < 0.5 * _BIG
     desired = torch.zeros(R, Q, dtype=torch.bool, device=dev)
     if sf:
-        cum = torch.cumsum(torch.where(occ_s, need_s, zero), dim=1)
-        has_m = cum[:, -1] >= kk
-        idx_m = (cum >= kk[:, None]).to(torch.int8).argmax(1)
-        in_M = occ_s & (pos <= idx_m[:, None])
-        key1 = torch.where(in_M, -need_s, _BIG)
-        perm = _lexsort_perm((key1, rk_s))
-        slot_w = slot_s.gather(1, perm)
-        take = _srpt_first_fit(kk, need_s.gather(1, perm),
-                               key1.gather(1, perm) < 0.5 * _BIG, NU)
-        desired.scatter_(1, slot_w, take)
+        take, has_m = _srpt_sf_take(kk, rk_s, need_s, occ_s, NU)
+        desired.scatter_(1, slot_s, take)
         desired = torch.where(has_m[:, None], desired, occ)
     else:
         take = _srpt_first_fit(kk, need_s, occ_s, NU)
@@ -880,9 +896,10 @@ def _srpt_scatter_events(J: int, job_ev, t_ev, fs_ev):
 def _srpt_args(batch, queue_cap) -> int:
     """The slot-table capacity ``Q`` of an SRPT scan.
 
-    Default ``max(4k, 256)``, capped at J and rounded up to a power of two
-    (the kernel's bitonic sort needs it).  Results do not depend on Q
-    unless the in-system count exceeds it, which raises after the scan.
+    Default ``max(4k, 256)``, capped at J and rounded up to a power of two,
+    as the reference's.  Results do not depend on Q unless the in-system
+    count exceeds it, which raises after the scan.  The CUDA kernel holds
+    at most ``kernel.SRPT_Q_MAX`` = 4096 slots.
     """
     J = int(batch.num_jobs)
     if queue_cap is None:

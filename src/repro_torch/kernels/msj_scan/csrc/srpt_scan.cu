@@ -1,62 +1,90 @@
 // Preemptive SRPT-family event scan for Hopper (sm_90a): ServerFilling-SRPT
-// and FirstFit-SRPT, one thread block per replication, plus the block-wide
-// stable bitonic sort it is built on.
+// and FirstFit-SRPT, one warp per replication, plus a block-wide stable
+// bitonic sort with a standalone entry.
 //
 // Replaces the Pallas kernels of the JAX reference package:
 //   srpt_scan    <- repro/kernels/msj_scan/srpt.py  srpt_scan_fwd (_srpt_kernel)
-//   stable_sort  <- repro/kernels/msj_scan/sort.py  bitonic_sort (in-kernel
-//                   primitive of srpt_scan_fwd; here a device function with a
-//                   standalone entry so it can be held and timed on its own)
+//   stable_sort  <- repro/kernels/msj_scan/sort.py  bitonic_sort (the Pallas
+//                   kernel's in-kernel sort primitive; here a standalone entry
+//                   so it can be held and timed on its own.  srpt_scan sorts
+//                   with the warp-level sorts below, under the same order)
 // and computes, bit for bit, the 2J event steps of
 // repro/core/sim_jax.py _srpt_make_step and of its plain PyTorch version
 // repro_torch/core/sim_torch.py _srpt_step.
 //
 // What bounds this kernel.  Each replication is a chain of 2J dependent
-// events; every event re-ranks the in-system jobs (a stable sort), picks
-// the running set (SF: the rank prefix M reaching k, re-sorted by
-// descending need; FF: a first-fit walk) and preempts or starts jobs.  The
-// bytes the function must move (the [R, J] inputs and [R, 2J] outputs once)
-// take microseconds at 3.35 TB/s, so the kernel is latency-bound by the
-// event chain and, inside an event, by the block barriers of the sort
-// (one per bitonic stage) and of the scans.  The design keeps the whole
-// slot table on chip and sorts only the occupied slots: empty slots carry
-// +inf keys in the reference, sort after every occupied one and never
-// run, so the positions that reach the outputs are the occupied prefix.
+// events; every event re-ranks the n jobs in the system, picks the running
+// set and preempts or starts jobs.  The bytes the function must move (the
+// [R, J] inputs and [R, 2J] outputs once) take microseconds at 3.35 TB/s,
+// so the kernel is latency-bound by the event chain.  In the regime the
+// paper studies nearly every job in the system runs and n is small (mean
+// ~70 of Q = 4096 slots on the Fig. 3 path's SDSC-SP2 cells), so one warp
+// drives an event over a compact list of the n occupied slots with warp
+// shuffles, ballots and __syncwarp: no block barrier, and no per-event
+// pass over the Q-slot table.  A warp loops over the list in chunks of 32,
+// so a burst with n in the thousands stays correct and costs work in
+// proportion to n.  An event:
+//   1. decide: the next arrival against the earliest completion (found by
+//      the previous event); the record; admission into the lowest free
+//      slot of a Q-bit bitmap, or the departed slot cleared;
+//   2. rank: ranks at t, and the list split stably into the waiting jobs
+//      (ranks unchanged, so still in the previous event's order) and the
+//      running ones;
+//   3. sort: the running part, in the previous event's order, is nearly
+//      sorted: odd-even transposition passes (kMaxPasses at most), else a
+//      merge sort (32-entry runs by a register bitonic network across the
+//      lanes, then merge-path merges: each lane writes a contiguous range
+//      of the output after one binary search); the arrival goes in by one
+//      pass of compares, and the waiting part is merged in;
+//   4. select: when the needs of all jobs fit in k every job runs;
+//      otherwise SF takes the rank prefix M reaching k with a warp prefix
+//      sum and, in the same pass, each job's index among M's jobs of its
+//      need class (__match_any_sync), and FF runs the reference's rounds;
+//   5. update: preempt / start, and the next event's earliest completion.
+// What an event costs is the chain of dependent shared-memory loads,
+// shuffles and ballots of these passes (repro_torch/bench/srpt_bench.py
+// --phases builds a copy of this file with clock64 stamps between the
+// passes and prints each one's SM cycles per event).
 //
-// Shared-memory layout (Q slots; Q = 4096 at k = 1024 takes 164 KiB, so
-// the block opts in above 48 KiB; Q = 8192 does not fit and the launch is
-// refused with cudaErrorInvalidValue):
-//   job  int32[Q]   job id, -1 = empty         need int32[Q]
-//   rem  double[Q]  remaining work             rs   double[Q] run start
-//   rk   double[Q]  this event's rank          flg  uint8[Q]  bit0 running,
-//   lst  int32[Q]   sort-1 order (slot ids)                   bit1 started,
-//   aux  int32[Q]   sort-2 order (SF only)                    bit2 desired
-// The first-start column lives in a global scratch [R, Q] (read only at a
-// departure, so it stays in L2), and a slot's arrival time is read from the
-// trace by job id (needed only to break rank ties).
+// Shared-memory layout (Q slots, Q <= 4096: 54 bytes and a bit per slot,
+// 216.5 KiB at Q = 4096, so the block opts in above 48 KiB; Q = 8192 would
+// take 433 KiB and is refused):
+//   rem, rs, arr, fst, rk  double[Q]  remaining work, run start, arrival,
+//                                     first start, rank at the last event
+//   job  int32[Q]  job id           ord  int32[Q]  the list (slot ids) in
+//   tmp  int32[Q]  merge buffer;                   sort-1 order
+//                  SF: index within need class
+//   occ  uint32[Q/32]  occupied-slot bitmap (bits >= Q preset)
+//   cls  uint8[Q]  NU index of the need   flg uint8[Q] bit0 running,
+//                                                      bit1 started, bit2 desired
+// A slot's fields stay at the slot's index; only the list moves.
 //
 // Where bit-identity with the reference breaks if one is careless:
 //   * FMA: built with --fmad=false; comp = rs + rem, cur_rem =
 //     max(0, rem - (t - rs)) for running jobs, rank = cur_rem * need (SF).
-//   * Sort 1 orders by (rank, arrival, slot): a total order, so any
-//     correct sort gives the reference's permutation.  Sort 2 (SF) orders
-//     the prefix M by (-need, rank, sort-1 position); rank is nondecreasing
-//     along sort-1 positions, so that is (-need, position), also total.
-//     Only M is sorted: positions outside M never run.
-//   * First fit.  SF walks M in descending-need groups, and the sequential
-//     walk "take iff need <= free" takes the first min(count, free / n)
-//     jobs of a group of need n; FF runs the reference's rounds (u = the
-//     largest need value <= free; take the eligible prefix while
-//     free - (prefix sum before) >= u) with block prefix sums.
-//   * Ties: argmin of completion times and the first free slot take the
-//     lowest index; an arrival wins a tie with a departure (Ta <= Tc).
+//     A waiting job's rank is the one stored when it was admitted or
+//     preempted: rem * need, the same product the reference forms.
+//   * Sort 1 orders by (rank, arrival, slot): a total order, so any correct
+//     sort gives the reference's permutation.  Running jobs do not keep
+//     their relative order (SF ranks fall at the rate of the need, and
+//     rounding in rem - (t - rs) makes and breaks ties), so their part is
+//     sorted again every event, from the previous order.  Sort 2 of the reference (SF: M by (-need, rank,
+//     position)) is not needed: within a need class it is the sort-1 order,
+//     and the first-fit walk over descending-need classes takes the first
+//     min(count, floor(F / nu)) jobs of each class.
+//   * FF runs the reference's rounds (u = the largest need value <= free;
+//     take the eligible prefix while free - (prefix sum before) >= u); a
+//     round ends at its first miss, after which nothing more fits.  The
+//     rounds are the sequential first-fit walk, so when the needs of all
+//     jobs fit every job is taken (SF: no prefix M, every job runs).
+//   * Ties: the argmin of completion times and the first free slot take the
+//     lowest slot; an arrival wins a tie with a departure (Ta <= Tc).
 //   * Overflow: an arrival that finds no free slot is dropped, sets ovf and
 //     still advances the cursor and counts in the peak.
 //   * Records: the departure record is read before the slot is cleared; a
 //     non-departure step writes (-1, 0, 0); the first start is set once.
-// The arrival cursor is clamped to the trace, and a need outside the NU
-// table maps to a neighbouring entry; the host checks that every need is in
-// NU, so valid input never reaches that case.
+// The arrival cursor is clamped to the trace.  The host checks that every
+// need is in NU (a need outside it would map to a neighbouring entry).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -69,14 +97,13 @@ constexpr double kGuard = 0.5 * kBig;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxNU = 64;
 constexpr int kIntMax = 0x7fffffff;
+constexpr int kQMax = 4096;
 
 enum : uint8_t { kRun = 1, kStarted = 2, kDesired = 4 };
 
-__device__ __forceinline__ int pow2_ceil(int n) {
-  int p = 1;
-  while (p < n) p <<= 1;
-  return p;
-}
+// Odd-even transposition passes tried on the running part before the full
+// merge sort.
+constexpr int kMaxPasses = 4;
 
 // Block-wide stable bitonic sort of the ids in ids[0..P) (P a power of two)
 // under the strict total order less(a, b).  One barrier per stage; the
@@ -100,66 +127,6 @@ __device__ void bitonic_sort_ids(int* ids, int P, Less less) {
     }
   }
 }
-
-// Exclusive block scan of one int per thread; *total gets the block sum.
-// Two barriers.  scratch holds 33 ints and must not be reused by another
-// call before the next block barrier.
-__device__ int block_scan_excl(int v, int* scratch, int* total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  int x = v;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const int y = __shfl_up_sync(kFull, x, off);
-    if (lane >= off) x += y;
-  }
-  if (lane == 31) scratch[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    const int w = lane < nw ? scratch[lane] : 0;
-    int s = w;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const int y = __shfl_up_sync(kFull, s, off);
-      if (lane >= off) s += y;
-    }
-    if (lane < nw) scratch[lane] = s - w;
-    if (lane == 31) scratch[32] = s;
-  }
-  __syncthreads();
-  *total = scratch[32];
-  return scratch[warp] + x - v;
-}
-
-// Stable lexicographic order on slot ids: (rank, arrival, slot).  Ids >= Q
-// are padding and sort last.
-struct RankLess {
-  const double* rk;
-  const int* job;
-  const double* arrival;
-  int Q;
-  __device__ bool operator()(int a, int b) const {
-    if (a >= Q || b >= Q) return (a >= Q) == (b >= Q) ? a < b : b >= Q;
-    const double ka = rk[a], kb = rk[b];
-    if (ka != kb) return ka < kb;
-    const double aa = arrival[job[a]], ab = arrival[job[b]];
-    if (aa != ab) return aa < ab;
-    return a < b;
-  }
-};
-
-// Order of the SF prefix M: (-need, sort-1 position).  Ids >= Q are padding.
-struct NeedDescLess {
-  const int* need;
-  const int* lst;
-  int Q;
-  __device__ bool operator()(int a, int b) const {
-    if (a >= Q || b >= Q) return (a >= Q) == (b >= Q) ? a < b : b >= Q;
-    const int na = need[lst[a]], nb = need[lst[b]];
-    if (na != nb) return na > nb;
-    return a < b;
-  }
-};
 
 // (key1, key2, index) over one row of the standalone sort; ids >= W are
 // the +inf padding.
@@ -187,49 +154,217 @@ __device__ __forceinline__ int nu_index(const int* nu, int nnu, int n) {
   return lo;
 }
 
-struct Shared {
-  int red_i[32], red_f[32], red_n[32];
-  double red_v[32];
-  int scan1[33], scan2[33], scan3[33];
-  int nu[kMaxNU], gstart[kMaxNU], gend[kMaxNU], glim[kMaxNU];
-  int idx_m, ptr[2], dsum[2];
-};
-
-__device__ __forceinline__ double cur_rem_of(uint8_t f, double rem, double rs,
-                                             double t) {
-  if (!(f & kRun)) return rem;
+__device__ __forceinline__ double cur_rem_of(double rem, double rs, double t) {
   const double x = __dsub_rn(rem, __dsub_rn(t, rs));
   return x > 0.0 ? x : 0.0;
 }
 
-template <bool SF>
-__global__ void srpt_scan_kernel(const double* __restrict__ arrival,
-                                 const double* __restrict__ need_in,
-                                 const double* __restrict__ service,
-                                 const double* __restrict__ kk_in,
-                                 const int* __restrict__ nu_in, int nnu,
-                                 double* __restrict__ job_ev,
-                                 double* __restrict__ t_ev,
-                                 double* __restrict__ fs_ev,
-                                 bool* __restrict__ ovf_out,
-                                 int* __restrict__ npre_out,
-                                 int* __restrict__ ne_out,
-                                 int* __restrict__ peak_out,
-                                 double* __restrict__ fstart_scratch, int J,
-                                 int Q) {
-  extern __shared__ double smem[];
-  __shared__ Shared sh;
-  double* rem = smem;
-  double* rs = rem + Q;
-  double* rk = rs + Q;
-  int* job = reinterpret_cast<int*>(rk + Q);
-  int* need = job + Q;
-  int* lst = need + Q;
-  int* aux = lst + Q;
-  uint8_t* flg = reinterpret_cast<uint8_t*>(aux + Q);
+// The slot table in shared memory (see the header for the layout).
+struct Table {
+  double *rem, *rs, *arr, *fst, *rk;
+  int *job, *ord, *tmp;
+  unsigned* occ;
+  uint8_t *cls, *flg;
 
-  const int tid = threadIdx.x, T = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5, nw = T >> 5;
+  // Sort-1 order of two occupied slots: (rank, arrival, slot).
+  __device__ __forceinline__ bool less(int a, int b) const {
+    const double ka = rk[a], kb = rk[b];
+    if (ka != kb) return ka < kb;
+    const double aa = arr[a], ab = arr[b];
+    if (aa != ab) return aa < ab;
+    return a < b;
+  }
+};
+
+struct Key {
+  double r, a;
+  int s;
+};
+
+__device__ __forceinline__ bool key_less(const Key& x, const Key& y) {
+  if (x.r != y.r) return x.r < y.r;
+  if (x.a != y.a) return x.a < y.a;
+  return x.s < y.s;
+}
+
+// Ascending bitonic network over the 32 lanes, on G independent keys per
+// lane (G runs sorted at once, so their shuffles overlap).  Keys must be
+// distinct: padding carries +inf ranks and distinct ids above every slot.
+template <int G>
+__device__ __forceinline__ void warp_bitonic32(Key (&k)[G], int lane) {
+#pragma unroll
+  for (int size = 2; size <= 32; size <<= 1) {
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      const bool keep_min = ((lane & stride) == 0) == ((lane & size) == 0);
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        Key o;
+        o.r = __shfl_xor_sync(kFull, k[g].r, stride);
+        o.a = __shfl_xor_sync(kFull, k[g].a, stride);
+        o.s = __shfl_xor_sync(kFull, k[g].s, stride);
+        if (key_less(o, k[g]) == keep_min) k[g] = o;
+      }
+    }
+  }
+}
+
+// Sorts the 32-entry runs r0 .. r0 + G - 1 of src[0..nr) into dst (the same
+// positions; src == dst is allowed).
+template <int G>
+__device__ void sort_runs(const Table& T, const int* src, int* dst, int r0,
+                          int nr, int lane) {
+  Key k[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const int p = (r0 + g) * 32 + lane;
+    if (p < nr) {
+      const int id = src[p];
+      k[g] = Key{T.rk[id], T.arr[id], id};
+    } else {
+      k[g] = Key{INFINITY, INFINITY, 0x40000000 + lane};
+    }
+  }
+  __syncwarp();
+  warp_bitonic32<G>(k, lane);
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const int p = (r0 + g) * 32 + lane;
+    if (p < nr) dst[p] = k[g].s;
+  }
+  __syncwarp();
+}
+
+// Merges the sorted lists A[0..na) and B[0..nb) into out[0..na+nb) (out
+// aliases neither).  Lane l writes the l-th of 32 contiguous output ranges
+// after a merge-path binary search for its start.
+__device__ void warp_merge(const Table& T, const int* A, int na, const int* B,
+                           int nb, int* out, int lane) {
+  const int n = na + nb;
+  const int L = (n + 31) >> 5;
+  const int d0 = min(n, lane * L), d1 = min(n, d0 + L);
+  if (d0 < d1) {
+    int lo = max(0, d0 - nb), hi = min(d0, na);
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (T.less(A[mid], B[d0 - 1 - mid])) lo = mid + 1; else hi = mid;
+    }
+    int ia = lo, ib = d0 - lo;
+    for (int o = d0; o < d1; ++o) {
+      const bool take_a = ib >= nb || (ia < na && T.less(A[ia], B[ib]));
+      out[o] = take_a ? A[ia++] : B[ib++];
+    }
+  }
+  __syncwarp();
+}
+
+// Sorts the nr ids of T.ord[0..nr) by sort-1 order into dst, which is
+// T.ord itself or the free buffer tmp[off..off+nr); the other of the two is
+// the ping-pong buffer of the merge levels.
+__device__ void sort_list(const Table& T, int nr, int* dst, int off,
+                          int lane) {
+  if (nr == 0) return;
+  const int nruns = (nr + 31) >> 5;
+  const int levels = nruns <= 1 ? 0 : 32 - __clz(nruns - 1);
+  int* other = dst == T.ord ? T.tmp + off : T.ord;
+  int* src = (levels & 1) ? other : dst;
+  for (int r = 0; r < nruns; r += 2) {
+    if (r + 1 < nruns) sort_runs<2>(T, T.ord, src, r, nr, lane);
+    else sort_runs<1>(T, T.ord, src, r, nr, lane);
+  }
+  int* out = src == dst ? other : dst;
+  for (int w = 32; w < nr; w <<= 1) {
+    for (int s = 0; s < nr; s += 2 * w) {
+      const int na = min(w, nr - s), nb = max(0, min(w, nr - s - w));
+      warp_merge(T, src + s, na, src + s + na, nb, out + s, lane);
+    }
+    int* x = src;
+    src = out;
+    out = x;
+  }
+}
+
+// Odd-even transposition passes over ids[0..n) in place; true once a pass
+// (an even and an odd phase) swaps nothing, false if the list is still out
+// of order after max_passes.  Cheap when the list is nearly sorted.
+__device__ bool oddeven_sort(const Table& T, int* ids, int n, int max_passes,
+                             int lane) {
+  for (int pass = 0; pass < max_passes; ++pass) {
+    unsigned any = 0;
+    for (int phase = 0; phase < 2; ++phase) {
+      for (int b = phase; b + 1 < n; b += 64) {
+        const int i = b + 2 * lane;
+        bool sw = false;
+        if (i + 1 < n) {
+          const int x = ids[i], y = ids[i + 1];
+          if (T.less(y, x)) {
+            ids[i] = y;
+            ids[i + 1] = x;
+            sw = true;
+          }
+        }
+        any |= __ballot_sync(kFull, sw);
+      }
+      __syncwarp();
+    }
+    if (!any) return true;
+  }
+  return false;
+}
+
+__device__ __forceinline__ int warp_incl_scan(int v, int lane) {
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(kFull, v, o);
+    if (lane >= o) v += y;
+  }
+  return v;
+}
+
+// Lowest free slot (bit clear in occ), or -1.
+__device__ __forceinline__ int first_free(const unsigned* occ, int nwords,
+                                          int lane) {
+  for (int w0 = 0; w0 < nwords; w0 += 32) {
+    const unsigned x = w0 + lane < nwords ? occ[w0 + lane] : kFull;
+    const unsigned b = __ballot_sync(kFull, x != kFull);
+    if (b) {
+      const int l = __ffs(b) - 1;
+      const unsigned xl = __shfl_sync(kFull, x, l);
+      return (w0 + l) * 32 + __ffs(~xl) - 1;
+    }
+  }
+  return -1;
+}
+
+template <bool SF>
+__global__ void __launch_bounds__(32)
+    srpt_scan_kernel(const double* __restrict__ arrival,
+                     const double* __restrict__ need_in,
+                     const double* __restrict__ service,
+                     const double* __restrict__ kk_in,
+                     const int* __restrict__ nu_in, int nnu,
+                     double* __restrict__ job_ev, double* __restrict__ t_ev,
+                     double* __restrict__ fs_ev, bool* __restrict__ ovf_out,
+                     int* __restrict__ npre_out, int* __restrict__ ne_out,
+                     int* __restrict__ peak_out, int J, int Q) {
+  extern __shared__ double smem[];
+  __shared__ int nu[kMaxNU], cnt[kMaxNU], glim[kMaxNU];
+  Table T;
+  T.rem = smem;
+  T.rs = T.rem + Q;
+  T.arr = T.rs + Q;
+  T.fst = T.arr + Q;
+  T.rk = T.fst + Q;
+  T.job = reinterpret_cast<int*>(T.rk + Q);
+  T.ord = T.job + Q;
+  T.tmp = T.ord + Q;
+  T.occ = reinterpret_cast<unsigned*>(T.tmp + Q);
+  const int nwords = (Q + 31) >> 5;
+  T.cls = reinterpret_cast<uint8_t*>(T.occ + nwords);
+  T.flg = T.cls + Q;
+
+  const int lane = threadIdx.x;
+  const unsigned lt = (1u << lane) - 1u;
   const size_t off = (size_t)blockIdx.x * J;
   const double* a = arrival + off;
   const double* nd_in = need_in + off;
@@ -237,149 +372,215 @@ __global__ void srpt_scan_kernel(const double* __restrict__ arrival,
   double* jo = job_ev + 2 * off;
   double* to = t_ev + 2 * off;
   double* fo = fs_ev + 2 * off;
-  double* fstart = fstart_scratch + (size_t)blockIdx.x * Q;
   const double kk = kk_in[blockIdx.x];
 
-  for (int i = tid; i < Q; i += T) {
-    job[i] = -1;
-    need[i] = 0;
-    rem[i] = 0.0;
-    rs[i] = 0.0;
-    flg[i] = 0;
+  for (int w = lane; w < nwords; w += 32) {
+    const int b0 = w * 32;   // bits of slots >= Q are preset (never free)
+    T.occ[w] = Q - b0 >= 32 ? 0u : ~((1u << (Q - b0)) - 1u);
   }
-  for (int c = tid; c < nnu; c += T) sh.nu[c] = nu_in[c];
-  int ai = 0, ne = 0, peak = 0, npre = 0;
+  for (int c = lane; c < nnu; c += 32) nu[c] = nu_in[c];
+  // each lane keeps NU[lane] and NU[lane + 32] for FF's u
+  const double nu_l0 = lane < nnu ? (double)nu_in[lane] : INFINITY;
+  const double nu_l1 = lane + 32 < nnu ? (double)nu_in[lane + 32] : INFINITY;
+  __syncwarp();
+
+  int ai = 0, ne = 0, peak = 0, npre = 0, n = 0;
   bool ovf = false;
-  __syncthreads();
+  double Tc = kBig;      // earliest completion among running jobs
+  int qd = kIntMax;      // its slot
+  double na_t = 0.0, na_need = 0.0, na_svc = 0.0;  // the next arrival
+  if (J > 0) { na_t = a[0]; na_need = nd_in[0]; na_svc = sv[0]; }
+  int na_cls = nu_index(nu, nnu, (int)na_need);   // its NU index
+  long long need_sum = 0;  // the needs of the jobs in the system
 
   for (int e = 0; e < 2 * J; ++e) {
-    // -- earliest departure (first index), first free slot, occupancy
-    double bv = INFINITY;
-    int bi = kIntMax, bf = kIntMax, cnt = 0;
-    for (int i = tid; i < Q; i += T) {
-      const double c = (flg[i] & kRun) ? __dadd_rn(rs[i], rem[i]) : kBig;
-      if (c < bv) { bv = c; bi = i; }
-      if (job[i] < 0) bf = min(bf, i); else ++cnt;
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      const double ov = __shfl_xor_sync(kFull, bv, o);
-      const int oi = __shfl_xor_sync(kFull, bi, o);
-      if (ov < bv || (ov == bv && oi < bi)) { bv = ov; bi = oi; }
-      bf = min(bf, __shfl_xor_sync(kFull, bf, o));
-      cnt += __shfl_xor_sync(kFull, cnt, o);
-    }
-    if (lane == 0) {
-      sh.red_v[warp] = bv; sh.red_i[warp] = bi;
-      sh.red_f[warp] = bf; sh.red_n[warp] = cnt;
-    }
-    __syncthreads();
-    double Tc = INFINITY;
-    int qd = kIntMax, fs = kIntMax, n_occ = 0;
-    for (int w = 0; w < nw; ++w) {
-      const double v = sh.red_v[w];
-      const int vi = sh.red_i[w];
-      if (v < Tc || (v == Tc && vi < qd)) { Tc = v; qd = vi; }
-      fs = min(fs, sh.red_f[w]);
-      n_occ += sh.red_n[w];
-    }
-
     // -- the event: next arrival against the earliest departure
     const int j_arr = min(ai, J - 1);
-    const double Ta = ai < J ? a[j_arr] : INFINITY;
+    const double Ta = ai < J ? na_t : INFINITY;
     const bool is_arr = ai < J && Ta <= Tc;
     const bool is_dep = !is_arr && Tc < kGuard;
-    const bool active = is_arr || is_dep;
-    ne += active ? 1 : 0;
+    if (!is_arr && !is_dep) {
+      // nothing changes from here on: every later step is a non-event
+      for (int x = e + lane; x < 2 * J; x += 32) {
+        jo[x] = -1.0;
+        to[x] = 0.0;
+        fo[x] = 0.0;
+      }
+      break;
+    }
+    ++ne;
     const double t = is_arr ? Ta : Tc;
-    const bool has_free = fs < Q;
+    const bool has_free = n < Q;
     const bool do_ins = is_arr && has_free;
     ovf = ovf || (is_arr && !has_free);
-    peak = max(peak, n_occ + (do_ins ? 1 : 0) - (is_dep ? 1 : 0)
-                         + ((is_arr && !has_free) ? 1 : 0));
-    ai += is_arr ? 1 : 0;
-
-    if (tid == 0) {
+    const int sfree = do_ins ? first_free(T.occ, nwords, lane) : -1;
+    if (lane == 0) {
       // departure record, read before the slot is cleared
-      jo[e] = is_dep ? (double)job[qd] : -1.0;
+      jo[e] = is_dep ? (double)T.job[qd] : -1.0;
       to[e] = is_dep ? Tc : 0.0;
-      fo[e] = is_dep ? fstart[qd] : 0.0;
-      const int s = do_ins ? fs : (is_dep ? qd : -1);
-      if (s >= 0) {
-        job[s] = is_arr ? j_arr : -1;
-        need[s] = is_arr ? (int)nd_in[j_arr] : 0;
-        rem[s] = is_arr ? sv[j_arr] : 0.0;
-        rs[s] = 0.0;
-        flg[s] = 0;
-        fstart[s] = 0.0;
+      fo[e] = is_dep ? T.fst[qd] : 0.0;
+      if (is_dep) {
+        T.occ[qd >> 5] &= ~(1u << (qd & 31));
+        T.job[qd] = -1;
       }
-      sh.idx_m = kIntMax;
-    }
-    for (int c = tid; c < nnu; c += T) { sh.gstart[c] = 0; sh.gend[c] = 0; }
-    __syncthreads();
-
-    // -- ranks, and the occupied slots compacted in slot order
-    const int E = (Q + T - 1) / T;
-    const int i0 = min(Q, tid * E), i1 = min(Q, i0 + E);
-    int mine = 0;
-    for (int i = i0; i < i1; ++i) {
-      const bool occ = job[i] >= 0;
-      flg[i] &= (uint8_t)~kDesired;
-      if (occ) {
-        const double cr = cur_rem_of(flg[i], rem[i], rs[i], t);
-        rk[i] = SF ? __dmul_rn(cr, (double)need[i]) : cr;
-        ++mine;
-      } else {
-        rk[i] = INFINITY;
+      if (do_ins) {
+        T.occ[sfree >> 5] |= 1u << (sfree & 31);
+        T.job[sfree] = j_arr;
+        T.cls[sfree] = (uint8_t)na_cls;
+        T.flg[sfree] = 0;
+        T.rem[sfree] = na_svc;
+        T.rs[sfree] = 0.0;
+        T.arr[sfree] = na_t;
+        T.fst[sfree] = 0.0;
+        T.rk[sfree] = SF ? __dmul_rn(na_svc, (double)nu[na_cls]) : na_svc;
       }
     }
-    int n;
-    int p = block_scan_excl(mine, sh.scan1, &n);
-    for (int i = i0; i < i1; ++i)
-      if (job[i] >= 0) lst[p++] = i;
-    const int P = pow2_ceil(max(n, 1));
-    for (int q = n + tid; q < P; q += T) lst[q] = Q + q;
-    __syncthreads();
+    if (is_dep) need_sum -= nu[T.cls[qd]];
+    if (do_ins) need_sum += nu[na_cls];
+    if (is_arr) {
+      ++ai;
+      if (ai < J) { na_t = a[ai]; na_need = nd_in[ai]; na_svc = sv[ai]; }
+    }
+    peak = max(peak, n + (is_arr ? 1 : 0) - (is_dep ? 1 : 0));
+    __syncwarp();
 
-    // -- sort 1: occupied slots by (rank, arrival, slot)
-    bitonic_sort_ids(lst, P, RankLess{rk, job, a, Q});
-
-    if (SF) {
-      // prefix M: the shortest rank prefix whose cumulative need reaches k
-      const int Ep = (n + T - 1) / T;
-      const int p0 = min(n, tid * Ep), p1 = min(n, p0 + Ep);
-      int s = 0;
-      for (int q = p0; q < p1; ++q)
-        if (rk[lst[q]] < kGuard) s += need[lst[q]];
-      int total;
-      int cum = block_scan_excl(s, sh.scan2, &total);
-      for (int q = p0; q < p1; ++q) {
-        if (rk[lst[q]] < kGuard) cum += need[lst[q]];
-        if ((double)cum >= kk) { atomicMin(&sh.idx_m, q); break; }
+    // -- ranks at t; the list split into waiting jobs (tmp, order kept)
+    // and running ones (compacted in place at the front of ord).  Two
+    // chunks a step: both chunks' fields are loaded before either is
+    // written, so their shared-memory latencies overlap.
+    int nw = 0, nr = 0;
+    unsigned big = 0;   // a rank at or above the guard (never, in practice)
+    for (int b = 0; b < n; b += 64) {
+      int id[2], c[2];
+      uint8_t f[2];
+      double rm[2], st[2], r[2];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int p = b + 32 * u + lane;
+        id[u] = p < n ? T.ord[p] : -1;
       }
-      __syncthreads();
-      const bool has_m = (double)total >= kk;
-      if (has_m) {
-        // sort 2: M by (-need, position); then the first-fit walk over
-        // the descending-need groups, in closed form per group
-        const int m = sh.idx_m + 1;
-        const int P2 = pow2_ceil(m);
-        for (int q = tid; q < P2; q += T) aux[q] = q < m ? q : Q + q;
-        __syncthreads();
-        bitonic_sort_ids(aux, P2, NeedDescLess{need, lst, Q});
-        for (int q = tid; q < m; q += T) {
-          const int c = nu_index(sh.nu, nnu, need[lst[aux[q]]]);
-          if (q == 0 || nu_index(sh.nu, nnu, need[lst[aux[q - 1]]]) != c)
-            sh.gstart[c] = q;
-          if (q == m - 1 || nu_index(sh.nu, nnu, need[lst[aux[q + 1]]]) != c)
-            sh.gend[c] = q + 1;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int x = max(id[u], 0);
+        f[u] = T.flg[x];
+        rm[u] = T.rem[x];
+        st[u] = T.rs[x];
+        r[u] = T.rk[x];
+        c[u] = T.cls[x];
+      }
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const bool keep = id[u] >= 0 && !(is_dep && id[u] == qd);
+        const bool run = keep && (f[u] & kRun);
+        if (run) {
+          const double cr = cur_rem_of(rm[u], st[u], t);
+          r[u] = SF ? __dmul_rn(cr, (double)nu[c[u]]) : cr;
+          T.rk[id[u]] = r[u];
         }
-        __syncthreads();
-        if (tid == 0) {
+        if (keep) T.flg[id[u]] = f[u] & (uint8_t)~kDesired;
+        big |= __ballot_sync(kFull, keep && r[u] >= kGuard);
+        const unsigned bw = __ballot_sync(kFull, keep && !run);
+        const unsigned br = __ballot_sync(kFull, run);
+        if (keep && !run) T.tmp[nw + __popc(bw & lt)] = id[u];
+        if (run) T.ord[nr + __popc(br & lt)] = id[u];
+        nw += __popc(bw);
+        nr += __popc(br);
+      }
+    }
+    __syncwarp();
+
+    // -- sort 1.  The running part, in the previous event's order, is
+    // nearly sorted: odd-even passes, else the full merge sort.  Then the
+    // arrival goes in by one pass of compares and the waiting part (still
+    // sorted) is merged in.
+    if (!oddeven_sort(T, T.ord, nr, kMaxPasses, lane)) {
+      sort_list(T, nr, T.ord, nw, lane);
+    }
+    if (nw == 0 && do_ins) {
+      // in place: the running jobs behind the arrival move up one slot,
+      // chunk by chunk from the back
+      int q = 0;   // running jobs ahead of the arrival
+      for (int b = ((nr - 1) >> 5) << 5; b >= 0; b -= 32) {
+        const int p = b + lane;
+        const int id = p < nr ? T.ord[p] : 0;
+        const bool ahead = p < nr && T.less(id, sfree);
+        q += __popc(__ballot_sync(kFull, ahead));
+        if (p < nr && !ahead) T.ord[p + 1] = id;
+      }
+      if (lane == 0) T.ord[q] = sfree;
+      ++nr;
+      __syncwarp();
+    } else if (nw > 0) {
+      int q = 0;   // running jobs ahead of the arrival
+      for (int b = 0; b < nr; b += 32) {
+        const int p = b + lane;
+        bool ahead = false;
+        if (p < nr) {
+          const int id = T.ord[p];
+          ahead = do_ins && T.less(id, sfree);
+          T.tmp[nw + p + (do_ins && !ahead ? 1 : 0)] = id;
+        }
+        q += __popc(__ballot_sync(kFull, ahead));
+      }
+      if (do_ins) {
+        if (lane == 0) T.tmp[nw + q] = sfree;
+        ++nr;
+      }
+      __syncwarp();
+      warp_merge(T, T.tmp, nw, T.tmp + nw, nr, T.ord, lane);
+    }
+    n = nw + nr;
+
+    // -- the desired running set
+    // When the needs of all the jobs in the system fit in k, every job
+    // runs: SF has no prefix M, and FF's first fit takes every job (its
+    // candidates are the ranks below the guard).
+    bool all_des = SF ? (double)need_sum < kk : (!big && (double)need_sum <= kk);
+    int m = 0;  // SF: M is ord[0..m)
+    if (all_des) {
+    } else if (SF) {
+      // M, the shortest rank prefix whose cumulative need reaches k, and
+      // each of its jobs' index within its need class in sort-1 order
+      for (int c = lane; c < nnu; c += 32) cnt[c] = 0;
+      __syncwarp();
+      int cum = 0;
+      bool has_m = false;
+      for (int b = 0; b < n; b += 32) {
+        const int p = b + lane;
+        const bool valid = p < n;
+        const int id = valid ? T.ord[p] : 0;
+        const int c = valid ? T.cls[id] : 0;
+        const bool ok = valid && T.rk[id] < kGuard;
+        const int v = ok ? nu[c] : 0;
+        const int incl = warp_incl_scan(v, lane);
+        const unsigned hit =
+            __ballot_sync(kFull, valid && (double)(cum + incl) >= kk);
+        const int last = hit ? __ffs(hit) - 1 : 31;
+        const bool in_m = ok && lane <= last;
+        const unsigned grp = __match_any_sync(kFull, in_m ? c : -1);
+        int base = 0;
+        if (in_m) {
+          base = cnt[c];
+          T.tmp[p] = base + __popc(grp & lt);
+        }
+        __syncwarp();
+        if (in_m && (grp & lt) == 0) cnt[c] = base + __popc(grp);
+        __syncwarp();
+        cum += __shfl_sync(kFull, incl, 31);
+        if (hit) {
+          has_m = true;
+          m = b + __ffs(hit);
+          break;
+        }
+      }
+      if (has_m) {
+        // the first-fit walk over M's descending-need classes, in closed
+        // form: a class of need v takes its first min(count, F / v) jobs
+        if (lane == 0) {
           double F = kk;
           for (int c = nnu - 1; c >= 0; --c) {
-            const int cntc = sh.gend[c] - sh.gstart[c];
-            const double v = (double)sh.nu[c];
+            const int cntc = cnt[c];
+            const double v = (double)nu[c];
             int lim = 0;
             if (cntc > 0 && v <= F) {
               lim = (int)floor(F / v);
@@ -388,94 +589,119 @@ __global__ void srpt_scan_kernel(const double* __restrict__ arrival,
               lim = min(lim, cntc);
               F = __dsub_rn(F, (double)lim * v);
             }
-            sh.glim[c] = sh.gstart[c] + lim;
+            glim[c] = lim;
           }
         }
-        __syncthreads();
-        for (int q = tid; q < m; q += T) {
-          const int slot = lst[aux[q]];
-          if (q < sh.glim[nu_index(sh.nu, nnu, need[slot])])
-            flg[slot] |= kDesired;
-        }
       } else {
-        for (int q = tid; q < n; q += T) flg[lst[q]] |= kDesired;
+        all_des = true;  // the total need is below k: every job runs
       }
-      __syncthreads();
+      __syncwarp();
     } else {
       // first fit over the rank order, in the reference's rounds
       double F = kk;
       int ptr = 0;
-      const int Ep = (n + T - 1) / T;
-      const int p0 = min(n, tid * Ep), p1 = min(n, p0 + Ep);
       for (int r = 0; r < nnu; ++r) {
-        double u = 0.0;
-        for (int c = 0; c < nnu; ++c)
-          if ((double)sh.nu[c] <= F) u = (double)sh.nu[c];
+        const unsigned b0 = __ballot_sync(kFull, nu_l0 <= F);
+        const unsigned b1 = __ballot_sync(kFull, nu_l1 <= F);
+        const double u = b1 ? (double)nu[63 - __clz(b1)]
+                            : (b0 ? (double)nu[31 - __clz(b0)] : 0.0);
         if (u == 0.0) break;
-        int s = 0;
-        for (int q = p0; q < p1; ++q) {
-          const int slot = lst[q];
-          const int nq = need[slot];
-          const bool el = !(flg[slot] & kDesired) && rk[slot] < kGuard &&
-                          nq >= 1 && (double)nq <= u && q >= ptr;
-          s += el ? nq : 0;
-        }
-        if (tid == 0) { sh.ptr[r & 1] = Q; sh.dsum[r & 1] = 0; }
-        int total;
-        int ex = block_scan_excl(s, sh.scan3, &total);
-        int d = 0, miss = kIntMax;
-        for (int q = p0; q < p1; ++q) {
-          const int slot = lst[q];
-          const int nq = need[slot];
-          const bool el = !(flg[slot] & kDesired) && rk[slot] < kGuard &&
-                          nq >= 1 && (double)nq <= u && q >= ptr;
-          if (!el) continue;
-          if (__dsub_rn(F, (double)ex) >= u) {
-            flg[slot] |= kDesired;
+        int base = 0, d = 0, miss = -1;
+        for (int b = ptr & ~31; b < n; b += 32) {
+          const int p = b + lane;
+          const bool valid = p < n && p >= ptr;
+          const int id = valid ? T.ord[p] : 0;
+          const int nq = valid ? nu[T.cls[id]] : 0;
+          const bool el = valid && !(T.flg[id] & kDesired) &&
+                          T.rk[id] < kGuard && nq >= 1 && (double)nq <= u;
+          const int v = el ? nq : 0;
+          const int incl = warp_incl_scan(v, lane);
+          const bool take = el && __dsub_rn(F, (double)(base + incl - v)) >= u;
+          if (take) {
+            T.flg[id] |= kDesired;
             d += nq;
-          } else if (miss == kIntMax) {
-            miss = q;
           }
-          ex += nq;
+          const unsigned mb = __ballot_sync(kFull, el && !take);
+          base += __shfl_sync(kFull, incl, 31);
+          if (mb) {
+            miss = b + __ffs(mb) - 1;
+            break;
+          }
         }
-        if (d) atomicAdd(&sh.dsum[r & 1], d);
-        if (miss != kIntMax) atomicMin(&sh.ptr[r & 1], miss);
-        __syncthreads();
-        F = __dsub_rn(F, (double)sh.dsum[r & 1]);
-        ptr = sh.ptr[r & 1];
-        if (ptr >= Q) break;
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) d += __shfl_xor_sync(kFull, d, o);
+        F = __dsub_rn(F, (double)d);
+        if (miss < 0) break;
+        ptr = miss;
       }
-      __syncthreads();
+      __syncwarp();
     }
 
-    // -- preempt / start
-    if (active) {
-      for (int i = tid; i < Q; i += T) {
-        if (job[i] < 0) continue;
-        const uint8_t f = flg[i];
-        const bool run = f & kRun, des = f & kDesired;
+    // -- preempt / start, and the next event's earliest completion
+    double bv = kBig;
+    int bi = kIntMax;
+    for (int b = 0; b < n; b += 64) {   // two chunks a step, as above
+      int id[2], c[2], ix[2];
+      uint8_t f[2];
+      double rm[2], st[2], r[2];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int p = b + 32 * u + lane;
+        id[u] = p < n ? T.ord[p] : -1;
+        ix[u] = SF && p < m ? T.tmp[p] : 0;
+      }
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int x = max(id[u], 0);
+        f[u] = T.flg[x];
+        rm[u] = T.rem[x];
+        st[u] = T.rs[x];
+        r[u] = T.rk[x];
+        c[u] = T.cls[x];
+      }
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        if (id[u] < 0) continue;
+        const int p = b + 32 * u + lane;
+        const bool des =
+            all_des || (SF ? (p < m && r[u] < kGuard && ix[u] < glim[c[u]])
+                           : (f[u] & kDesired) != 0);
+        const bool run = f[u] & kRun;
+        uint8_t g = f[u];
         if (run && !des) {
-          rem[i] = cur_rem_of(f, rem[i], rs[i], t);
+          rm[u] = cur_rem_of(rm[u], st[u], t);
+          T.rem[id[u]] = rm[u];
           ++npre;
-          flg[i] = f & (uint8_t)~kRun;
+          g &= (uint8_t)~kRun;
         } else if (des && !run) {
-          rs[i] = t;
-          if (!(f & kStarted)) fstart[i] = t;
-          flg[i] = f | kRun | kStarted;
+          st[u] = t;
+          T.rs[id[u]] = t;
+          if (!(g & kStarted)) T.fst[id[u]] = t;
+          g |= kRun | kStarted;
+        }
+        T.flg[id[u]] = g;
+        if (g & kRun) {
+          const double cm = __dadd_rn(st[u], rm[u]);
+          if (cm < bv || (cm == bv && id[u] < bi)) { bv = cm; bi = id[u]; }
         }
       }
     }
-    __syncthreads();
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const double ov = __shfl_xor_sync(kFull, bv, o);
+      const int oi = __shfl_xor_sync(kFull, bi, o);
+      if (ov < bv || (ov == bv && oi < bi)) { bv = ov; bi = oi; }
+    }
+    Tc = bv;
+    qd = bi;
+    if (is_arr) na_cls = nu_index(nu, nnu, (int)na_need);
+    __syncwarp();
   }
 
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) npre += __shfl_xor_sync(kFull, npre, o);
-  if (lane == 0) sh.red_n[warp] = npre;
-  __syncthreads();
-  if (tid == 0) {
-    int tot = 0;
-    for (int w = 0; w < nw; ++w) tot += sh.red_n[w];
-    npre_out[blockIdx.x] = tot;
+  if (lane == 0) {
+    npre_out[blockIdx.x] = npre;
     ne_out[blockIdx.x] = ne;
     peak_out[blockIdx.x] = peak;
     ovf_out[blockIdx.x] = ovf;
@@ -526,17 +752,37 @@ cudaError_t prepare_smem(K kernel, size_t bytes) {
                               (int)bytes);
 }
 
-int srpt_threads(int Q) {
-  int t = Q / 4;
-  if (t < 32) t = 32;
-  if (t > 512) t = 512;
-  return t;
+// Dynamic shared memory of srpt_scan_kernel: five double, three int32 and
+// two uint8 columns, and the occupancy bitmap.
+size_t srpt_smem(int Q) {
+  return (size_t)Q * (5 * sizeof(double) + 3 * sizeof(int) + 2) +
+         (size_t)((Q + 31) / 32) * sizeof(unsigned);
 }
 
-// Dynamic shared memory of srpt_scan_kernel: rem, rs, rk; job, need, lst,
-// aux; flg.
-size_t srpt_smem(int Q) {
-  return (size_t)Q * (3 * sizeof(double) + 4 * sizeof(int) + 1);
+int srpt_launch(const double* arrival, const double* need,
+                const double* service, const double* kk, const int* nu,
+                int nnu, double* job_ev, double* t_ev, double* fs_ev,
+                bool* ovf, int* npre, int* ne, int* peak, int R, int J, int Q,
+                int sf, void* stream) {
+  if (nnu < 1 || nnu > kMaxNU || Q < 1 || Q > kQMax || (Q & (Q - 1)))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = srpt_smem(Q);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (sf) {
+    err = prepare_smem(srpt_scan_kernel<true>, smem);
+    if (err != cudaSuccess) return (int)err;
+    srpt_scan_kernel<true><<<R, 32, smem, s>>>(
+        arrival, need, service, kk, nu, nnu, job_ev, t_ev, fs_ev, ovf, npre,
+        ne, peak, J, Q);
+  } else {
+    err = prepare_smem(srpt_scan_kernel<false>, smem);
+    if (err != cudaSuccess) return (int)err;
+    srpt_scan_kernel<false><<<R, 32, smem, s>>>(
+        arrival, need, service, kk, nu, nnu, job_ev, t_ev, fs_ev, ovf, npre,
+        ne, peak, J, Q);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -546,28 +792,10 @@ extern "C" {
 int msj_srpt_scan(const double* arrival, const double* need,
                   const double* service, const double* kk, const int* nu,
                   int nnu, double* job_ev, double* t_ev, double* fs_ev,
-                  bool* ovf, int* npre, int* ne, int* peak,
-                  double* fstart_scratch, int R, int J, int Q, int sf,
-                  void* stream) {
-  if (nnu < 1 || nnu > kMaxNU || Q < 1 || (Q & (Q - 1))) return (int)cudaErrorInvalidValue;
-  const size_t smem = srpt_smem(Q);
-  const int threads = srpt_threads(Q);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (sf) {
-    err = prepare_smem(srpt_scan_kernel<true>, smem);
-    if (err != cudaSuccess) return (int)err;
-    srpt_scan_kernel<true><<<R, threads, smem, s>>>(
-        arrival, need, service, kk, nu, nnu, job_ev, t_ev, fs_ev, ovf, npre,
-        ne, peak, fstart_scratch, J, Q);
-  } else {
-    err = prepare_smem(srpt_scan_kernel<false>, smem);
-    if (err != cudaSuccess) return (int)err;
-    srpt_scan_kernel<false><<<R, threads, smem, s>>>(
-        arrival, need, service, kk, nu, nnu, job_ev, t_ev, fs_ev, ovf, npre,
-        ne, peak, fstart_scratch, J, Q);
-  }
-  return (int)cudaGetLastError();
+                  bool* ovf, int* npre, int* ne, int* peak, int R, int J,
+                  int Q, int sf, void* stream) {
+  return srpt_launch(arrival, need, service, kk, nu, nnu, job_ev, t_ev, fs_ev,
+                     ovf, npre, ne, peak, R, J, Q, sf, stream);
 }
 
 int msj_stable_sort(const double* key1, const double* key2, const int* payload,

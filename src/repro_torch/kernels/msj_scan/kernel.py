@@ -14,16 +14,17 @@ shape and contiguity, then
 
 * for CPU tensors returns its plain version (``*_ref``: the
   :mod:`repro_torch.core.sim_torch` event scans);
-* for CUDA tensors allocates the outputs (and the BS ring or SRPT
-  first-start scratch), launches the kernel of ``csrc/msj_scan.cu`` or
+* for CUDA tensors allocates the outputs (and the BS ring), launches
+  the kernel of ``csrc/msj_scan.cu`` or
   ``csrc/srpt_scan.cu`` on the current stream,
   raises if the launch is refused, and adds one to its ``launches``
   count.  There is no fallback: a CUDA tensor never reaches the plain
   version through a wrapper.
 
-The kernels run one thread block per replication with the whole event
-loop inside the kernel; see the source's header note for what bounds them
-and where bit-identity with the reference needs care.
+The kernels run one thread block per replication (``srpt_scan``: one
+warp) with the whole event loop inside the kernel; see each source's
+header note for what bounds them and where bit-identity with the
+reference needs care.
 """
 
 from __future__ import annotations
@@ -105,6 +106,10 @@ _DTYPES = {"arrival": _F64, "service": _F64, "cls": _I32, "need": _I32,
            "t": _F64, "svc": _F64, "t_up": _F64, "is_fail": torch.bool,
            "ft": _F64, "ftgt": _I32, "fup": _F64}
 _SRPT_DTYPES = dict(_DTYPES, need=_F64)
+#: the most slots ``srpt_scan``'s table holds on the card: 54 bytes and a
+#: bit of shared memory per slot, 216.5 KiB at 4096 of the 227 KiB a block
+#: may have (``csrc/srpt_scan.cu``)
+SRPT_Q_MAX = 4096
 _SORT_W_MAX = 4096
 
 
@@ -263,7 +268,8 @@ def srpt_scan_fwd(arrival, need, service, kk, *, Q: int, NU: tuple,
     table that overflowed (the caller must raise), ``npre`` counts
     preemptions, ``ne`` processed events (2J on success) and ``peak`` the
     peak in-system count.  ``NU`` is the ascending tuple of distinct needs
-    (every need must be in it).
+    (every need must be in it).  On the card Q is at most
+    :data:`SRPT_Q_MAX`.
     """
     dev = _check(dtypes=_SRPT_DTYPES, arrival=arrival, need=need,
                  service=service)
@@ -288,17 +294,20 @@ def srpt_scan_fwd(arrival, need, service, kk, *, Q: int, NU: tuple,
                       for _ in range(3))
     if R == 0 or J == 0:
         return job_ev, t_ev, fs_ev, ovf, npre, ne, peak
+    if Q > SRPT_Q_MAX:
+        raise ValueError(f"Q={Q} exceeds srpt_scan's limit of {SRPT_Q_MAX} "
+                         f"slots on the card (the slot table lives in shared "
+                         f"memory)")
     nu = torch.tensor(NU, dtype=_I32, device=dev)
     if not bool(torch.isin(need, nu.to(_F64)).all()):
         raise ValueError(f"every need must be one of NU={NU}")
-    fstart = torch.zeros(R, Q, dtype=_F64, device=dev)
     lib = build.LIBRARY.load()
     with torch.cuda.device(dev):
         rc = lib.msj_srpt_scan(_ptr(arrival), _ptr(need), _ptr(service),
                                _ptr(kk), _ptr(nu), len(NU), _ptr(job_ev),
                                _ptr(t_ev), _ptr(fs_ev), _ptr(ovf),
-                               _ptr(npre), _ptr(ne), _ptr(peak),
-                               _ptr(fstart), R, J, Q, int(sf), _stream(dev))
+                               _ptr(npre), _ptr(ne), _ptr(peak), R, J, Q,
+                               int(sf), _stream(dev))
     build.LIBRARY.raise_on(rc, "srpt_scan", f"R={R} J={J} Q={Q} sf={sf}")
     srpt_scan_fwd.launches += 1
     return job_ev, t_ev, fs_ev, ovf, npre, ne, peak

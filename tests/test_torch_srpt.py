@@ -4,6 +4,10 @@ On this CPU ``srpt_scan_fwd`` and ``stable_sort_fwd`` run their plain
 PyTorch versions; each must equal, at tolerance 0, the reference's Pallas
 SRPT kernel in interpret mode and its scan core on all seven raw outputs,
 and the reference's in-kernel ``bitonic_sort`` on adversarial keys.
+The same holds on bursts of equal arrival times (ties on arrival and on
+rank), and the CUDA kernel's way of picking ServerFilling's running set
+(the index within a need class against a closed-form limit, no second
+sort) equals the plain step's two-sort selection at every event.
 ``engines.simulate("sf-srpt" | "ff-srpt", device="cpu")`` must give the
 reference's ``jax``, ``pallas`` and ``python`` engines' results,
 ``preemptions`` included.  The interpret-mode kernel is slow at the
@@ -30,6 +34,7 @@ from repro.data import swf as ref_swf
 from repro.kernels.msj_scan.sort import bitonic_sort
 from repro.kernels.msj_scan.srpt import srpt_scan_fwd as ref_srpt_scan
 
+from repro_torch.bench import srpt_cases
 from repro_torch.core import engines, sim_batch, sim_torch
 from repro_torch.kernels import msj_scan
 from repro_torch.kernels.msj_scan import kernel as K
@@ -81,6 +86,84 @@ def test_plain_srpt_scan_bit_equal_to_reference_kernel(sf, k):
         pallas = ref_srpt_scan(*args, Q=Q, NU=NU, sf=sf, interpret=True)
         core = sim_jax._srpt_core(*args, Q, NU, sf)
         _assert_streams_equal(out, (pallas, core))
+
+
+def _burst():
+    """J = 200 jobs in 10 batches of 20 equal arrival times, 8 time units
+    apart, services from four values, k = 64: up to 58 jobs in the system
+    (two 32-entry runs in the kernel's sort), so Q = 64 holds them."""
+    return srpt_cases.burst_case(200, 64, R, batch=20, gap=8.0, seed=0)
+
+
+@pytest.mark.parametrize("Q", [64, 16], ids=["fits", "overflow"])
+@pytest.mark.parametrize("sf", [True, False], ids=["sf", "ff"])
+def test_plain_srpt_scan_bit_equal_to_reference_kernel_on_bursts(sf, Q):
+    t, NU = _burst()
+    out = msj_scan.srpt_scan_fwd(*t, Q=Q, NU=NU, sf=sf)
+    if Q == 64:
+        assert not out[3].any() and (out[5] == 400).all()
+        assert (out[6] > 32).all()
+    else:
+        assert out[3].all()
+    with x64():
+        args = tuple(jnp.asarray(x.numpy(), jnp.float64) for x in t)
+        pallas = ref_srpt_scan(*args, Q=Q, NU=NU, sf=sf, interpret=True)
+        core = sim_jax._srpt_core(*args, Q, NU, sf)
+        _assert_streams_equal(out, (pallas, core))
+
+
+def _sf_take_by_class(kk, rk_s, need_s, occ_s, NU):
+    """ServerFilling's running set by the rule the CUDA kernel uses, with
+    no second sort: a job of the prefix M is taken iff its index among M's
+    jobs of its need class, in sort-1 order, is below the class's limit
+    ``min(count, floor(F / nu))``, the limits taken over the classes in
+    descending need with F falling from ``kk`` (the first-fit walk over a
+    descending-need order, in closed form)."""
+    in_M, has_m = sim_torch._srpt_prefix_m(kk, need_s, occ_s)
+    nu = torch.tensor(NU, dtype=torch.float64)
+    cls = torch.searchsorted(nu, need_s.contiguous()).clamp(max=len(NU) - 1)
+    onehot = (torch.nn.functional.one_hot(cls, len(NU)).bool()
+              & in_M[..., None]).long()
+    before = (onehot.cumsum(1) - onehot).gather(2, cls[..., None])[..., 0]
+    count = onehot.sum(1).double()
+    F = kk.clone()
+    lim = torch.zeros_like(count)
+    for c in reversed(range(len(NU))):
+        v = float(NU[c])
+        ok = (count[:, c] > 0) & (v <= F)
+        q = torch.floor(F / v)
+        q = torch.where((q + 1) * v <= F, q + 1, q)
+        q = torch.where((q > 0) & (q * v > F), q - 1, q)
+        q = torch.where(ok, torch.minimum(q, count[:, c]), 0.0)
+        F = torch.where(ok, F - q * v, F)
+        lim[:, c] = q
+    return in_M & (before < lim.gather(1, cls)), has_m
+
+
+@pytest.mark.parametrize("k", [64, 128])
+@pytest.mark.parametrize("dataset", ["sdsc", "kit"])
+def test_sf_selection_by_need_class_equals_the_two_sort_path(monkeypatch,
+                                                            dataset, k):
+    """Event by event over a whole SF scan, the kernel's rule
+    (``_sf_take_by_class``) gives the plain step's set
+    (``_srpt_sf_take``: M re-sorted by (-need, rank, position), then first
+    fit); dozens of the lanes' events have a prefix M."""
+    two_sort = sim_torch._srpt_sf_take
+    with_m = []
+
+    def both(kk, rk_s, need_s, occ_s, NU):
+        take, has_m = two_sort(kk, rk_s, need_s, occ_s, NU)
+        mine, has_m2 = _sf_take_by_class(kk, rk_s, need_s, occ_s, NU)
+        assert torch.equal(has_m, has_m2) and torch.equal(take, mine)
+        with_m.append(int(has_m.sum()))
+        return take, has_m
+
+    monkeypatch.setattr(sim_torch, "_srpt_sf_take", both)
+    t, NU = srpt_cases.table_case(dataset, J, k, R, seed=3)
+    Q = srpt_cases.slots(J, k)
+    out = sim_torch._srpt_core(*t, Q, NU, True)
+    assert not out[3].any() and len(with_m) == 2 * J
+    assert sum(with_m) > 20
 
 
 @functools.lru_cache(maxsize=None)
@@ -210,20 +293,30 @@ def test_stable_sort_corner_cases(Q):
 
 @pytest.mark.cuda
 def test_cuda_srpt_and_sort_equal_plain_versions_on_the_card():
-    """Card only: the CUDA kernels against their plain versions, rtol=0."""
+    """Card only: the CUDA kernels against their plain versions, rtol=0,
+    on SDSC-SP2 and KIT-FH2 bootstraps, the burst trace with and without
+    overflow, and Q = 4.  This file imports JAX, which the card machine
+    lacks; there ``chip_smoke.py`` holds the same cases (and the Fig. 3
+    widths) to the plain versions."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     dev = torch.device("cuda", 0)
+    cases = []
     for k in (64, 128):
         b = _batch(k)
-        Q, NU = sim_torch._srpt_args(b, None), sim_batch._srpt_nu(b)
-        targs = _torch_args(b)
+        cases.append((_torch_args(b), sim_batch._srpt_nu(b),
+                      sim_torch._srpt_args(b, None)))
+        cases.append(srpt_cases.table_case("kit", J, k, R, seed=3)
+                     + (srpt_cases.slots(J, k),))
+    t, NU = _burst()
+    cases += [(t, NU, 64), (t, NU, 16), (t, NU, 4)]
+    for targs, NU, Q in cases:
         for sf in (True, False):
             out = msj_scan.srpt_scan_fwd(*(t.to(dev) for t in targs), Q=Q,
                                          NU=NU, sf=sf)
             ref = msj_scan.srpt_scan_fwd(*targs, Q=Q, NU=NU, sf=sf)
             for o, r in zip(out, ref):
-                assert torch.equal(o.cpu(), r), (k, sf)
+                assert torch.equal(o.cpu(), r), (Q, NU, sf)
     rng = np.random.default_rng(5)
     for W in (24, 3000, 4096):
         keys = [torch.tensor(rng.choice([-np.inf, np.inf, 0.0, 1.5], (3, W))),
