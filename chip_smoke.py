@@ -54,7 +54,7 @@ The Figure-3 slice adds to each phase:
 The drain-mode failure slice adds:
 
 2. ``fcfs_fail_scan``, ``modbs_fail_scan`` and ``bs_fail_scan`` at the
-   Figure-1 widths of k in {256, 2048}, R = 16, J = 4000 (ring capacity
+   Figure-1 widths of k in {256, 2048}, R = 16, J = 2000 (ring capacity
    q_cap = J, so no ring can overflow), under two outage mixes over the
    arrival horizon h: ``bench_sim.bench_failures``' process (mtbf = h/4,
    mttr = h/400, single servers) and a heavier one (mtbf = h/4,
@@ -227,6 +227,26 @@ The decode-kernel slice (``decode_attention`` and the ``"mma"`` route of
    calls queued behind a sleep kernel, so the host's time per call is
    not read as the kernel's).
 
+The BS-π redesign slice (``bs_scan`` / ``bs_fail_scan`` with no global
+read on a step's chain; ``srpt_scan`` past 4096 slots) adds:
+
+2. ``bs_scan`` and ``bs_fail_scan`` on every case of
+   ``repro_torch.bench.bs_cases.ADVERSARIAL`` (J = 2000, R = 4: rings of
+   six entries that wrap and overflow in some replications, KIT-FH2 at
+   k = 512 with four of seven classes wholly on the helper, tied arrival,
+   completion and commit times, SDSC-SP2's seven classes, the heavier
+   drain mix), each ``torch.equal`` to its plain version on the CPU on
+   every raw output, with the kernel's time per step; ``srpt_scan`` SF
+   and FF at Q = 8192 (the slot table in global scratch): SDSC-SP2 at
+   k = 2048, R = 4, J = 500, and one batch of 4200 equal arrivals at
+   k = 4200, R = 1 (more than 4096 jobs in the system), each
+   ``torch.equal`` to the plain version on CPU and card, with its time
+   per event (the wide burst against the CPU run only: its plain version
+   takes ~1 min a policy);
+4. the ``[time]`` lines of the clean scans give the time per step.
+   (``python -m repro_torch.bench.bs_bench --parent DIR --phases`` times
+   another checkout's BS kernel beside this one and splits a step.)
+
 Then it prints the card's name and power limit, one ``{"kernels": [...]}``
 line and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the repository around it, it exits non-zero and prints no
@@ -264,6 +284,9 @@ FIG3_KS, FIG3_J, FIG3_R, SRPT_CMP_J = (512, 1024), 15_000, 4, 2000
 # burst: J of the comparison (the plain version is a Python event loop)
 # and of the [time] line
 SRPT_KIT_J, SRPT_BURST_CMP_J, SRPT_BURST_J, SRPT_OVF_J = 1000, 500, 1500, 300
+# Q = 8192 (the slot table in global scratch): SDSC-SP2 at k = 2048, and a
+# burst of this many equal arrivals at k of the same, R = 1
+SRPT_Q8K_J, SRPT_WIDE_J = 500, 4200
 SORT_WS, SORT_R = (4096, 3000), 4
 FAIL_KERNELS = {  # name -> (wrapper, TPU kernel it replaces)
     "fcfs_fail_scan": ("fcfs_fail_scan_fwd",
@@ -273,9 +296,13 @@ FAIL_KERNELS = {  # name -> (wrapper, TPU kernel it replaces)
     "bs_fail_scan": ("bs_fail_scan_fwd",
                      "src/repro/kernels/msj_scan/kernel.py:316"),
 }
-# outage mixes: horizon divisors of mtbf and mttr, and the pod size
-FAIL_MIXES = {"bench": (4, 400, 1), "heavy": (4, 40, 4)}
 DRAIN_KS, DRAIN_SMALL_J, DRAIN_SMALL_R = (256, 1024), 2000, 4
+# J of the drain kernels' comparison with their plain versions on the card
+# (4000 until the BS-pi redesign; halved to make room for its cases)
+DRAIN_CMP_J = 2000
+# BS-pi's adversarial cases (bench/bs_cases.ADVERSARIAL): J and R of the
+# comparison with the plain version on the CPU
+BS_ADV_J, BS_ADV_R = 2000, 4
 
 
 def fail(msg: str) -> None:
@@ -1861,9 +1888,8 @@ def main() -> int:
               "False)", file=sys.stderr)
         return 2
 
-    from repro_torch.bench import fig3_traces, srpt_cases
+    from repro_torch.bench import bs_cases, fig3_traces, srpt_cases
     from repro_torch.core import engines, sim_torch
-    from repro_torch.core.failures import FailureProcess
     from repro_torch.core.sim_batch import (_bs_fail_args,
                                             _merged_class_inputs,
                                             _merged_fcfs_inputs,
@@ -1988,22 +2014,30 @@ def main() -> int:
         return t, srpt_cases.slots(FIG3_J, k)
 
     def srpt_case(label: str, t, NU: tuple, Q: int, J: int, k: int,
-                  ovf: bool):
+                  ovf: bool, card_plain: bool = True):
         """srpt_scan SF and FF on the card against the plain version on the
-        CPU and on the card, all 7 outputs at tolerance 0 (torch.equal);
-        ``ovf``: whether every replication must overflow its Q slots."""
+        CPU and (``card_plain``) on the card, all 7 outputs at tolerance 0
+        (torch.equal); ``ovf``: whether every replication must overflow its
+        Q slots."""
+        R_ = t[0].shape[0]
         for sf in (True, False):
             kw = dict(Q=Q, NU=NU, sf=sf)
             out = K.srpt_scan_fwd(*t, **kw)
             torch.cuda.synchronize()
-            ref_cpu = K.srpt_scan_fwd(*(x.cpu() for x in t), **kw)
             t1 = time.time()
-            ref_dev = K.srpt_scan_ref(*t, **kw)
-            torch.cuda.synchronize()
+            ref_cpu = K.srpt_scan_fwd(*(x.cpu() for x in t), **kw)
             plain_ms = (time.time() - t1) * 1e3
+            where = "CPU"
+            ref_dev = ref_cpu
+            if card_plain:
+                t1 = time.time()
+                ref_dev = K.srpt_scan_ref(*t, **kw)
+                torch.cuda.synchronize()
+                plain_ms = (time.time() - t1) * 1e3
+                where = "card"
             for o, r_cpu, r_dev in zip(out, ref_cpu, ref_dev):
                 if not (torch.equal(o.cpu(), r_cpu)
-                        and torch.equal(o, r_dev)):
+                        and torch.equal(o.cpu(), r_dev.cpu())):
                     fail(f"srpt_scan {label} sf={sf} at k={k} Q={Q} J={J} "
                          f"differs from its plain version")
             if ovf:
@@ -2023,16 +2057,18 @@ def main() -> int:
                            n_max=None)
                 n_txt = "arrivals dropped (n and bound not read)"
             else:
-                b_ms, b_by = srpt_bound(FIG3_R, J, out[0].cpu().numpy())
+                b_ms, b_by = srpt_bound(R_, J, out[0].cpu().numpy())
                 n = srpt_cases.jobs_in_system(out[0].cpu().numpy())
                 cfg.update(bound_ms=b_ms, bound_by=b_by,
                            n_mean=float(n.mean()), n_max=int(n.max()))
                 n_txt = (f"bound {b_ms:.5f} ms ({b_by}); jobs in system "
                          f"per event mean {n.mean():.1f} max {n.max()}")
             print(f"[kernel] srpt_scan {label} {pol} k={k} Q={Q} NU={NU} "
-                  f"R={FIG3_R} J={J}: all 7 outputs equal at tolerance 0 "
-                  f"(torch.equal) to the plain version on CPU and on card, "
-                  f"kernel {ms:.3f} ms, plain on card {plain_ms:.1f} ms, "
+                  f"R={R_} J={J}: all 7 outputs equal at tolerance 0 "
+                  f"(torch.equal) to the plain version on CPU"
+                  f"{' and on card' if card_plain else ''}, kernel "
+                  f"{ms:.3f} ms ({ms * 1e3 / (2 * J):.3f} us per event), "
+                  f"plain on {where} {plain_ms:.1f} ms, "
                   f"{n_txt}, peak {out[6].tolist()}, preemptions "
                   f"{out[4].tolist()}")
             srpt_cfgs.append(cfg)
@@ -2051,6 +2087,20 @@ def main() -> int:
     srpt_case("burst", t, NU_b, 2048, SRPT_BURST_CMP_J, 512, ovf=False)
     t, _ = srpt_inputs(512, SRPT_OVF_J, seed=1)
     srpt_case("overflow", t, NU, 4, SRPT_OVF_J, 512, ovf=True)
+    # Q = 8192: the slot table outgrows shared memory and lives in global
+    # scratch; SDSC-SP2 at k = 2048, and one batch of equal arrivals that
+    # puts more than 4096 jobs in the system at once
+    t, _ = srpt_cases.table_case("sdsc", SRPT_Q8K_J, 2048, FIG3_R, seed=1,
+                                 device=dev)
+    srpt_case("sdsc", t, NU, 8192, SRPT_Q8K_J, 2048, ovf=False)
+    t, NU_w = srpt_cases.burst_case(SRPT_WIDE_J, SRPT_WIDE_J, 1,
+                                    batch=SRPT_WIDE_J, gap=1.0, seed=1,
+                                    device=dev)
+    srpt_case("wide burst", t, NU_w, 8192, SRPT_WIDE_J, SRPT_WIDE_J,
+              ovf=False, card_plain=False)
+    if srpt_cfgs[-1]["n_max"] <= 4096:
+        fail(f"the wide burst kept {srpt_cfgs[-1]['n_max']} jobs in the "
+             f"system, expected more than 4096")
     top = srpt_cfgs[2]           # k = 1024, SDSC, SF: the Fig. 3 width
     report["srpt_scan"] = dict(
         name="srpt_scan", route="cuda", source=SRPT_SOURCE,
@@ -2098,15 +2148,10 @@ def main() -> int:
                   f"{plain_ms:.2f} ms, bound {b_ms:.6f} ms ({b_by})")
 
     # -- 2c. the drain-mode kernels against their plain versions ---------
-    def bench_failures(wl, batch, mix="bench", seed=0):
-        """``bench_sim.bench_failures``' outage process (mix "bench") over
-        the batch's arrival horizon h: mtbf = h/4, mttr = h/400 per
-        server; "heavy" is mttr = h/40 on pods of 4 servers."""
-        h0 = float(batch.arrival.max())
-        d_up, d_down, pod = FAIL_MIXES[mix]
-        return FailureProcess(mtbf=h0 / d_up, mttr=h0 / d_down,
-                              pod_size=pod).sample(wl.k, h0, batch.reps,
-                                                   seed=seed)
+    # bench_sim.bench_failures' outage process (mix "bench": mtbf = h/4,
+    # mttr = h/400 per server over the arrival horizon h) and the "heavy"
+    # mix (mttr = h/40 on pods of 4 servers)
+    bench_failures = bs_cases.bench_failures
 
     def fail_inputs(k: int, J: int, mix: str, seed: int):
         """The three fail kernels' inputs on the card (BS-π's rings hold
@@ -2164,8 +2209,8 @@ def main() -> int:
     t_phase = time.time()
     fail_cfgs = {name: [] for name in FAIL_KERNELS}
     for k in (256, 2048):
-        for mix in FAIL_MIXES:
-            p = fail_inputs(k, CMP_J, mix, seed=1)
+        for mix in bs_cases.FAIL_MIXES:
+            p = fail_inputs(k, DRAIN_CMP_J, mix, seed=1)
             for name, (kern, plain) in fail_calls(p).items():
                 out = as_tuple(kern())
                 torch.cuda.synchronize()
@@ -2175,18 +2220,19 @@ def main() -> int:
                 plain_ms = (time.time() - t1) * 1e3
                 for o, r in zip(out, ref):
                     if not torch.equal(o, r):
-                        fail(f"{name} at k={k} J={CMP_J} R={REPS} ({mix} "
-                             f"outages) differs from its plain version")
+                        fail(f"{name} at k={k} J={DRAIN_CMP_J} R={REPS} "
+                             f"({mix} outages) differs from its plain "
+                             f"version")
                 if name == "bs_fail_scan" and out[2].any():
                     fail(f"bs_fail_scan overflowed at k={k} with q_cap=J")
                 ms = cuda_ms(kern, 3)
-                b_ms, b_by = fail_bound(name, REPS, CMP_J, k,
+                b_ms, b_by = fail_bound(name, REPS, DRAIN_CMP_J, k,
                                         p["events"][name], p["F"][name],
                                         p["length"])
                 width = (f"length={p['length']}" if name == "bs_fail_scan"
-                         else f"L={CMP_J + p['F'][name]}")
+                         else f"L={DRAIN_CMP_J + p['F'][name]}")
                 print(f"[kernel] {name} k={k} {mix} outages R={REPS} "
-                      f"J={CMP_J} F={p['F'][name]} {width} events="
+                      f"J={DRAIN_CMP_J} F={p['F'][name]} {width} events="
                       f"{p['events'][name]}: every raw output equal at "
                       f"tolerance 0 (torch.equal) to the plain version on "
                       f"card, kernel {ms:.3f} ms, plain on card "
@@ -2203,8 +2249,42 @@ def main() -> int:
             max_abs_err=max(c["err"] for c in cfgs), ms=top["ms"],
             plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
             bound_by=top["bound_by"], library_ms=None,
-            shape=f"k=2048 R={REPS} J={CMP_J} bench outages", configs=cfgs)
+            shape=f"k=2048 R={REPS} J={DRAIN_CMP_J} bench outages",
+            configs=cfgs)
     print(f"[kernel] drain-mode comparisons took {time.time() - t_phase:.1f} s")
+
+    # -- 2d. BS-pi on the adversarial cases (bench/bs_cases.py) ------------
+    t_phase = time.time()
+    for name, make_case in bs_cases.ADVERSARIAL.items():
+        case = make_case(BS_ADV_J, BS_ADV_R, 1)
+        gcase = case.to(dev)
+        kern = "bs_scan" if case.frec is None else "bs_fail_scan"
+        out = bs_cases.scan(gcase, K)
+        torch.cuda.synchronize()
+        t1 = time.time()
+        ref = bs_cases.scan_ref(case)              # on the CPU
+        plain_ms = (time.time() - t1) * 1e3
+        for o, r in zip(out, ref):
+            if not torch.equal(o.cpu(), r):
+                fail(f"{kern} on the {name} case (R={case.R} J={case.J}) "
+                     f"differs from its plain version")
+        if name == "wrap" and not (ref[2].any() and not ref[2].all()):
+            fail(f"the wrap case should overflow some replications, not all:"
+                 f" {ref[2].tolist()}")
+        ms = cuda_ms(lambda: bs_cases.scan(gcase, K), 3)
+        print(f"[kernel] {kern} {name}: C={case.slots.numel()} slots="
+              f"{case.slots.tolist()} h={case.h} q_cap={case.q_cap} "
+              f"R={case.R} J={case.J} steps={case.steps}: every raw output "
+              f"equal at tolerance 0 (torch.equal) to the plain version on "
+              f"CPU, kernel {ms:.3f} ms ({ms * 1e3 / case.steps:.4f} us per "
+              f"step), plain on CPU {plain_ms:.1f} ms, rings overflowed in "
+              f"{int(ref[2].sum())} of {case.R} replications")
+        report[kern].setdefault("adversarial", []).append(dict(
+            case=name, ms=ms, plain_cpu_ms=plain_ms, steps=case.steps,
+            err=max_err(out, ref)))
+        report[kern]["max_abs_err"] = max(report[kern]["max_abs_err"],
+                                          max_err(out, ref))
+    print(f"[kernel] BS adversarial cases took {time.time() - t_phase:.1f} s")
 
     # -- 3. the main path -------------------------------------------------
     K.reset_launches()
@@ -2370,9 +2450,10 @@ def main() -> int:
         ms = cuda_ms(kern, 2)
         rate = REPS * MAIN_J / (ms / 1e3)
         b_ms, b_by = bound(name, REPS, MAIN_J, MAIN_KS[-1])
+        steps = 2 * MAIN_J if name == "bs_scan" else MAIN_J
         print(f"[time] {name} k={MAIN_KS[-1]} R={REPS} J={MAIN_J}: "
-              f"{ms:.3f} ms per launch, {rate:.0f} jobs/s, bound "
-              f"{b_ms:.5f} ms ({b_by})")
+              f"{ms:.3f} ms per launch ({ms * 1e3 / steps:.4f} us per "
+              f"step), {rate:.0f} jobs/s, bound {b_ms:.5f} ms ({b_by})")
         report[name].update(main_ms=ms, main_jobs_per_s=rate,
                             main_bound_ms=b_ms,
                             main_shape=f"k={MAIN_KS[-1]} R={REPS} J={MAIN_J}")

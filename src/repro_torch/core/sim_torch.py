@@ -898,8 +898,8 @@ def _srpt_args(batch, queue_cap) -> int:
 
     Default ``max(4k, 256)``, capped at J and rounded up to a power of two,
     as the reference's.  Results do not depend on Q unless the in-system
-    count exceeds it, which raises after the scan.  The CUDA kernel holds
-    at most ``kernel.SRPT_Q_MAX`` = 4096 slots.
+    count exceeds it, which raises after the scan.  The CUDA kernel keeps
+    the table in shared memory up to Q = 4096 and in global scratch above.
     """
     J = int(batch.num_jobs)
     if queue_cap is None:

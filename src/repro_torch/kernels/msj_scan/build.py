@@ -33,7 +33,8 @@ LIBRARY = Library("msj_scan", SOURCES, NVCC_FLAGS, {
     "msj_bs_fail_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                          _I, _I, _I, _I, _I, _I, _I, _P],
     "msj_srpt_scan": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
-                      _I, _I, _I, _I, _P],
+                      _P, _I, _I, _I, _I, _P],
+    "msj_srpt_table_bytes": [_I, ctypes.POINTER(ctypes.c_longlong)],
     "msj_stable_sort": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
 }, error_fn="msj_error_string")
 

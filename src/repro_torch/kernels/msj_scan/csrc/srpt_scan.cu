@@ -46,9 +46,11 @@
 // --phases builds a copy of this file with clock64 stamps between the
 // passes and prints each one's SM cycles per event).
 //
-// Shared-memory layout (Q slots, Q <= 4096: 54 bytes and a bit per slot,
-// 216.5 KiB at Q = 4096, so the block opts in above 48 KiB; Q = 8192 would
-// take 433 KiB and is refused):
+// Slot-table layout (Q slots: 54 bytes and a bit per slot).  In shared
+// memory while it fits the block's opt-in limit (216.5 KiB at Q = 4096, so
+// the block opts in above 48 KiB); a larger table (Q = 8192: 433 KiB)
+// lives in the caller's global scratch, one table per replication
+// (msj_srpt_table_bytes), reached through the same Table pointers:
 //   rem, rs, arr, fst, rk  double[Q]  remaining work, run start, arrival,
 //                                     first start, rank at the last event
 //   job  int32[Q]  job id           ord  int32[Q]  the list (slot ids) in
@@ -97,9 +99,20 @@ constexpr double kGuard = 0.5 * kBig;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxNU = 64;
 constexpr int kIntMax = 0x7fffffff;
-constexpr int kQMax = 4096;
 
 enum : uint8_t { kRun = 1, kStarted = 2, kDesired = 4 };
+
+// Bytes of one slot table: five double, three int32 and two uint8 columns,
+// and the occupancy bitmap.
+__host__ __device__ inline size_t srpt_smem(int Q) {
+  return (size_t)Q * (5 * sizeof(double) + 3 * sizeof(int) + 2) +
+         (size_t)((Q + 31) / 32) * sizeof(unsigned);
+}
+
+// One table in global scratch, in doubles (rounded up to 256 bytes).
+__host__ __device__ inline size_t srpt_table_words(int Q) {
+  return (srpt_smem(Q) + 255) / 256 * 32;
+}
 
 // Odd-even transposition passes tried on the running part before the full
 // merge sort.
@@ -336,7 +349,7 @@ __device__ __forceinline__ int first_free(const unsigned* occ, int nwords,
   return -1;
 }
 
-template <bool SF>
+template <bool SF, bool kGlobal>
 __global__ void __launch_bounds__(32)
     srpt_scan_kernel(const double* __restrict__ arrival,
                      const double* __restrict__ need_in,
@@ -346,11 +359,14 @@ __global__ void __launch_bounds__(32)
                      double* __restrict__ job_ev, double* __restrict__ t_ev,
                      double* __restrict__ fs_ev, bool* __restrict__ ovf_out,
                      int* __restrict__ npre_out, int* __restrict__ ne_out,
-                     int* __restrict__ peak_out, int J, int Q) {
+                     int* __restrict__ peak_out, double* table, int J,
+                     int Q) {
   extern __shared__ double smem[];
   __shared__ int nu[kMaxNU], cnt[kMaxNU], glim[kMaxNU];
   Table T;
-  T.rem = smem;
+  // the table: shared memory, or this replication's global scratch (a
+  // template choice, so the shared instantiation keeps shared loads)
+  T.rem = kGlobal ? table + (size_t)blockIdx.x * srpt_table_words(Q) : smem;
   T.rs = T.rem + Q;
   T.arr = T.rs + Q;
   T.fst = T.arr + Q;
@@ -752,37 +768,48 @@ cudaError_t prepare_smem(K kernel, size_t bytes) {
                               (int)bytes);
 }
 
-// Dynamic shared memory of srpt_scan_kernel: five double, three int32 and
-// two uint8 columns, and the occupancy bitmap.
-size_t srpt_smem(int Q) {
-  return (size_t)Q * (5 * sizeof(double) + 3 * sizeof(int) + 2) +
-         (size_t)((Q + 31) / 32) * sizeof(unsigned);
+// Whether srpt_scan_kernel's table of Q slots fits its shared memory.
+cudaError_t srpt_fits(int Q, bool* fits) {
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, srpt_scan_kernel<true, false>);
+  if (err != cudaSuccess) return err;
+  *fits = srpt_smem(Q) + attr.sharedSizeBytes <= (size_t)optin;
+  return cudaSuccess;
 }
 
 int srpt_launch(const double* arrival, const double* need,
                 const double* service, const double* kk, const int* nu,
                 int nnu, double* job_ev, double* t_ev, double* fs_ev,
-                bool* ovf, int* npre, int* ne, int* peak, int R, int J, int Q,
-                int sf, void* stream) {
-  if (nnu < 1 || nnu > kMaxNU || Q < 1 || Q > kQMax || (Q & (Q - 1)))
+                bool* ovf, int* npre, int* ne, int* peak, double* table, int R,
+                int J, int Q, int sf, void* stream) {
+  if (nnu < 1 || nnu > kMaxNU || Q < 1 || (Q & (Q - 1)))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = srpt_smem(Q);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (sf) {
-    err = prepare_smem(srpt_scan_kernel<true>, smem);
-    if (err != cudaSuccess) return (int)err;
-    srpt_scan_kernel<true><<<R, 32, smem, s>>>(
+  bool fits = false;
+  cudaError_t err = srpt_fits(Q, &fits);
+  if (err != cudaSuccess) return (int)err;
+  if (!fits && table == nullptr) return (int)cudaErrorInvalidValue;
+  if (fits) table = nullptr;
+  const size_t smem = table ? 0 : srpt_smem(Q);
+  auto launch = [&](auto kernel) {
+    const cudaError_t e = prepare_smem(kernel, smem);
+    if (e != cudaSuccess) return e;
+    kernel<<<R, 32, smem, static_cast<cudaStream_t>(stream)>>>(
         arrival, need, service, kk, nu, nnu, job_ev, t_ev, fs_ev, ovf, npre,
-        ne, peak, J, Q);
-  } else {
-    err = prepare_smem(srpt_scan_kernel<false>, smem);
-    if (err != cudaSuccess) return (int)err;
-    srpt_scan_kernel<false><<<R, 32, smem, s>>>(
-        arrival, need, service, kk, nu, nnu, job_ev, t_ev, fs_ev, ovf, npre,
-        ne, peak, J, Q);
-  }
-  return (int)cudaGetLastError();
+        ne, peak, table, J, Q);
+    return cudaGetLastError();
+  };
+  if (sf)
+    err = table ? launch(srpt_scan_kernel<true, true>)
+                : launch(srpt_scan_kernel<true, false>);
+  else
+    err = table ? launch(srpt_scan_kernel<false, true>)
+                : launch(srpt_scan_kernel<false, false>);
+  return (int)err;
 }
 
 }  // namespace
@@ -792,10 +819,23 @@ extern "C" {
 int msj_srpt_scan(const double* arrival, const double* need,
                   const double* service, const double* kk, const int* nu,
                   int nnu, double* job_ev, double* t_ev, double* fs_ev,
-                  bool* ovf, int* npre, int* ne, int* peak, int R, int J,
-                  int Q, int sf, void* stream) {
+                  bool* ovf, int* npre, int* ne, int* peak, void* table,
+                  int R, int J, int Q, int sf, void* stream) {
   return srpt_launch(arrival, need, service, kk, nu, nnu, job_ev, t_ev, fs_ev,
-                     ovf, npre, ne, peak, R, J, Q, sf, stream);
+                     ovf, npre, ne, peak, static_cast<double*>(table), R, J, Q,
+                     sf, stream);
+}
+
+// *bytes = 0 when the table of Q slots fits the kernel's shared memory on
+// the current device, else the global scratch msj_srpt_scan needs for
+// each replication's table.
+int msj_srpt_table_bytes(int Q, long long* bytes) {
+  if (Q < 1) return (int)cudaErrorInvalidValue;
+  bool fits = false;
+  const cudaError_t err = srpt_fits(Q, &fits);
+  if (err != cudaSuccess) return (int)err;
+  *bytes = fits ? 0 : (long long)(srpt_table_words(Q) * sizeof(double));
+  return 0;
 }
 
 int msj_stable_sort(const double* key1, const double* key2, const int* payload,

@@ -14,7 +14,8 @@ shape and contiguity, then
 
 * for CPU tensors returns its plain version (``*_ref``: the
   :mod:`repro_torch.core.sim_torch` event scans);
-* for CUDA tensors allocates the outputs (and the BS ring), launches
+* for CUDA tensors allocates the outputs (and the scratch: the BS rings,
+  an SRPT slot table too large for shared memory), launches
   the kernel of ``csrc/msj_scan.cu`` or
   ``csrc/srpt_scan.cu`` on the current stream,
   raises if the launch is refused, and adds one to its ``launches``
@@ -106,11 +107,10 @@ _DTYPES = {"arrival": _F64, "service": _F64, "cls": _I32, "need": _I32,
            "t": _F64, "svc": _F64, "t_up": _F64, "is_fail": torch.bool,
            "ft": _F64, "ftgt": _I32, "fup": _F64}
 _SRPT_DTYPES = dict(_DTYPES, need=_F64)
-#: the most slots ``srpt_scan``'s table holds on the card: 54 bytes and a
-#: bit of shared memory per slot, 216.5 KiB at 4096 of the 227 KiB a block
-#: may have (``csrc/srpt_scan.cu``)
-SRPT_Q_MAX = 4096
 _SORT_W_MAX = 4096
+#: bytes of one BS ring entry: (arrival, service) float64 and (job id,
+#: need) int32 (``csrc/msj_scan.cu``, ``bs_rings``)
+_BS_RING_ENTRY = 24
 
 
 def _check(slots=None, dtypes=_DTYPES, **named) -> torch.device:
@@ -242,7 +242,8 @@ def bs_scan_fwd(arrival, cls, need, service, slots, *, s_max: int, h: int,
     ovf = torch.zeros(R, dtype=torch.bool, device=dev)
     if R == 0 or J == 0:
         return tagged, rec_t, ovf
-    ring = torch.zeros(R, C * q_cap, dtype=_I32, device=dev)
+    ring = torch.empty(R * C * q_cap * _BS_RING_ENTRY, dtype=torch.uint8,
+                       device=dev)
     lib = build.LIBRARY.load()
     with torch.cuda.device(dev):
         rc = lib.msj_bs_scan(_ptr(arrival), _ptr(cls), _ptr(need),
@@ -268,8 +269,9 @@ def srpt_scan_fwd(arrival, need, service, kk, *, Q: int, NU: tuple,
     table that overflowed (the caller must raise), ``npre`` counts
     preemptions, ``ne`` processed events (2J on success) and ``peak`` the
     peak in-system count.  ``NU`` is the ascending tuple of distinct needs
-    (every need must be in it).  On the card Q is at most
-    :data:`SRPT_Q_MAX`.
+    (every need must be in it).  On the card the slot table lives in
+    shared memory while it fits (Q <= 4096 on an H100), else in a global
+    scratch of one table per replication.
     """
     dev = _check(dtypes=_SRPT_DTYPES, arrival=arrival, need=need,
                  service=service)
@@ -294,20 +296,22 @@ def srpt_scan_fwd(arrival, need, service, kk, *, Q: int, NU: tuple,
                       for _ in range(3))
     if R == 0 or J == 0:
         return job_ev, t_ev, fs_ev, ovf, npre, ne, peak
-    if Q > SRPT_Q_MAX:
-        raise ValueError(f"Q={Q} exceeds srpt_scan's limit of {SRPT_Q_MAX} "
-                         f"slots on the card (the slot table lives in shared "
-                         f"memory)")
     nu = torch.tensor(NU, dtype=_I32, device=dev)
     if not bool(torch.isin(need, nu.to(_F64)).all()):
         raise ValueError(f"every need must be one of NU={NU}")
     lib = build.LIBRARY.load()
     with torch.cuda.device(dev):
+        nbytes = ctypes.c_longlong(0)
+        rc = lib.msj_srpt_table_bytes(Q, ctypes.byref(nbytes))
+        build.LIBRARY.raise_on(rc, "srpt_scan", f"Q={Q}")
+        table = (torch.empty(R * nbytes.value, dtype=torch.uint8, device=dev)
+                 if nbytes.value else None)
         rc = lib.msj_srpt_scan(_ptr(arrival), _ptr(need), _ptr(service),
                                _ptr(kk), _ptr(nu), len(NU), _ptr(job_ev),
                                _ptr(t_ev), _ptr(fs_ev), _ptr(ovf),
-                               _ptr(npre), _ptr(ne), _ptr(peak), R, J, Q,
-                               int(sf), _stream(dev))
+                               _ptr(npre), _ptr(ne), _ptr(peak),
+                               None if table is None else _ptr(table), R, J,
+                               Q, int(sf), _stream(dev))
     build.LIBRARY.raise_on(rc, "srpt_scan", f"R={R} J={J} Q={Q} sf={sf}")
     srpt_scan_fwd.launches += 1
     return job_ev, t_ev, fs_ev, ovf, npre, ne, peak
@@ -465,7 +469,8 @@ def bs_fail_scan_fwd(arrival, cls, need, service, ft, ftgt, fup, slots, *,
     ovf = torch.zeros(R, dtype=torch.bool, device=dev)
     if R == 0 or J == 0 or length == 0:
         return tagged, rec_t, ovf
-    ring = torch.zeros(R, C * q_cap, dtype=_I32, device=dev)
+    ring = torch.empty(R * C * q_cap * _BS_RING_ENTRY, dtype=torch.uint8,
+                       device=dev)
     lib = build.LIBRARY.load()
     with torch.cuda.device(dev):
         rc = lib.msj_bs_fail_scan(_ptr(arrival), _ptr(cls), _ptr(need),

@@ -8,8 +8,8 @@ function (``layers.flash_attention`` / ``layers.attention_decode``), at
 ``tests/test_kernels.py``'s tolerances: float32 2e-5, bfloat16 2e-2
 (atol = rtol).  The shapes are that file's (GQA, Dv != D, non-causal with
 Sq != Sk, MQA) plus head dim 80, stablelm-3b's.  The CUDA kernels are held
-to the same plain versions on the card by ``chip_smoke.py`` and by the
-card-only test at the end of this file.
+to the same plain versions on the card by ``chip_smoke.py`` and by
+``tests/test_torch_card.py``.
 
 ``flash_attention_fwd`` picks one of two CUDA kernels with the pure
 function ``_flash_route``, whose cases are pinned here.  The tensor-core
@@ -31,8 +31,7 @@ from repro.kernels.decode_attention import decode_attention
 from repro.kernels.flash_attention import flash_attention
 from repro.models import layers as ref_layers
 
-from repro_torch.kernels.decode_attention import (decode_attention_fwd,
-                                                  decode_attention_ref)
+from repro_torch.kernels.decode_attention import decode_attention_fwd
 from repro_torch.kernels.flash_attention import (flash_attention_fwd,
                                                  flash_attention_ref)
 from repro_torch.bench.decode_vs_forward import emulate_flash
@@ -205,19 +204,6 @@ def test_wgmma_rounding_keeps_the_bf16_limit(B, Sq, Sk, H, Kh, D, Dv,
                  flash_attention_ref(q, k, v, causal=causal), "bfloat16")
 
 
-# shapes that reach the tensor-core kernel's edges: Sq and Sk not multiples
-# of 64 or 128, Sq != Sk, G in {1, 8}, D = Dv = 80, one warpgroup (Sq < 128)
-TC_FLASH_SHAPES = [
-    (1, 200, 200, 8, 1, 128, 128, True),
-    (2, 333, 333, 4, 4, 80, 80, True),
-    (1, 100, 250, 8, 1, 64, 64, False),
-    (1, 300, 130, 4, 4, 128, 128, False),
-    (1, 77, 77, 2, 2, 80, 80, True),
-    (1, 130, 130, 16, 2, 128, 64, False),
-    (2, 300, 130, 4, 2, 128, 128, True),       # causal, Sq > Sk
-]
-
-
 # the served models' heads (H, Kh, D): yi-9b, stablelm-3b, moonshot, jamba
 SERVED_HEADS = [(32, 4, 128), (32, 32, 80), (16, 16, 128), (64, 8, 128)]
 
@@ -262,41 +248,3 @@ def test_decode_plan_covers_every_kept_position(H, Kh, D, B, itemsize):
             assert end - start <= min(plan.kc, share)
             at[b] = end
         assert at == n_kept
-
-
-# decode shapes of the card-only test: the served head sets at a shorter
-# cache (G 8 and 1, D 128 and 80), a ragged Sk, D = 80 with G = 8
-DECODE_CARD_SHAPES = [
-    (4, 2048, 32, 4, 128, 128),
-    (4, 2048, 32, 32, 80, 80),
-    (2, 1000, 64, 8, 128, 128),
-    (3, 777, 16, 2, 80, 80),
-    (1, 300, 16, 16, 128, 128),
-]
-
-
-@pytest.mark.cuda
-def test_cuda_attention_kernels_match_plain_versions_on_the_card(rng):
-    """Card only: each CUDA kernel against its plain version on the card,
-    at ``PLAIN_TOLS`` (two bfloat16 units in the last place); every bf16
-    flash call takes the tensor-core kernel."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
-    dev = torch.device("cuda", 0)
-    for dtype in ("float32", "bfloat16"):
-        for B, Sq, Sk, H, Kh, D, Dv, causal in FLASH_SHAPES + TC_FLASH_SHAPES:
-            q, k, v = (_both(rng, s, dtype)[1].to(dev) for s in (
-                (B, Sq, H, D), (B, Sk, Kh, D), (B, Sk, Kh, Dv)))
-            _close_plain(flash_attention_fwd(q, k, v, causal=causal).cpu(),
-                         flash_attention_ref(q, k, v, causal=causal).cpu(),
-                         dtype)
-            assert flash_attention_fwd.last_route == (
-                "wgmma" if dtype == "bfloat16" else "simt")
-        for B, Sk, H, Kh, D, Dv in ([s[:6] for s in DECODE_SHAPES]
-                                    + DECODE_CARD_SHAPES):
-            q, k, v = (_both(rng, s, dtype)[1].to(dev) for s in (
-                (B, H, D), (B, Sk, Kh, D), (B, Sk, Kh, Dv)))
-            pos = torch.tensor(rng.integers(-1, Sk + 2, size=B),
-                               dtype=torch.int32, device=dev)
-            _close_plain(decode_attention_fwd(q, k, v, pos).cpu(),
-                         decode_attention_ref(q, k, v, pos).cpu(), dtype)

@@ -1,0 +1,547 @@
+"""Card only: every hand-written CUDA kernel of the port against its plain
+PyTorch version on the card.
+
+This file imports neither ``jax`` nor the reference package (``repro``),
+so it runs on a machine with a card and no JAX::
+
+    PYTHONPATH=src python -m pytest -q tests/test_torch_card.py
+
+Its inputs come from the port (``repro_torch.core.workload``,
+``bench.srpt_cases``, ``bench.bs_cases``) and numpy, at the shapes and
+limits of the parity files (``tests/test_torch_{msj_scan, failures, srpt,
+attention, moe, mamba, rwkv}.py``), which hold the plain versions to the
+reference on the CPU.  Without a card every test here but the import pin
+skips.
+"""
+
+import math
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.bench import bs_cases, srpt_cases
+from repro_torch.core import failures as flr
+from repro_torch.core import sim_batch, sim_torch, workload
+from repro_torch.core.sim_torch import _bs_args
+from repro_torch.kernels import msj_scan
+from repro_torch.kernels.decode_attention import (decode_attention_fwd,
+                                                  decode_attention_ref)
+from repro_torch.kernels.flash_attention import (flash_attention_fwd,
+                                                 flash_attention_ref)
+from repro_torch.kernels.mamba_scan import (mamba_scan_fused,
+                                            mamba_scan_fused_ref,
+                                            mamba_scan_fwd, mamba_scan_ref)
+from repro_torch.kernels.moe_gmm import gmm, gmm_ref
+from repro_torch.kernels.moe_gmm.kernel import _gmm_route
+from repro_torch.kernels.msj_scan import kernel as K
+from repro_torch.kernels.rwkv6 import wkv_chunked_ref, wkv_fwd
+
+ROOT = Path(__file__).resolve().parents[1]
+J, R = 300, 2
+
+
+def _dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+def _equal(out, ref, what):
+    assert len(out) == len(ref), what
+    for o, r in zip(out, ref):
+        assert torch.equal(o.cpu(), r), what
+
+
+# -- the imports -------------------------------------------------------------
+
+
+_PURITY = """
+import sys
+sys.path.insert(0, {tests!r})
+import test_torch_card  # noqa: F401
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "repro" or m.startswith("repro."))
+print("BAD", bad)
+"""
+
+
+def test_card_file_imports_nothing_of_jax_or_the_reference():
+    """Importing this file loads no ``jax`` and no ``repro`` module, and
+    no import line of it names either: the card's machine has no JAX."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-c", _PURITY.format(tests=str(ROOT / "tests"))],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "BAD []" in proc.stdout, proc.stdout
+    for line in Path(__file__).read_text().splitlines():
+        s = line.strip()
+        assert not s.startswith(("import jax", "from jax")), s
+        if s.startswith(("import repro", "from repro")):
+            mod = s.split()[1]
+            assert mod == "repro_torch" or mod.startswith("repro_torch."), s
+
+
+# -- msj_scan (tests/test_torch_msj_scan.py's shapes) ------------------------
+
+
+def _msj_case(k, seed=21):
+    wl = workload.figure1_workload(k)
+    b = wl.sample_traces(J, R, seed=seed)
+    slots, s_max, h, q_cap = _bs_args(b, None, wl, None)
+    targs = (torch.tensor(b.arrival), torch.tensor(b.cls, dtype=torch.int32),
+             torch.tensor(b.need, dtype=torch.int32), torch.tensor(b.service),
+             torch.tensor(slots, dtype=torch.int32))
+    return targs, s_max, h, q_cap
+
+
+def _msj_port(name, targs, k, s_max, h, q_cap):
+    a, c, n, v, sl = targs
+    if name == "fcfs":
+        return (msj_scan.fcfs_scan_fwd(a, n, v, k=k),)
+    if name == "modbs":
+        return msj_scan.modbs_scan_fwd(a, c, n, v, sl, s_max=s_max, h=h)
+    return msj_scan.bs_scan_fwd(a, c, n, v, sl, s_max=s_max, h=h,
+                                q_cap=q_cap)
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_equal_plain_versions_on_the_card():
+    """Each msj_scan CUDA kernel against its plain version, rtol=0."""
+    dev = _dev()
+    for k in (32, 256):
+        targs, s_max, h, q_cap = _msj_case(k)
+        gargs = tuple(t.to(dev) for t in targs)
+        for name in ("fcfs", "modbs", "bs"):
+            out = _msj_port(name, gargs, k, s_max, h, q_cap)
+            ref = _msj_port(name, targs, k, s_max, h, q_cap)
+            _equal(out, ref, (name, k))
+
+
+# -- the BS-pi scan on the adversarial cases (bench/bs_cases.py) -------------
+
+
+BS_J, BS_R = 2000, 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(bs_cases.ADVERSARIAL))
+def test_cuda_bs_scan_equals_plain_version_on_adversarial_cases(name):
+    """``bs_scan`` / ``bs_fail_scan`` against the plain version on every
+    raw output, rtol=0: wrapping and overflowing rings, KIT-FH2's long
+    helper queues, tied events, SDSC-SP2's seven classes, heavy drains."""
+    dev = _dev()
+    case = bs_cases.ADVERSARIAL[name](BS_J, BS_R, 5)
+    ref = bs_cases.scan_ref(case)
+    before = K.launches()
+    out = bs_cases.scan(case.to(dev), K)
+    wrapper = "bs_scan_fwd" if case.frec is None else "bs_fail_scan_fwd"
+    assert K.launches()[wrapper] == before[wrapper] + 1
+    _equal(out, ref, name)
+    if name == "wrap":
+        assert ref[2].any() and not ref[2].all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_cap", [1, 2, 3])
+def test_cuda_bs_scan_equals_plain_version_on_tiny_rings(q_cap):
+    """Rings of one to three entries: every enqueue past the head writes
+    the entry a pop reads next, and most overflow."""
+    dev = _dev()
+    case = bs_cases.fig1_case(64, 1000, BS_R, 3, queue_cap=q_cap)
+    _equal(bs_cases.scan(case.to(dev), K), bs_cases.scan_ref(case), q_cap)
+
+
+@pytest.mark.cuda
+def test_cuda_bs_scan_equals_plain_version_with_many_classes():
+    """C = 40 > 32 classes (the kernel's other path for the ring entry
+    after a pop), with empty classes, and the drain scan at C = 40."""
+    dev = _dev()
+    rng = np.random.default_rng(0)
+    Rr, Jj, C = 3, 800, 40
+    sl = torch.tensor(rng.integers(0, 3, C), dtype=torch.int32)
+    trace = (torch.tensor(np.cumsum(rng.exponential(0.05, (Rr, Jj)), 1)),
+             torch.tensor(rng.integers(0, C, (Rr, Jj)), dtype=torch.int32),
+             torch.tensor(rng.integers(1, 5, (Rr, Jj)), dtype=torch.int32),
+             torch.tensor(np.ceil(rng.exponential(1.0, (Rr, Jj)) * 4) / 4))
+    case = bs_cases.BSCase("c40", trace, sl, int(sl.max()), 8, 64)
+    _equal(bs_cases.scan(case.to(dev), K), bs_cases.scan_ref(case), "clean")
+    F = 30
+    ft = np.sort(rng.uniform(0, float(trace[0].max()), (Rr, F)), 1)
+    frec = (torch.tensor(ft), torch.tensor(rng.integers(0, C + 1, (Rr, F)),
+                                           dtype=torch.int32),
+            torch.tensor(ft + rng.exponential(2.0, (Rr, F))))
+    case = bs_cases.BSCase("c40 drain", trace, sl, int(sl.max()), 8, Jj,
+                           frec, 2 * Jj + 2 * F)
+    _equal(bs_cases.scan(case.to(dev), K), bs_cases.scan_ref(case), "drain")
+
+
+# -- drain-mode kernels (tests/test_torch_failures.py's shapes) --------------
+
+
+def _small_workload(k=32, load=0.8):
+    """``tests/test_failures.py``'s three-class workload."""
+    classes = (workload.JobClass("s", 1, workload.Exp(1.0), 0.7),
+               workload.JobClass("m", 4, workload.Exp(4.0), 0.2),
+               workload.JobClass("l", 8, workload.Exp(8.0), 0.1))
+    return workload.Workload(k=k, lam=1.0, classes=classes).with_load(load)
+
+
+def _fail_case(k, seed=11):
+    """test_torch_failures' ``_kernel_case`` on the port's side."""
+    wl = _small_workload(k)
+    b = wl.sample_traces(300, 2, seed=seed)
+    fb = flr.FailureProcess(30.0, 5.0, 2, "drain").sample(
+        k, float(b.arrival.max()), 2, seed=seed)
+    slots, s_max, h, q_cap = _bs_args(b, None, wl, None)
+    msf = sim_batch._merged_fcfs_inputs(b, fb)
+    msc = sim_batch._merged_class_inputs(b, fb, None, wl)
+    frec = sim_batch._bs_fail_args(b, fb, None, wl)
+    return b, slots, s_max, h, q_cap, msf, msc, frec
+
+
+_DT = (np.float64, np.int32, np.int32, np.float64, np.float64, np.bool_)
+
+
+def _merged(ms):
+    return (ms.t, ms.cls, ms.need, ms.service, ms.t_up, ms.is_fail != 0)
+
+
+def _port_fail(name, case, device="cpu"):
+    b, slots, s_max, h, q_cap, msf, msc, (ft, ftgt, fup, length) = case
+
+    def T(x, dtype=None):
+        return torch.tensor(np.asarray(x, dtype), device=device)
+    sl = T(slots, np.int32)
+    if name == "fcfs":
+        t, _, n, v, tu, isf = (T(x, d) for x, d in zip(_merged(msf), _DT))
+        return (K.fcfs_fail_scan_fwd(t, n, v, tu, isf, k=b.k),)
+    if name == "modbs":
+        m = (T(x, d) for x, d in zip(_merged(msc), _DT))
+        return K.modbs_fail_scan_fwd(*m, sl, s_max=s_max, h=h)
+    return K.bs_fail_scan_fwd(
+        T(b.arrival), T(b.cls, np.int32), T(b.need, np.int32),
+        T(b.service), T(ft), T(ftgt, np.int32), T(fup), sl, s_max=s_max,
+        h=h, q_cap=q_cap, length=length)
+
+
+@pytest.mark.cuda
+def test_cuda_fail_kernels_equal_plain_versions_on_the_card():
+    """Each drain-mode CUDA kernel against its plain version on every raw
+    output, rtol=0."""
+    dev = _dev()
+    for k in (32, 256):
+        case = _fail_case(k)
+        for name in ("fcfs", "modbs", "bs"):
+            ref = _port_fail(name, case)
+            K.reset_launches()
+            out = _port_fail(name, case, dev)
+            assert K.launches()[f"{name}_fail_scan_fwd"] == 1
+            _equal(out, ref, (name, k))
+
+
+# -- srpt_scan and stable_sort (tests/test_torch_srpt.py's shapes) -----------
+
+
+def _srpt_batch(k, load=0.85, seed=3):
+    from repro_torch.data.swf import sdsc_sp2_trace
+
+    trace = sdsc_sp2_trace(J, k=k, load=load, seed=seed)
+    return workload.BatchTrace.from_trace(trace, R, seed=seed)
+
+
+def _srpt_args(b):
+    return (torch.tensor(b.arrival), torch.tensor(b.need, dtype=torch.float64),
+            torch.tensor(b.service),
+            torch.full((b.reps,), float(b.k), dtype=torch.float64))
+
+
+def _burst():
+    """J = 200 jobs in 10 batches of 20 equal arrival times, 8 time units
+    apart, k = 64: up to 58 jobs in the system."""
+    return srpt_cases.burst_case(200, 64, R, batch=20, gap=8.0, seed=0)
+
+
+@pytest.mark.cuda
+def test_cuda_srpt_and_sort_equal_plain_versions_on_the_card():
+    """The CUDA kernels against their plain versions, rtol=0, on SDSC-SP2
+    and KIT-FH2 bootstraps, the burst trace with and without overflow,
+    and Q = 4."""
+    dev = _dev()
+    cases = []
+    for k in (64, 128):
+        b = _srpt_batch(k)
+        cases.append((_srpt_args(b), sim_batch._srpt_nu(b),
+                      sim_torch._srpt_args(b, None)))
+        cases.append(srpt_cases.table_case("kit", J, k, R, seed=3)
+                     + (srpt_cases.slots(J, k),))
+    t, NU = _burst()
+    cases += [(t, NU, 64), (t, NU, 16), (t, NU, 4)]
+    for targs, NU, Q in cases:
+        for sf in (True, False):
+            out = msj_scan.srpt_scan_fwd(*(t.to(dev) for t in targs), Q=Q,
+                                         NU=NU, sf=sf)
+            ref = msj_scan.srpt_scan_fwd(*targs, Q=Q, NU=NU, sf=sf)
+            _equal(out, ref, (Q, NU, sf))
+    rng = np.random.default_rng(5)
+    for W in (24, 3000, 4096):
+        keys = [torch.tensor(rng.choice([-np.inf, np.inf, 0.0, 1.5], (3, W))),
+                torch.tensor(rng.choice([0.0, 1.0], (3, W)))]
+        pay = torch.arange(3 * W, dtype=torch.int32).reshape(3, W)
+        for nk in (1, 2):
+            ops = keys[:nk] + [pay]
+            out = msj_scan.stable_sort_fwd(*(t.to(dev) for t in ops),
+                                           num_keys=nk)
+            ref = msj_scan.stable_sort_fwd(*ops, num_keys=nk)
+            _equal(out, ref, (W, nk))
+
+
+@pytest.mark.cuda
+def test_cuda_srpt_scan_beyond_4096_slots():
+    """Q = 8192: the slot table no longer fits shared memory and lives in
+    global scratch.  One batch of 4200 equal arrivals at k = 4200 puts
+    4200 jobs in the system at once; SF and FF equal the plain version."""
+    dev = _dev()
+    t, NU = srpt_cases.burst_case(4200, 4200, 1, batch=4200, gap=1.0,
+                                  seed=0)
+    for sf in (True, False):
+        out = msj_scan.srpt_scan_fwd(*(x.to(dev) for x in t), Q=8192, NU=NU,
+                                     sf=sf)
+        ref = msj_scan.srpt_scan_fwd(*t, Q=8192, NU=NU, sf=sf)
+        _equal(out, ref, sf)
+        assert int(out[6].max()) > 4096 and not out[3].any()
+
+
+# -- attention (tests/test_torch_attention.py's shapes) ----------------------
+
+
+# CUDA kernel against its plain version, as (atol, rtol): in bfloat16 two
+# units in the last place
+PLAIN_TOLS = {"float32": (2e-5, 2e-5), "bfloat16": (1e-5, 2.0 ** -6)}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+FLASH_SHAPES = [
+    (2, 256, 256, 4, 2, 64, 64, True),
+    (1, 128, 256, 4, 4, 128, 128, False),
+    (2, 256, 256, 6, 3, 64, 32, True),
+    (1, 512, 512, 8, 1, 64, 64, True),     # MQA
+    (1, 128, 128, 4, 2, 80, 80, True),     # stablelm-3b's head dim
+]
+TC_FLASH_SHAPES = [
+    (1, 200, 200, 8, 1, 128, 128, True),
+    (2, 333, 333, 4, 4, 80, 80, True),
+    (1, 100, 250, 8, 1, 64, 64, False),
+    (1, 300, 130, 4, 4, 128, 128, False),
+    (1, 77, 77, 2, 2, 80, 80, True),
+    (1, 130, 130, 16, 2, 128, 64, False),
+    (2, 300, 130, 4, 2, 128, 128, True),       # causal, Sq > Sk
+]
+DECODE_SHAPES = [
+    (2, 1024, 8, 2, 64, 64),
+    (3, 512, 4, 4, 128, 64),
+    (1, 256, 16, 2, 64, 128),
+    (2, 512, 8, 8, 80, 80),                # stablelm-3b's head dim, MHA
+]
+DECODE_CARD_SHAPES = [
+    (4, 2048, 32, 4, 128, 128),
+    (4, 2048, 32, 32, 80, 80),
+    (2, 1000, 64, 8, 128, 128),
+    (3, 777, 16, 2, 80, 80),
+    (1, 300, 16, 16, 128, 128),
+]
+
+
+def _normal(rng, shape, dtype):
+    """test_torch_attention's ``_both`` sample, the torch side."""
+    x = rng.normal(size=shape).astype(np.float32)
+    return torch.tensor(x).to(TDT[dtype])
+
+
+def _close_plain(out, ref, dtype):
+    atol, rtol = PLAIN_TOLS[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.cuda
+def test_cuda_attention_kernels_match_plain_versions_on_the_card(rng):
+    """Each attention CUDA kernel against its plain version on the card, at
+    ``PLAIN_TOLS``; every bf16 flash call takes the tensor-core kernel."""
+    dev = _dev()
+    for dtype in ("float32", "bfloat16"):
+        for B, Sq, Sk, H, Kh, D, Dv, causal in FLASH_SHAPES + TC_FLASH_SHAPES:
+            q, k, v = (_normal(rng, s, dtype).to(dev) for s in (
+                (B, Sq, H, D), (B, Sk, Kh, D), (B, Sk, Kh, Dv)))
+            _close_plain(flash_attention_fwd(q, k, v, causal=causal).cpu(),
+                         flash_attention_ref(q, k, v, causal=causal).cpu(),
+                         dtype)
+            assert flash_attention_fwd.last_route == (
+                "wgmma" if dtype == "bfloat16" else "simt")
+        for B, Sk, H, Kh, D, Dv in DECODE_SHAPES + DECODE_CARD_SHAPES:
+            q, k, v = (_normal(rng, s, dtype).to(dev) for s in (
+                (B, H, D), (B, Sk, Kh, D), (B, Sk, Kh, Dv)))
+            pos = torch.tensor(rng.integers(-1, Sk + 2, size=B),
+                               dtype=torch.int32, device=dev)
+            _close_plain(decode_attention_fwd(q, k, v, pos).cpu(),
+                         decode_attention_ref(q, k, v, pos).cpu(), dtype)
+
+
+# -- gmm (tests/test_torch_moe.py's shapes) ----------------------------------
+
+
+@pytest.mark.cuda
+def test_cuda_gmm_matches_plain_version_on_the_card(rng):
+    """The gmm CUDA kernels against their plain version on the card, ragged
+    shapes and every row tile, junk rows and nvalid == 0 blocks: float32
+    2e-5 + 2e-5 |ref|; bfloat16 1e-5 + 2^-6 |ref|; skipped blocks exactly
+    zero; each call on the route ``_gmm_route`` gives."""
+    dev = _dev()
+    tols = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-5, 2.0 ** -6)}
+    for E, Kd, N, bm in ((8, 64, 128, 16), (8, 200, 70, 32), (4, 96, 136, 64),
+                         (5, 2048, 1408, 128), (3, 33, 7, 48),
+                         (6, 200, 136, 64), (5, 200, 136, 128),
+                         (8, 2048, 1408, 16), (4, 1408, 2048, 32),
+                         (2, 8192, 520, 16), (3, 200, 136, 32),
+                         (2, 24, 8, 16)):
+        nb = 3 * E
+        be = torch.tensor(rng.integers(0, E, nb), dtype=torch.int32)
+        nv = torch.tensor(rng.integers(0, bm + 1, nb) * (
+            rng.random(nb) < 0.7), dtype=torch.int32)
+        nv[0] = 0                                  # one empty block at least
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.tensor(rng.normal(size=(nb * bm, Kd)), dtype=dt)
+            w = torch.tensor(rng.normal(size=(E, Kd, N)) / np.sqrt(Kd),
+                             dtype=dt)
+            args = [t.to(dev) for t in (x, w, be, nv)]
+            out = gmm(*args, block_m=bm)
+            ref = gmm_ref(*args, block_m=bm)
+            torch.cuda.synchronize()
+            atol, rtol = tols[dt]
+            d = (out.float() - ref.float()).abs()
+            assert (d <= atol + rtol * ref.float().abs()).all(), (
+                E, Kd, N, bm, dt, d.max().item())
+            skipped = (nv == 0).to(dev).repeat_interleave(bm)
+            assert (out[skipped] == 0).all()
+            assert gmm.last_route == _gmm_route(dt, bm, Kd, N)
+
+
+# -- mamba_scan (tests/test_torch_mamba.py's shapes) -------------------------
+
+
+SCAN_SHAPES = [(2, 128, 64, 16, 32, 32), (1, 64, 128, 8, 64, 64)]
+
+
+def _scan_inputs(rng, B, S, d_in, N):
+    """tests/test_kernels.py's inputs: a in [0.5, 0.99], b ~ 0.2 N(0, 1),
+    c ~ N(0, 1), float32."""
+    a = rng.uniform(0.5, 0.99, (B, S, d_in, N)).astype(np.float32)
+    b = (rng.normal(size=(B, S, d_in, N)) * 0.2).astype(np.float32)
+    c = rng.normal(size=(B, S, N)).astype(np.float32)
+    return a, b, c
+
+
+def _fused_inputs(rng, B, S, d_in, N):
+    """dt from the model's init range, A = -(1..N), Bm / C / u ~ N(0, 1),
+    and a carried state."""
+    dt = np.exp(rng.uniform(math.log(1e-3), math.log(0.5), (B, S, d_in)))
+    A = -np.tile(np.arange(1, N + 1), (d_in, 1))
+    out = [dt, A, rng.normal(size=(B, S, N)), rng.normal(size=(B, S, d_in)),
+           rng.normal(size=(B, S, N)), rng.normal(size=(B, d_in, N)) * 0.5]
+    return [x.astype(np.float32) for x in out]
+
+
+def _close(port, ref, *, tol, bf16=False):
+    """|port - ref| <= tol + tol |ref| (+ two bfloat16 units)."""
+    p = port.float().numpy()
+    r = np.asarray(ref, np.float32)
+    assert p.shape == r.shape
+    limit = tol + tol * np.abs(r)
+    if bf16:   # two bfloat16 units in the last place of |ref|
+        limit = limit + 2 * np.exp2(np.floor(np.log2(
+            np.maximum(np.abs(r), 1e-30))) - 7)
+    assert (np.abs(p - r) <= limit).all(), float(np.abs(p - r).max())
+
+
+@pytest.mark.cuda
+def test_cuda_mamba_scan_kernels_match_plain_versions_on_the_card(rng):
+    """Both mamba_scan entries against their plain versions on the card,
+    float32 and bfloat16, zero and carried state, ragged lengths and an N
+    below 16, within 1e-4 + 1e-4 |ref|."""
+    dev = _dev()
+    for B, S, d_in, N, chunk, bd in SCAN_SHAPES + [(2, 77, 300, 5, 16, 16)]:
+        a, b, c = (torch.tensor(x, device=dev) for x in
+                   _scan_inputs(rng, B, S, d_in, N))
+        for dt_ in (torch.float32, torch.bfloat16):
+            before = mamba_scan_fwd.launches
+            y = mamba_scan_fwd(a.to(dt_), b.to(dt_), c, chunk=chunk,
+                               block_d=bd)
+            assert mamba_scan_fwd.launches == before + 1
+            ref = mamba_scan_ref(a.to(dt_), b.to(dt_), c)
+            _close(y.cpu(), ref.cpu().float().numpy(), tol=1e-4,
+                   bf16=dt_ == torch.bfloat16)
+        dt, A, Bm, u, C, h0 = (torch.tensor(x, device=dev) for x in
+                               _fused_inputs(rng, B, S, d_in, N))
+        for uu in (u, u.to(torch.bfloat16)):
+            for h in (None, h0):
+                before = mamba_scan_fused.launches
+                y, h_T = mamba_scan_fused(dt, A, Bm, uu, C, h)
+                assert mamba_scan_fused.launches == before + 1
+                ry, rh = mamba_scan_fused_ref(dt, A, Bm, uu, C, h)
+                _close(y.cpu(), ry.cpu().numpy(), tol=1e-4)
+                _close(h_T.cpu(), rh.cpu().numpy(), tol=1e-4)
+
+
+# -- wkv (tests/test_torch_rwkv.py's shapes) ---------------------------------
+
+
+WKV_SHAPES = [(2, 128, 2, 32, 32), (1, 96, 4, 16, 32), (2, 64, 2, 64, 64)]
+WKV_ATOL, WKV_RTOL = 5e-4, 1e-3
+
+
+def _wkv_inputs(rng, B, S, H, N):
+    """test_kernels.py's inputs as numpy float32, plus a carried state."""
+    r = rng.normal(size=(B, S, H, N))
+    k = rng.normal(size=(B, S, H, N)) * 0.3
+    v = rng.normal(size=(B, S, H, N))
+    logw = -rng.uniform(0.01, 1.0, (B, S, H, N))
+    u = rng.normal(size=(H, N)) * 0.1
+    out = [a.astype(np.float32) for a in (r, k, v, logw, u)]
+    out.append((rng.normal(size=(B, H, N, N)) * 0.5).astype(np.float32))
+    return out
+
+
+def _wkv_close(port, ref, *, bf16=False):
+    p = port.float().numpy()
+    r = np.asarray(ref, np.float32)
+    assert p.shape == r.shape
+    limit = WKV_ATOL + WKV_RTOL * np.abs(r)
+    if bf16:   # two bfloat16 units in the last place of |ref|
+        limit = limit + 2 * np.exp2(np.floor(np.log2(
+            np.maximum(np.abs(r), 1e-30))) - 7)
+    assert (np.abs(p - r) <= limit).all(), float(np.abs(p - r).max())
+
+
+@pytest.mark.cuda
+def test_cuda_wkv_kernel_matches_plain_version_on_the_card(rng):
+    """The wkv CUDA kernel against its plain version on the card, zero and
+    carried state, a ragged S, float32 and bfloat16 r / k / v."""
+    dev = _dev()
+    for B, S, H, N, chunk in WKV_SHAPES + [(1, 100, 2, 64, 64)]:
+        r, k, v, logw, u, s0 = (torch.tensor(a, device=dev) for a in
+                                _wkv_inputs(rng, B, S, H, N))
+        for dt in (torch.float32, torch.bfloat16):
+            rr, kk, vv = (a.to(dt) for a in (r, k, v))
+            for s in (None, s0):
+                before = wkv_fwd.launches
+                y, s_T = wkv_fwd(rr, kk, vv, logw, u, s, chunk=chunk)
+                assert wkv_fwd.launches == before + 1
+                ry, rs = wkv_chunked_ref(rr, kk, vv, logw, u, s,
+                                         chunk=chunk)
+                _wkv_close(y.cpu(), ry.cpu().float().numpy(),
+                           bf16=dt == torch.bfloat16)
+                _wkv_close(s_T.cpu(), rs.cpu().numpy())

@@ -12,7 +12,7 @@ field by field, ``kills``/``requeues``/``availability`` included.  The
 reference's ``jax-shard`` engine is left out: on JAX 0.9 its drain-mode
 BS-π fails its shard_map scan's carry-type check (ROADMAP Queue 3, R4).
 The CUDA kernels are held to the same plain versions on the card by
-``chip_smoke.py`` and by the card-only test at the end of this file.
+``chip_smoke.py`` and by ``tests/test_torch_card.py``.
 """
 
 import dataclasses
@@ -494,20 +494,23 @@ def test_sweep_with_failures_equals_reference(grid, form):
     assert clean.availability is None
 
 
-@pytest.mark.cuda
-def test_cuda_fail_kernels_equal_plain_versions_on_the_card():
-    """Card only: each drain-mode CUDA kernel against its plain version on
-    every raw output, rtol=0."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
-    dev = torch.device("cuda", 0)
-    for k in (32, 256):
-        case = _kernel_case(k)
-        for name in ("fcfs", "modbs", "bs"):
-            ref = _port_fail(name, case)
-            K.reset_launches()
-            out = _port_fail(name, case, dev)
-            assert K.launches()[f"{name}_fail_scan_fwd"] == 1
-            for o, r in zip(out, ref):
-                assert torch.equal(o.cpu(), r), (name, k)
+@pytest.mark.parametrize("mix", ["heavy", "bench"])
+def test_plain_bs_fail_scan_equals_reference_on_drain_cases(mix):
+    """The plain drain-mode BS-π scan against the reference's scan core on
+    ``bench.bs_cases``' drain cases (the heavier mix: class drains on free
+    slots, pods of 4), every raw output and trailing no-op step, rtol=0."""
+    from repro_torch.bench import bs_cases
 
+    case = bs_cases.drain_case(256, 240, 2, 4, mix=mix)
+    out = [o.numpy() for o in bs_cases.scan_ref(case)]
+    args = [x.numpy() for x in case.trace + case.frec]
+    dts = (jnp.float64, jnp.int32, jnp.int32, jnp.float64, jnp.float64,
+           jnp.int32, jnp.float64)
+    with x64():
+        ref = ref_sim_batch._bs_fail_scan_batch(
+            *(jnp.asarray(x, d) for x, d in zip(args, dts)),
+            jnp.asarray(case.slots.numpy(), jnp.int32), case.s_max, case.h,
+            case.q_cap, case.length)
+        ref = [np.asarray(r) for r in ref]
+    assert_arrays_equal(out, ref)
+    assert case.length > 2 * case.J

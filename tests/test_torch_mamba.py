@@ -28,8 +28,8 @@ a seed, go to both packages.  Tolerances, stated with their reasons:
 The whole hybrid model is held to the reference in
 ``tests/test_torch_models.py`` and the serving engine in
 ``tests/test_torch_serve.py``.  The CUDA kernel is held to the same plain
-versions on the card by ``chip_smoke.py`` and by the card-only test at the
-end of this file.
+versions on the card by ``chip_smoke.py`` and by
+``tests/test_torch_card.py``.
 """
 
 import dataclasses
@@ -440,39 +440,3 @@ def test_jamba_cut_counts_from_the_defs():
     assert active_param_count(cut) == n - 4 * 6 * inactive_expert
     assert kv_cache.chips_needed(cut, 1, 8192) == 8
     assert cut.reduced().moe.experts_held == 4
-
-
-# --------------------------------------------------------------------------
-# On the card
-# --------------------------------------------------------------------------
-
-
-@pytest.mark.cuda
-def test_cuda_mamba_scan_kernels_match_plain_versions_on_the_card(rng):
-    """Card only: both CUDA entries against their plain versions on the
-    card, float32 and bfloat16, zero and carried state, ragged lengths and
-    an N below 16."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
-    dev = torch.device("cuda", 0)
-    for B, S, d_in, N, chunk, bd in SCAN_SHAPES + [(2, 77, 300, 5, 16, 16)]:
-        a, b, c = (torch.tensor(x, device=dev) for x in
-                   _scan_inputs(rng, B, S, d_in, N))
-        for dt_ in (torch.float32, torch.bfloat16):
-            before = mamba_scan_fwd.launches
-            y = mamba_scan_fwd(a.to(dt_), b.to(dt_), c, chunk=chunk,
-                               block_d=bd)
-            assert mamba_scan_fwd.launches == before + 1
-            ref = mamba_scan_ref(a.to(dt_), b.to(dt_), c)
-            _close(y.cpu(), ref.cpu().float().numpy(),
-                   bf16=dt_ == torch.bfloat16)
-        dt, A, Bm, u, C, h0 = (torch.tensor(x, device=dev) for x in
-                               _fused_inputs(rng, B, S, d_in, N, state=True))
-        for uu in (u, u.to(torch.bfloat16)):
-            for h in (None, h0):
-                before = mamba_scan_fused.launches
-                y, h_T = mamba_scan_fused(dt, A, Bm, uu, C, h)
-                assert mamba_scan_fused.launches == before + 1
-                ry, rh = mamba_scan_fused_ref(dt, A, Bm, uu, C, h)
-                _close(y.cpu(), ry.cpu().numpy())
-                _close(h_T.cpu(), rh.cpu().numpy())

@@ -28,8 +28,8 @@ in float32, splits added in order) against ``gmm_ref``.
 The whole model (moonshot reduced) is held to the reference in
 ``tests/test_torch_models.py`` and the serving engine in
 ``tests/test_torch_serve.py``.  The CUDA kernel is held to the same plain
-version on the card by ``chip_smoke.py`` and by the card-only test at the
-end of this file.
+version on the card by ``chip_smoke.py`` and by
+``tests/test_torch_card.py``.
 """
 
 import dataclasses
@@ -360,42 +360,3 @@ def test_mma_route_sums_keep_the_bf16_limit(K, N, nvb, rng):
                   torch.ones(1, dtype=torch.int32), block_m=16).float()
     torch.testing.assert_close(total.to(torch.bfloat16).float(), ref,
                                atol=1e-5, rtol=2.0 ** -6)
-
-
-@pytest.mark.cuda
-def test_cuda_gmm_matches_plain_version_on_the_card(rng):
-    """Card only: the CUDA kernels against their plain version on the card,
-    ragged shapes and every row tile included (the tensor-core kernel's
-    ragged last K tile and N tile at K 200, N 136 too), with junk rows and
-    nvalid == 0 blocks: float32 2e-5 + 2e-5 |ref|; bfloat16 two units in
-    the last place (1e-5 + 2^-6 |ref|); skipped blocks exactly zero; each
-    call on the route ``_gmm_route`` gives."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
-    dev = torch.device("cuda", 0)
-    tols = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-5, 2.0 ** -6)}
-    for E, K, N, bm in ((8, 64, 128, 16), (8, 200, 70, 32), (4, 96, 136, 64),
-                        (5, 2048, 1408, 128), (3, 33, 7, 48),
-                        (6, 200, 136, 64), (5, 200, 136, 128),
-                        (8, 2048, 1408, 16), (4, 1408, 2048, 32),
-                        (2, 8192, 520, 16), (3, 200, 136, 32), (2, 24, 8, 16)):
-        nb = 3 * E
-        be = torch.tensor(rng.integers(0, E, nb), dtype=torch.int32)
-        nv = torch.tensor(rng.integers(0, bm + 1, nb) * (
-            rng.random(nb) < 0.7), dtype=torch.int32)
-        nv[0] = 0                                  # one empty block at least
-        for dt in (torch.float32, torch.bfloat16):
-            x = torch.tensor(rng.normal(size=(nb * bm, K)), dtype=dt)
-            w = torch.tensor(rng.normal(size=(E, K, N)) / np.sqrt(K),
-                             dtype=dt)
-            args = [t.to(dev) for t in (x, w, be, nv)]
-            out = gmm(*args, block_m=bm)
-            ref = gmm_ref(*args, block_m=bm)
-            torch.cuda.synchronize()
-            atol, rtol = tols[dt]
-            d = (out.float() - ref.float()).abs()
-            assert (d <= atol + rtol * ref.float().abs()).all(), (
-                E, K, N, bm, dt, d.max().item())
-            skipped = (nv == 0).to(dev).repeat_interleave(bm)
-            assert (out[skipped] == 0).all()
-            assert gmm.last_route == _gmm_route(dt, bm, K, N)

@@ -6,7 +6,7 @@ raw outputs (BS: the full tagged/rec_t event streams and the overflow
 flags), both the reference's Pallas kernel run in interpret mode and the
 reference's ``*_scan_ref`` scan core — rtol=0.  The CUDA kernels
 themselves are held to the same plain versions on the card by
-``chip_smoke.py`` and by the card-only test at the end of this file.
+``chip_smoke.py`` and by ``tests/test_torch_card.py``.
 """
 
 import numpy as np
@@ -20,6 +20,7 @@ from repro.core import sim_jax
 from repro.kernels.msj_scan import kernel as ref_kernel
 from repro.kernels.msj_scan import ref as ref_ref
 
+from repro_torch.bench import bs_cases
 from repro_torch.kernels import msj_scan
 from repro_torch.kernels.msj_scan import kernel as K
 
@@ -169,18 +170,71 @@ def test_wrappers_check_inputs_and_count_only_kernel_launches():
         msj_scan.fcfs_scan_fwd(a[0], n[0], v[0], k=32)
 
 
-@pytest.mark.cuda
-def test_cuda_kernels_equal_plain_versions_on_the_card():
-    """Card only: each CUDA kernel against its plain version, rtol=0."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
-    dev = torch.device("cuda", 0)
-    for k in (32, 256):
-        b, slots, s_max, h, q_cap = _case(k)
-        targs = _torch_args(b, slots)
-        gargs = tuple(t.to(dev) for t in targs)
-        for name in ("fcfs", "modbs", "bs"):
-            out = _port(name, gargs, k, s_max, h, q_cap)
-            ref = _port(name, targs, k, s_max, h, q_cap)
-            for o, r in zip(out, ref):
-                assert torch.equal(o.cpu(), r), (name, k)
+
+# -- the adversarial BS-pi cases (repro_torch.bench.bs_cases) ----------------
+
+
+ADV_CLEAN = sorted(n for n in bs_cases.ADVERSARIAL if n != "drain_heavy")
+
+
+@pytest.mark.parametrize("name", ADV_CLEAN)
+def test_plain_bs_scan_equals_reference_on_adversarial_cases(name):
+    """The plain BS-π scan against the reference's scan core on the cases
+    chip_smoke and the card tests hold the kernel to: rings that wrap and
+    overflow, KIT-FH2's long helper queues, tied events, SDSC-SP2's seven
+    classes — every raw output, rtol=0."""
+    case = bs_cases.ADVERSARIAL[name](240, 2, 4)
+    out = bs_cases.scan_ref(case)
+    a, c, n, v = (x.numpy() for x in case.trace)
+    with x64():
+        ref = ref_ref.bs_scan_ref(
+            jnp.asarray(a, jnp.float64), jnp.asarray(c, jnp.int32),
+            jnp.asarray(n, jnp.int32), jnp.asarray(v, jnp.float64),
+            slots=jnp.asarray(case.slots.numpy(), jnp.int32),
+            s_max=case.s_max, h=case.h, q_cap=case.q_cap)
+        _assert_equal(out, ref)
+    if name == "wrap":       # one replication overflows, one does not
+        assert out[2].any() and not out[2].all()
+    if name == "ties":       # many events share their time
+        t = out[1].numpy()
+        assert (np.diff(np.sort(t[out[0].numpy() >= 0])) == 0).sum() > 100
+
+
+@pytest.mark.parametrize("name", sorted(bs_cases.ADVERSARIAL))
+def test_bs_free_slots_are_exactly_the_big_entries(name):
+    """The invariant the CUDA kernel's free-slot masks rest on, checked
+    after every step of the plain scan, both modes: in each class row the
+    entries at BIG are exactly the free slots below ``slots[c]`` (their
+    count is the free counter) plus the padding above, every busy entry is
+    below BIG, so the row's first maximum — the reference's argmax — is
+    the first free slot whenever one exists."""
+    from repro_torch.core import sim_torch
+
+    case = bs_cases.ADVERSARIAL[name](240, 2, 4)
+    a, c, n, v = case.trace
+    c, n = c.long(), n.long()
+    slots = case.slots.long()
+    C, s_max = slots.numel(), case.s_max
+    s = sim_torch._bs_init(case.R, case.J, C, s_max, case.h, case.q_cap,
+                           case.slots)
+    if case.frec is not None:
+        s["fi"] = torch.zeros(case.R, dtype=torch.int64)
+        ft, ftgt, fup = case.frec
+    pad = torch.arange(s_max)[None, :] >= slots[:, None]          # [C, s]
+    checked = 0
+    for _ in range(case.steps):
+        if case.frec is None:
+            sim_torch._bs_step(s, a, v, c, n, C, s_max, case.h, case.q_cap)
+        else:
+            sim_torch._bs_fail_step(s, a, v, c, n, ft, ftgt.long(), fup, C,
+                                    s_max, case.h, case.q_cap)
+        rows = s["comp"][:, :C * s_max].reshape(case.R, C, s_max)
+        big = rows == sim_torch._BIG
+        assert (rows <= sim_torch._BIG).all()
+        assert big[:, pad].all()
+        assert torch.equal((big & ~pad).sum(2), s["st"][:, :C])
+        has_free = s["st"][:, :C] > 0
+        first_free = big.long().argmax(2)
+        assert torch.equal(rows.argmax(2)[has_free], first_free[has_free])
+        checked += int(has_free.sum())
+    assert checked > 0

@@ -26,7 +26,7 @@ both packages.
 The whole model is held to the reference in ``tests/test_torch_models.py``
 and the serving engine in ``tests/test_torch_serve.py``.  The CUDA kernel
 is held to the same plain version on the card by ``chip_smoke.py`` and by
-the card-only test at the end of this file.
+``tests/test_torch_card.py``.
 """
 
 import dataclasses
@@ -46,7 +46,7 @@ from repro.models import model as ref_model
 from repro.models import rwkv as ref_rwkv
 
 from repro_torch.configs import get_config
-from repro_torch.kernels.rwkv6 import wkv_chunked_ref, wkv_fwd, wkv_ref
+from repro_torch.kernels.rwkv6 import wkv_fwd, wkv_ref
 from repro_torch.models import rwkv
 from repro_torch.models.convert import params_from_jax
 
@@ -285,26 +285,3 @@ def test_rwkv_decay_init_range():
     assert abs(a.mean().item() + 6.0) < 0.05
     b = init_params(d, torch.Generator().manual_seed(0))
     assert torch.equal(a, b)
-
-
-@pytest.mark.cuda
-def test_cuda_wkv_kernel_matches_plain_version_on_the_card(rng):
-    """Card only: the CUDA kernel against its plain version on the card,
-    zero and carried state, a ragged S, float32 and bfloat16 r / k / v."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
-    dev = torch.device("cuda", 0)
-    for B, S, H, N, chunk in WKV_SHAPES + [(1, 100, 2, 64, 64)]:
-        r, k, v, logw, u, s0 = (torch.tensor(a, device=dev) for a in
-                                _wkv_inputs(rng, B, S, H, N, state=True))
-        for dt in (torch.float32, torch.bfloat16):
-            rr, kk, vv = (a.to(dt) for a in (r, k, v))
-            for s in (None, s0):
-                before = wkv_fwd.launches
-                y, s_T = wkv_fwd(rr, kk, vv, logw, u, s, chunk=chunk)
-                assert wkv_fwd.launches == before + 1
-                ry, rs = wkv_chunked_ref(rr, kk, vv, logw, u, s,
-                                         chunk=chunk)
-                _close(y.cpu(), ry.cpu().float().numpy(),
-                       bf16=dt == torch.bfloat16)
-                _close(s_T.cpu(), rs.cpu().numpy())

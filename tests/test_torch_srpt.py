@@ -13,8 +13,8 @@ reference's ``jax``, ``pallas`` and ``python`` engines' results,
 ``preemptions`` included.  The interpret-mode kernel is slow at the
 default slot-table width, so the kernel-level cases pass a small
 ``queue_cap`` (the peak in-system count of these traces stays below it).
-The CUDA kernels are held to the same plain versions by the card-only
-test at the end and by ``chip_smoke.py``.
+The CUDA kernels are held to the same plain versions by
+``tests/test_torch_card.py`` and by ``chip_smoke.py``.
 """
 
 import functools
@@ -289,43 +289,3 @@ def test_stable_sort_corner_cases(Q):
                 np.resize([np.inf, -np.inf, 0.0], Q)):
         _sort_both((key[None],), pay, 1)
         _sort_both((key[None], np.resize([1.0, 0.0], Q)[None]), pay, 2)
-
-
-@pytest.mark.cuda
-def test_cuda_srpt_and_sort_equal_plain_versions_on_the_card():
-    """Card only: the CUDA kernels against their plain versions, rtol=0,
-    on SDSC-SP2 and KIT-FH2 bootstraps, the burst trace with and without
-    overflow, and Q = 4.  This file imports JAX, which the card machine
-    lacks; there ``chip_smoke.py`` holds the same cases (and the Fig. 3
-    widths) to the plain versions."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
-    dev = torch.device("cuda", 0)
-    cases = []
-    for k in (64, 128):
-        b = _batch(k)
-        cases.append((_torch_args(b), sim_batch._srpt_nu(b),
-                      sim_torch._srpt_args(b, None)))
-        cases.append(srpt_cases.table_case("kit", J, k, R, seed=3)
-                     + (srpt_cases.slots(J, k),))
-    t, NU = _burst()
-    cases += [(t, NU, 64), (t, NU, 16), (t, NU, 4)]
-    for targs, NU, Q in cases:
-        for sf in (True, False):
-            out = msj_scan.srpt_scan_fwd(*(t.to(dev) for t in targs), Q=Q,
-                                         NU=NU, sf=sf)
-            ref = msj_scan.srpt_scan_fwd(*targs, Q=Q, NU=NU, sf=sf)
-            for o, r in zip(out, ref):
-                assert torch.equal(o.cpu(), r), (Q, NU, sf)
-    rng = np.random.default_rng(5)
-    for W in (24, 3000, 4096):
-        keys = [torch.tensor(rng.choice([-np.inf, np.inf, 0.0, 1.5], (3, W))),
-                torch.tensor(rng.choice([0.0, 1.0], (3, W)))]
-        pay = torch.arange(3 * W, dtype=torch.int32).reshape(3, W)
-        for nk in (1, 2):
-            ops = keys[:nk] + [pay]
-            out = msj_scan.stable_sort_fwd(*(t.to(dev) for t in ops),
-                                           num_keys=nk)
-            ref = msj_scan.stable_sort_fwd(*ops, num_keys=nk)
-            for o, r in zip(out, ref):
-                assert torch.equal(o.cpu(), r), (W, nk)
