@@ -247,6 +247,24 @@ read on a step's chain; ``srpt_scan`` past 4096 slots) adds:
    (``python -m repro_torch.bench.bs_bench --parent DIR --phases`` times
    another checkout's BS kernel beside this one and splits a step.)
 
+The FCFS / ModBS-π redesign slice (``fcfs_scan``, ``modbs_scan`` and
+their drain variants on one warp per replication, the run-length
+free-time state and kept class-row minima) adds:
+
+2. the four kernels on every case of
+   ``repro_torch.bench.fm_cases.ADVERSARIAL`` (J = 2000, R = 4: ties on
+   the 1/4 grid, zero services, jobs needing all k servers, k in {1, 7,
+   33, 1000}, need-1 jobs whose distinct completions make one group a
+   server, class rows wider than 32, classes with no slots, a helper of
+   one server, drain rows whose t_up lies below W[0], between and above
+   the last start, padding rows, KIT-FH2 at k = 512 and the heavier drain
+   mix), each ``torch.equal`` to its plain version on the CPU on every
+   raw output, with the kernel's time per step;
+4. ``fcfs_scan`` and ``modbs_scan`` timed at every Fig. 1 k (256, 1024
+   and 2048), µs per step.  (``python -m repro_torch.bench.fm_bench
+   --parent DIR --phases`` times another checkout's kernels beside these
+   and splits a step.)
+
 Then it prints the card's name and power limit, one ``{"kernels": [...]}``
 line and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the repository around it, it exits non-zero and prints no
@@ -303,6 +321,8 @@ DRAIN_CMP_J = 2000
 # BS-pi's adversarial cases (bench/bs_cases.ADVERSARIAL): J and R of the
 # comparison with the plain version on the CPU
 BS_ADV_J, BS_ADV_R = 2000, 4
+# the FCFS / ModBS-pi adversarial cases (bench/fm_cases.ADVERSARIAL), the same
+FM_ADV_J, FM_ADV_R = 2000, 4
 
 
 def fail(msg: str) -> None:
@@ -1888,7 +1908,7 @@ def main() -> int:
               "False)", file=sys.stderr)
         return 2
 
-    from repro_torch.bench import bs_cases, fig3_traces, srpt_cases
+    from repro_torch.bench import bs_cases, fig3_traces, fm_cases, srpt_cases
     from repro_torch.core import engines, sim_torch
     from repro_torch.core.sim_batch import (_bs_fail_args,
                                             _merged_class_inputs,
@@ -2286,6 +2306,40 @@ def main() -> int:
                                           max_err(out, ref))
     print(f"[kernel] BS adversarial cases took {time.time() - t_phase:.1f} s")
 
+    # -- 2e. FCFS and ModBS-pi on the adversarial cases (bench/fm_cases.py) -
+    t_phase = time.time()
+    for name, make_case in fm_cases.ADVERSARIAL.items():
+        case = make_case(FM_ADV_J, FM_ADV_R, 1)
+        gcase = case.to(dev)
+        for kind in ("fcfs", "modbs"):
+            kern = f"{kind}_fail_scan" if case.drain else f"{kind}_scan"
+            out = fm_cases.scan(gcase, kind, K)
+            torch.cuda.synchronize()
+            t1 = time.time()
+            ref = fm_cases.scan_ref(case, kind)          # on the CPU
+            plain_ms = (time.time() - t1) * 1e3
+            for o, r in zip(out, ref):
+                if not torch.equal(o.cpu(), r):
+                    fail(f"{kern} on the {name} case (R={case.R} "
+                         f"steps={case.steps(kind)}) differs from its plain "
+                         f"version")
+            ms = cuda_ms(lambda: fm_cases.scan(gcase, kind, K), 3)
+            err = max_err(out, ref)
+            print(f"[kernel] {kern} {name}: k={case.k} C="
+                  f"{case.slots.numel()} slots={case.slots.tolist()} s_max="
+                  f"{case.s_max} h={case.h} R={case.R} steps="
+                  f"{case.steps(kind)}: every raw output equal at tolerance "
+                  f"0 (torch.equal) to the plain version on CPU, kernel "
+                  f"{ms:.3f} ms ({ms * 1e3 / case.steps(kind):.4f} us per "
+                  f"step), plain on CPU {plain_ms:.1f} ms")
+            report[kern].setdefault("adversarial", []).append(dict(
+                case=name, ms=ms, plain_cpu_ms=plain_ms,
+                steps=case.steps(kind), err=err))
+            report[kern]["max_abs_err"] = max(report[kern]["max_abs_err"],
+                                              err)
+    print(f"[kernel] FCFS / ModBS adversarial cases took "
+          f"{time.time() - t_phase:.1f} s")
+
     # -- 3. the main path -------------------------------------------------
     K.reset_launches()
     t0 = time.time()
@@ -2445,6 +2499,15 @@ def main() -> int:
           f"BatchSimResult field, availability included")
 
     # -- 4. kernel times at the main path's largest shape -----------------
+    for k in MAIN_KS[:-1]:            # and FCFS / ModBS at the other ks
+        t, p = inputs(k, MAIN_J, seed=0)
+        for name, (kern, _) in calls(t, p).items():
+            if name == "bs_scan":
+                continue
+            ms = cuda_ms(kern, 2)
+            print(f"[time] {name} k={k} R={REPS} J={MAIN_J}: {ms:.3f} ms per "
+                  f"launch ({ms * 1e3 / MAIN_J:.4f} us per step)")
+            report[name][f"main_ms_k{k}"] = ms
     t, p = inputs(MAIN_KS[-1], MAIN_J, seed=0)
     for name, (kern, _) in calls(t, p).items():
         ms = cuda_ms(kern, 2)

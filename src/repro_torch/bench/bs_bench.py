@@ -39,20 +39,20 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
-import subprocess
 import sys
-import time
 from pathlib import Path
 
 import numpy as np
 
 if __package__:
-    from .timing import device_ms, insert_at
+    from . import ab
+    from .timing import device_ms
 else:
     # a worker, run by path with another tree's package on PYTHONPATH: the
-    # timer is this tree's, from this file's directory (first on sys.path)
-    from timing import device_ms, insert_at
+    # shared pieces are this tree's, from this file's directory (first on
+    # sys.path)
+    import ab
+    from timing import device_ms
 
 TIMED = (  # name, kind, k, J, R
     ("fig1", "fig1", 2048, 100_000, 16),
@@ -62,7 +62,6 @@ TIMED = (  # name, kind, k, J, R
 )
 ADV_J, ADV_R = 3000, 4
 SEED, REPS = 0, 3
-MAX_R = 1024   # replications the stamped copy keeps counters for
 
 # Each kernel version's phases of a step and the lines that end them:
 # (line of csrc/msj_scan.cu, phase that ends there, stamp before the
@@ -72,11 +71,11 @@ MAX_R = 1024   # replications the stamped copy keeps counters for
 # per event type after the decision (a phase is charged only on the steps
 # that run it; "drain" also holds the exits from the branches).
 STAMPS = {
-    "global-reads": dict(
+    "global-reads": {"bs_scan_kernel": dict(
         phases=("decide", "arrival", "comp write", "helper commit",
                 "counters, heads and ring", "record write"),
         init="  bool ovf = false;\n  __syncwarp();\n",
-        done="  if (lane == 0) ovf_out[blockIdx.x] = ovf;\n",
+        done=("  if (lane == 0) ovf_out[blockIdx.x] = ovf;\n", False),
         lines=(
             ("    if constexpr (kDrain) is_arr = is_arr && ai < J;\n", 0,
              False),
@@ -88,12 +87,12 @@ STAMPS = {
             ("      tagged[e] = is_commit ? jh + 2 * J\n", 4, True),
             ("      rec_t[e] = is_commit ? Th : t_ins;\n    }\n"
              "    __syncwarp();\n", 5, False),
-        )),
-    "branches": dict(
+        ))},
+    "branches": {"bs_scan_kernel": dict(
         phases=("decide", "arrival", "completion", "helper commit", "drain",
                 "record write"),
         init="  bool ovf = false;\n  __syncwarp();\n",
-        done="  if (lane == 0) ovf_out[blockIdx.x] = ovf;\n",
+        done=("  if (lane == 0) ovf_out[blockIdx.x] = ovf;\n", False),
         lines=(
             ("    // -- arrival (rule 1): a free A_i slot starts the job, else "
              "it enqueues\n", 0, True),
@@ -106,50 +105,8 @@ STAMPS = {
             ("    // -- record: lane e % 32 keeps step e's, stored 32 steps at "
              "a time\n", 4, True),
             ("  }\n  if (lane == 0) ovf_out[blockIdx.x] = ovf;\n", 5, True),
-        )),
+        ))},
 }
-
-
-def stamp_version(src: str) -> str:
-    """The ``STAMPS`` version whose lines all appear in ``src``; raises
-    ``RuntimeError`` when none does (a stamped line moved)."""
-    for version, table in STAMPS.items():
-        if table["init"] in src and all(line in src
-                                        for line, _, _ in table["lines"]):
-            return version
-    raise RuntimeError("no STAMPS table matches this csrc/msj_scan.cu: a "
-                       "stamped line moved")
-
-
-def stamped_source(src: str, version: str) -> str:
-    """``src`` (a ``csrc/msj_scan.cu``) with each replication's SM cycles
-    per phase of the BS step (``STAMPS[version]``) summed in registers and
-    written to ``g_cyc`` [MAX_R, phases] at the end; ``stamps_read``
-    copies them out."""
-    table, name = STAMPS[version], "msj_scan.cu"
-    n = len(table["phases"])
-    src = insert_at(src, "namespace {\n",
-                    f"__device__ unsigned long long g_cyc[{MAX_R}][{n}];\n",
-                    source=name)
-    src = insert_at(src, table["init"],
-                    f"  unsigned long long cyc_[{n}] = {{}};\n"
-                    "  long long last_ = clock64();\n", source=name)
-    start = src.find(table["init"])
-    for line, ph, before in table["lines"]:
-        src = insert_at(src, line, (
-            "    {\n      const long long now_ = clock64();\n"
-            f"      cyc_[{ph}] += (unsigned long long)(now_ - last_);\n"
-            "      last_ = now_;\n    }\n"), before=before, start=start,
-            source=name)
-    src = insert_at(src, table["done"],
-                    f"  if (lane == 0 && blockIdx.x < {MAX_R})\n"
-                    f"    for (int i = 0; i < {n}; ++i) "
-                    "g_cyc[blockIdx.x][i] = cyc_[i];\n", start=start,
-                    source=name)
-    return insert_at(src, 'extern "C" {\n', (
-        "int stamps_read(void* c) {\n"
-        "  return (int)cudaMemcpyFromSymbol(c, g_cyc, sizeof(g_cyc));\n}\n"),
-        source=name)
 
 
 def make_cases(path: Path) -> None:
@@ -210,80 +167,13 @@ def host_split(device) -> dict:
     k = 2048, J = 100 000, R = 16, split at synchronised boundaries into
     trace upload, kernel, download and numpy assembly (the rest: the
     partition and validation)."""
-    import torch
-
-    from repro_torch.core import engines
     from repro_torch.core.workload import figure1_workload
-    from repro_torch.kernels.msj_scan import ops
 
     wl = figure1_workload(2048)
     batch = wl.sample_traces(100_000, 16, seed=SEED)
-    parts = dict(upload=0.0, kernel=0.0, download=0.0, assembly=0.0)
-    saved = {n: getattr(ops, n) for n in ("_class_inputs", "bs_scan_fwd",
-                                          "_host", "_bs_result")}
-
-    def timed(part, fn):
-        def run(*a, **kw):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*a, **kw)
-            torch.cuda.synchronize()
-            parts[part] += time.perf_counter() - t0
-            return out
-        return run
-
-    for n, part in (("_class_inputs", "upload"), ("bs_scan_fwd", "kernel"),
-                    ("_host", "download"), ("_bs_result", "assembly")):
-        setattr(ops, n, timed(part, saved[n]))
-    try:
-        engines.simulate("bs-fcfs", batch, wl=wl, device=device)  # warm-up
-        torch.cuda.synchronize()
-        for p in parts:
-            parts[p] = 0.0
-        t0 = time.perf_counter()
-        engines.simulate("bs-fcfs", batch, wl=wl, device=device)
-        torch.cuda.synchronize()
-        parts["total"] = time.perf_counter() - t0
-    finally:
-        for n, fn in saved.items():
-            setattr(ops, n, fn)
-    parts["other"] = parts["total"] - sum(
-        parts[p] for p in ("upload", "kernel", "download", "assembly"))
-    return parts
-
-
-def paths_sim_s(device) -> dict:
-    """Summed bs-fcfs ``sim_s`` of the Fig. 1 sweep (k 256, 1024, 2048,
-    J = 100 000, R = 16), of ``fig3_traces.run()`` and of the drain sweep
-    (k 256, 1024 under bench_failures' outages), as chip_smoke runs them,
-    and the Fig. 1 sweep's wall time."""
-    import torch
-
-    from repro_torch.bench import fig3_traces
-    from repro_torch.core.failures import FailureProcess
-    from repro_torch.core.sim_batch import sweep_many_server
-    from repro_torch.core.workload import figure1_workload
-
-    def bench_failures(wl, batch, seed=0):
-        h0 = float(batch.arrival.max())
-        return FailureProcess(mtbf=h0 / 4, mttr=h0 / 400).sample(
-            wl.k, h0, batch.reps, seed=seed)
-
-    out = {}
-    t0 = time.perf_counter()
-    sw = sweep_many_server(figure1_workload, (256, 1024, 2048),
-                           num_jobs=100_000, reps=16, policies=("bs-fcfs",),
-                           device=device)
-    torch.cuda.synchronize()
-    out["fig1_wall_s"] = time.perf_counter() - t0
-    out["fig1_sim_s"] = [float(x) for x in sw.sim_s[0]]
-    rows = fig3_traces.run(policies=("bs-fcfs",), device=device)
-    out["fig3_sim_s"] = float(sum(r["sim_s"] for r in rows))
-    swf = sweep_many_server(figure1_workload, (256, 1024), num_jobs=100_000,
-                            reps=16, policies=("bs-fcfs",), device=device,
-                            failures=bench_failures)
-    out["drain_sim_s"] = [float(x) for x in swf.sim_s[0]]
-    return out
+    return ab.host_split("bs-fcfs", batch, wl, device, {
+        "_class_inputs": "upload", "bs_scan_fwd": "kernel",
+        "_host": "download", "_bs_result": "assembly"})
 
 
 def worker(cases: Path, out: Path) -> dict:
@@ -307,62 +197,28 @@ def worker(cases: Path, out: Path) -> dict:
             res[name] = device_ms(call, REPS)
     np.savez(out, **outs)
     res["host_split"] = host_split(dev)
-    res.update(paths_sim_s(dev))
+    res.update(ab.paths_sim_s(("bs-fcfs",), dev)["bs-fcfs"])
     return res
 
 
 def phases(cases: Path) -> dict:
     """SM cycles per step of each phase, from a stamped copy of the
     importable tree's kernel (the ``STAMPS`` table its source matches)."""
-    import ctypes
-
     import torch
 
-    from repro_torch.kernels._build import Library, build_dir
-    from repro_torch.kernels.msj_scan import build
     from repro_torch.kernels.msj_scan import kernel as K
 
-    out = build_dir() / "bs_bench"
-    out.mkdir(parents=True, exist_ok=True)
-    src = Path(build.SOURCES[0]).read_text()
-    version = stamp_version(src)
-    (out / "msj_scan_stamped.cu").write_text(stamped_source(src, version))
-    stamped = Library("msj_scan_bs_stamped",
-                      (out / "msj_scan_stamped.cu", *build.SOURCES[1:]),
-                      build.NVCC_FLAGS,
-                      {**build.LIBRARY.sigs, "stamps_read": [ctypes.c_void_p]},
-                      error_fn="msj_error_string")
-    lib, plain = stamped.load(), build.LIBRARY.load()
+    lib, plain, version = ab.stamped_library(STAMPS, "bs_bench")
     dev = torch.device("cuda", 0)
     res = {}
     data = _load(cases, dev)
     for name, _, _, _, R in TIMED:
         trace, frec, slots, kw = data[name]
-        call = _caller(K, trace, frec, slots, kw)
-        ms = device_ms(call, REPS)
-        build.LIBRARY._lib = lib       # the wrapper launches the copy
-        try:
-            ms_stamped = device_ms(call, REPS)
-            call()
-            torch.cuda.synchronize()
-        finally:
-            build.LIBRARY._lib = plain
-        phase_names = STAMPS[version]["phases"]
-        cyc = np.zeros((MAX_R, len(phase_names)), np.uint64)
-        rc = lib.stamps_read(cyc.ctypes.data)
-        if rc != 0:
-            raise RuntimeError(f"stamps_read failed: cudaError {rc}")
-        steps = kw.get("length", 2 * trace[0].shape[1])
-        per = (cyc[:R].astype(np.float64).sum(0) / (R * steps)).tolist()
-        res[name] = dict(cycles_per_step=dict(zip(phase_names, per)),
-                         ms_stamped=ms_stamped, ms=ms, steps=steps)
+        res[name] = ab.stamped_cycles(
+            lib, plain, _caller(K, trace, frec, slots, kw), REPS, R,
+            kw.get("length", 2 * trace[0].shape[1]),
+            STAMPS[version]["bs_scan_kernel"]["phases"])
     return res
-
-
-def nvidia_smi() -> str:
-    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip()
 
 
 def main(argv=None) -> int:
@@ -395,36 +251,16 @@ def main(argv=None) -> int:
     work = build_dir() / "bs_bench"
     cases = work / "cases.npz"
     make_cases(cases)
-    report = {"device": nvidia_smi(), "cases": {}}
+    report = {"device": ab.nvidia_smi(), "cases": {}}
     print(report["device"])
-
-    def run(src_tree: Path, *args) -> dict:
-        env = dict(os.environ, PYTHONPATH=str(src_tree / "src"))
-        # this file drives the other tree's package: its own directory is
-        # first on sys.path, the tree's src is the only package on it
-        cmd = [sys.executable, str(here), "--cases", str(cases), *args]
-        p = subprocess.run(cmd, env=env, capture_output=True, text=True)
-        if p.returncode != 0:
-            raise RuntimeError(f"{src_tree} {args} failed:\n"
-                               f"{p.stderr[-4000:]}")
-        return json.loads(p.stdout.strip().splitlines()[-1])
-
-    order = [("this", tree)]
-    if a.parent is not None:
-        order = [("parent", a.parent.resolve()), ("this", tree),
-                 ("this", tree), ("parent", a.parent.resolve())]
-    times: dict[str, list] = {}
-    for i, (tag, src_tree) in enumerate(order):
-        times.setdefault(tag, []).append(
-            run(src_tree, "--worker", str(work / f"out-{tag}{i}.npz")))
-    z = {tag: np.load(work / f"out-{tag}{i}.npz") for i, (tag, _) in
-         enumerate(order)}
-    if a.parent is not None:
-        for key in z["this"].files:
-            if not np.array_equal(z["this"][key], z["parent"][key]):
-                print(f"bs_bench: {key} differs between this tree and the "
-                      f"parent", file=sys.stderr)
-                return 1
+    parent = a.parent.resolve() if a.parent is not None else None
+    times, z = ab.run_trees(here, cases, work, parent, tree)
+    if parent is not None:
+        key = ab.first_difference(z)
+        if key is not None:
+            print(f"bs_bench: {key} differs between this tree and the "
+                  f"parent", file=sys.stderr)
+            return 1
         n_cases = len(z["this"].files) // 3
         print(f"[bench] all 3 outputs of every case ({n_cases} cases) equal "
               f"between the two trees (torch.equal)")
@@ -471,7 +307,7 @@ def main(argv=None) -> int:
         if a.parent is not None:
             vers.insert(0, ("parent", a.parent.resolve()))
         for tag, src_tree in vers:
-            ph = run(src_tree, "--stamps")
+            ph = ab.run_worker(here, src_tree, cases, "--stamps")
             report["phases"][tag] = ph
             for name, r in ph.items():
                 cyc = r["cycles_per_step"]

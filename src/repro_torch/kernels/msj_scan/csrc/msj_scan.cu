@@ -1,6 +1,6 @@
 // Multiserver-job event scans for Hopper (sm_90a): FCFS, ModifiedBS-pi and
-// BS-pi (Definition 1), one thread block per replication, each with and
-// without drain-mode server failures.
+// BS-pi (Definition 1), one warp per replication, each with and without
+// drain-mode server failures.
 //
 // Replaces the Pallas kernels of the JAX reference package
 // (repro/kernels/msj_scan/kernel.py):
@@ -18,18 +18,22 @@
 // the drain branches (if constexpr) leave untouched.
 //
 // What bounds these kernels.  Each replication is a chain of J (BS: 2J)
-// dependent event steps; a step reads a few words of the trace and does
-// O(k) (FCFS) or O(C*s_max + h) (ModBS, BS) compares and moves on state
-// held in shared memory.  The bytes the work must move (the [R, J] inputs
-// and outputs once) take well under a millisecond at 3.35 TB/s, so the
-// kernels are latency-bound by the serial event chain: time per launch is
-// (events) x (latency of one step), and the replications run side by side,
-// one block each.  The design therefore keeps every piece of per-step state
-// on chip (shared memory and registers; only the BS helper-wait rings, up
-// to C*q_cap 24-byte job records per replication, live in a global scratch
-// buffer) and spreads the O(k) vector work of a step over the threads of
-// the block, with as few barriers per step as the data flow allows.  BS-pi
-// also keeps global reads off its step's chain (see its own note).
+// dependent event steps, and the bytes the work must move (the [R, J]
+// inputs and outputs once) take well under a millisecond at 3.35 TB/s, so
+// time per launch is (events) x (latency of one step); the replications
+// run side by side, one warp each.  One warp has nothing to overlap with
+// its own chain, so a step costs the latency of its dependent
+// instructions: ~35 cycles a shared load, shuffle or dependent float64
+// maximum, ~48 a redux.sync, ~74 an integer modulo (bench/bs_bench.py and
+// bench/fm_bench.py --phases; PERF.md section 6).  The design keeps every
+// piece of per-step state on chip (shared memory and registers; only the
+// BS helper-wait rings live in a global scratch buffer), reads the trace
+// ahead in register windows, and does at each step only the work its
+// outputs depend on: FCFS and the ModBS helper keep the run-length
+// free-time state below (a step touches the groups its answer lies in,
+// not the k entries), ModBS keeps each class row's minimum (no count and
+// no argmin of the row unless it changed), BS-pi branches by event type
+// (see its own note).  No kernel has a block-wide barrier.
 //
 // Where bit-identity with the reference breaks if one is careless:
 //   * FMA.  Build with --fmad=false.  The steps only add, take maxima and
@@ -85,167 +89,412 @@ __device__ __forceinline__ int clampi(int x, int lo, int hi) {
 }
 
 // ---------------------------------------------------------------------------
-// Warp-level pieces (ModBS runs one warp per replication; BS-pi's own
-// pieces are beside its kernel).
+// The run-length free-time state of FCFS on m servers (the FCFS kernel's
+// k servers, the ModBS helper's h), kept by one warp.
+//
+// The plain step keeps the sorted free-time vector W [m] and t_prev, the
+// last start; a job of need n starts at max(t, t_prev, W[n-1]), the n
+// smallest entries retire and n copies of its completion comp >= start
+// are inserted.  The only output is the start.  Why a coarser state is
+// exact:
+//   * every start is >= t_prev, so an entry W[i] <= t_prev changes no
+//     start: max(t, t_prev, W[n-1]) is max(t, t_prev) whatever its value;
+//   * every arrival's comp >= start >= t_prev, so an entry <= t_prev
+//     counts as <= comp whatever its value (its rank in the roll);
+//   * a drain's comp is max(W[0], t_up): with W[0] <= t_prev it is t_up
+//     when t_up > t_prev and is <= t_prev otherwise, again whatever W[0]
+//     is; a drain never moves t_prev.  Pad rows (t = +inf, t_up = 0) stay
+//     the identity: max(W[0], 0) = W[0].
+// So the state is F, the number of entries <= t_prev, and the entries
+// above t_prev as groups of equal value, each kept with its count, the
+// entries at or below its value (stored as count + base, modulo 2^32, so
+// a retire of n is base += n).  Jobs of need n insert n equal copies, so
+// the groups are few (tens at the Fig. 1 and Fig. 3 loads, at any k),
+// and about one folds a step.
+//
+// The groups are not kept in order.  Each has a slot (chunk t, lane) that
+// only its lane reads or writes: the first four chunks in registers, more
+// (up to m groups: need-1 jobs with distinct completions) spilled to the
+// lane's column of shared memory.  Order is not needed, because a count
+// grows with the value:
+//   * W[r], r >= F, is the value of the group with the least count above
+//     r: one redux.sync (min) over the lanes' candidates, a ballot and a
+//     shuffle;
+//   * the fold frees the slots of the groups <= the new start, and F is
+//     the largest count among them (one redux.sync, max);
+//   * comp goes into F (comp <= start), into its own group if one holds
+//     comp (a ballot), or into the first free slot as a new group whose
+//     count is the largest count below comp (one redux.sync) plus n;
+//     every group above comp counts n more: a predicated add in its lane.
+// A step is thus a fixed handful of warp-wide operations and register
+// selects: no shift and no sort, and up to 128 groups no shared memory
+// (no lane reads another's slot, so no __syncwarp either).  Chunks 2 and 3
+// are visited only while they hold a group.
 // ---------------------------------------------------------------------------
 
-// First index of the minimum of x[0..m) over the warp; every lane returns it.
-__device__ __forceinline__ int warp_argmin(const double* x, int m, double* vmin) {
+// register chunks of the state: group slots (chunk t, lane) for t < kRegChunks;
+// chunks from kNarrow on are visited only while they hold a group
+constexpr int kRegChunks = 4, kNarrow = 2;
+constexpr int kNone = -2147483647 - 1;   // no count
+
+// Slots past the register chunks a state of m servers can need: a new
+// group takes the first free slot, so the highest slot in use stays below
+// the most groups there can be, m.
+__host__ __device__ __forceinline__ int msj_spill_slots(int m) {
+  const int chunks = (m + 31) / 32 - kRegChunks;
+  return chunks > 0 ? 32 * chunks : 0;
+}
+
+struct RunState {
+  double* sv;      // slots past the register chunks, lane-major chunks of 32
+  unsigned* sc;    // in shared memory: chunk kRegChunks + u at [32 u + lane]
+  int nsh;         // shared chunks in use
+  int cap;         // shared chunks there is room for
+  int F;           // entries <= t_prev
+  unsigned base;
+  double t_prev;
+  bool wide;       // a register chunk from kNarrow on holds a group
+  double v[kRegChunks];    // this lane's slot in each register chunk: a
+  unsigned c[kRegChunks];  // group's value (+inf: free) and count word
+};
+
+__device__ __forceinline__ void rs_init(RunState& s, double* sv, unsigned* sc,
+                                        int m) {
+  s.sv = sv; s.sc = sc; s.nsh = 0;
+  s.cap = msj_spill_slots(m) / 32;
+  s.F = m; s.base = 0u;   // W = 0 <= t_prev = 0
+  s.t_prev = 0.0;
+  s.wide = false;
+#pragma unroll
+  for (int t = 0; t < kRegChunks; ++t) {
+    s.v[t] = INFINITY;
+    s.c[t] = 0u;
+  }
+}
+
+// The passes of rs_nth and rs_place over the shared chunks (more than
+// 32 kRegChunks groups: rare; their loops stay rolled).
+__device__ __forceinline__ unsigned rs_spill_least(const RunState& s, int r) {
   const int lane = threadIdx.x & 31;
-  double best = INFINITY;
-  int bi = 0x7fffffff;
-  for (int i = lane; i < m; i += 32) {
-    const double v = x[i];
-    if (v < best) { best = v; bi = i; }   // ascending i: keeps the first
+  unsigned best = 0xffffffffu;
+#pragma unroll 1
+  for (int u = 0; u < s.nsh; ++u) {
+    const double v = s.sv[32 * u + lane];
+    const unsigned e = s.sc[32 * u + lane] - s.base;
+    if (v < INFINITY && (int)e > r && e < best) best = e;
+  }
+  return best;
+}
+
+__device__ __forceinline__ double rs_spill_value(const RunState& s,
+                                                 unsigned e0) {
+  const int lane = threadIdx.x & 31;
+  double x = INFINITY;
+#pragma unroll 1
+  for (int u = 0; u < s.nsh; ++u) {
+    const double v = s.sv[32 * u + lane];
+    if (v < INFINITY && s.sc[32 * u + lane] - s.base == e0) x = v;
+  }
+  return x;
+}
+
+__device__ __forceinline__ void rs_spill_place(RunState& s, double lim,
+                                            double comp, unsigned add,
+                                            int* m1, int* m2, bool* eq) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll 1
+  for (int u = 0; u < s.nsh; ++u) {
+    const double v = s.sv[32 * u + lane];
+    const unsigned c = s.sc[32 * u + lane];
+    const int e = (int)(c - s.base);
+    if (v <= lim) {
+      *m1 = max(*m1, e);
+      s.sv[32 * u + lane] = INFINITY;
+    }
+    if (v < comp) *m2 = max(*m2, e);
+    *eq = *eq || v == comp;
+    if (v >= comp) s.sc[32 * u + lane] = c + add;
+  }
+}
+
+// A new group in the first free shared slot (a new chunk past the ones in
+// use), then the chunks left empty at the top given back.
+__device__ __forceinline__ void rs_spill_put(RunState& s, bool put,
+                                             double comp, unsigned cn) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll 1
+  for (int u = 0; put && u < s.cap; ++u) {
+    if (u == s.nsh) {
+      s.sv[32 * u + lane] = INFINITY;
+      s.nsh = u + 1;
+    }
+    const unsigned b = __ballot_sync(kFull,
+                                     !(s.sv[32 * u + lane] < INFINITY));
+    if (b) {
+      if (lane == __ffs(b) - 1) {
+        s.sv[32 * u + lane] = comp;
+        s.sc[32 * u + lane] = cn;
+      }
+      put = false;
+    }
+  }
+  while (s.nsh > 0 &&
+         !__ballot_sync(kFull, s.sv[32 * (s.nsh - 1) + lane] < INFINITY))
+    --s.nsh;
+}
+
+// W[r] when it lies above t_prev (the group whose count of entries at or
+// below it is the least above r); else t_prev, which stands for it in
+// every max and compare a step makes.  *e0: that count (0 with t_prev).
+__device__ __forceinline__ double rs_nth(const RunState& s, int r, int* e0) {
+  *e0 = 0;
+  if (r < s.F) return s.t_prev;
+  unsigned best = s.nsh > 0 ? rs_spill_least(s, r) : 0xffffffffu;
+#pragma unroll
+  for (int t = 0; t < kRegChunks; ++t) {
+    if (t >= kNarrow && !s.wide) break;
+    const unsigned e = s.c[t] - s.base;
+    best = s.v[t] < INFINITY && (int)e > r && e < best ? e : best;
+  }
+  const unsigned mn = __reduce_min_sync(kFull, best);
+  double x = s.nsh > 0 ? rs_spill_value(s, mn) : INFINITY;
+#pragma unroll
+  for (int t = 0; t < kRegChunks; ++t) {
+    if (t >= kNarrow && !s.wide) break;
+    x = s.v[t] < INFINITY && s.c[t] - s.base == mn ? s.v[t] : x;
+  }
+  const unsigned b = __ballot_sync(kFull, x < INFINITY);
+  const double w = __shfl_sync(kFull, x, (__ffs(b) - 1) & 31);
+  *e0 = (int)mn;
+  return b ? w : s.t_prev;
+}
+
+// After the retire (base already advanced): fold the groups <= lim into F
+// (F_ret: F when none folds; their slots are freed), then insert n copies
+// of comp: into F when comp <= lim, else into comp's group or a new one in
+// the first free slot.  lim and comp are finite, so a free slot (+inf)
+// neither folds nor counts as below or at comp; it does take the count
+// increment of the groups above comp, which nothing reads.
+__device__ __forceinline__ void rs_place(RunState& s, double lim, double comp,
+                                         int n, int F_ret) {
+  const int lane = threadIdx.x & 31;
+  const unsigned base = s.base;
+  const bool grow = comp > lim;
+  const unsigned add = grow ? (unsigned)n : 0u;
+  int m1 = kNone, m2 = kNone;   // the largest counts folded, below comp
+  bool eq = false;
+  if (s.nsh > 0) rs_spill_place(s, lim, comp, add, &m1, &m2, &eq);
+#pragma unroll
+  for (int t = 0; t < kRegChunks; ++t) {
+    if (t >= kNarrow && !s.wide) break;
+    const double v = s.v[t];
+    const int e = (int)(s.c[t] - base);
+    m1 = v <= lim ? max(m1, e) : m1;
+    m2 = v < comp ? max(m2, e) : m2;
+    eq = eq || v == comp;
+    s.c[t] += v >= comp ? add : 0u;   // n more entries at or below it
+    s.v[t] = v <= lim ? INFINITY : v;
+  }
+  const int M1 = __reduce_max_sync(kFull, m1);
+  const int M2 = __reduce_max_sync(kFull, m2);
+  const bool make = grow && !__any_sync(kFull, eq);   // else comp's group
+  int ft = -1, fl = 0;   // the first free register slot
+  if (s.wide) {
+#pragma unroll
+    for (int t = kRegChunks - 1; t >= kNarrow; --t) {
+      const unsigned b = __ballot_sync(kFull, !(s.v[t] < INFINITY));
+      ft = b ? t : ft;
+      fl = b ? __ffs(b) - 1 : fl;
+    }
+  } else {
+    ft = kNarrow;   // the chunks from kNarrow on are free
   }
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const double ov = __shfl_xor_sync(kFull, best, off);
-    const int oi = __shfl_xor_sync(kFull, bi, off);
-    if (ov < best || (ov == best && oi < bi)) { best = ov; bi = oi; }
+  for (int t = kNarrow - 1; t >= 0; --t) {
+    const unsigned b = __ballot_sync(kFull, !(s.v[t] < INFINITY));
+    ft = b ? t : ft;
+    fl = b ? __ffs(b) - 1 : fl;
   }
-  *vmin = best;
-  return bi;
+  const int Fn = M1 != kNone ? max(M1, 0) : F_ret;
+  const unsigned cn = base + (unsigned)((M2 != kNone ? max(M2, 0) : Fn) + n);
+#pragma unroll
+  for (int t = 0; t < kRegChunks; ++t) {
+    const bool put = make && t == ft && lane == fl;
+    s.v[t] = put ? comp : s.v[t];
+    s.c[t] = put ? cn : s.c[t];
+  }
+  s.F = grow ? Fn : Fn + n;                  // comp in F: every group
+  s.base = grow ? base : base - (unsigned)n;  // counts n more
+  if (s.wide || (make && ft >= kNarrow)) {
+    bool held = false;
+#pragma unroll
+    for (int t = kNarrow; t < kRegChunks; ++t)
+      held = held || s.v[t] < INFINITY;
+    s.wide = __any_sync(kFull, held);
+  }
+  if (s.nsh > 0 || (make && ft < 0))
+    rs_spill_put(s, make && ft < 0, comp, cn);
 }
 
-// Number of entries of x[0..m) that are <= v (x > v with gt), over the warp.
-__device__ __forceinline__ int warp_count_le(const double* x, int m, double v) {
-  const int lane = threadIdx.x & 31;
-  int cnt = 0;
-  for (int base = 0; base < m; base += 32) {
-    const int i = base + lane;
-    cnt += __popc(__ballot_sync(kFull, i < m && x[i] <= v));
-  }
-  return cnt;
+// An arrival of need n (clamped to [1, m]) that starts at `start` and
+// completes at comp: the n smallest entries retire, comp x n goes in.
+__device__ __forceinline__ void rs_commit(RunState& s, double start,
+                                          double comp, int n) {
+  const int F_ret = s.F - n;   // read only when no group folds: n <= F
+  s.base += (unsigned)n;
+  rs_place(s, start, comp, n, F_ret);
+  s.t_prev = start;
 }
 
-__device__ __forceinline__ int warp_count_gt(const double* x, int m, double v) {
-  const int lane = threadIdx.x & 31;
-  int cnt = 0;
-  for (int base = 0; base < m; base += 32) {
-    const int i = base + lane;
-    cnt += __popc(__ballot_sync(kFull, i < m && x[i] > v));
+// A drain: W[0] := max(W[0], t_up), re-sorted.
+__device__ __forceinline__ void rs_drain(RunState& s, double tu) {
+  int e0;
+  const double w0 = rs_nth(s, 0, &e0);   // t_prev when F > 0
+  if (!(tu > w0)) return;   // max(W[0], t_up) = W[0]: nothing moves
+  s.base += 1u;
+  double lim = s.t_prev;    // nothing folds
+  int F_ret = s.F - 1;
+  if (s.F == 0) {
+    F_ret = 0;
+    if (e0 == 1) lim = w0;  // group 0 is empty now: it folds
   }
-  return cnt;
-}
-
-// Sorted roll-and-insert of n copies of comp into the warp's free-time
-// vector: the n smallest entries of src retire, p = count(src <= comp) - n,
-// dst = [src[n:n+p], comp x n, src[n+p:]].  Ends with the warp in sync.
-__device__ __forceinline__ void warp_roll_insert(const double* src, double* dst,
-                                                 int h, int n, double comp) {
-  const int lane = threadIdx.x & 31;
-  const int p = warp_count_le(src, h, comp) - n;
-  for (int i = lane; i < h; i += 32) {
-    double v;
-    if (i >= p && i < p + n) {
-      v = comp;
-    } else {
-      v = src[min(i < p ? i + n : i, h - 1)];
-    }
-    dst[i] = v;
-  }
-  __syncwarp();
+  rs_place(s, lim, tu, 1, F_ret);
 }
 
 // ---------------------------------------------------------------------------
-// FCFS: one block per replication, W [k] double-buffered in shared memory.
-// Per job: every thread reads W[n-1] and forms start and comp; a block-wide
-// ballot count gives p = count(W <= comp) - n (searchsorted "right" on the
-// sorted W); each thread writes its entries of the rolled vector.  Two
-// barriers per job.  kDrain: J counts merged rows; a failure row inserts
-// one copy of max(W[0], t_up) instead (the drain).
+// FCFS: one warp per replication on the run-length state of k servers
+// (shared memory: its spill past 128 groups).
+// The trace (and, kDrain, t_up / is_fail) is read ahead in windows of 32
+// entries, one per lane, the next window in flight; the starts are
+// gathered one per lane and stored 32 at a time.  kDrain: J counts merged
+// rows; every row's start is max(t, t_prev, W[n-1]) on the state at the
+// row, and a failure row then drains instead of inserting.
 // ---------------------------------------------------------------------------
 
 template <bool kDrain>
-__global__ void fcfs_scan_kernel(const double* __restrict__ arrival,
-                                 const int* __restrict__ need,
-                                 const double* __restrict__ service,
-                                 const double* __restrict__ t_up,
-                                 const bool* __restrict__ is_fail,
-                                 double* __restrict__ starts, int J, int k) {
+__global__ void __launch_bounds__(32)
+    fcfs_scan_kernel(const double* __restrict__ arrival,
+                     const int* __restrict__ need,
+                     const double* __restrict__ service,
+                     const double* __restrict__ t_up,
+                     const bool* __restrict__ is_fail,
+                     double* __restrict__ starts, int J, int k) {
   extern __shared__ double smem[];
-  double* Wa = smem;
-  double* Wb = smem + k;
-  int* wsum = reinterpret_cast<int*>(smem + 2 * k);
-  const int tid = threadIdx.x, nthr = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5, nwarps = nthr >> 5;
+  const int lane = threadIdx.x;
   const size_t off = (size_t)blockIdx.x * J;
   const double* a = arrival + off;
   const int* nd = need + off;
   const double* sv = service + off;
   double* out = starts + off;
+  RunState s;
+  const int spill = msj_spill_slots(k);
+  rs_init(s, smem, reinterpret_cast<unsigned*>(smem + spill), k);
 
-  for (int i = tid; i < k; i += nthr) Wa[i] = 0.0;
-  double t_prev = 0.0;
-  __syncthreads();
-  for (int j = 0; j < J; ++j) {
-    const double t = a[j];
-    const int n = nd[j];
-    const double svc = sv[j];
-    const double nth = Wa[clampi(n - 1, 0, k - 1)];
-    const double start = fmax(fmax(t, t_prev), nth);
-    double comp = __dadd_rn(start, svc);
-    int m = n;
-    bool drain = false;
+  // windows: lane l holds entry wb + l (cur) and wb + 32 + l (nxt)
+  double cur_a, cur_s, nxt_a, nxt_s, cur_u = 0.0, nxt_u = 0.0;
+  int cur_n, nxt_n;
+  bool cur_f = false, nxt_f = false;
+  {
+    const int i0 = min(lane, J - 1), i1 = min(32 + lane, J - 1);
+    cur_a = a[i0]; cur_s = sv[i0]; cur_n = nd[i0];
+    nxt_a = a[i1]; nxt_s = sv[i1]; nxt_n = nd[i1];
     if constexpr (kDrain) {
-      drain = is_fail[off + j];
-      if (drain) {
-        comp = fmax(Wa[0], t_up[off + j]);
-        m = 1;
+      cur_u = t_up[off + i0]; cur_f = is_fail[off + i0];
+      nxt_u = t_up[off + i1]; nxt_f = is_fail[off + i1];
+    }
+  }
+  double my_start = 0.0;
+  for (int j = 0; j < J; ++j) {
+    const int src = j & 31;
+    if (src == 0 && j > 0) {
+      cur_a = nxt_a; cur_s = nxt_s; cur_n = nxt_n;
+      const int i1 = min(j + 32 + lane, J - 1);
+      nxt_a = a[i1]; nxt_s = sv[i1]; nxt_n = nd[i1];
+      if constexpr (kDrain) {
+        cur_u = nxt_u; cur_f = nxt_f;
+        nxt_u = t_up[off + i1]; nxt_f = is_fail[off + i1];
       }
     }
-    int cnt = 0;
-    for (int base = 0; base < k; base += nthr) {
-      const int i = base + tid;
-      cnt += __popc(__ballot_sync(kFull, i < k && Wa[i] <= comp));
+    const double t = __shfl_sync(kFull, cur_a, src);
+    const int n = clampi(__shfl_sync(kFull, cur_n, src), 1, k);
+    const double svc = __shfl_sync(kFull, cur_s, src);
+    int e_nth;
+    const double start = fmax(fmax(t, s.t_prev), rs_nth(s, n - 1, &e_nth));
+    bool drain = false;
+    if constexpr (kDrain) drain = __shfl_sync(kFull, (int)cur_f, src) != 0;
+    if (drain)
+      rs_drain(s, __shfl_sync(kFull, cur_u, src));
+    else
+      rs_commit(s, start, __dadd_rn(start, svc), n);
+    my_start = lane == src ? start : my_start;
+    if (src == 31 || j == J - 1) {
+      if (lane <= src) out[(j & ~31) + lane] = my_start;
     }
-    if (lane == 0) wsum[warp] = cnt;
-    __syncthreads();
-    int total = 0;
-    for (int w = 0; w < nwarps; ++w) total += wsum[w];
-    const int p = total - m;
-    for (int i = tid; i < k; i += nthr) {
-      double v;
-      if (i >= p && i < p + m) {
-        v = comp;
-      } else {
-        v = Wa[min(i < p ? i + m : i, k - 1)];
-      }
-      Wb[i] = v;
-    }
-    if (tid == 0) out[j] = start;
-    if (!drain) t_prev = start;
-    __syncthreads();
-    double* tmp = Wa; Wa = Wb; Wb = tmp;
   }
 }
 
 // ---------------------------------------------------------------------------
 // ModifiedBS-pi (Definition 2): one warp per replication.  Shared memory
-// holds the completion matrix [C*s_max] (slots beyond slots[c] hold BIG:
-// permanently busy) and the helper free-time vector W [h], double-buffered.
-// Per job: busy = count(row > t), blocked = busy >= s_max, the row's argmin
-// takes t + svc unless blocked; a blocked job runs the FCFS step on W.
-// kDrain: J counts merged rows; a failure row with cls == C drains W, one
-// with cls < C extends its row's argmin entry to max(entry, t_up).
+// holds each class row of the completion matrix [C][s_max] sorted
+// ascending (slots beyond slots[c] hold BIG: permanently busy) and the
+// spill of the helper's run-length state (h servers).  Only the row's
+// multiset of completions reaches an output: a job is blocked when all
+// s_max entries are > t, which is row[0] > t (the kept minimum: no count
+// and no argmin), and a start on a free slot, or a class drain, replaces
+// one smallest entry (the plain step's first argmin; which of equal
+// entries it is changes nothing), so a row step is one vote: the minimum
+// retires, and the new entry goes in after the p = count(row[1:] <= new)
+// entries, which move down one place.  A blocked job runs the FCFS step
+// on the helper's run-length state.  kDrain: J counts merged rows; a
+// failure row with cls == C drains the helper, one with cls < C replaces
+// its row's minimum by max(minimum, t_up).
 // ---------------------------------------------------------------------------
 
+// The smallest entry of a sorted row of m leaves and nv goes in.  cur, nxt:
+// row[lane], row[lane + 1] as read at the top of the step (m <= 32).
+__device__ __forceinline__ void row_replace_min(double* row, int m, double nv,
+                                                double cur, double nxt) {
+  const int lane = threadIdx.x & 31;
+  if (m <= 32) {
+    const int p = __popc(__ballot_sync(kFull, lane >= 1 && lane < m &&
+                                                  cur <= nv));
+    const double y = lane < p ? nxt : nv;
+    __syncwarp();   // every lane has read the row
+    if (lane <= p) row[lane] = y;
+    return;
+  }
+  int p = 0;
+#pragma unroll 1
+  for (int b = 0; b < m; b += 32) {
+    const int i = b + lane;
+    p += __popc(__ballot_sync(kFull, i >= 1 && i < m && row[i] <= nv));
+  }
+#pragma unroll 1
+  for (int b = 0; b <= p; b += 32) {
+    const int i = b + lane;
+    const double y = i < p ? row[i + 1] : nv;
+    __syncwarp();   // every lane has read its entry
+    if (i <= p) row[i] = y;
+  }
+}
+
 template <bool kDrain>
-__global__ void modbs_scan_kernel(const double* __restrict__ arrival,
-                                  const int* __restrict__ cls,
-                                  const int* __restrict__ need,
-                                  const double* __restrict__ service,
-                                  const double* __restrict__ t_up,
-                                  const bool* __restrict__ is_fail,
-                                  const int* __restrict__ slots,
-                                  bool* __restrict__ blocked_out,
-                                  double* __restrict__ starts, int J, int C,
-                                  int s_max, int h) {
+__global__ void __launch_bounds__(32)
+    modbs_scan_kernel(const double* __restrict__ arrival,
+                      const int* __restrict__ cls,
+                      const int* __restrict__ need,
+                      const double* __restrict__ service,
+                      const double* __restrict__ t_up,
+                      const bool* __restrict__ is_fail,
+                      const int* __restrict__ slots,
+                      bool* __restrict__ blocked_out,
+                      double* __restrict__ starts, int J, int C, int s_max,
+                      int h) {
   extern __shared__ double smem[];
+  const int CS = C * s_max;
   double* comp = smem;
-  double* Wa = comp + C * s_max;
-  double* Wb = Wa + h;
+  double* hv = comp + CS;
+  unsigned* hc = reinterpret_cast<unsigned*>(hv + msj_spill_slots(h));
   const int lane = threadIdx.x;
   const size_t off = (size_t)blockIdx.x * J;
   const double* a = arrival + off;
@@ -253,57 +502,82 @@ __global__ void modbs_scan_kernel(const double* __restrict__ arrival,
   const int* nd = need + off;
   const double* sv = service + off;
 
-  for (int i = lane; i < C * s_max; i += 32)
+  for (int i = lane; i < CS; i += 32)   // free slots first: sorted
     comp[i] = (i % s_max) >= slots[i / s_max] ? kBig : 0.0;
-  for (int i = lane; i < h; i += 32) Wa[i] = 0.0;
-  double t_prev = 0.0;
+  RunState s;
+  rs_init(s, hv, hc, h);
+
+  double cur_a, cur_s, nxt_a, nxt_s, cur_u = 0.0, nxt_u = 0.0;
+  int cur_c, cur_n, nxt_c, nxt_n;
+  bool cur_f = false, nxt_f = false;
+  {
+    const int i0 = min(lane, J - 1), i1 = min(32 + lane, J - 1);
+    cur_a = a[i0]; cur_s = sv[i0]; cur_c = cl[i0]; cur_n = nd[i0];
+    nxt_a = a[i1]; nxt_s = sv[i1]; nxt_c = cl[i1]; nxt_n = nd[i1];
+    if constexpr (kDrain) {
+      cur_u = t_up[off + i0]; cur_f = is_fail[off + i0];
+      nxt_u = t_up[off + i1]; nxt_f = is_fail[off + i1];
+    }
+  }
+  double my_start = 0.0;
+  bool my_blocked = false;
   __syncwarp();
   for (int j = 0; j < J; ++j) {
-    const double t = a[j];
+    const int src = j & 31;
+    if (src == 0 && j > 0) {
+      cur_a = nxt_a; cur_s = nxt_s; cur_c = nxt_c; cur_n = nxt_n;
+      const int i1 = min(j + 32 + lane, J - 1);
+      nxt_a = a[i1]; nxt_s = sv[i1]; nxt_c = cl[i1]; nxt_n = nd[i1];
+      if constexpr (kDrain) {
+        cur_u = nxt_u; cur_f = nxt_f;
+        nxt_u = t_up[off + i1]; nxt_f = is_fail[off + i1];
+      }
+    }
+    const double t = __shfl_sync(kFull, cur_a, src);
     // a failure row's class column is its target block, C = the helper
-    const int c = clampi(cl[j], 0, kDrain ? C : C - 1);
-    const int n = nd[j];
-    const double svc = sv[j];
+    const int c = clampi(__shfl_sync(kFull, cur_c, src), 0,
+                         kDrain ? C : C - 1);
+    const int n = clampi(__shfl_sync(kFull, cur_n, src), 1, h);
+    const double svc = __shfl_sync(kFull, cur_s, src);
     double* row = comp + (kDrain ? min(c, C - 1) : c) * s_max;
-    const bool blocked = warp_count_gt(row, s_max, t) >= s_max;
-    double rmin;
-    const int idx = warp_argmin(row, s_max, &rmin);
-    double start;
-    bool isf = false;
-    __syncwarp();
-    if constexpr (!kDrain) {
-      if (!blocked) {
-        if (lane == 0) row[idx] = __dadd_rn(t, svc);
-        start = t;
-      } else {
-        const double nth = Wa[clampi(n - 1, 0, h - 1)];
-        start = fmax(fmax(t, t_prev), nth);
-        warp_roll_insert(Wa, Wb, h, n, __dadd_rn(start, svc));
-        double* tmp = Wa; Wa = Wb; Wb = tmp;
-        t_prev = start;
-      }
-    } else {
-      isf = is_fail[off + j];
-      const double tu = t_up[off + j];
-      const bool helper_fail = isf && c == C;
-      const bool class_fail = isf && !helper_fail;
-      const double start_h = fmax(fmax(t, t_prev), Wa[clampi(n - 1, 0, h - 1)]);
-      if (lane == 0 && (class_fail || !isf))
-        row[idx] = class_fail ? fmax(rmin, tu) : (blocked ? rmin : __dadd_rn(t, svc));
-      if (helper_fail) {
-        warp_roll_insert(Wa, Wb, h, 1, fmax(Wa[0], tu));
-        double* tmp = Wa; Wa = Wb; Wb = tmp;
-      } else if (!isf && blocked) {
-        warp_roll_insert(Wa, Wb, h, n, __dadd_rn(start_h, svc));
-        double* tmp = Wa; Wa = Wb; Wb = tmp;
-        t_prev = start_h;
-      }
-      start = blocked ? start_h : t;
+    const double r0 = row[0];   // the row's minimum
+    double cur = INFINITY, nxt = INFINITY;
+    if (s_max <= 32) {
+      if (lane < s_max) cur = row[lane];
+      if (lane + 1 < s_max) nxt = row[lane + 1];
     }
-    if (lane == 0) {
-      blocked_out[off + j] = blocked && !isf;
-      starts[off + j] = start;
+    const bool blocked = r0 > t;
+    bool isf = false, helper_fail = false, class_fail = false;
+    double tu = 0.0;
+    if constexpr (kDrain) {
+      isf = __shfl_sync(kFull, (int)cur_f, src) != 0;
+      tu = __shfl_sync(kFull, cur_u, src);
+      helper_fail = isf && c == C;
+      class_fail = isf && !helper_fail;
     }
+    double start = t;
+    if (blocked) {
+      int e_nth;
+      start = fmax(fmax(t, s.t_prev), rs_nth(s, n - 1, &e_nth));
+    }
+    // only class drains and arrivals on a free slot write the row
+    if (class_fail || (!isf && !blocked))
+      row_replace_min(row, s_max,
+                      class_fail ? fmax(r0, tu) : __dadd_rn(t, svc), cur,
+                      nxt);
+    if (helper_fail)
+      rs_drain(s, tu);
+    else if (!isf && blocked)
+      rs_commit(s, start, __dadd_rn(start, svc), n);
+    my_start = lane == src ? start : my_start;
+    my_blocked = lane == src ? blocked && !isf : my_blocked;
+    if (src == 31 || j == J - 1) {
+      if (lane <= src) {
+        starts[off + (j & ~31) + lane] = my_start;
+        blocked_out[off + (j & ~31) + lane] = my_blocked;
+      }
+    }
+    // the row's and the helper's writes before the next step's reads
     __syncwarp();
   }
 }
@@ -443,7 +717,9 @@ __device__ __forceinline__ int bs_argmax(const double* x, int m) {
   return bs_first<true>(bs_key(best), bi);
 }
 
-// warp_roll_insert with the count as one redux.sync; no closing
+// Sorted roll-and-insert of n copies of comp into the helper's free-time
+// vector: the n smallest entries of src retire, p = count(src <= comp) - n
+// (one redux.sync), dst = [src[n:n+p], comp x n, src[n+p:]].  No closing
 // __syncwarp (the step's own orders dst before the next step reads it).
 __device__ __forceinline__ void bs_roll_insert(const double* src, double* dst,
                                                int h, int n, double comp) {
@@ -839,12 +1115,13 @@ cudaError_t prepare_smem(K kernel, size_t bytes) {
                               (int)bytes);
 }
 
-// Shared-memory bytes and block sizes of the kernels.
-size_t msj_fcfs_smem(int k, int threads) {
-  return 2 * (size_t)k * sizeof(double) + (threads / 32) * sizeof(int);
+// Shared-memory bytes of the kernels: a run-length state of m servers
+// spills its groups past the register chunks, at most m, 12 bytes each.
+size_t msj_run_smem(int m) {
+  return (size_t)msj_spill_slots(m) * (sizeof(double) + sizeof(unsigned));
 }
 size_t msj_modbs_smem(int C, int s_max, int h) {
-  return ((size_t)C * s_max + 2 * (size_t)h) * sizeof(double);
+  return (size_t)C * s_max * sizeof(double) + msj_run_smem(h);
 }
 // The BS ring cache's lines per class: a power of two, at most 64, whose
 // 32-byte lines take at most 16 KiB.
@@ -867,11 +1144,6 @@ void bs_rings(void* scratch, int R, int C, int q_cap, double2** t, int2** i) {
   *i = reinterpret_cast<int2*>(*t + (size_t)R * C * q_cap);
 }
 
-int msj_fcfs_threads(int k) {
-  const int t = ((k + 31) / 32) * 32;
-  return t < 256 ? t : 256;
-}
-
 }  // namespace
 
 extern "C" {
@@ -882,11 +1154,10 @@ const char* msj_error_string(int err) {
 
 int msj_fcfs_scan(const double* arrival, const int* need, const double* service,
                   double* starts, int R, int J, int k, void* stream) {
-  const int threads = msj_fcfs_threads(k);
-  const size_t smem = msj_fcfs_smem(k, threads);
+  const size_t smem = msj_run_smem(k);
   cudaError_t err = prepare_smem(fcfs_scan_kernel<false>, smem);
   if (err != cudaSuccess) return (int)err;
-  fcfs_scan_kernel<false><<<R, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+  fcfs_scan_kernel<false><<<R, 32, smem, static_cast<cudaStream_t>(stream)>>>(
       arrival, need, service, nullptr, nullptr, starts, J, k);
   return (int)cudaGetLastError();
 }
@@ -894,11 +1165,10 @@ int msj_fcfs_scan(const double* arrival, const int* need, const double* service,
 int msj_fcfs_fail_scan(const double* t, const int* need, const double* svc,
                        const double* t_up, const bool* is_fail, double* starts,
                        int R, int L, int k, void* stream) {
-  const int threads = msj_fcfs_threads(k);
-  const size_t smem = msj_fcfs_smem(k, threads);
+  const size_t smem = msj_run_smem(k);
   cudaError_t err = prepare_smem(fcfs_scan_kernel<true>, smem);
   if (err != cudaSuccess) return (int)err;
-  fcfs_scan_kernel<true><<<R, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+  fcfs_scan_kernel<true><<<R, 32, smem, static_cast<cudaStream_t>(stream)>>>(
       t, need, svc, t_up, is_fail, starts, L, k);
   return (int)cudaGetLastError();
 }

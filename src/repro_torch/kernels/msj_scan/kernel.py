@@ -22,10 +22,12 @@ shape and contiguity, then
   count.  There is no fallback: a CUDA tensor never reaches the plain
   version through a wrapper.
 
-The kernels run one thread block per replication (``srpt_scan``: one
-warp) with the whole event loop inside the kernel; see each source's
-header note for what bounds them and where bit-identity with the
-reference needs care.
+The scan kernels run one warp per replication with the whole event
+loop inside the kernel (``stable_sort_fwd``: one block per row); see
+each source's header note for what bounds them and where bit-identity
+with the reference needs care.  The FCFS kernels take k <=
+:data:`FCFS_K_MAX` (12 bytes of shared memory a server past the first
+128).
 """
 
 from __future__ import annotations
@@ -111,6 +113,22 @@ _SORT_W_MAX = 4096
 #: bytes of one BS ring entry: (arrival, service) float64 and (job id,
 #: need) int32 (``csrc/msj_scan.cu``, ``bs_rings``)
 _BS_RING_ENTRY = 24
+#: shared memory one thread block can use on an H100 (227 KiB)
+_SMEM_MAX = 232_448
+#: the FCFS kernels' free-time state (``csrc/msj_scan.cu``, ``RunState``)
+#: keeps up to 128 groups in registers and spills a server's slot past
+#: them to shared memory: a float64 value and a 32-bit count, 12 bytes
+_SPILL_BYTES = 12
+
+
+def _spill_bytes(m: int) -> int:
+    """Shared-memory bytes of the state of m servers
+    (``msj_spill_slots``)."""
+    return _SPILL_BYTES * 32 * max(0, -(-m // 32) - 4)
+
+
+#: the most servers the FCFS kernels take (19 488)
+FCFS_K_MAX = 32 * (_SMEM_MAX // (32 * _SPILL_BYTES) + 4)
 
 
 def _check(slots=None, dtypes=_DTYPES, **named) -> torch.device:
@@ -146,6 +164,23 @@ def _check(slots=None, dtypes=_DTYPES, **named) -> torch.device:
     return dev
 
 
+def _fcfs_fits(k: int) -> None:
+    if k > FCFS_K_MAX:
+        raise ValueError(f"k={k} exceeds {FCFS_K_MAX}: the FCFS kernel "
+                         f"spills {_SPILL_BYTES} bytes a server past its "
+                         f"first 128 into one block's shared memory "
+                         f"({_SMEM_MAX} bytes on an H100)")
+
+
+def _modbs_fits(C: int, s_max: int, h: int) -> None:
+    need = 8 * C * s_max + _spill_bytes(h)
+    if need > _SMEM_MAX:
+        raise ValueError(f"C={C}, s_max={s_max}, h={h} need {need} bytes of "
+                         f"shared memory (the class rows, 8 C s_max, and the "
+                         f"helper's spill, {_SPILL_BYTES} bytes a server past "
+                         f"128); one block has {_SMEM_MAX} on an H100")
+
+
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
@@ -169,6 +204,7 @@ def fcfs_scan_fwd(arrival, need, service, *, k: int):
         raise ValueError(f"k must be >= 1, got {k}")
     if dev.type == "cpu":
         return fcfs_scan_ref(arrival, need, service, k=k)
+    _fcfs_fits(k)
     R, J = arrival.shape
     starts = torch.empty_like(arrival)
     if R == 0 or J == 0:
@@ -198,12 +234,13 @@ def modbs_scan_fwd(arrival, cls, need, service, slots, *, s_max: int,
     if dev.type == "cpu":
         return modbs_scan_ref(arrival, cls, need, service, slots,
                               s_max=s_max, h=h)
+    C = slots.shape[0]
+    _modbs_fits(C, s_max, h)
     R, J = arrival.shape
     blocked = torch.empty(R, J, dtype=torch.bool, device=dev)
     starts = torch.empty_like(arrival)
     if R == 0 or J == 0:
         return blocked, starts
-    C = slots.shape[0]
     lib = build.LIBRARY.load()
     with torch.cuda.device(dev):
         rc = lib.msj_modbs_scan(_ptr(arrival), _ptr(cls), _ptr(need),
@@ -381,6 +418,7 @@ def fcfs_fail_scan_fwd(t, need, svc, t_up, is_fail, *, k: int):
         raise ValueError(f"k must be >= 1, got {k}")
     if dev.type == "cpu":
         return fcfs_fail_scan_ref(t, need, svc, t_up, is_fail, k=k)
+    _fcfs_fits(k)
     R, L = t.shape
     starts = torch.empty_like(t)
     if R == 0 or L == 0:
@@ -411,12 +449,13 @@ def modbs_fail_scan_fwd(t, cls, need, svc, t_up, is_fail, slots, *,
     if dev.type == "cpu":
         return modbs_fail_scan_ref(t, cls, need, svc, t_up, is_fail, slots,
                                    s_max=s_max, h=h)
+    C = slots.shape[0]
+    _modbs_fits(C, s_max, h)
     R, L = t.shape
     blocked = torch.empty(R, L, dtype=torch.bool, device=dev)
     starts = torch.empty_like(t)
     if R == 0 or L == 0:
         return blocked, starts
-    C = slots.shape[0]
     lib = build.LIBRARY.load()
     with torch.cuda.device(dev):
         rc = lib.msj_modbs_fail_scan(_ptr(t), _ptr(cls), _ptr(need),

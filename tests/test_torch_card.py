@@ -24,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.bench import bs_cases, srpt_cases
+from repro_torch.bench import bs_cases, fm_cases, srpt_cases
 from repro_torch.core import failures as flr
 from repro_torch.core import sim_batch, sim_torch, workload
 from repro_torch.core.sim_torch import _bs_args
@@ -180,6 +180,58 @@ def test_cuda_bs_scan_equals_plain_version_with_many_classes():
     case = bs_cases.BSCase("c40 drain", trace, sl, int(sl.max()), 8, Jj,
                            frec, 2 * Jj + 2 * F)
     _equal(bs_cases.scan(case.to(dev), K), bs_cases.scan_ref(case), "drain")
+
+
+# -- FCFS and ModBS-pi on the adversarial cases (bench/fm_cases.py) ---------
+
+
+FM_J, FM_R = 2000, 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(fm_cases.ADVERSARIAL))
+def test_cuda_fcfs_and_modbs_equal_plain_versions_on_adversarial_cases(name):
+    """``fcfs_scan`` / ``modbs_scan`` (or their drain variants) against the
+    plain versions on every raw output, rtol=0: ties, zero services, jobs
+    needing every server, k in {1, 7, 33, 1000}, a group per server, rows
+    wider than 32, classes with no slots, a helper of one server, drains
+    below, between and above the last start, padding rows."""
+    dev = _dev()
+    case = fm_cases.ADVERSARIAL[name](FM_J, FM_R, 5)
+    gcase = case.to(dev)
+    for kind in ("fcfs", "modbs"):
+        ref = fm_cases.scan_ref(case, kind)
+        wrapper = f"{kind}_{'fail_' if case.drain else ''}scan_fwd"
+        before = K.launches()
+        out = fm_cases.scan(gcase, kind, K)
+        assert K.launches()[wrapper] == before[wrapper] + 1
+        _equal(out, ref, (name, kind))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [14_526, K.FCFS_K_MAX])
+def test_cuda_fcfs_at_the_largest_k(k):
+    """FCFS at the largest k the block-per-replication kernel took
+    (14 526) and at ``FCFS_K_MAX``, clean and drain; one server more is
+    refused before launch."""
+    dev = _dev()
+    rng = np.random.default_rng(k)
+    Rr, Jj = 2, 400
+    a = torch.tensor(np.floor(np.cumsum(rng.exponential(0.02, (Rr, Jj)), 1)
+                              * 4) / 4)
+    n = torch.tensor(rng.integers(1, k + 1, (Rr, Jj)), dtype=torch.int32)
+    v = torch.tensor(np.ceil(rng.exponential(3.0, (Rr, Jj)) * 4) / 4)
+    tu = torch.where(torch.rand(Rr, Jj, generator=torch.Generator()
+                                .manual_seed(k)) < 0.2, a + 2.0, 0.0)
+    isf = tu > 0
+    args = (a, n, v)
+    _equal((K.fcfs_scan_fwd(*(x.to(dev) for x in args), k=k),),
+           (K.fcfs_scan_ref(*args, k=k),), k)
+    fargs = (a, n, v, tu, isf)
+    _equal((K.fcfs_fail_scan_fwd(*(x.to(dev) for x in fargs), k=k),),
+           (K.fcfs_fail_scan_ref(*fargs, k=k),), (k, "drain"))
+    with pytest.raises(ValueError, match="exceeds"):
+        K.fcfs_scan_fwd(*(x.to(dev) for x in args), k=K.FCFS_K_MAX + 1)
 
 
 # -- drain-mode kernels (tests/test_torch_failures.py's shapes) --------------

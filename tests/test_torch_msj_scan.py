@@ -20,7 +20,7 @@ from repro.core import sim_jax
 from repro.kernels.msj_scan import kernel as ref_kernel
 from repro.kernels.msj_scan import ref as ref_ref
 
-from repro_torch.bench import bs_cases
+from repro_torch.bench import bs_cases, fm_cases
 from repro_torch.kernels import msj_scan
 from repro_torch.kernels.msj_scan import kernel as K
 
@@ -238,3 +238,204 @@ def test_bs_free_slots_are_exactly_the_big_entries(name):
         assert torch.equal(rows.argmax(2)[has_free], first_free[has_free])
         checked += int(has_free.sum())
     assert checked > 0
+
+
+# -- the premises of the FCFS and ModBS-pi kernels (bench/fm_cases.py) -------
+
+
+FM_J, FM_R = 240, 2
+
+
+def _fm_case(name):
+    return fm_cases.ADVERSARIAL[name](FM_J, FM_R, 4)
+
+
+def _fcfs_rows(case):
+    """Per-row (t, n, svc, t_up, is_fail) columns of the case's FCFS scan
+    (a clean scan's rows are arrivals)."""
+    t, n, v = case.fcfs[:3]
+    if case.drain:
+        return t, n.long(), v, case.fcfs[3], case.fcfs[4]
+    return t, n.long(), v, torch.zeros_like(t), torch.zeros_like(t,
+                                                                 dtype=bool)
+
+
+@pytest.mark.parametrize("name", sorted(fm_cases.ADVERSARIAL))
+def test_fcfs_step_keeps_w_sorted_and_ranks_past_p_plus_n(name):
+    """After every step of the plain FCFS scan (clean or drain): W stays
+    sorted, and only ranks [0, p + n) change, p + n = count(W <= comp)
+    (a drain: n = 1, comp = max(W[0], t_up)) — the kernel rewrites no
+    rank past them."""
+    from repro_torch.core import sim_torch
+
+    case = _fm_case(name)
+    t, n, v, tu, isf = _fcfs_rows(case)
+    k = case.k
+    W = torch.zeros(case.R, k, dtype=torch.float64)
+    t_prev = torch.zeros(case.R, dtype=torch.float64)
+    ranks = torch.arange(k)[None, :]
+    moved = 0
+    for j in range(t.shape[1]):
+        W_new, tp_new, start = sim_torch._fcfs_fail_step(
+            W, t_prev, t[:, j], n[:, j], v[:, j], tu[:, j], isf[:, j])
+        comp = torch.where(isf[:, j], torch.maximum(W[:, 0], tu[:, j]),
+                           start + v[:, j])
+        pn = torch.searchsorted(W, comp[:, None], right=True)
+        assert (W_new[:, 1:] >= W_new[:, :-1]).all()
+        keep = ranks >= pn
+        assert torch.equal(W_new[keep], W[keep])
+        moved += int(pn.sum())
+        W, t_prev = W_new, tp_new
+    assert moved > 0
+
+
+@pytest.mark.parametrize("name", sorted(fm_cases.ADVERSARIAL))
+def test_modbs_blocked_iff_row_minimum_above_t(name):
+    """After every step of the plain ModBS-π scan (clean or drain): for the
+    row of the step's class, count(row > t) >= s_max exactly when
+    min(row) > t — what the kernel tests in place of the count."""
+    from repro_torch.core import sim_torch
+
+    case = _fm_case(name)
+    t, c, n, v = case.modbs[:4]
+    c, n = c.long(), n.long()
+    C, s_max, h = case.slots.numel(), case.s_max, case.h
+    comp, W, t_prev = sim_torch._modbs_init(case.slots, s_max, h, case.R)
+    lanes = torch.arange(case.R)
+    seen = set()
+    for j in range(t.shape[1]):
+        row = comp[lanes, c[:, j].clamp(max=C - 1)]
+        by_count = (row > t[:, j, None]).sum(1) >= s_max
+        assert torch.equal(by_count, row.min(1).values > t[:, j])
+        seen.update(by_count.tolist())
+        if case.drain:
+            W, t_prev, _, _ = sim_torch._modbs_fail_step(
+                comp, W, t_prev, t[:, j], c[:, j], n[:, j], v[:, j],
+                case.modbs[4][:, j], case.modbs[5][:, j], C)
+        else:
+            W, t_prev, _, _ = sim_torch._modbs_step(
+                comp, W, t_prev, t[:, j], c[:, j], n[:, j], v[:, j])
+    assert seen == {True, False}
+
+
+class _RunLength:
+    """The FCFS kernels' run-length free-time state of m servers, as lists:
+    F entries <= t_prev (their values never read), and the entries above
+    t_prev as [value, multiplicity] groups in ascending order."""
+
+    def __init__(self, m):
+        self.m, self.F, self.t_prev, self.groups = m, m, 0.0, []
+
+    def nth(self, n):
+        r = min(max(n, 1), self.m) - 1
+        if r < self.F:
+            return self.t_prev
+        r -= self.F
+        for v, mult in self.groups:
+            if r < mult:
+                return v
+            r -= mult
+        raise AssertionError("the groups hold fewer than m entries")
+
+    def start(self, t, n):
+        return max(max(t, self.t_prev), self.nth(n))
+
+    def _retire(self, n):
+        take = min(n, self.F)
+        self.F -= take
+        n -= take
+        while n > 0:
+            take = min(n, self.groups[0][1])
+            self.groups[0][1] -= take
+            n -= take
+            if self.groups[0][1] == 0:
+                self.groups.pop(0)
+
+    def _insert(self, comp, n):
+        if not comp > self.t_prev:
+            self.F += n
+            return
+        for i, g in enumerate(self.groups):
+            if g[0] == comp:
+                g[1] += n
+                return
+            if g[0] > comp:
+                self.groups.insert(i, [comp, n])
+                return
+        self.groups.append([comp, n])
+
+    def arrival(self, t, n, svc):
+        n = min(max(n, 1), self.m)
+        start = self.start(t, n)
+        self._retire(n)
+        while self.groups and self.groups[0][0] <= start:
+            self.F += self.groups.pop(0)[1]
+        self.t_prev = start
+        self._insert(start + svc, n)
+        return start
+
+    def drain(self, tu):
+        w0 = self.t_prev if self.F > 0 else self.groups[0][0]
+        if not tu > w0:
+            return
+        self._retire(1)
+        self._insert(tu, 1)
+
+    def check(self):
+        assert self.F + sum(m for _, m in self.groups) == self.m
+        vals = [v for v, _ in self.groups]
+        assert all(v > self.t_prev for v in vals) and vals == sorted(set(vals))
+
+
+@pytest.mark.parametrize("name", sorted(fm_cases.ADVERSARIAL))
+def test_run_length_state_gives_the_plain_starts(name):
+    """A model of the kernels' state — FCFS on run-length groups above the
+    last start, ModBS with each class row's (minimum, first index) kept
+    and found again only after the row changes — gives the plain scans'
+    raw outputs exactly, failure rows included."""
+    case = _fm_case(name)
+    t, n, v, tu, isf = (x.numpy() for x in _fcfs_rows(case))
+    starts = fm_cases.scan_ref(case, "fcfs")[0].numpy()
+    groups = 0
+    for r in range(case.R):
+        s = _RunLength(case.k)
+        for j in range(t.shape[1]):
+            assert s.start(t[r, j], n[r, j]) == starts[r, j]
+            if isf[r, j]:
+                s.drain(tu[r, j])
+            else:
+                s.arrival(t[r, j], n[r, j], v[r, j])
+            s.check()
+            groups = max(groups, len(s.groups))
+    assert groups >= min(case.k, 2)
+
+    blocked_ref, starts_ref = (x.numpy() for x in fm_cases.scan_ref(case,
+                                                                    "modbs"))
+    m = [x.numpy() for x in case.modbs]
+    slots, s_max, C = case.slots.numpy(), case.s_max, case.slots.numel()
+    for r in range(case.R):
+        rows = np.where(np.arange(s_max)[None, :] >= slots[:, None], 1e30,
+                        0.0)
+        rmin = rows.min(1)
+        ridx = rows.argmin(1)
+        s = _RunLength(case.h)
+        for j in range(m[0].shape[1]):
+            t_, c_, n_, v_ = m[0][r, j], int(m[1][r, j]), m[2][r, j], \
+                m[3][r, j]
+            fail = case.drain and bool(m[5][r, j])
+            cc = min(c_, C - 1)
+            blocked = rmin[cc] > t_
+            start = s.start(t_, n_) if blocked else t_
+            class_fail = fail and c_ < C
+            if class_fail or (not fail and not blocked):
+                rows[cc, ridx[cc]] = (max(rmin[cc], m[4][r, j]) if class_fail
+                                      else t_ + v_)
+                ridx[cc] = rows[cc].argmin()
+                rmin[cc] = rows[cc, ridx[cc]]
+            if fail and c_ == C:
+                s.drain(m[4][r, j])
+            elif not fail and blocked:
+                s.arrival(t_, n_, v_)
+            s.check()
+            assert start == starts_ref[r, j]
+            assert (blocked and not fail) == blocked_ref[r, j]
