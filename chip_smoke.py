@@ -142,7 +142,10 @@ weights are freed):
    and from [-1, -0.01], and a ragged S = 2047: y within 5e-4 + 1e-3
    |ref| of its plain version on the card, plus two units in the last
    place in bfloat16, and s_T within 5e-4 + 1e-3 |ref|; timed beside its
-   plain version and its bound (no PyTorch call computes it);
+   plain version and its bound (no PyTorch call computes it) and the share
+   of the bound it reached; the same limits at the edge shapes of its
+   chunk-parallel split (``WKV_EDGE``: S = 1, S below the chunk, N 48 and
+   5, chunks of 16 and 8, B = 2; both dtypes, zero and carried state);
 3. a ``ServingEngine`` on the card with stablelm-3b (2 chips, α 0.8) and
    rwkv6-7b at its ``chips_needed`` (2 chips, α 0.2) at full width and
    depth (15.1 GB of bf16 weights, seed 0): 20 arrivals, then one admitted
@@ -169,7 +172,10 @@ weights are freed):
    version on the card; the reference kernel's entry on pre-discretised
    a / b in float32 and bfloat16 (y bfloat16: plus two units in the last
    place); each entry timed beside its plain version and its bound (no
-   PyTorch call computes the scan); ``gmm`` at the cut's expert shapes (8
+   PyTorch call computes the scan) and the share of the bound it reached;
+   the fused entry also at the edge shapes of its tiling (``MAMBA_EDGE``:
+   S = 1, N 7 / 12 / 13 / 5, d_in 200 / 97 / 300, B = 2; both u dtypes, zero
+   and carried h0); ``gmm`` at the cut's expert shapes (8
    held experts of 8192 x 24576: a 2048-token prefill's and one token's
    gate/up and down) against its plain version one expert at a time,
    timed beside ``torch.bmm`` and its bound;
@@ -467,6 +473,11 @@ RWKV_ARCH = "rwkv6_7b"
 # hold here)
 WKV_TOLS = {"bfloat16": (5e-4, 1e-3 + 2.0 ** -6), "float32": (5e-4, 1e-3)}
 WKV_S, WKV_CHUNK = 2048, 64
+# the edge shapes of the kernels' chunk-parallel split, at small size:
+# (B, S, H, N, chunk) with S = 1, S below the chunk, N of 48 and 5, short
+# chunks, B = 2
+WKV_EDGE = ((1, 1, 2, 64, 64), (2, 40, 3, 48, 64), (2, 70, 2, 48, 16),
+            (1, 33, 1, 5, 8))
 MAMBA = ("src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu",
          "src/repro/kernels/mamba_scan/kernel.py:54")
 HYBRID_ARCH = "jamba_1_5_large_398b"
@@ -476,6 +487,11 @@ HYBRID_ARCH = "jamba_1_5_large_398b"
 # its float32 y once)
 MAMBA_TOLS = (1e-4, 1e-4)
 MAMBA_S = 2048
+# the fused kernel's edge shapes (B, S, d_in, N): S = 1, N not a multiple of
+# its 4 states a lane, d_in not a multiple of its 32 channels a block (with
+# the 16-byte copies and without), B = 2
+MAMBA_EDGE = ((2, 1, 64, 16), (1, 45, 200, 7), (1, 45, 200, 12),
+              (2, 33, 97, 13), (2, 77, 300, 5))
 
 
 def hybrid_cut(cfg):
@@ -1280,6 +1296,29 @@ def rwkv_path(dev) -> dict:
             return -torch.exp(u01 * 4.0 - 8.0)
         return -(0.01 + 0.99 * u01)
 
+    def check(what, dtype, args, chunk):
+        y, s_T = wkv_fwd(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        ry, rs = wkv_chunked_ref(*args, chunk=chunk)
+        worst, errs = 0.0, {}
+        for name, out, ref, tol in (("y", y, ry, WKV_TOLS[dtype]),
+                                    ("s_T", s_T, rs, WKV_TOLS["float32"])):
+            ref = ref.float()
+            d = (out.float() - ref).abs()
+            errs[name] = d.max().item()
+            ratio = (d / (tol[0] + tol[1] * ref.abs())).max().item()
+            worst = max(worst, ratio)
+            print(f"[kernel] wkv {what}: {name} max abs err "
+                  f"{errs[name]:.3g}; limit {tol[0]:g} + {tol[1]:g} "
+                  f"|ref|, largest err/limit {ratio:.3g}; mean |ref| "
+                  f"{ref.abs().mean().item():.3g}")
+        if not (worst <= 1.0 and torch.isfinite(y).all()
+                and torch.isfinite(s_T).all()):
+            fail(f"wkv {what} differs from its plain version: "
+                 f"{errs}, largest err/limit {worst}")
+        return dict(what=what, dtype=dtype, err=max(errs.values()),
+                    err_over_limit=worst)
+
     cases = []
     for S, kind, carried in ((WKV_S, "init", False), (WKV_S, "init", True),
                              (WKV_S, "fast", True), (WKV_S - 1, "init", True)):
@@ -1294,28 +1333,7 @@ def rwkv_path(dev) -> dict:
                       else "in [-1, -0.01]")
             what = (f"B=1 S={S} H={H} N={N} chunk={WKV_CHUNK} {dtype} r/k/v, "
                     f"logw {decays}, s0 {'carried' if carried else 'zero'}")
-            y, s_T = wkv_fwd(rr, kk, vv, logw, u, s0, chunk=WKV_CHUNK)
-            torch.cuda.synchronize()
-            ry, rs = wkv_chunked_ref(rr, kk, vv, logw, u, s0,
-                                     chunk=WKV_CHUNK)
-            worst, errs = 0.0, {}
-            for name, out, ref, tol in (("y", y, ry, WKV_TOLS[dtype]),
-                                        ("s_T", s_T, rs, WKV_TOLS["float32"])):
-                ref = ref.float()
-                d = (out.float() - ref).abs()
-                errs[name] = d.max().item()
-                ratio = (d / (tol[0] + tol[1] * ref.abs())).max().item()
-                worst = max(worst, ratio)
-                print(f"[kernel] wkv {what}: {name} max abs err "
-                      f"{errs[name]:.3g}; limit {tol[0]:g} + {tol[1]:g} "
-                      f"|ref|, largest err/limit {ratio:.3g}; mean |ref| "
-                      f"{ref.abs().mean().item():.3g}")
-            if not (worst <= 1.0 and torch.isfinite(y).all()
-                    and torch.isfinite(s_T).all()):
-                fail(f"wkv {what} differs from its plain version: "
-                     f"{errs}, largest err/limit {worst}")
-            case = dict(what=what, dtype=dtype, err=max(errs.values()),
-                        err_over_limit=worst)
+            case = check(what, dtype, (rr, kk, vv, logw, u, s0), WKV_CHUNK)
             if S == WKV_S and kind == "init" and carried:
                 ms = cuda_ms(lambda: wkv_fwd(rr, kk, vv, logw, u, s0,
                                              chunk=WKV_CHUNK), 20)
@@ -1324,12 +1342,26 @@ def rwkv_path(dev) -> dict:
                 b_ms, b_by = wkv_bound(1, S, H, N, WKV_CHUNK, dtype)
                 print(f"[time] wkv {what}: {ms:.4f} ms per launch, plain "
                       f"version {plain_ms:.4f} ms, no PyTorch call computes "
-                      f"the recurrence, bound {b_ms:.5f} ms ({b_by})")
+                      f"the recurrence, bound {b_ms:.5f} ms ({b_by}), "
+                      f"{b_ms / ms:.3f} of it reached")
                 case.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                             bound_by=b_by)
             cases.append(case)
-            del y, s_T, ry, rs
     torch.cuda.empty_cache()
+    for B, S, Hs, Ns, ch in WKV_EDGE:
+        r, k, v = randn(B, S, Hs, Ns), randn(B, S, Hs, Ns, scale=0.3), randn(
+            B, S, Hs, Ns)
+        logw = -(0.01 + 0.99 * torch.rand(B, S, Hs, Ns, generator=gen,
+                                          device=dev))
+        u, s0 = randn(Hs, Ns, scale=0.1), randn(B, Hs, Ns, Ns, scale=0.5)
+        for dtype in ("bfloat16", "float32"):
+            rr, kk, vv = (a.to(getattr(torch, dtype)) for a in (r, k, v))
+            for st in (None, s0):
+                what = (f"edge B={B} S={S} H={Hs} N={Ns} chunk={ch} {dtype} "
+                        f"r/k/v, logw in [-1, -0.01], s0 "
+                        f"{'zero' if st is None else 'carried'}")
+                cases.append(check(what, dtype, (rr, kk, vv, logw, u, st),
+                                   ch))
 
     # -- [serve-rwkv] ServingEngine at rwkv6-7b's full width and depth ------
     chips = kv_cache.chips_needed(cfg, 1, 8192)
@@ -1555,7 +1587,8 @@ def hybrid_path(dev) -> dict:
             b_ms, b_by = mamba_bound(1, S, d_in, N, fused=True, dtype=dtype)
             print(f"[time] mamba_scan {what}: {ms:.4f} ms per launch, plain "
                   f"version {plain_ms:.4f} ms, no PyTorch call computes the "
-                  f"scan, bound {b_ms:.5f} ms ({b_by})")
+                  f"scan, bound {b_ms:.5f} ms ({b_by}), {b_ms / ms:.3f} of it "
+                  f"reached")
             case.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                         bound_by=b_by)
             timed[("fused", dtype)] = case
@@ -1567,6 +1600,25 @@ def hybrid_path(dev) -> dict:
                         * u.float()[..., None], C)
         del y, h_T, ry, rh
     torch.cuda.empty_cache()
+    for B, S, de, Ne in MAMBA_EDGE:
+        a = torch.rand(B, S, de, generator=gen, device=dev) * 0.49 + 0.5
+        dt, A = -torch.log(a), -torch.ones(de, Ne, device=dev)
+        Bm, C, h0 = randn(B, S, Ne), randn(B, S, Ne), randn(B, de, Ne,
+                                                               scale=0.5)
+        for dtype in ("bfloat16", "float32"):
+            u = randn(B, S, de).to(getattr(torch, dtype))
+            for st in (None, h0):
+                what = (f"fused edge B={B} S={S} d_in={de} N={Ne} u {dtype}, "
+                        f"a in [0.5, 0.99], h0 "
+                        f"{'zero' if st is None else 'carried'}")
+                y, h_T = mamba_scan_fused(dt, A, Bm, u, C, st)
+                torch.cuda.synchronize()
+                ry, rh = mamba_scan_fused_ref(dt, A, Bm, u, C, st)
+                ey, qy = check("mamba_scan", what + ": y", y, ry)
+                eh, qh = check("mamba_scan", what + ": h_T", h_T, rh)
+                cases.append(dict(entry="fused", what=what, dtype=dtype,
+                                  err=max(ey, eh),
+                                  err_over_limit=max(qy, qh)))
 
     for kind in ("init", "fast"):
         S = MAMBA_S
@@ -1596,7 +1648,7 @@ def hybrid_path(dev) -> dict:
                                          dtype=dtype)
                 print(f"[time] mamba_scan {what}: {ms:.4f} ms per launch, "
                       f"plain version {plain_ms:.4f} ms, bound {b_ms:.5f} ms "
-                      f"({b_by})")
+                      f"({b_by}), {b_ms / ms:.3f} of it reached")
                 case.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                             bound_by=b_by)
                 timed[("reference", dtype)] = case

@@ -22,9 +22,10 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 LIBRARY = Library("wkv", SOURCES, NVCC_FLAGS, {
-    # r, k, v, logw, u, s0 (or NULL), y, s_T, B, S, H, N, chunk, is_bf16,
-    # stream
-    "wkv_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # r, k, v, logw, u, s0 (or NULL), y, s_T, scratch, B, S, H, N, chunk,
+    # is_bf16, stream
+    "wkv_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                _P],
 }, error_fn="wkv_error_string")
 
 __all__ = ["LIBRARY", "NVCC_FLAGS", "SOURCES"]

@@ -12,8 +12,11 @@ the port's extension, which the model needs to hand prefill's state to
 decode.  It checks its inputs, then
 
 * for CPU tensors returns the plain version, :func:`wkv_chunked_ref`;
-* for CUDA tensors allocates the outputs, launches the kernel of
-  ``csrc/wkv.cu`` on the current stream, raises if the launch is refused,
+* for CUDA tensors allocates the outputs and the kernels' scratch (each
+  chunk's state increment, then the state before it, and e^{c_T}:
+  :func:`scratch_floats`), launches the three kernels of ``csrc/wkv.cu``
+  on the current stream in one C call (the chunks' state increments, the
+  walk over the chunks, the chunks' y), raises if a launch is refused,
   and adds one to ``wkv_fwd.launches``.  There is no fallback: a CUDA
   tensor never reaches the plain version through the wrapper.
 
@@ -93,6 +96,13 @@ def wkv_chunked_ref(r, k, v, logw, u, s0=None, *, chunk: int = 64):
     return torch.cat(ys, 1), St
 
 
+def scratch_floats(B: int, S: int, H: int, N: int, chunk: int) -> int:
+    """Floats of scratch the CUDA kernels take: each chunk's [N, N]
+    state increment (then the state before the chunk) and its e^{c_T}
+    [N], per (b, h)."""
+    return B * H * -(-S // chunk) * N * (N + 1)
+
+
 def _check(r, k, v, logw, u, s0, chunk: int) -> None:
     if r.dim() != 4:
         raise ValueError(f"r must be [B, S, H, N], got {tuple(r.shape)}")
@@ -140,13 +150,16 @@ def wkv_fwd(r, k, v, logw, u, s0=None, *, chunk: int = 64):
     B, S, H, N = r.shape
     y = torch.empty_like(r)
     s_T = torch.empty(B, H, N, N, dtype=torch.float32, device=r.device)
+    scratch = torch.empty(scratch_floats(B, S, H, N, chunk),
+                          dtype=torch.float32, device=r.device)
     lib = LIBRARY.load()
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
         rc = lib.wkv_fwd(r.data_ptr(), k.data_ptr(), v.data_ptr(),
                          logw.data_ptr(), u.data_ptr(),
                          None if s0 is None else s0.data_ptr(),
-                         y.data_ptr(), s_T.data_ptr(), B, S, H, N, chunk,
+                         y.data_ptr(), s_T.data_ptr(), scratch.data_ptr(),
+                         B, S, H, N, chunk,
                          int(r.dtype == torch.bfloat16), stream)
     LIBRARY.raise_on(rc, "wkv", f"B={B} S={S} H={H} N={N} chunk={chunk} "
                      f"{r.dtype}")

@@ -523,9 +523,15 @@ def _close(port, ref, *, tol, bf16=False):
 def test_cuda_mamba_scan_kernels_match_plain_versions_on_the_card(rng):
     """Both mamba_scan entries against their plain versions on the card,
     float32 and bfloat16, zero and carried state, ragged lengths and an N
-    below 16, within 1e-4 + 1e-4 |ref|."""
+    below 16, within 1e-4 + 1e-4 |ref|.  The edge shapes of the fused
+    kernel's tiling: S = 1, N not a multiple of its 4 states a lane, d_in
+    not a multiple of its 32 channels a block (with d_in a multiple of 8
+    and N of 4: the 16-byte copies; else the 4-byte ones), B = 2."""
     dev = _dev()
-    for B, S, d_in, N, chunk, bd in SCAN_SHAPES + [(2, 77, 300, 5, 16, 16)]:
+    for B, S, d_in, N, chunk, bd in SCAN_SHAPES + [
+            (2, 77, 300, 5, 16, 16), (2, 1, 64, 16, 8, 8),
+            (1, 45, 200, 7, 16, 16), (1, 45, 200, 12, 16, 16),
+            (2, 33, 97, 13, 16, 16)]:
         a, b, c = (torch.tensor(x, device=dev) for x in
                    _scan_inputs(rng, B, S, d_in, N))
         for dt_ in (torch.float32, torch.bfloat16):
@@ -580,10 +586,15 @@ def _wkv_close(port, ref, *, bf16=False):
 
 @pytest.mark.cuda
 def test_cuda_wkv_kernel_matches_plain_version_on_the_card(rng):
-    """The wkv CUDA kernel against its plain version on the card, zero and
-    carried state, a ragged S, float32 and bfloat16 r / k / v."""
+    """The wkv CUDA kernels against their plain version on the card, zero
+    and carried state, a ragged S, float32 and bfloat16 r / k / v.  The
+    edge shapes of the chunk-parallel split: S = 1, S below the chunk, N
+    of 48 and 5 (not a multiple of the 4 x 4 tiles), chunks of 16 and 8,
+    B = 2."""
     dev = _dev()
-    for B, S, H, N, chunk in WKV_SHAPES + [(1, 100, 2, 64, 64)]:
+    for B, S, H, N, chunk in WKV_SHAPES + [
+            (1, 100, 2, 64, 64), (1, 1, 2, 64, 64), (2, 40, 3, 48, 64),
+            (2, 70, 2, 48, 16), (1, 33, 1, 5, 8)]:
         r, k, v, logw, u, s0 = (torch.tensor(a, device=dev) for a in
                                 _wkv_inputs(rng, B, S, H, N))
         for dt in (torch.float32, torch.bfloat16):

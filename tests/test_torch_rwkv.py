@@ -168,6 +168,95 @@ def test_wkv_checks_its_inputs(rng):
 
 
 # --------------------------------------------------------------------------
+# A plain model of the CUDA kernels' chunk-parallel split
+# --------------------------------------------------------------------------
+
+
+def _wkv_split_model(r, k, v, logw, u, s0, *, chunk):
+    """``csrc/wkv.cu``'s three kernels in plain PyTorch, in their order of
+    stages and with their zero padding: each chunk padded to 64 rows, the
+    cumulative log decay c as running sums of four 16-row segments plus the
+    sums of the segments above, c_prev = c - logw; (1) every chunk's state
+    increment dS_c = (k e^{-c} e^{c_T})ᵀ v and e^{c_T}; (2) the walk S_{c+1} =
+    e^{c_T} S_c + dS_c, keeping S_c, the state before chunk c; (3) every
+    chunk's y = (r e^{c_prev}) S_c + tril_strict((r e^{c_prev})
+    (k e^{-c})ᵀ) v + diag(r · u · k) v.  Returns (y, s_T) in float32."""
+    B, S, H, N = r.shape
+    C, T = -(-S // chunk), 64
+
+    def tiles(x):      # [B, S, H, N] -> [B, C, 64, H, N], zero padded
+        x = torch.nn.functional.pad(x.float(), (0, 0, 0, 0, 0, C * chunk - S))
+        x = x.reshape(B, C, chunk, H, N)
+        return torch.nn.functional.pad(x, (0, 0, 0, 0, 0, T - chunk))
+
+    rt, kt, vt, wt = (tiles(x) for x in (r, k, v, logw))
+    run = torch.cumsum(wt.reshape(B, C, 4, 16, H, N), dim=3)
+    seg = run[:, :, :, -1]                               # [B, C, 4, H, N]
+    above = torch.zeros_like(seg)
+    for s in range(1, 4):
+        above[:, :, s] = above[:, :, s - 1] + seg[:, :, s - 1]
+    c = (run + above[:, :, :, None]).reshape(B, C, T, H, N)
+    c_prev = c - wt
+    e_T = torch.exp(above[:, :, 3] + seg[:, :, 3])       # [B, C, H, N]
+    # (1) the state increments
+    kd = kt * torch.exp(-c) * e_T[:, :, None]
+    dS = torch.einsum("bcthn,bcthm->bchnm", kd, vt)
+    # (2) the walk
+    St = (torch.zeros(B, H, N, N) if s0 is None else s0.float().clone())
+    Sc = []
+    for ci in range(C):
+        Sc.append(St)
+        St = e_T[:, ci, :, :, None] * St + dS[:, ci]
+    Sc = torch.stack(Sc, 1)                              # [B, C, H, N, N]
+    # (3) every chunk's y
+    rd, kdec = rt * torch.exp(c_prev), kt * torch.exp(-c)
+    y = torch.einsum("bcihn,bchnm->bcihm", rd, Sc)
+    scores = torch.einsum("bcihn,bcjhn->bchij", rd, kdec)
+    ii = torch.arange(T)
+    scores = torch.where(ii[:, None] > ii[None, :], scores, 0.0)
+    diag = torch.einsum("bcihn,hn,bcihn->bchi", rt, u.float(), kt)
+    scores = scores + torch.diag_embed(diag)
+    y = y + torch.einsum("bchij,bcjhm->bcihm", scores, vt)
+    y = y[:, :, :chunk].reshape(B, C * chunk, H, N)[:, :S]
+    return y, St
+
+
+# (B, S, H, N, chunk): a full chunk, a ragged last chunk at N = 48, S below
+# the chunk, chunks shorter than 64 (ragged too), S = 1
+SPLIT_CASES = [(2, 128, 2, 64, 64), (2, 100, 2, 48, 64), (1, 40, 2, 32, 64),
+               (2, 96, 3, 48, 32), (2, 70, 2, 16, 16), (1, 1, 2, 8, 64)]
+
+
+@pytest.mark.parametrize("carried", [False, True], ids=["zero", "carried"])
+@pytest.mark.parametrize("B,S,H,N,chunk", SPLIT_CASES)
+def test_wkv_kernel_split_matches_plain_version_and_reference(
+        B, S, H, N, chunk, carried, rng):
+    """The kernels' decomposition against the plain version and the
+    reference: from zero state, the reference's oracle ``wkv_ref`` and
+    (where the chunk divides S) its interpret-mode Pallas ``wkv_fwd``;
+    with a carried state, its ``wkv_chunked`` at a chunk that divides S
+    (y and s_T)."""
+    r, k, v, logw, u, s0 = _wkv_inputs(rng, B, S, H, N, state=True)
+    st = s0 if carried else None
+    ym, sm = _wkv_split_model(*_t(r, k, v, logw, u), None if st is None
+                              else torch.tensor(st), chunk=chunk)
+    yp, sp = wkv_fwd(*_t(r, k, v, logw, u), None if st is None
+                     else torch.tensor(st), chunk=chunk)
+    _close(ym, yp.numpy())
+    _close(sm, sp.numpy())
+    jin = [jnp.asarray(a) for a in (r, k, v, logw, u)]
+    if carried:
+        div = max(c for c in range(1, 33) if S % c == 0)
+        ry, rs = ref_rwkv.wkv_chunked(*jin, jnp.asarray(s0), chunk=div)
+        _close(ym, ry)
+        _close(sm, rs)
+    else:
+        _close(ym, ref_wkv_oracle(*jin))
+        if S % chunk == 0:
+            _close(ym, ref_wkv_pallas(*jin, chunk=chunk, interpret=True))
+
+
+# --------------------------------------------------------------------------
 # The model's parts at the reduced width
 # --------------------------------------------------------------------------
 
