@@ -40,7 +40,7 @@ The Figure-3 slice adds to each phase:
 3. ``repro_torch.bench.fig3_traces.run()`` at its defaults on the card
    (2 datasets x k in {512, 1024} x 3 loads x 5 policies, J = 15 000,
    R = 4) with the counts set to 0 just before and read just after:
-   ``srpt_scan`` must launch >= 24 times and every row must be finite; a
+   every row must be finite (the launch counts: see the grid slice); a
    small run on the card must equal the same run on the CPU on every
    column but ``sim_s``.  Rows are printed; no ordering between policies
    is asserted (on the reference BS-π is above FCFS at this J);
@@ -271,6 +271,16 @@ free-time state and kept class-row minima) adds:
    --parent DIR --phases`` times another checkout's kernels beside these
    and splits a step.)
 
+The grid slice (``engines.simulate_grid`` stacks a grid's cells x
+replications onto one launch of each scan kernel) adds to phase 3: each
+path's launches, counted from 0 just before it, must be exactly one of
+each kernel per policy — the Fig. 1 sweep one ``fcfs_scan``,
+``modbs_scan`` and ``bs_scan``; the Fig. 3 path one each of those and two
+of ``srpt_scan`` (SF and FF); the drain sweep one of each fail kernel —
+and each path is run again cell by cell (``grid=False``), which must give
+the same result on every field (Fig. 3: every column) but ``sim_s``; both
+walls are printed.
+
 Then it prints the card's name and power limit, one ``{"kernels": [...]}``
 line and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the repository around it, it exits non-zero and prints no
@@ -329,6 +339,35 @@ DRAIN_CMP_J = 2000
 BS_ADV_J, BS_ADV_R = 2000, 4
 # the FCFS / ModBS-pi adversarial cases (bench/fm_cases.ADVERSARIAL), the same
 FM_ADV_J, FM_ADV_R = 2000, 4
+
+
+def grid_launches(tag: str, counts: dict, want: dict) -> None:
+    """A path's grids launch each kernel of ``want`` that many times (one
+    ``simulate_grid`` per policy) and no other msj_scan kernel."""
+    got = {w: n for w, n in counts.items() if n}
+    print(f"[{tag}] launches of the grid path: {got} (expected {want})")
+    if got != want:
+        fail(f"the {tag} path launched {got}, expected {want}")
+
+
+def sweeps_equal(tag: str, a, b) -> None:
+    """Two ``SweepResult`` s equal on every field but ``sim_s``."""
+    import numpy as np
+
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if f.name == "sim_s":
+            continue
+        if isinstance(x, np.ndarray) or isinstance(y, np.ndarray):
+            same = (x is None) == (y is None) and (
+                x is None or np.array_equal(x, y, equal_nan=True))
+        else:
+            same = x == y
+        if not same:
+            fail(f"{tag}: {f.name} of the grid sweep differs from the "
+                 f"sweep cell by cell")
+    print(f"[{tag}] grid sweep == cell-by-cell sweep on every field but "
+          f"sim_s")
 
 
 def fail(msg: str) -> None:
@@ -2403,6 +2442,17 @@ def main() -> int:
     print(f"[main] sweep_many_server(figure1_workload, {MAIN_KS}, "
           f"num_jobs={MAIN_J}, reps={REPS}) on the card: {wall:.1f} s, "
           f"launches {counts}")
+    grid_launches("main", counts, {w: 1 for w, _ in KERNELS.values()})
+    K.reset_launches()
+    t0 = time.time()
+    sw_cells = sweep_many_server(figure1_workload, MAIN_KS, num_jobs=MAIN_J,
+                                 reps=REPS, policies=POLICIES, device="cuda",
+                                 grid=False)
+    torch.cuda.synchronize()
+    wall_cells = time.time() - t0
+    print(f"[main] the same sweep cell by cell (grid=False): "
+          f"{wall_cells:.1f} s, launches {K.launches()}; grid {wall:.1f} s")
+    sweeps_equal("main", sw, sw_cells)
     for j, k in enumerate(MAIN_KS):
         for i, pol in enumerate(POLICIES):
             print(f"[main] k={k} {pol:>10}: mean_response="
@@ -2412,8 +2462,6 @@ def main() -> int:
     for name, (wrapper, _) in KERNELS.items():
         report[name]["launches"] = counts[wrapper]
         report[name]["fig1_launches"] = counts[wrapper]
-        if counts[wrapper] < 1:
-            fail(f"the main path never launched {name}")
     for f in ("mean_response", "mean_wait", "p_wait", "p95_response",
               "utilization"):
         if not np.isfinite(getattr(sw, f)).all():
@@ -2460,6 +2508,25 @@ def main() -> int:
     print(f"[fig3] fig3_traces.run() (2 datasets x k {FIG3_KS} x 3 loads x "
           f"5 policies, J={FIG3_J}, R={FIG3_R}) on the card: {wall:.1f} s, "
           f"launches {counts3}")
+    grid_launches("fig3", counts3, {"fcfs_scan_fwd": 1, "modbs_scan_fwd": 1,
+                                    "bs_scan_fwd": 1, "srpt_scan_fwd": 2})
+    K.reset_launches()
+    t0 = time.time()
+    rows_cells = fig3_traces.run(device="cuda", grid=False)
+    torch.cuda.synchronize()
+    wall_cells = time.time() - t0
+    print(f"[fig3] the same run cell by cell (grid=False): "
+          f"{wall_cells:.1f} s, launches {K.launches()}; grid {wall:.1f} s")
+    for pol in fig3_traces.SCAN_POLICIES:
+        g, c = (sum(r["sim_s"] for r in rs if r["policy"] == pol)
+                for rs in (rows, rows_cells))
+        print(f"[fig3] {pol:>10} sim_s summed over the 12 cells: grid "
+              f"{g:.2f} s, cell by cell {c:.2f} s")
+    strip = [{c: v for c, v in r.items() if c != "sim_s"} for r in rows]
+    if strip != [{c: v for c, v in r.items() if c != "sim_s"}
+                 for r in rows_cells]:
+        fail("the Fig. 3 rows of the grid differ from the rows cell by cell")
+    print("[fig3] grid rows == cell-by-cell rows on every column but sim_s")
     for r in rows:
         print(f"[fig3] {r['dataset']} k={r['k']} load={r['load']} "
               f"{r['policy']:>10}: mean_response={r['mean_response']:.6f} "
@@ -2471,12 +2538,7 @@ def main() -> int:
         for f in ("mean_response", "p_wait", "p95_response"):
             if not np.isfinite(r[f]):
                 fail(f"non-finite {f} in Fig. 3 row {r}")
-    if counts3["srpt_scan_fwd"] < 24:
-        fail(f"the Fig. 3 path launched srpt_scan "
-             f"{counts3['srpt_scan_fwd']} times, expected >= 24")
     for name, (wrapper, _) in KERNELS.items():
-        if counts3[wrapper] < 1:
-            fail(f"the Fig. 3 path never launched {name}")
         report[name]["fig3_launches"] = counts3[wrapper]
         report[name]["launches"] += counts3[wrapper]
     report["srpt_scan"]["launches"] = counts3["srpt_scan_fwd"]
@@ -2505,6 +2567,19 @@ def main() -> int:
           f"num_jobs={MAIN_J}, reps={REPS}, failures=<bench_failures: mtbf "
           f"= h/4, mttr = h/400 per server>) on the card: {wall:.1f} s, "
           f"launches {counts_d}")
+    grid_launches("drain", counts_d,
+                  {w: 1 for w, _ in FAIL_KERNELS.values()})
+    K.reset_launches()
+    t0 = time.time()
+    swf_cells = sweep_many_server(figure1_workload, DRAIN_KS,
+                                  num_jobs=MAIN_J, reps=REPS,
+                                  policies=POLICIES, device="cuda",
+                                  failures=bench_failures, grid=False)
+    torch.cuda.synchronize()
+    wall_cells = time.time() - t0
+    print(f"[drain] the same sweep cell by cell (grid=False): "
+          f"{wall_cells:.1f} s, launches {K.launches()}; grid {wall:.1f} s")
+    sweeps_equal("drain", swf, swf_cells)
     print("[drain] k=2048 is left out: with the default queue_cap=8192 "
           "BS-pi's helper-wait ring overflows there under these outages, "
           "on the reference too (the class blocks run above unit load by "
@@ -2520,8 +2595,6 @@ def main() -> int:
                   f"sim_s={swf.sim_s[i, j]:.3f}")
     for name, (wrapper, _) in FAIL_KERNELS.items():
         report[name]["launches"] = counts_d[wrapper]
-        if counts_d[wrapper] < 1:
-            fail(f"the drain path never launched {name}")
     for f in ("mean_response", "mean_wait", "p_wait", "p95_response",
               "utilization", "availability"):
         if not np.isfinite(getattr(swf, f)).all():

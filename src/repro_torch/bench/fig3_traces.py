@@ -13,10 +13,14 @@ column but ``engine`` and ``sim_s``.  Runs on the card unless
     PYTHONPATH=src python -m repro_torch.bench.fig3_traces --device cpu \\
         --jobs 400 --reps 2 --ks 64 --loads 0.7
 
-Each (dataset, k, load) cell dispatches each policy separately (the grid
-pre-pass is ROADMAP Queue 1 item 7).  ``serverfilling`` and ``msf`` run
-only on the reference's Python event engine, which is not ported: asking
-for them raises ``KeyError``.
+Every (dataset, k, load) cell is sampled first; then each policy runs all
+cells through one ``engines.simulate_grid`` call (one kernel launch on the
+card), as the reference script's grid pre-pass does, and ``sim_s`` is that
+call's wall time spread evenly over its cells.  ``--no-grid`` runs one
+``engines.simulate`` per cell and policy instead; the rows are equal
+either way but for ``sim_s``.  ``serverfilling`` and ``msf`` run only on
+the reference's Python event engine, which is not ported: asking for them
+raises ``KeyError``.
 """
 
 from __future__ import annotations
@@ -73,16 +77,51 @@ def _batch_row(policy: str, batch: BatchTrace, res) -> dict:
     }
 
 
+def grid_precompute(cells, policies, *, device) -> dict:
+    """One ``engines.simulate_grid`` call per policy over ``cells``, a
+    sequence of ``(batch, wl)`` pairs of one ``reps``.
+
+    Returns ``{policy: (results, wall per cell)}``, the wall time of the
+    call spread evenly over its cells.  A grid that raises
+    ``RuntimeError`` (an overflowing cell fails the whole grid) is left
+    out, so its cells run one by one and the overflowing one gives the
+    reference's row of infinite response times — the reference's
+    ``grid_precompute``.
+    """
+    gcells = [engines.GridCell(batch, wl=wl) for batch, wl in cells]
+    out = {}
+    for pol in policies:
+        t0 = time.time()
+        try:
+            results = engines.simulate_grid(pol, gcells, device=device)
+        except RuntimeError:
+            continue
+        out[pol] = (results, (time.time() - t0) / len(gcells))
+    return out
+
+
 def run_policies_batch(batch: BatchTrace, wl, policies, *, device,
-                       extra_cols=None) -> list[dict]:
+                       extra_cols=None, precomputed=None,
+                       cell: int = 0) -> list[dict]:
     """One row per policy on a shared batch, through ``engines.simulate``.
 
     A policy whose bounded queue overflows on this batch (unstable at this
     load) gives the reference's row of infinite response times with the
-    error in ``note``.
+    error in ``note``.  ``precomputed`` (from :func:`grid_precompute`)
+    gives a policy it holds its grid's result for ``cell`` instead, with
+    the same row assembly.
     """
     rows = []
     for pol in policies:
+        pre = (precomputed or {}).get(pol)
+        if pre is not None:
+            row = _batch_row(pol, batch, pre[0][cell])
+            row["engine"] = "torch"
+            row["sim_s"] = round(pre[1], 2)
+            if extra_cols:
+                row.update(extra_cols)
+            rows.append(row)
+            continue
         t0 = time.time()
         try:
             res = engines.simulate(pol, batch, device=device, wl=wl)
@@ -104,25 +143,32 @@ def run_policies_batch(batch: BatchTrace, wl, policies, *, device,
 
 def run(num_jobs=15_000, seed=0, ks=(512, 1024), loads=(0.5, 0.7, 0.85),
         policies=SCAN_POLICIES, reps=4, bootstrap="iid",
-        device="cuda") -> list[dict]:
+        device="cuda", grid: bool = True) -> list[dict]:
     """Table-2/3 synthesized traces, bootstrapped, through the registry.
 
     One row per (dataset, k, load, policy), in the reference script's
     order.  ``device="cuda"`` (the default) runs the kernels and raises
     without a card; ``device="cpu"`` runs their plain versions.
+    ``grid=True`` runs each policy over every cell in one
+    :func:`grid_precompute` call, ``grid=False`` cell by cell.
     """
     pols = _check_policies(policies)
     dev = engines.resolve_device(device)
-    rows = []
+    specs, sampled = [], []
     for name, trace_fn, wl_fn in _DATASETS:
         for k in ks:
             for load in loads:
                 trace = trace_fn(num_jobs, k=k, load=load, seed=seed)
-                batch = BatchTrace.from_trace(trace, reps, seed=seed,
-                                              method=bootstrap)
-                rows += run_policies_batch(
-                    batch, wl_fn(k=k, load=load), pols, device=dev,
-                    extra_cols={"dataset": name, "k": k, "load": load})
+                specs.append({"dataset": name, "k": k, "load": load})
+                sampled.append((BatchTrace.from_trace(
+                    trace, reps, seed=seed, method=bootstrap),
+                    wl_fn(k=k, load=load)))
+    pre = grid_precompute(sampled, pols, device=dev) if grid else {}
+    rows = []
+    for cell, (extra, (batch, wl)) in enumerate(zip(specs, sampled)):
+        rows += run_policies_batch(batch, wl, pols, device=dev,
+                                   precomputed=pre, cell=cell,
+                                   extra_cols=extra)
     return rows
 
 
@@ -155,10 +201,14 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (their plain versions)")
+    ap.add_argument("--no-grid", dest="grid", action="store_false",
+                    help="one simulate call per cell and policy instead of "
+                         "one grid per policy")
     args = ap.parse_args(argv)
     rows = run(num_jobs=args.jobs, seed=args.seed, ks=tuple(args.ks),
                loads=tuple(args.loads), policies=tuple(args.policies),
-               reps=args.reps, bootstrap=args.bootstrap, device=args.device)
+               reps=args.reps, bootstrap=args.bootstrap, device=args.device,
+               grid=args.grid)
     emit(rows, COLS)
 
 

@@ -36,9 +36,15 @@ through :func:`simulate` / :func:`simulate_grid`::
   Python event engine, which is not ported, and raises
   ``NotImplementedError``, as does ``failures=`` on the SRPT pair.
 
-``simulate_grid`` runs a list of :class:`GridCell` s as a per-cell loop
-over :func:`simulate` (stacking cells onto the kernels' lane axis is later
-work).  Streaming and checkpointing are not ported yet and raise
+* **Grids**: :func:`simulate_grid` takes a sequence of :class:`GridCell`
+  s — each a batch with its own k, J, partition and failures — and runs
+  the policy's grid core (:func:`register_grid`), which stacks every cell
+  onto one (cells x reps) lane axis and makes one wrapper call: one kernel
+  launch per policy per grid on the card.  Cell g of the result equals
+  ``simulate(policy, cells[g].batch, ...)`` and the reference's grid cell
+  g bit for bit.
+
+Streaming and checkpointing are not ported yet and raise
 ``NotImplementedError`` (ROADMAP Queue 1 item 10).
 """
 
@@ -60,6 +66,10 @@ _PROVIDERS = ("repro_torch.kernels.msj_scan.ops",)
 
 _REGISTRY: dict[tuple[str, str], Callable[..., "BatchSimResult"]] = {}
 
+#: grid cores take a sequence of GridCells and return one BatchSimResult
+#: per cell — a distinct signature, so a registry of their own
+_GRID_REGISTRY: dict[tuple[str, str], Callable[..., list]] = {}
+
 #: short CLI aliases -> canonical policy names
 ALIASES = {
     "bs": "bs-fcfs", "balanced-splitting": "bs-fcfs",
@@ -78,6 +88,24 @@ def register(policy: str, engine: str):
         if key in _REGISTRY:
             raise ValueError(f"engine core {key} registered twice")
         _REGISTRY[key] = fn
+        return fn
+    return deco
+
+
+def register_grid(policy: str, engine: str):
+    """Decorator: register a grid core under ``(policy, engine)``.
+
+    A grid core is ``core(cells, *, device) -> list[BatchSimResult]``:
+    ``cells`` a tuple of validated :class:`GridCell` s of one ``reps``
+    and one failure axis, the list index-aligned with it, cell g equal
+    bit for bit to ``simulate(policy, cells[g].batch, engine=engine,
+    ...)``.
+    """
+    def deco(fn: Callable[..., list]):
+        key = (policy, engine)
+        if key in _GRID_REGISTRY:
+            raise ValueError(f"grid core {key} registered twice")
+        _GRID_REGISTRY[key] = fn
         return fn
     return deco
 
@@ -102,6 +130,18 @@ def engines_for(policy: str) -> tuple[str, ...]:
     """Engines registered for a policy (canonicalized), sorted."""
     pol = canonical(policy)
     return tuple(sorted(e for p, e in registered() if p == pol))
+
+
+def grid_registered() -> tuple[tuple[str, str], ...]:
+    """All registered grid ``(policy, engine)`` keys, sorted."""
+    _ensure_registered()
+    return tuple(sorted(_GRID_REGISTRY))
+
+
+def grid_engines_for(policy: str) -> tuple[str, ...]:
+    """Engines with a grid core for a policy (canonicalized), sorted."""
+    pol = canonical(policy)
+    return tuple(sorted(e for p, e in grid_registered() if p == pol))
 
 
 def policies_for(engine: str) -> tuple[str, ...]:
@@ -237,33 +277,35 @@ class GridCell:
 
 
 def simulate_grid(policy: str, cells: Sequence[GridCell], *,
-                  engine: str = "torch", device="cuda", **kw) -> list:
+                  engine: str = "torch", device="cuda") -> list:
     """Run every grid cell under one policy; one ``BatchSimResult`` each.
 
-    A per-cell loop over :func:`simulate`, so cell ``g`` of the result is
-    ``simulate(policy, cells[g].batch, ...)`` exactly.  Every cell must
-    have the same ``reps``, and failures are all-or-none across cells, as
-    in the reference.
+    The policy's grid core stacks the cells onto one (cells x reps) lane
+    axis and makes one wrapper call, so on the card a grid is one kernel
+    launch however many (k, load) cells it has; cell ``g`` of the result
+    equals ``simulate(policy, cells[g].batch, ...)`` bit for bit.  Every
+    cell must have the same ``reps``, and failures are all-or-none across
+    cells, as in the reference.
     """
     cells = tuple(cells)
     if not cells:
         raise ValueError("simulate_grid needs at least one cell")
+    get(policy, engine)  # loud unknown-policy/engine errors first
+    dev = resolve_device(device)
     R = cells[0].batch.reps
     for g, cell in enumerate(cells):
         if cell.batch.reps != R:
             raise ValueError(
                 f"grid cells must share one replication count; cell {g} "
                 f"has reps={cell.batch.reps}, cell 0 has reps={R}")
+        fb = cell.failures
+        try:
+            validate_batch(cell.batch, partition=cell.partition,
+                           failures=fb if hasattr(fb, "k") else None)
+        except ValueError as e:
+            raise ValueError(f"grid cell {g}: {e}") from None
     if sum(c.failures is not None for c in cells) not in (0, len(cells)):
         raise ValueError(
             "mixed failure/no-failure cells in one grid — split into one "
             "simulate_grid call per failure axis")
-    out = []
-    for cell in cells:
-        ckw = dict(kw)
-        if cell.queue_cap is not None:
-            ckw["queue_cap"] = cell.queue_cap
-        out.append(simulate(policy, cell.batch, engine=engine, device=device,
-                            partition=cell.partition, wl=cell.wl,
-                            failures=cell.failures, **ckw))
-    return out
+    return _GRID_REGISTRY[(canonical(policy), engine)](cells, device=dev)

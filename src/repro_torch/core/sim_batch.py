@@ -4,7 +4,8 @@ The port's counterpart of the host side of ``repro.core.sim_batch``: the
 per-replication :class:`BatchSimResult` (numpy fields, assembled with the
 reference's own numpy op order so results and CSV rows match it bit for
 bit), the helpers every ``engine="torch"`` core shares (the drain-mode
-failure helpers included), and :func:`sweep_many_server`, which drives
+failure helpers included), the grid plans and extracts that stack a
+grid's cells onto one lane axis, and :func:`sweep_many_server`, which drives
 the Fig. 1/2 k- and load-sweeps, with or without ``failures=``, through
 :func:`repro_torch.core.engines.simulate_grid`.
 """
@@ -21,8 +22,8 @@ import torch
 from . import engines
 from . import failures as flr
 from .partition import BalancedPartition, balanced_partition
-from .sim_torch import (_bs_scatter_events, _check_classes,
-                        _srpt_scatter_events)
+from .sim_torch import (_bs_args, _bs_scatter_events, _check_classes,
+                        _srpt_args, _srpt_scatter_events)
 from .workload import BatchTrace, Workload
 
 #: waiting-time epsilon for P[wait > 0] — the reference's ``WAIT_EPS``
@@ -120,12 +121,12 @@ def _modbs_result(batch: BatchTrace, blocked, starts) -> BatchSimResult:
                           p_routed=blocked.mean(axis=1), start=starts)
 
 
-def _bs_check_ovf(ovf, q_cap: int) -> None:
+def _bs_check_ovf(ovf, q_cap: int, cell: str = "") -> None:
     ovf = np.asarray(ovf)
     if ovf.any():
         raise QueueOverflowError(
             f"helper-wait ring buffer overflow (queue_cap={q_cap}) in "
-            f"replication(s) {np.flatnonzero(ovf).tolist()} — "
+            f"{cell}replication(s) {np.flatnonzero(ovf).tolist()} — "
             f"workload unstable at this load, or raise queue_cap")
 
 
@@ -216,7 +217,7 @@ def _srpt_nu(*batches) -> tuple:
     return tuple(sorted({int(v) for b in batches for v in np.unique(b.need)}))
 
 
-def _srpt_check_ovf(ovf, q_cap: int, peak=None) -> None:
+def _srpt_check_ovf(ovf, q_cap: int, peak=None, cell: str = "") -> None:
     ovf = np.asarray(ovf)
     if ovf.any():
         hint = ""
@@ -229,7 +230,7 @@ def _srpt_check_ovf(ovf, q_cap: int, peak=None) -> None:
                     f"queue_cap={q_next} (the next power of two) or more")
         raise QueueOverflowError(
             f"SRPT slot table overflow (queue_cap={q_cap}) in "
-            f"replication(s) {np.flatnonzero(ovf).tolist()} — "
+            f"{cell}replication(s) {np.flatnonzero(ovf).tolist()} — "
             f"workload unstable at this load, or raise queue_cap{hint}")
 
 
@@ -253,6 +254,288 @@ def _srpt_result(batch: BatchTrace, job_ev, t_ev, fs_ev, ovf, npre, ne,
                           wait=fstart - batch.arrival,
                           p_helper=None, blocked=None, start=fstart,
                           preemptions=np.asarray(npre).astype(np.int64))
+
+
+# --------------------------------------------------------------------------
+# Grids: a figure's cells as the lanes of one launch.
+#
+# A grid stacks cells of different k, partition, J and failures onto one
+# (cells x reps) lane axis, and each policy runs one wrapper call over it
+# (the grid cores of :mod:`repro_torch.kernels.msj_scan.ops`).  The plans
+# below are the reference's (``repro.core.sim_batch`` ``_*_grid_plan``):
+# [G, R, ...] host arrays padded to the grid's largest sizes, and the
+# per-lane sizes that keep every cell's result unchanged —
+#
+# * J-padding: ``BatchTrace.pad_jobs`` sentinels, processed after every
+#   real job by FCFS and ModBS and never admitted by BS and SRPT (their
+#   ``j_live``); merged drain streams pad with identity drain rows, BS
+#   failure records with rows that never fire (``t_down = inf``);
+# * k-padding: ``k_lane`` / ``h_lane`` live servers, the rest dead, and
+#   ``slots`` [G, R, C_pad] with no slots for a padded class; a ModBS or
+#   BS helper drain's marker "class == C" is the grid's C_pad.
+#
+# Each cell is extracted through the same ``_*_result`` helpers as the
+# per-cell path, and overflow is judged per cell, so cell g of a grid
+# equals ``simulate`` on cell g and the reference's grid cell g bit for
+# bit (rtol=0).
+# --------------------------------------------------------------------------
+
+
+def _lanes_of(cells, values, dtype=np.int32) -> np.ndarray:
+    """[G, R] per-lane sizes: ``values[g]`` in every lane of cell g."""
+    R = cells[0].batch.reps
+    return np.repeat(np.asarray(values, dtype)[:, None], R, axis=1)
+
+
+#: host dtypes of the stacked job fields: the wrappers' (SRPT reads its
+#: needs as float64), so an upload copies each field once
+_JOB_DTYPES = dict(arrival=np.float64, cls=np.int32, service=np.float64,
+                   need=np.int32)
+
+
+def _grid_jobs(cells, *fields, need=np.int32) -> dict:
+    """The ``fields`` of the cells' batches stacked to [G, R, J_pad]
+    (``pad_jobs`` to the grid max J) in the wrappers' dtypes, and
+    ``J_pad``."""
+    J_pad = max(c.batch.num_jobs for c in cells)
+    pads = [c.batch.pad_jobs(J_pad) for c in cells]
+    out = dict(J_pad=J_pad)
+    for f in fields:
+        x = np.empty((len(cells), cells[0].batch.reps, J_pad),
+                     need if f == "need" else _JOB_DTYPES[f])
+        for g, b in enumerate(pads):
+            x[g] = getattr(b, f)
+        out[f] = x
+    return out
+
+
+def _grid_cell_parts(cells):
+    """Each cell's eq.-2 partition (explicit or derived from its wl)."""
+    parts = []
+    for g, cell in enumerate(cells):
+        if cell.partition is None and cell.wl is None:
+            raise ValueError(f"grid cell {g}: need a partition or a "
+                             f"workload")
+        parts.append(cell.partition if cell.partition is not None
+                     else balanced_partition(cell.wl))
+    return parts
+
+
+def _grid_slots(cells, all_slots, C_pad: int) -> np.ndarray:
+    """[G, R, C_pad] slots; a padded class has none."""
+    out = np.zeros((len(cells), cells[0].batch.reps, C_pad), np.int32)
+    for g, slots in enumerate(all_slots):
+        out[g, :, :len(slots)] = slots
+    return out
+
+
+def _pad_merged(mss, C_cells=None, C_pad: int = 0) -> dict:
+    """Merged streams L-padded with identity drain rows (``is_fail`` with
+    ``t_up = 0``: a no-op drain of the helper, class C_pad), in the
+    wrappers' dtypes; the class column (``C_cells`` given: ModBS) has the
+    helper-drain marker remapped from each cell's C to C_pad."""
+    G, R = len(mss), mss[0].t.shape[0]
+    L_pad = max(ms.t.shape[1] for ms in mss)
+    cols = dict(t=(np.float64, 0.0), need=(np.int32, 1),
+                svc=(np.float64, 0.0), t_up=(np.float64, 0.0),
+                isf=(np.bool_, True))
+    if C_cells is not None:
+        cols["cls"] = (np.int32, C_pad)
+    out = {k: np.empty((G, R, L_pad), dt) for k, (dt, _) in cols.items()}
+    for g, ms in enumerate(mss):
+        L = ms.t.shape[1]
+        rows = dict(t=ms.t, need=ms.need, svc=ms.service, t_up=ms.t_up,
+                    isf=ms.is_fail != 0)
+        if C_cells is not None:
+            rows["cls"] = np.where(ms.cls == C_cells[g], C_pad, ms.cls)
+        for k, (_, fill) in cols.items():
+            out[k][g, :, :L] = rows[k]
+            out[k][g, :, L:] = fill
+    return dict(out, mss=mss)
+
+
+def _fcfs_grid_plan(cells) -> dict:
+    ks = [c.batch.k for c in cells]
+    return dict(_grid_jobs(cells, "arrival", "need", "service"),
+                k_lane=_lanes_of(cells, ks), k_pad=max(ks))
+
+
+def _fcfs_grid_extract(cells, starts) -> list:
+    starts = np.asarray(starts)
+    return [_fcfs_result(c.batch, starts[g][:, :c.batch.num_jobs])
+            for g, c in enumerate(cells)]
+
+
+def _fcfs_fail_grid_plan(cells) -> dict:
+    ks = [c.batch.k for c in cells]
+    p = _pad_merged([_merged_fcfs_inputs(c.batch, c.failures)
+                     for c in cells])
+    p.update(k_lane=_lanes_of(cells, ks), k_pad=max(ks))
+    return p
+
+
+def _fcfs_fail_grid_extract(cells, mss, starts_m) -> list:
+    starts_m = np.asarray(starts_m)
+    out = []
+    for g, (c, ms) in enumerate(zip(cells, mss)):
+        starts = np.take_along_axis(starts_m[g], ms.job_pos, axis=1)
+        out.append(_with_drain_obs(_fcfs_result(c.batch, starts), c.batch,
+                                   c.failures))
+    return out
+
+
+def _modbs_grid_statics(cells, parts) -> dict:
+    """The cells' (slots, s_max, h) as per-lane arrays and their maxima."""
+    args = [_partition_args(c.batch, part, None)
+            for c, part in zip(cells, parts)]
+    C_pad = max(len(a[0]) for a in args)
+    return dict(slots=_grid_slots(cells, [a[0] for a in args], C_pad),
+                h_lane=_lanes_of(cells, [a[2] for a in args]),
+                C_pad=C_pad, s_max_pad=max(a[1] for a in args),
+                h_pad=max(a[2] for a in args),
+                C_cells=[len(a[0]) for a in args])
+
+
+def _modbs_grid_plan(cells) -> dict:
+    p = _modbs_grid_statics(cells, _grid_cell_parts(cells))
+    p.update(_grid_jobs(cells, "arrival", "cls", "need", "service"))
+    return p
+
+
+def _modbs_grid_extract(cells, blocked, starts) -> list:
+    blocked = np.asarray(blocked)
+    starts = np.asarray(starts)
+    out = []
+    for g, c in enumerate(cells):
+        J = c.batch.num_jobs
+        out.append(_modbs_result(c.batch, blocked[g][:, :J],
+                                 starts[g][:, :J]))
+    return out
+
+
+def _modbs_fail_grid_plan(cells) -> dict:
+    """Merged streams with the helper-drain marker remapped from each
+    cell's C to the grid's C_pad, L-padded with identity helper drains."""
+    parts = _grid_cell_parts(cells)
+    p = _modbs_grid_statics(cells, parts)
+    mss = []
+    for cell, part in zip(cells, parts):
+        ft, ftgt, fup, count = flr.partition_targets(cell.failures, part)
+        mss.append(flr.merge_failure_stream(cell.batch, ft, ftgt, fup,
+                                            count, pad_cls=len(part.a)))
+    p.update(_pad_merged(mss, p["C_cells"], p["C_pad"]))
+    return p
+
+
+def _modbs_fail_grid_extract(cells, mss, blocked_m, starts_m) -> list:
+    blocked_m = np.asarray(blocked_m)
+    starts_m = np.asarray(starts_m)
+    out = []
+    for g, (c, ms) in enumerate(zip(cells, mss)):
+        starts = np.take_along_axis(starts_m[g], ms.job_pos, axis=1)
+        blocked = np.take_along_axis(blocked_m[g], ms.job_pos, axis=1)
+        out.append(_with_drain_obs(_modbs_result(c.batch, blocked, starts),
+                                   c.batch, c.failures))
+    return out
+
+
+def _bs_grid_plan(cells) -> dict:
+    args = [_bs_args(c.batch, c.partition, c.wl, c.queue_cap)
+            for c in cells]                  # (slots, s_max, h, q_cap)
+    C_pad = max(len(a[0]) for a in args)
+    return dict(_grid_jobs(cells, "arrival", "cls", "need", "service"),
+                slots=_grid_slots(cells, [a[0] for a in args], C_pad),
+                h_lane=_lanes_of(cells, [a[2] for a in args]),
+                j_live=_lanes_of(cells, [c.batch.num_jobs for c in cells]),
+                C_pad=C_pad, s_max_pad=max(a[1] for a in args),
+                h_pad=max(a[2] for a in args),
+                q_cap_pad=max(a[3] for a in args),
+                q_caps=[a[3] for a in args])
+
+
+def _bs_grid_extract(cells, plan, tagged, rec_t, ovf) -> list:
+    tagged = np.asarray(tagged)
+    rec_t = np.asarray(rec_t)
+    ovf = np.asarray(ovf)
+    J_pad = plan["J_pad"]
+    out = []
+    for g, c in enumerate(cells):
+        _bs_check_ovf(ovf[g], plan["q_caps"][g], cell=f"grid cell {g} ")
+        starts, served, routed = _bs_scatter_events(J_pad, tagged[g],
+                                                    rec_t[g])
+        J = c.batch.num_jobs
+        res = _bs_assemble(c.batch, starts[:, :J], served[:, :J],
+                           routed[:, :J])
+        if c.failures is not None:
+            res = _with_drain_obs(res, c.batch, c.failures)
+        out.append(res)
+    return out
+
+
+def _bs_fail_grid_plan(cells) -> dict:
+    """BS plan plus F-padded failure records (``t_down = inf`` rows never
+    fire) with the helper marker remapped from each cell's C to C_pad."""
+    plan = _bs_grid_plan(cells)
+    G, R = len(cells), cells[0].batch.reps
+    C_pad, J_pad = plan["C_pad"], plan["J_pad"]
+    frecs = [_bs_fail_args(c.batch, c.failures, c.partition, c.wl)
+             for c in cells]                 # (ft, ftgt, fup, length)
+    F_pad = max(fr[0].shape[1] for fr in frecs)
+    ft = np.full((G, R, F_pad), np.inf)
+    ftgt = np.full((G, R, F_pad), C_pad, np.int32)
+    fup = np.zeros((G, R, F_pad))
+    length = 0
+    parts = _grid_cell_parts(cells)
+    for g, (fr, part) in enumerate(zip(frecs, parts)):
+        F = fr[0].shape[1]
+        C_cell = len(part.a)
+        ft[g, :, :F] = fr[0]
+        ftgt[g, :, :F] = np.where(fr[1] == C_cell, C_pad, fr[1])
+        fup[g, :, :F] = fr[2]
+        # the cell's budget at the grid's J and F: 2 J_pad covers every
+        # job's two events, F_pad every failure, fa the repair
+        # completions of free-slot drains
+        fa = fr[3] - 2 * cells[g].batch.num_jobs - max(1, F)
+        length = max(length, 2 * J_pad + F_pad + fa)
+    plan.update(ft=ft, ftgt=ftgt, fup=fup, length=length)
+    return plan
+
+
+def _srpt_grid_plan(cells) -> dict:
+    """SRPT grid plan: the servers ``kk`` are per-lane data already, the
+    slot table is Q-padded to the grid max and ``NU`` is the union of the
+    cells' needs (a superset gives each cell the same walk)."""
+    q_caps = [_srpt_args(c.batch, c.queue_cap) for c in cells]
+    return dict(_grid_jobs(cells, "arrival", "need", "service",
+                           need=np.float64),
+                kk=_lanes_of(cells, [c.batch.k for c in cells], np.float64),
+                j_live=_lanes_of(cells, [c.batch.num_jobs for c in cells]),
+                NU=_srpt_nu(*[c.batch for c in cells]),
+                Q_pad=max(q_caps), q_caps=q_caps)
+
+
+def _srpt_grid_extract(cells, plan, job_ev, t_ev, fs_ev, ovf, npre,
+                       ne, peak) -> list:
+    job_ev, t_ev, fs_ev = (np.asarray(x) for x in (job_ev, t_ev, fs_ev))
+    ovf, npre, ne = np.asarray(ovf), np.asarray(npre), np.asarray(ne)
+    peak = np.asarray(peak)
+    J_pad = plan["J_pad"]
+    out = []
+    for g, c in enumerate(cells):
+        _srpt_check_ovf(ovf[g], plan["q_caps"][g], peak=peak[g],
+                        cell=f"grid cell {g} ")
+        if not (ne[g] == 2 * c.batch.num_jobs).all():
+            raise RuntimeError(f"SRPT event scan under-ran grid cell {g}'s "
+                               f"2J event budget")
+        comp, fstart = _srpt_scatter_events(J_pad, job_ev[g], t_ev[g],
+                                            fs_ev[g])
+        J = c.batch.num_jobs
+        out.append(BatchSimResult(
+            response=comp[:, :J] - c.batch.arrival,
+            wait=fstart[:, :J] - c.batch.arrival,
+            p_helper=None, blocked=None, start=fstart[:, :J],
+            preemptions=npre[g].astype(np.int64)))
+    return out
 
 
 # --------------------------------------------------------------------------

@@ -51,6 +51,37 @@ _F64 = torch.float64
 
 
 # --------------------------------------------------------------------------
+# Per-lane sizes.  A grid stacks cells of different k, partitions and J on
+# one lane axis; every size a lane has of its own is data here, as in the
+# reference's grid plans: dead servers are _BIG tail entries of a free-time
+# vector (no finite completion undercuts them, so every read and insert
+# sees the live prefix), padded class slots are permanently busy _BIG
+# completion entries, and the event scans never admit a job at or past the
+# lane's ``j_live``.  A single cell is the case where every lane has the
+# full sizes.
+# --------------------------------------------------------------------------
+
+
+def _lanes(x, R: int, device, default: int):
+    """Per-lane sizes as an [R] int64 tensor: ``x`` an [R] tensor, an int,
+    or None for ``default``."""
+    if x is None:
+        x = default
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.int64).expand(R)
+    return torch.full((R,), int(x), dtype=torch.int64, device=device)
+
+
+def _free_times(R: int, m: int, live, device):
+    """[R, m] free-time vectors of empty systems: 0 for each lane's
+    ``live`` servers, _BIG (dead: never free) past them."""
+    live = _lanes(live, R, device, m)
+    dead = torch.arange(m, device=device)[None, :] >= live[:, None]
+    return torch.zeros(R, m, dtype=_F64, device=device).masked_fill_(dead,
+                                                                     _BIG)
+
+
+# --------------------------------------------------------------------------
 # Multiserver-job FCFS
 # --------------------------------------------------------------------------
 
@@ -77,10 +108,11 @@ def _fcfs_sorted_step(W, t_prev, t, n, svc):
     return W_new, start
 
 
-def _fcfs_core(arrival, need, service, k: int):
-    """Start times [R, J] of R FCFS sample paths from an empty system."""
+def _fcfs_core(arrival, need, service, k: int, k_lane=None):
+    """Start times [R, J] of R FCFS sample paths from an empty system on
+    ``k_lane`` [R] servers each (None: k), padded to k."""
     R, J = arrival.shape
-    W = torch.zeros(R, k, dtype=_F64, device=arrival.device)
+    W = _free_times(R, k, k_lane, arrival.device)
     t_prev = torch.zeros(R, dtype=_F64, device=arrival.device)
     need = need.long()
     starts = torch.empty(R, J, dtype=_F64, device=arrival.device)
@@ -120,11 +152,12 @@ def _fcfs_fail_step(W, t_prev, t, n, svc, tu, isf):
     return W_new, torch.where(isf, t_prev, start), start
 
 
-def _fcfs_fail_core(t, n, svc, t_up, is_fail, k: int):
+def _fcfs_fail_core(t, n, svc, t_up, is_fail, k: int, k_lane=None):
     """Start times [R, L] of R FCFS paths over merged arrival+failure
-    streams (``sim_jax._fcfs_fail_core``), from an empty system."""
+    streams (``sim_jax._fcfs_fail_core``), from an empty system on
+    ``k_lane`` [R] servers each (None: k), padded to k."""
     R, L = t.shape
-    W = torch.zeros(R, k, dtype=_F64, device=t.device)
+    W = _free_times(R, k, k_lane, t.device)
     t_prev = torch.zeros(R, dtype=_F64, device=t.device)
     n = n.long()
     starts = torch.empty(R, L, dtype=_F64, device=t.device)
@@ -140,19 +173,21 @@ def _fcfs_fail_core(t, n, svc, t_up, is_fail, k: int):
 # --------------------------------------------------------------------------
 
 
-def _modbs_init(slots, s_max: int, h: int, R: int):
+def _modbs_init(slots, s_max: int, h: int, R: int, h_lane=None):
     """Initial (comp [R, C, s_max], W [R, h], t_prev [R]) state.
 
-    Slots beyond ``slots[c]`` in a class row hold ``_BIG``: permanently
-    busy, so they are never the row's argmin and always count as busy.
+    ``slots`` is [C] (every lane) or [R, C] (a lane each).  Slots beyond
+    ``slots[c]`` in a class row hold ``_BIG``: permanently busy, so they
+    are never the row's argmin and always count as busy.  The helper has
+    ``h_lane`` [R] live servers (None: h), dead ones past them.
     """
     dev = slots.device
-    pad = (torch.arange(s_max, device=dev)[None, :]
-           >= slots.long()[:, None])
+    pad = (torch.arange(s_max, device=dev)
+           >= slots.long()[..., None])
     comp0 = torch.where(pad, torch.tensor(_BIG, dtype=_F64, device=dev),
                         torch.tensor(0.0, dtype=_F64, device=dev))
-    return (comp0.expand(R, -1, -1).clone(),
-            torch.zeros(R, h, dtype=_F64, device=dev),
+    return (comp0.expand(R, *comp0.shape[-2:]).clone(),
+            _free_times(R, h, h_lane, dev),
             torch.zeros(R, dtype=_F64, device=dev))
 
 
@@ -177,13 +212,15 @@ def _modbs_step(comp, W, t_prev, t, c, n, svc):
     return W, t_prev, blocked, start
 
 
-def _modbs_core(arrival, cls, need, service, slots, s_max: int, h: int):
-    """Per-class loss queues (padded to s_max) + helper FCFS on h servers.
+def _modbs_core(arrival, cls, need, service, slots, s_max: int, h: int,
+                h_lane=None):
+    """Per-class loss queues (padded to s_max) + helper FCFS on h servers
+    (``h_lane`` [R] live; see :func:`_modbs_init`).
 
     Returns ``(blocked [R, J] bool, starts [R, J] float64)``.
     """
     R, J = arrival.shape
-    comp, W, t_prev = _modbs_init(slots, s_max, h, R)
+    comp, W, t_prev = _modbs_init(slots, s_max, h, R, h_lane)
     cls = cls.long()
     need = need.long()
     blocked = torch.empty(R, J, dtype=torch.bool, device=arrival.device)
@@ -230,12 +267,14 @@ def _modbs_fail_step(comp, W, t_prev, t, c, n, svc, tu, isf, C: int):
 
 
 def _modbs_fail_core(t, c, n, svc, t_up, is_fail, slots, s_max: int,
-                     h: int):
+                     h: int, h_lane=None):
     """ModBS-FCFS over merged arrival+failure streams [R, L]
-    (``sim_jax._modbs_fail_core``) -> (blocked [R, L], starts [R, L])."""
+    (``sim_jax._modbs_fail_core``) -> (blocked [R, L], starts [R, L]).
+    ``slots`` and ``h_lane`` as in :func:`_modbs_init`; ``c == C`` (the
+    padded class count) marks a helper drain."""
     R, L = t.shape
-    C = slots.shape[0]
-    comp, W, t_prev = _modbs_init(slots, s_max, h, R)
+    C = slots.shape[-1]
+    comp, W, t_prev = _modbs_init(slots, s_max, h, R, h_lane)
     c = c.long()
     n = n.long()
     blocked = torch.empty(R, L, dtype=torch.bool, device=t.device)
@@ -253,12 +292,14 @@ def _modbs_fail_core(t, c, n, svc, t_up, is_fail, slots, s_max: int,
 
 
 def _bs_init(R: int, J: int, C: int, s_max: int, h: int, q_cap: int,
-             slots):
+             slots, h_lane=None):
     """Initial BS-FCFS event-scan state, one dict of [R, ...] tensors.
 
     ``st`` packs the per-class counters: [0:C] free A slots, [C:2C] ring
     heads, [2C:3C] ring tails.  ``st``, ``comp``, ``ring`` and ``heads``
     carry one extra trailing column that dropped scatters write to.
+    ``slots`` is [C] or [R, C] (padded classes have none); the helper has
+    ``h_lane`` [R] live servers (None: h), dead ones past them.
     """
     dev = slots.device
     i64 = dict(dtype=torch.int64, device=dev)
@@ -270,14 +311,14 @@ def _bs_init(R: int, J: int, C: int, s_max: int, h: int, q_cap: int,
         comp=torch.full((R, C * s_max + 1), _BIG, dtype=_F64, device=dev),
         ring=torch.zeros(R, C * q_cap + 1, **i64),
         heads=torch.full((R, C + 1), J, **i64),
-        W=torch.zeros(R, h, dtype=_F64, device=dev),
+        W=_free_times(R, h, h_lane, dev),
         t_prev=torch.zeros(R, dtype=_F64, device=dev),
         t_hol=torch.zeros(R, dtype=_F64, device=dev),
         ovf=torch.zeros(R, dtype=torch.bool, device=dev))
 
 
 def _bs_step(s, arrival, service, cls, need, C: int, s_max: int, h: int,
-             q_cap: int):
+             q_cap: int, jl=None, live=None):
     """One BS-FCFS event per lane (``sim_jax._bs_make_step`` statement for
     statement); updates the state dict ``s`` and returns the event record
     ``(tagged, rec_t)``.
@@ -285,7 +326,10 @@ def _bs_step(s, arrival, service, cls, need, C: int, s_max: int, h: int,
     The three candidate events are the next arrival (Ta), the earliest
     outstanding A completion (Tc) and the helper-queue head's FCFS start
     (Th); a commit wins ties, and an arrival precedes a completion at
-    equal times.
+    equal times.  ``jl`` [R]: the lane's jobs (None: J; jobs past it are
+    never admitted); ``live`` [R] bool: the lane has events left (None:
+    every lane) — a lane past its 2 jl events records (-1, Tc) and keeps
+    its state.
     """
     R, J = arrival.shape
     dev = arrival.device
@@ -293,9 +337,10 @@ def _bs_step(s, arrival, service, cls, need, C: int, s_max: int, h: int,
     st, comp, ring, heads, W = s["st"], s["comp"], s["ring"], s["heads"], \
         s["W"]
     ai, t_prev, t_hol = s["ai"], s["t_prev"], s["t_hol"]
+    jl = J if jl is None else jl
 
     j_arr = ai.clamp(max=J - 1)
-    Ta = torch.where(ai < J, arrival[lanes, j_arr], _INF)
+    Ta = torch.where(ai < jl, arrival[lanes, j_arr], _INF)
     cm = comp[:, :C * s_max].argmin(1)
     Tc = comp[lanes, cm]
     gh_job = heads[:, :C].min(1).values      # global FIFO head (min index)
@@ -311,6 +356,9 @@ def _bs_step(s, arrival, service, cls, need, C: int, s_max: int, h: int,
     is_commit = (Th <= Tc) & (Th <= Ta)
     is_comp = ~is_commit & (Tc < Ta)
     is_arr = ~is_commit & ~is_comp
+    if live is not None:
+        is_commit, is_comp, is_arr = (is_commit & live, is_comp & live,
+                                      is_arr & live)
 
     # arrival (rule 1): a free A_i slot starts the job, else it enqueues
     c_arr = cls[lanes, j_arr]
@@ -395,30 +443,35 @@ def _bs_step(s, arrival, service, cls, need, C: int, s_max: int, h: int,
 
 
 def _bs_core(arrival, cls, need, service, slots, s_max: int, h: int,
-             q_cap: int):
+             q_cap: int, h_lane=None, j_live=None):
     """BS-FCFS sample paths as a 2J-event scan over R lanes.
 
     Every job contributes its arrival plus either its A completion or its
-    helper start, so exactly 2J events exist per lane.  Returns the raw
-    event streams ``(tagged [R, 2J] int32, rec_t [R, 2J] float64)`` and the
+    helper start, so exactly 2J events exist per lane; a lane of
+    ``j_live`` [R] jobs (None: J; the rest are padding it never admits)
+    has 2 j_live, and records (-1, Tc) past them.  ``slots`` [C] or
+    [R, C] and ``h_lane`` as in :func:`_bs_init`.  Returns the raw event
+    streams ``(tagged [R, 2J] int32, rec_t [R, 2J] float64)`` and the
     ring-overflow flag ``ovf [R] bool``; :func:`_bs_scatter_events` turns
     them into per-job arrays on the host.
     """
     R, J = arrival.shape
-    C = slots.shape[0]
-    s = _bs_init(R, J, C, s_max, h, q_cap, slots)
+    C = slots.shape[-1]
+    s = _bs_init(R, J, C, s_max, h, q_cap, slots, h_lane)
+    jl = _lanes(j_live, R, arrival.device, J)
     cls = cls.long()
     need = need.long()
     tagged = torch.empty(R, 2 * J, dtype=torch.int32, device=arrival.device)
     rec_t = torch.empty(R, 2 * J, dtype=_F64, device=arrival.device)
     for e in range(2 * J):
         tagged[:, e], rec_t[:, e] = _bs_step(s, arrival, service, cls, need,
-                                             C, s_max, h, q_cap)
+                                             C, s_max, h, q_cap, jl,
+                                             e < 2 * jl)
     return tagged, rec_t, s["ovf"]
 
 
 def _bs_fail_step(s, arrival, service, cls, need, ft, ftgt, fup, C: int,
-                  s_max: int, h: int, q_cap: int):
+                  s_max: int, h: int, q_cap: int, jl=None):
     """One BS-FCFS drain-mode event per lane
     (``sim_jax._bs_fail_make_step`` statement for statement); updates the
     state dict ``s`` (with the failure cursor ``fi``) and returns the event
@@ -430,7 +483,8 @@ def _bs_fail_step(s, arrival, service, cls, need, ft, ftgt, fup, C: int,
     as an ordinary A completion at ``t_up``, the repair), or, with the
     class fully busy, the argmin completion entry extended to ``t_up``.
     Trailing steps past a lane's events are no-ops: completions need
-    ``Tc`` below ``0.5 * _BIG`` and arrivals need ``ai < J``.
+    ``Tc`` below ``0.5 * _BIG`` and arrivals need ``ai < jl`` (``jl`` [R]
+    the lane's jobs; None: J).
     """
     R, J = arrival.shape
     F = ft.shape[1]
@@ -439,9 +493,10 @@ def _bs_fail_step(s, arrival, service, cls, need, ft, ftgt, fup, C: int,
     st, comp, ring, heads, W = s["st"], s["comp"], s["ring"], s["heads"], \
         s["W"]
     ai, fi, t_prev, t_hol = s["ai"], s["fi"], s["t_prev"], s["t_hol"]
+    jl = J if jl is None else jl
 
     j_arr = ai.clamp(max=J - 1)
-    Ta = torch.where(ai < J, arrival[lanes, j_arr], _INF)
+    Ta = torch.where(ai < jl, arrival[lanes, j_arr], _INF)
     cm = comp[:, :C * s_max].argmin(1)
     Tc = comp[lanes, cm]
     gh_job = heads[:, :C].min(1).values
@@ -461,7 +516,7 @@ def _bs_fail_step(s, arrival, service, cls, need, ft, ftgt, fup, C: int,
     is_fail = (Tf <= Ta) & (Tf <= Tc) & (Tf <= Th) & (Tf < _INF)
     is_commit = ~is_fail & (Th <= Tc) & (Th <= Ta)
     is_comp = ~is_fail & ~is_commit & (Tc < Ta) & (Tc < 0.5 * _BIG)
-    is_arr = ~is_fail & ~is_commit & ~is_comp & (ai < J)
+    is_arr = ~is_fail & ~is_commit & ~is_comp & (ai < jl)
     s["fi"] = fi + is_fail.long()
 
     # arrival (rule 1), as in _bs_step
@@ -566,19 +621,22 @@ def _bs_fail_step(s, arrival, service, cls, need, ft, ftgt, fup, C: int,
 
 
 def _bs_fail_core(arrival, cls, need, service, ft, ftgt, fup, slots,
-                  s_max: int, h: int, q_cap: int, length: int):
+                  s_max: int, h: int, q_cap: int, length: int, h_lane=None,
+                  j_live=None):
     """BS-FCFS sample paths with drained-capacity failure events
     (``sim_jax._bs_fail_core``).
 
     ``ft``/``ftgt``/``fup`` [R, F] are the chronological failure records
     of :func:`repro_torch.core.failures.partition_targets` (F >= 1; pad
     rows carry ``ft = +inf`` and never fire).  The scan runs ``length`` =
-    2J + F + F_A steps.  Returns ``(tagged [R, length] int32,
+    2J + F + F_A steps.  ``slots``, ``h_lane`` and ``j_live`` as in
+    :func:`_bs_core`.  Returns ``(tagged [R, length] int32,
     rec_t [R, length] float64, ovf [R] bool)``.
     """
     R, J = arrival.shape
-    C = slots.shape[0]
-    s = _bs_init(R, J, C, s_max, h, q_cap, slots)
+    C = slots.shape[-1]
+    s = _bs_init(R, J, C, s_max, h, q_cap, slots, h_lane)
+    jl = _lanes(j_live, R, arrival.device, J)
     s["fi"] = torch.zeros(R, dtype=torch.int64, device=arrival.device)
     cls = cls.long()
     need = need.long()
@@ -589,7 +647,7 @@ def _bs_fail_core(arrival, cls, need, service, ft, ftgt, fup, slots,
     for e in range(length):
         tagged[:, e], rec_t[:, e] = _bs_fail_step(
             s, arrival, service, cls, need, ft, ftgt, fup, C, s_max, h,
-            q_cap)
+            q_cap, jl)
     return tagged, rec_t, s["ovf"]
 
 
@@ -762,12 +820,15 @@ def _srpt_init(R: int, Q: int, device):
             torch.zeros(R, **i32))
 
 
-def _srpt_step(carry, arrival, need, service, kk, NU: tuple, sf: bool):
+def _srpt_step(carry, arrival, need, service, kk, NU: tuple, sf: bool,
+               jl=None):
     """One event per lane of ``sim_jax._srpt_make_step``, statement for
     statement.  Returns the new carry and the record (job, t, fstart) —
-    job -1.0 with t = fstart = 0 on steps that are not departures."""
+    job -1.0 with t = fstart = 0 on steps that are not departures.
+    ``jl`` [R]: the lane's jobs (None: J); it never admits one past them."""
     ai, S, ovf, npre, ne, peak = carry
     R, J = arrival.shape
+    jl = J if jl is None else jl
     Q = S.shape[1]
     dev = S.device
     lanes = torch.arange(R, device=dev)
@@ -779,11 +840,11 @@ def _srpt_step(carry, arrival, need, service, kk, NU: tuple, sf: bool):
     # (run_start + rem, the oracle's addition); an arrival wins ties
     j_arr = ai.clamp(max=J - 1)
     a_arr = arrival[lanes, j_arr]
-    Ta = torch.where(ai < J, a_arr, _INF)
+    Ta = torch.where(ai < jl, a_arr, _INF)
     comp = torch.where(s_run, s_rs + s_rem, _BIG)
     qd = comp.argmin(1)
     Tc = comp[lanes, qd]
-    is_arr = (ai < J) & (Ta <= Tc)
+    is_arr = (ai < jl) & (Ta <= Tc)
     is_dep = ~is_arr & (Tc < 0.5 * _BIG)
     active = is_arr | is_dep
     ne = ne + active.int()
@@ -854,11 +915,14 @@ def _srpt_step(carry, arrival, need, service, kk, NU: tuple, sf: bool):
     return (ai, S, ovf, npre, ne, peak), (job_out, t_out, fs_out)
 
 
-def _srpt_core(arrival, need, service, kk, Q: int, NU: tuple, sf: bool):
+def _srpt_core(arrival, need, service, kk, Q: int, NU: tuple, sf: bool,
+               j_live=None):
     """Full-trace SRPT event scan: 2J steps from an empty system.
 
     ``arrival``, ``need``, ``service`` [R, J] float64, ``kk`` [R] float64
-    servers.  Returns the departure-record streams ``(job_ev, t_ev,
+    servers, ``j_live`` [R] the lane's jobs (None: J; the rest are padding
+    it never admits, and steps past its 2 j_live events record nothing).
+    Returns the departure-record streams ``(job_ev, t_ev,
     fs_ev)`` [R, 2J] float64 (-1 job ids mark non-departure steps) and the
     per-lane counters ``ovf`` [R] bool (slot-table overflow), ``npre``
     (preemptions), ``ne`` (processed events, 2J on success) and ``peak``
@@ -867,12 +931,13 @@ def _srpt_core(arrival, need, service, kk, Q: int, NU: tuple, sf: bool):
     R, J = arrival.shape
     dev = arrival.device
     carry = _srpt_init(R, Q, dev)
+    jl = _lanes(j_live, R, dev, J)
     job_ev = torch.empty(R, 2 * J, dtype=_F64, device=dev)
     t_ev = torch.empty(R, 2 * J, dtype=_F64, device=dev)
     fs_ev = torch.empty(R, 2 * J, dtype=_F64, device=dev)
     for e in range(2 * J):
         carry, (job_ev[:, e], t_ev[:, e], fs_ev[:, e]) = _srpt_step(
-            carry, arrival, need, service, kk, NU, sf)
+            carry, arrival, need, service, kk, NU, sf, jl)
     _, _, ovf, npre, ne, peak = carry
     return job_ev, t_ev, fs_ev, ovf, npre, ne, peak
 

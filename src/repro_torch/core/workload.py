@@ -309,6 +309,40 @@ class BatchTrace:
                      service=self.service[r], need=self.need[r], k=self.k,
                      C=self.C)
 
+    def pad_jobs(self, j_max: int) -> "BatchTrace":
+        """Pad every replication to ``j_max`` jobs with sentinel no-ops.
+
+        The padding rule of grid stacking (cells of different J padded to
+        the grid's largest), the reference's ``BatchTrace.pad_jobs``.
+        Sentinel jobs repeat the replication's last arrival time (arrivals
+        stay nondecreasing and finite) with ``service=0``, ``need=1``,
+        ``cls=0``.  The arrival-ordered scans (FCFS, ModBS) process them
+        after every real job, and the event scans (BS, SRPT) never admit
+        them (their per-lane ``j_live``); either way the first
+        ``num_jobs`` outputs equal the unpadded run's.
+        """
+        J = self.num_jobs
+        if j_max < J:
+            raise ValueError(f"cannot pad {J} jobs down to {j_max}")
+        if j_max == J:
+            return self
+        pad = j_max - J
+        last = (self.arrival[:, -1:] if J
+                else np.zeros((self.reps, 1), self.arrival.dtype))
+        return BatchTrace(
+            arrival=np.concatenate(
+                [self.arrival, np.repeat(last, pad, axis=1)], axis=1),
+            cls=np.concatenate(
+                [self.cls, np.zeros((self.reps, pad), self.cls.dtype)],
+                axis=1),
+            service=np.concatenate(
+                [self.service,
+                 np.zeros((self.reps, pad), self.service.dtype)], axis=1),
+            need=np.concatenate(
+                [self.need, np.ones((self.reps, pad), self.need.dtype)],
+                axis=1),
+            k=self.k, C=self.C)
+
     @classmethod
     def from_arrays(cls, arrival, cls_, service, need, k: int,
                     C: int | None = None) -> "BatchTrace":

@@ -23,17 +23,13 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler",
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 LIBRARY = Library("msj_scan", SOURCES, NVCC_FLAGS, {
-    "msj_fcfs_scan": [_P, _P, _P, _P, _I, _I, _I, _P],
-    "msj_modbs_scan": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "msj_bs_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                    _I, _P],
-    "msj_fcfs_fail_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "msj_modbs_fail_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                            _I, _I, _P],
-    "msj_bs_fail_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                         _I, _I, _I, _I, _I, _I, _I, _P],
-    "msj_srpt_scan": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
-                      _P, _I, _I, _I, _I, _P],
+    "msj_fcfs_scan": [_P] * 5 + [_I] * 3 + [_P],
+    "msj_modbs_scan": [_P] * 8 + [_I] * 5 + [_P],
+    "msj_bs_scan": [_P] * 11 + [_I] * 6 + [_P],
+    "msj_fcfs_fail_scan": [_P] * 7 + [_I] * 3 + [_P],
+    "msj_modbs_fail_scan": [_P] * 10 + [_I] * 5 + [_P],
+    "msj_bs_fail_scan": [_P] * 14 + [_I] * 8 + [_P],
+    "msj_srpt_scan": [_P] * 6 + [_I] + [_P] * 8 + [_I] * 4 + [_P],
     "msj_srpt_table_bytes": [_I, ctypes.POINTER(ctypes.c_longlong)],
     "msj_stable_sort": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
 }, error_fn="msj_error_string")

@@ -66,7 +66,7 @@
 //     arrivals write the row; the output is blocked && !is_fail.
 //   * BS: a failure cursor fi adds the candidate Tf, which wins ties
 //     (Tf <= Ta, Tc, Th and Tf < inf).  Completions need Tc < 0.5 * BIG and
-//     arrivals ai < J, because trailing steps past a lane's events are
+//     arrivals ai < j_live, because trailing steps past a lane's events are
 //     no-ops that still record tagged = -1 and rec_t = t_ins (maybe BIG).
 //     A class drain on a free slot writes t_up at the row's first max (a
 //     BIG entry) and takes one free slot; on a full row it extends the
@@ -158,17 +158,27 @@ struct RunState {
   unsigned c[kRegChunks];  // group's value (+inf: free) and count word
 };
 
+// m servers, of which the first `live` (1 <= live <= m) are live: a grid
+// lane stacked beside cells of more servers has dead ones, BIG entries at
+// the tail of the plain step's W (never free), which are here one group at
+// BIG holding all m entries at or below it.  No finite completion undercuts
+// it, so it never folds and, for a need within the live servers, is never
+// W[n-1]; with live == m there is none.
 __device__ __forceinline__ void rs_init(RunState& s, double* sv, unsigned* sc,
-                                        int m) {
+                                        int m, int live) {
   s.sv = sv; s.sc = sc; s.nsh = 0;
   s.cap = msj_spill_slots(m) / 32;
-  s.F = m; s.base = 0u;   // W = 0 <= t_prev = 0
+  s.F = live; s.base = 0u;   // W = 0 <= t_prev = 0
   s.t_prev = 0.0;
   s.wide = false;
 #pragma unroll
   for (int t = 0; t < kRegChunks; ++t) {
     s.v[t] = INFINITY;
     s.c[t] = 0u;
+  }
+  if (live < m && (threadIdx.x & 31) == 0) {
+    s.v[0] = kBig;
+    s.c[0] = (unsigned)m;
   }
 }
 
@@ -363,7 +373,7 @@ __device__ __forceinline__ void rs_drain(RunState& s, double tu) {
 
 // ---------------------------------------------------------------------------
 // FCFS: one warp per replication on the run-length state of k servers
-// (shared memory: its spill past 128 groups).
+// (shared memory: its spill past 128 groups), k_lane[b] of them live.
 // The trace (and, kDrain, t_up / is_fail) is read ahead in windows of 32
 // entries, one per lane, the next window in flight; the starts are
 // gathered one per lane and stored 32 at a time.  kDrain: J counts merged
@@ -378,6 +388,7 @@ __global__ void __launch_bounds__(32)
                      const double* __restrict__ service,
                      const double* __restrict__ t_up,
                      const bool* __restrict__ is_fail,
+                     const int* __restrict__ k_lane,
                      double* __restrict__ starts, int J, int k) {
   extern __shared__ double smem[];
   const int lane = threadIdx.x;
@@ -388,7 +399,8 @@ __global__ void __launch_bounds__(32)
   double* out = starts + off;
   RunState s;
   const int spill = msj_spill_slots(k);
-  rs_init(s, smem, reinterpret_cast<unsigned*>(smem + spill), k);
+  rs_init(s, smem, reinterpret_cast<unsigned*>(smem + spill), k,
+          clampi(k_lane[blockIdx.x], 1, k));
 
   // windows: lane l holds entry wb + l (cur) and wb + 32 + l (nxt)
   double cur_a, cur_s, nxt_a, nxt_s, cur_u = 0.0, nxt_u = 0.0;
@@ -436,8 +448,9 @@ __global__ void __launch_bounds__(32)
 // ---------------------------------------------------------------------------
 // ModifiedBS-pi (Definition 2): one warp per replication.  Shared memory
 // holds each class row of the completion matrix [C][s_max] sorted
-// ascending (slots beyond slots[c] hold BIG: permanently busy) and the
-// spill of the helper's run-length state (h servers).  Only the row's
+// ascending (slots beyond slots[c] hold BIG: permanently busy; slots [R][C]
+// is the block's own row) and the spill of the helper's run-length state
+// (h servers, h_lane[b] of them live).  Only the row's
 // multiset of completions reaches an output: a job is blocked when all
 // s_max entries are > t, which is row[0] > t (the kept minimum: no count
 // and no argmin), and a start on a free slot, or a class drain, replaces
@@ -486,7 +499,8 @@ __global__ void __launch_bounds__(32)
                       const double* __restrict__ service,
                       const double* __restrict__ t_up,
                       const bool* __restrict__ is_fail,
-                      const int* __restrict__ slots,
+                      const int* __restrict__ slots_all,
+                      const int* __restrict__ h_lane,
                       bool* __restrict__ blocked_out,
                       double* __restrict__ starts, int J, int C, int s_max,
                       int h) {
@@ -501,11 +515,12 @@ __global__ void __launch_bounds__(32)
   const int* cl = cls + off;
   const int* nd = need + off;
   const double* sv = service + off;
+  const int* slots = slots_all + (size_t)blockIdx.x * C;
 
   for (int i = lane; i < CS; i += 32)   // free slots first: sorted
     comp[i] = (i % s_max) >= slots[i / s_max] ? kBig : 0.0;
   RunState s;
-  rs_init(s, hv, hc, h);
+  rs_init(s, hv, hc, h, clampi(h_lane[blockIdx.x], 1, h));
 
   double cur_a, cur_s, nxt_a, nxt_s, cur_u = 0.0, nxt_u = 0.0;
   int cur_c, cur_n, nxt_c, nxt_n;
@@ -630,6 +645,11 @@ __global__ void __launch_bounds__(32)
 // kDrain (sim_jax._bs_fail_make_step): the [F] failure record (time,
 // target, t_up) at the cursor fi comes from its own window, and the scan
 // runs `length` = 2J + F + F_A steps (2J without failures).
+// A block reads its own sizes: slots [R][C] (padded classes have none),
+// h_lane (the helper's W holds BIG, dead servers, past them) and j_live, its
+// jobs (J is the row stride; a job at or past j_live is never admitted).
+// Without failures the block runs its 2 j_live events and records (-1, Tc)
+// past them, as a step with no event would.
 // ---------------------------------------------------------------------------
 
 // Order-preserving key of a double (not NaN): keys compare as the values
@@ -748,7 +768,9 @@ __global__ void __launch_bounds__(32)
                    const double* __restrict__ fail_t,
                    const int* __restrict__ fail_tgt,
                    const double* __restrict__ fail_up,
-                   const int* __restrict__ slots, int* __restrict__ tagged_out,
+                   const int* __restrict__ slots_all,
+                   const int* __restrict__ h_lane,
+                   const int* __restrict__ j_live, int* __restrict__ tagged_out,
                    double* __restrict__ rec_t_out, bool* __restrict__ ovf_out,
                    double2* ring_t_all, int2* ring_i_all, int J, int F, int C,
                    int s_max, int h, int q_cap, int D, int length) {
@@ -778,6 +800,10 @@ __global__ void __launch_bounds__(32)
   int* tagged = tagged_out + (size_t)blockIdx.x * length;
   double* rec_t = rec_t_out + (size_t)blockIdx.x * length;
   const size_t off_f = (size_t)blockIdx.x * F;
+  const int* slots = slots_all + (size_t)blockIdx.x * C;
+  const int h_live = clampi(h_lane[blockIdx.x], 1, h);
+  const int jl = clampi(j_live[blockIdx.x], 0, J);
+  const int n_ev = kDrain ? length : min(2 * jl, length);
   // the class of flat index i < C*s_max: __umulhi(i, magic), exact since
   // C*s_max < 2^16 (shared memory could not hold more)
   const unsigned magic = s_max > 1 ? (unsigned)(0x100000000ull / s_max + 1)
@@ -787,7 +813,7 @@ __global__ void __launch_bounds__(32)
   };
 
   for (int i = lane; i < CS; i += 32) comp[i] = kBig;
-  for (int i = lane; i < h; i += 32) Wa[i] = 0.0;
+  for (int i = lane; i < h; i += 32) Wa[i] = i < h_live ? 0.0 : kBig;
   for (int i = lane; i < C; i += 32) {
     st[i] = slots[i];
     for (int r = 1; r < 5; ++r) st[r * C + i] = 0;
@@ -826,7 +852,7 @@ __global__ void __launch_bounds__(32)
     c_arr = clampi(__shfl_sync(kFull, cur_c, src), 0, C - 1);
     n_arr = clampi(__shfl_sync(kFull, cur_n, src), 1, h);
     v_arr = __dadd_rn(a_arr, s_arr);
-    Ta = ai < J ? a_arr : INFINITY;
+    Ta = ai < jl ? a_arr : INFINITY;
   };
   take_arrival();
   // failure windows (kDrain), the same way at the cursor fi
@@ -928,7 +954,7 @@ __global__ void __launch_bounds__(32)
   bool ovf = false;
   __syncwarp();
 
-  for (int e = 0; e < length; ++e) {
+  for (int e = 0; e < n_ev; ++e) {
     if (need_min) {   // a completion or a drain may have raised Tc
       cm = bs_argmin(comp, CS, &Tc);
       c_cm = class_of(cm);
@@ -943,7 +969,7 @@ __global__ void __launch_bounds__(32)
     bool is_comp = !is_fail && !is_commit && (Tc < Ta);
     if constexpr (kDrain) is_comp = is_comp && Tc < 0.5 * kBig;
     bool is_arr = !is_fail && !is_commit && !is_comp;
-    if constexpr (kDrain) is_arr = is_arr && ai < J;
+    if constexpr (kDrain) is_arr = is_arr && ai < jl;
     int tag = -1;
     double rec = Tc;
 
@@ -1088,7 +1114,7 @@ __global__ void __launch_bounds__(32)
       my_tag = tag;
       my_rec = rec;
     }
-    if ((e & 31) == 31 || e == length - 1) {
+    if ((e & 31) == 31 || e == n_ev - 1) {
       const int i = (e & ~31) + lane;
       if (i <= e) {
         tagged[i] = my_tag;
@@ -1098,6 +1124,13 @@ __global__ void __launch_bounds__(32)
     __syncwarp();
   }
   if (lane == 0) ovf_out[blockIdx.x] = ovf;
+  if (n_ev < length) {   // past a grid lane's events: (-1, Tc) records
+    if (need_min) cm = bs_argmin(comp, CS, &Tc);
+    for (int i = n_ev + lane; i < length; i += 32) {
+      tagged[i] = -1;
+      rec_t[i] = Tc;
+    }
+  }
 }
 
 // Opt in to more than 48 KiB of dynamic shared memory where needed; fail
@@ -1152,56 +1185,64 @@ const char* msj_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+// Per-lane sizes: k_lane, h_lane, j_live [R] and slots [R][C], a row per
+// block; k, h, C, s_max and the row stride J are their maxima (shared
+// memory is sized by them).
 int msj_fcfs_scan(const double* arrival, const int* need, const double* service,
-                  double* starts, int R, int J, int k, void* stream) {
+                  const int* k_lane, double* starts, int R, int J, int k,
+                  void* stream) {
   const size_t smem = msj_run_smem(k);
   cudaError_t err = prepare_smem(fcfs_scan_kernel<false>, smem);
   if (err != cudaSuccess) return (int)err;
   fcfs_scan_kernel<false><<<R, 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      arrival, need, service, nullptr, nullptr, starts, J, k);
+      arrival, need, service, nullptr, nullptr, k_lane, starts, J, k);
   return (int)cudaGetLastError();
 }
 
 int msj_fcfs_fail_scan(const double* t, const int* need, const double* svc,
-                       const double* t_up, const bool* is_fail, double* starts,
-                       int R, int L, int k, void* stream) {
+                       const double* t_up, const bool* is_fail,
+                       const int* k_lane, double* starts, int R, int L, int k,
+                       void* stream) {
   const size_t smem = msj_run_smem(k);
   cudaError_t err = prepare_smem(fcfs_scan_kernel<true>, smem);
   if (err != cudaSuccess) return (int)err;
   fcfs_scan_kernel<true><<<R, 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      t, need, svc, t_up, is_fail, starts, L, k);
+      t, need, svc, t_up, is_fail, k_lane, starts, L, k);
   return (int)cudaGetLastError();
 }
 
 int msj_modbs_scan(const double* arrival, const int* cls, const int* need,
-                   const double* service, const int* slots, bool* blocked,
-                   double* starts, int R, int J, int C, int s_max, int h,
-                   void* stream) {
+                   const double* service, const int* slots, const int* h_lane,
+                   bool* blocked, double* starts, int R, int J, int C,
+                   int s_max, int h, void* stream) {
   const size_t smem = msj_modbs_smem(C, s_max, h);
   cudaError_t err = prepare_smem(modbs_scan_kernel<false>, smem);
   if (err != cudaSuccess) return (int)err;
   modbs_scan_kernel<false><<<R, 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      arrival, cls, need, service, nullptr, nullptr, slots, blocked, starts, J, C,
-      s_max, h);
+      arrival, cls, need, service, nullptr, nullptr, slots, h_lane, blocked,
+      starts, J, C, s_max, h);
   return (int)cudaGetLastError();
 }
 
 int msj_modbs_fail_scan(const double* t, const int* cls, const int* need,
                         const double* svc, const double* t_up, const bool* is_fail,
-                        const int* slots, bool* blocked, double* starts, int R,
-                        int L, int C, int s_max, int h, void* stream) {
+                        const int* slots, const int* h_lane, bool* blocked,
+                        double* starts, int R, int L, int C, int s_max, int h,
+                        void* stream) {
   const size_t smem = msj_modbs_smem(C, s_max, h);
   cudaError_t err = prepare_smem(modbs_scan_kernel<true>, smem);
   if (err != cudaSuccess) return (int)err;
   modbs_scan_kernel<true><<<R, 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      t, cls, need, svc, t_up, is_fail, slots, blocked, starts, L, C, s_max, h);
+      t, cls, need, svc, t_up, is_fail, slots, h_lane, blocked, starts, L, C,
+      s_max, h);
   return (int)cudaGetLastError();
 }
 
 int msj_bs_scan(const double* arrival, const int* cls, const int* need,
-                const double* service, const int* slots, int* tagged,
-                double* rec_t, bool* ovf, void* ring_scratch, int R, int J,
-                int C, int s_max, int h, int q_cap, void* stream) {
+                const double* service, const int* slots, const int* h_lane,
+                const int* j_live, int* tagged, double* rec_t, bool* ovf,
+                void* ring_scratch, int R, int J, int C, int s_max, int h,
+                int q_cap, void* stream) {
   const size_t smem = msj_bs_smem(C, s_max, h);
   cudaError_t err = prepare_smem(bs_scan_kernel<false>, smem);
   if (err != cudaSuccess) return (int)err;
@@ -1209,8 +1250,8 @@ int msj_bs_scan(const double* arrival, const int* cls, const int* need,
   int2* ring_i;
   bs_rings(ring_scratch, R, C, q_cap, &ring_t, &ring_i);
   bs_scan_kernel<false><<<R, 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      arrival, cls, need, service, nullptr, nullptr, nullptr, slots, tagged,
-      rec_t, ovf, ring_t, ring_i, J, 0, C, s_max, h, q_cap,
+      arrival, cls, need, service, nullptr, nullptr, nullptr, slots, h_lane,
+      j_live, tagged, rec_t, ovf, ring_t, ring_i, J, 0, C, s_max, h, q_cap,
       msj_bs_cache_lines(C), 2 * J);
   return (int)cudaGetLastError();
 }
@@ -1218,9 +1259,10 @@ int msj_bs_scan(const double* arrival, const int* cls, const int* need,
 int msj_bs_fail_scan(const double* arrival, const int* cls, const int* need,
                      const double* service, const double* fail_t,
                      const int* fail_tgt, const double* fail_up, const int* slots,
-                     int* tagged, double* rec_t, bool* ovf, void* ring_scratch,
-                     int R, int J, int F, int C, int s_max, int h, int q_cap,
-                     int length, void* stream) {
+                     const int* h_lane, const int* j_live, int* tagged,
+                     double* rec_t, bool* ovf, void* ring_scratch, int R, int J,
+                     int F, int C, int s_max, int h, int q_cap, int length,
+                     void* stream) {
   const size_t smem = msj_bs_smem(C, s_max, h);
   cudaError_t err = prepare_smem(bs_scan_kernel<true>, smem);
   if (err != cudaSuccess) return (int)err;
@@ -1228,8 +1270,8 @@ int msj_bs_fail_scan(const double* arrival, const int* cls, const int* need,
   int2* ring_i;
   bs_rings(ring_scratch, R, C, q_cap, &ring_t, &ring_i);
   bs_scan_kernel<true><<<R, 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      arrival, cls, need, service, fail_t, fail_tgt, fail_up, slots, tagged,
-      rec_t, ovf, ring_t, ring_i, J, F, C, s_max, h, q_cap,
+      arrival, cls, need, service, fail_t, fail_tgt, fail_up, slots, h_lane,
+      j_live, tagged, rec_t, ovf, ring_t, ring_i, J, F, C, s_max, h, q_cap,
       msj_bs_cache_lines(C), length);
   return (int)cudaGetLastError();
 }

@@ -355,6 +355,7 @@ __global__ void __launch_bounds__(32)
                      const double* __restrict__ need_in,
                      const double* __restrict__ service,
                      const double* __restrict__ kk_in,
+                     const int* __restrict__ j_live,
                      const int* __restrict__ nu_in, int nnu,
                      double* __restrict__ job_ev, double* __restrict__ t_ev,
                      double* __restrict__ fs_ev, bool* __restrict__ ovf_out,
@@ -389,6 +390,8 @@ __global__ void __launch_bounds__(32)
   double* to = t_ev + 2 * off;
   double* fo = fs_ev + 2 * off;
   const double kk = kk_in[blockIdx.x];
+  // the lane's jobs: the rest of its row is a grid's padding, never admitted
+  const int jl = min(max(j_live[blockIdx.x], 0), J);
 
   for (int w = lane; w < nwords; w += 32) {
     const int b0 = w * 32;   // bits of slots >= Q are preset (never free)
@@ -412,8 +415,8 @@ __global__ void __launch_bounds__(32)
   for (int e = 0; e < 2 * J; ++e) {
     // -- the event: next arrival against the earliest departure
     const int j_arr = min(ai, J - 1);
-    const double Ta = ai < J ? na_t : INFINITY;
-    const bool is_arr = ai < J && Ta <= Tc;
+    const double Ta = ai < jl ? na_t : INFINITY;
+    const bool is_arr = ai < jl && Ta <= Tc;
     const bool is_dep = !is_arr && Tc < kGuard;
     if (!is_arr && !is_dep) {
       // nothing changes from here on: every later step is a non-event
@@ -455,7 +458,7 @@ __global__ void __launch_bounds__(32)
     if (do_ins) need_sum += nu[na_cls];
     if (is_arr) {
       ++ai;
-      if (ai < J) { na_t = a[ai]; na_need = nd_in[ai]; na_svc = sv[ai]; }
+      if (ai < jl) { na_t = a[ai]; na_need = nd_in[ai]; na_svc = sv[ai]; }
     }
     peak = max(peak, n + (is_arr ? 1 : 0) - (is_dep ? 1 : 0));
     __syncwarp();
@@ -783,7 +786,8 @@ cudaError_t srpt_fits(int Q, bool* fits) {
 }
 
 int srpt_launch(const double* arrival, const double* need,
-                const double* service, const double* kk, const int* nu,
+                const double* service, const double* kk, const int* j_live,
+                const int* nu,
                 int nnu, double* job_ev, double* t_ev, double* fs_ev,
                 bool* ovf, int* npre, int* ne, int* peak, double* table, int R,
                 int J, int Q, int sf, void* stream) {
@@ -799,8 +803,8 @@ int srpt_launch(const double* arrival, const double* need,
     const cudaError_t e = prepare_smem(kernel, smem);
     if (e != cudaSuccess) return e;
     kernel<<<R, 32, smem, static_cast<cudaStream_t>(stream)>>>(
-        arrival, need, service, kk, nu, nnu, job_ev, t_ev, fs_ev, ovf, npre,
-        ne, peak, table, J, Q);
+        arrival, need, service, kk, j_live, nu, nnu, job_ev, t_ev, fs_ev, ovf,
+        npre, ne, peak, table, J, Q);
     return cudaGetLastError();
   };
   if (sf)
@@ -816,14 +820,16 @@ int srpt_launch(const double* arrival, const double* need,
 
 extern "C" {
 
+// kk [R] the servers and j_live [R] the jobs of each lane (J: the row
+// stride, their maximum).
 int msj_srpt_scan(const double* arrival, const double* need,
-                  const double* service, const double* kk, const int* nu,
-                  int nnu, double* job_ev, double* t_ev, double* fs_ev,
-                  bool* ovf, int* npre, int* ne, int* peak, void* table,
-                  int R, int J, int Q, int sf, void* stream) {
-  return srpt_launch(arrival, need, service, kk, nu, nnu, job_ev, t_ev, fs_ev,
-                     ovf, npre, ne, peak, static_cast<double*>(table), R, J, Q,
-                     sf, stream);
+                  const double* service, const double* kk, const int* j_live,
+                  const int* nu, int nnu, double* job_ev, double* t_ev,
+                  double* fs_ev, bool* ovf, int* npre, int* ne, int* peak,
+                  void* table, int R, int J, int Q, int sf, void* stream) {
+  return srpt_launch(arrival, need, service, kk, j_live, nu, nnu, job_ev, t_ev,
+                     fs_ev, ovf, npre, ne, peak, static_cast<double*>(table), R,
+                     J, Q, sf, stream);
 }
 
 // *bytes = 0 when the table of Q slots fits the kernel's shared memory on

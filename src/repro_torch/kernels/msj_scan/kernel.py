@@ -9,8 +9,16 @@ of the reference's Pallas kernels (``repro/kernels/msj_scan/kernel.py``,
 kernel's sort, the counterpart of ``sort.py``'s ``bitonic_sort``).  The
 drain-mode ``*_fail_scan_fwd`` wrappers take the host-merged
 arrival+failure stream [R, L] (``t_up`` float64, ``is_fail`` bool), or for
-BS-π the trace plus the failure records [R, F].  It checks device, dtype,
-shape and contiguity, then
+BS-π the trace plus the failure records [R, F].
+
+A grid stacks cells of different sizes on the R axis (lanes), so each
+wrapper also takes per-lane sizes, int32 [R] tensors: ``k_lane`` (FCFS
+servers), ``h_lane`` (helper servers), ``j_live`` (the lane's jobs; BS-π
+and SRPT never admit one past them), and ``slots`` as [R, C].  The scalar
+``k``, ``h``, ``s_max``, J and C are then their maxima, as the reference's
+grid plans pad them (dead servers, permanently busy slots, sentinel jobs);
+left out, every lane has the scalar sizes.  Each wrapper checks device,
+dtype, shape and contiguity, then
 
 * for CPU tensors returns its plain version (``*_ref``: the
   :mod:`repro_torch.core.sim_torch` event scans);
@@ -47,51 +55,55 @@ _J_MAX = (2**31 - 1) // 3
 # -- plain versions ----------------------------------------------------------
 
 
-def fcfs_scan_ref(arrival, need, service, *, k: int):
+def fcfs_scan_ref(arrival, need, service, *, k: int, k_lane=None):
     """Plain FCFS scan: [R, J] arrays -> start times [R, J]."""
-    return sim_torch._fcfs_core(arrival, need, service, k)
+    return sim_torch._fcfs_core(arrival, need, service, k, k_lane)
 
 
 def modbs_scan_ref(arrival, cls, need, service, slots, *, s_max: int,
-                   h: int):
+                   h: int, h_lane=None):
     """Plain ModifiedBS-π scan -> (blocked [R, J] bool, starts [R, J])."""
     return sim_torch._modbs_core(arrival, cls, need, service, slots, s_max,
-                                 h)
+                                 h, h_lane)
 
 
 def bs_scan_ref(arrival, cls, need, service, slots, *, s_max: int, h: int,
-                q_cap: int):
+                q_cap: int, h_lane=None, j_live=None):
     """Plain BS-π event scan -> (tagged [R, 2J] int32, rec_t [R, 2J],
     ovf [R] bool)."""
     return sim_torch._bs_core(arrival, cls, need, service, slots, s_max, h,
-                              q_cap)
+                              q_cap, h_lane, j_live)
 
 
-def fcfs_fail_scan_ref(t, need, svc, t_up, is_fail, *, k: int):
+def fcfs_fail_scan_ref(t, need, svc, t_up, is_fail, *, k: int,
+                       k_lane=None):
     """Plain FCFS drain scan: merged [R, L] stream -> starts [R, L]."""
-    return sim_torch._fcfs_fail_core(t, need, svc, t_up, is_fail, k)
+    return sim_torch._fcfs_fail_core(t, need, svc, t_up, is_fail, k, k_lane)
 
 
 def modbs_fail_scan_ref(t, cls, need, svc, t_up, is_fail, slots, *,
-                        s_max: int, h: int):
+                        s_max: int, h: int, h_lane=None):
     """Plain ModifiedBS-π drain scan -> (blocked [R, L], starts [R, L])."""
     return sim_torch._modbs_fail_core(t, cls, need, svc, t_up, is_fail,
-                                      slots, s_max, h)
+                                      slots, s_max, h, h_lane)
 
 
 def bs_fail_scan_ref(arrival, cls, need, service, ft, ftgt, fup, slots, *,
-                     s_max: int, h: int, q_cap: int, length: int):
+                     s_max: int, h: int, q_cap: int, length: int,
+                     h_lane=None, j_live=None):
     """Plain BS-π drain scan -> (tagged [R, length] int32,
     rec_t [R, length], ovf [R] bool)."""
     return sim_torch._bs_fail_core(arrival, cls, need, service, ft, ftgt,
-                                   fup, slots, s_max, h, q_cap, length)
+                                   fup, slots, s_max, h, q_cap, length,
+                                   h_lane, j_live)
 
 
 def srpt_scan_ref(arrival, need, service, kk, *, Q: int, NU: tuple,
-                  sf: bool):
+                  sf: bool, j_live=None):
     """Plain SRPT event scan -> (job_ev, t_ev, fs_ev [R, 2J] float64,
     ovf [R] bool, npre, ne, peak [R] int32)."""
-    return sim_torch._srpt_core(arrival, need, service, kk, Q, NU, sf)
+    return sim_torch._srpt_core(arrival, need, service, kk, Q, NU, sf,
+                                j_live)
 
 
 def stable_sort_ref(*operands, num_keys: int):
@@ -152,9 +164,13 @@ def _check(slots=None, dtypes=_DTYPES, **named) -> torch.device:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if slots is not None:
-        if (slots.dim() != 1 or slots.dtype != _I32
+        if (slots.dim() not in (1, 2) or slots.dtype != _I32
                 or not slots.is_contiguous()):
-            raise TypeError("slots must be a contiguous 1-D int32 tensor")
+            raise TypeError("slots must be a contiguous 1-D [C] or 2-D "
+                            "[R, C] int32 tensor")
+        if slots.dim() == 2 and slots.shape[0] != first.shape[0]:
+            raise ValueError(f"slots has {slots.shape[0]} rows, expected "
+                             f"R={first.shape[0]}")
         if slots.device != first.device:
             raise ValueError(f"slots is on {slots.device}, expected "
                              f"{first.device}")
@@ -162,6 +178,34 @@ def _check(slots=None, dtypes=_DTYPES, **named) -> torch.device:
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}; expected cpu or cuda")
     return dev
+
+
+def _check_lanes(R: int, dev: torch.device, **sizes) -> None:
+    """Validate per-lane sizes: each None, or a contiguous int32 [R]
+    tensor on ``dev`` whose values lie in its (lo, hi) range."""
+    for name, (x, lo, hi) in sizes.items():
+        if x is None:
+            continue
+        if (x.shape != (R,) or x.dtype != _I32 or x.device != dev
+                or not x.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous int32 [R]={R} "
+                             f"tensor on {dev}")
+        if R and (int(x.min()) < lo or int(x.max()) > hi):
+            raise ValueError(f"{name} must lie in [{lo}, {hi}]")
+
+
+def _lane_sizes(x, R: int, dev: torch.device, default: int):
+    """The kernel's [R] int32 per-lane sizes: ``x``, or ``default`` in
+    every lane."""
+    if x is not None:
+        return x
+    return torch.full((R,), default, dtype=_I32, device=dev)
+
+
+def _slot_rows(slots, R: int):
+    """The kernel's [R, C] slots: a row per lane (a [C] tensor in every
+    lane)."""
+    return slots if slots.dim() == 2 else slots.expand(R, -1).contiguous()
 
 
 def _fcfs_fits(k: int) -> None:
@@ -192,61 +236,68 @@ def _stream(dev: torch.device) -> ctypes.c_void_p:
 # -- wrappers ----------------------------------------------------------------
 
 
-def fcfs_scan_fwd(arrival, need, service, *, k: int):
+def fcfs_scan_fwd(arrival, need, service, *, k: int, k_lane=None):
     """arrival/need/service [R, J] -> start times [R, J] float64.
 
     Multiserver-job FCFS (Kiefer–Wolfowitz): job j with need n starts at
     max(A_j, T_{j-1}, W[n-1]) on the sorted free-time vector W of the k
-    servers, then n copies of its completion are rolled into W.
+    servers, then n copies of its completion are rolled into W.  Lane r
+    has ``k_lane[r]`` live servers (None: k), the rest dead.
     """
     dev = _check(arrival=arrival, need=need, service=service)
     if k < 1:
         raise ValueError(f"k must be >= 1, got {k}")
-    if dev.type == "cpu":
-        return fcfs_scan_ref(arrival, need, service, k=k)
-    _fcfs_fits(k)
     R, J = arrival.shape
+    _check_lanes(R, dev, k_lane=(k_lane, 1, k))
+    if dev.type == "cpu":
+        return fcfs_scan_ref(arrival, need, service, k=k, k_lane=k_lane)
+    _fcfs_fits(k)
     starts = torch.empty_like(arrival)
     if R == 0 or J == 0:
         return starts
+    kl = _lane_sizes(k_lane, R, dev, k)
     lib = build.LIBRARY.load()
     with torch.cuda.device(dev):
         rc = lib.msj_fcfs_scan(_ptr(arrival), _ptr(need), _ptr(service),
-                               _ptr(starts), R, J, k, _stream(dev))
+                               _ptr(kl), _ptr(starts), R, J, k,
+                               _stream(dev))
     build.LIBRARY.raise_on(rc, "fcfs_scan", f"R={R} J={J} k={k}")
     fcfs_scan_fwd.launches += 1
     return starts
 
 
 def modbs_scan_fwd(arrival, cls, need, service, slots, *, s_max: int,
-                   h: int):
-    """[R, J] trace arrays + slots [C] -> (blocked [R, J] bool,
+                   h: int, h_lane=None):
+    """[R, J] trace arrays + slots [C] or [R, C] -> (blocked [R, J] bool,
     starts [R, J] float64).
 
     ModifiedBS-π (Definition 2): per-class loss queues of ``slots[c]``
     slots (rows padded to ``s_max``); a job that finds its class full is
-    blocked and served by FCFS on the h helper servers.
+    blocked and served by FCFS on the h helper servers (``h_lane[r]`` of
+    them live in lane r; None: h).
     """
     dev = _check(slots, arrival=arrival, cls=cls, need=need,
                  service=service)
     if s_max < 1 or h < 1:
         raise ValueError(f"s_max and h must be >= 1, got {s_max}, {h}")
+    R, J = arrival.shape
+    _check_lanes(R, dev, h_lane=(h_lane, 1, h))
     if dev.type == "cpu":
         return modbs_scan_ref(arrival, cls, need, service, slots,
-                              s_max=s_max, h=h)
-    C = slots.shape[0]
+                              s_max=s_max, h=h, h_lane=h_lane)
+    C = slots.shape[-1]
     _modbs_fits(C, s_max, h)
-    R, J = arrival.shape
     blocked = torch.empty(R, J, dtype=torch.bool, device=dev)
     starts = torch.empty_like(arrival)
     if R == 0 or J == 0:
         return blocked, starts
+    sl, hl = _slot_rows(slots, R), _lane_sizes(h_lane, R, dev, h)
     lib = build.LIBRARY.load()
     with torch.cuda.device(dev):
         rc = lib.msj_modbs_scan(_ptr(arrival), _ptr(cls), _ptr(need),
-                                _ptr(service), _ptr(slots), _ptr(blocked),
-                                _ptr(starts), R, J, C, s_max, h,
-                                _stream(dev))
+                                _ptr(service), _ptr(sl), _ptr(hl),
+                                _ptr(blocked), _ptr(starts), R, J, C, s_max,
+                                h, _stream(dev))
     build.LIBRARY.raise_on(rc, "modbs_scan",
                            f"R={R} J={J} C={C} s_max={s_max} h={h}")
     modbs_scan_fwd.launches += 1
@@ -254,26 +305,29 @@ def modbs_scan_fwd(arrival, cls, need, service, slots, *, s_max: int,
 
 
 def bs_scan_fwd(arrival, cls, need, service, slots, *, s_max: int, h: int,
-                q_cap: int):
-    """[R, J] trace arrays + slots [C] -> (tagged [R, 2J] int32,
+                q_cap: int, h_lane=None, j_live=None):
+    """[R, J] trace arrays + slots [C] or [R, C] -> (tagged [R, 2J] int32,
     rec_t [R, 2J] float64, ovf [R] bool).
 
     BS-π (Definition 1) as the 2J-event scan.  ``tagged`` encodes each
     event: j = job j started in its A_i at ``rec_t``, j + J = job j was
     routed to H on arrival, j + 2J = job j started on a helper at
     ``rec_t``, -1 = no record.  ``ovf`` flags a helper-wait ring that
-    outgrew ``q_cap``; the caller must raise on it.
+    outgrew ``q_cap``; the caller must raise on it.  Lane r has
+    ``h_lane[r]`` live helper servers (None: h) and ``j_live[r]`` jobs
+    (None: J): it runs 2 j_live events and records (-1, Tc) past them.
     """
     dev = _check(slots, arrival=arrival, cls=cls, need=need,
                  service=service)
     if s_max < 1 or h < 1 or q_cap < 1:
         raise ValueError(f"s_max, h and q_cap must be >= 1, got {s_max}, "
                          f"{h}, {q_cap}")
+    R, J = arrival.shape
+    _check_lanes(R, dev, h_lane=(h_lane, 1, h), j_live=(j_live, 0, J))
     if dev.type == "cpu":
         return bs_scan_ref(arrival, cls, need, service, slots, s_max=s_max,
-                           h=h, q_cap=q_cap)
-    R, J = arrival.shape
-    C = slots.shape[0]
+                           h=h, q_cap=q_cap, h_lane=h_lane, j_live=j_live)
+    C = slots.shape[-1]
     tagged = torch.empty(R, 2 * J, dtype=_I32, device=dev)
     rec_t = torch.empty(R, 2 * J, dtype=_F64, device=dev)
     ovf = torch.zeros(R, dtype=torch.bool, device=dev)
@@ -281,12 +335,15 @@ def bs_scan_fwd(arrival, cls, need, service, slots, *, s_max: int, h: int,
         return tagged, rec_t, ovf
     ring = torch.empty(R * C * q_cap * _BS_RING_ENTRY, dtype=torch.uint8,
                        device=dev)
+    sl, hl = _slot_rows(slots, R), _lane_sizes(h_lane, R, dev, h)
+    jl = _lane_sizes(j_live, R, dev, J)
     lib = build.LIBRARY.load()
     with torch.cuda.device(dev):
         rc = lib.msj_bs_scan(_ptr(arrival), _ptr(cls), _ptr(need),
-                             _ptr(service), _ptr(slots), _ptr(tagged),
-                             _ptr(rec_t), _ptr(ovf), _ptr(ring), R, J, C,
-                             s_max, h, q_cap, _stream(dev))
+                             _ptr(service), _ptr(sl), _ptr(hl), _ptr(jl),
+                             _ptr(tagged), _ptr(rec_t), _ptr(ovf),
+                             _ptr(ring), R, J, C, s_max, h, q_cap,
+                             _stream(dev))
     build.LIBRARY.raise_on(rc, "bs_scan", f"R={R} J={J} C={C} s_max={s_max} "
                            f"h={h} q_cap={q_cap}")
     bs_scan_fwd.launches += 1
@@ -294,7 +351,7 @@ def bs_scan_fwd(arrival, cls, need, service, slots, *, s_max: int, h: int,
 
 
 def srpt_scan_fwd(arrival, need, service, kk, *, Q: int, NU: tuple,
-                  sf: bool):
+                  sf: bool, j_live=None):
     """[R, J] trace arrays (float64 needs) + kk [R] float64 servers ->
     (job_ev, t_ev, fs_ev [R, 2J] float64, ovf [R] bool, npre, ne,
     peak [R] int32).
@@ -306,7 +363,8 @@ def srpt_scan_fwd(arrival, need, service, kk, *, Q: int, NU: tuple,
     table that overflowed (the caller must raise), ``npre`` counts
     preemptions, ``ne`` processed events (2J on success) and ``peak`` the
     peak in-system count.  ``NU`` is the ascending tuple of distinct needs
-    (every need must be in it).  On the card the slot table lives in
+    (every need must be in it).  Lane r has ``j_live[r]`` jobs (None: J;
+    it never admits one past them).  On the card the slot table lives in
     shared memory while it fits (Q <= 4096 on an H100), else in a global
     scratch of one table per replication.
     """
@@ -323,8 +381,10 @@ def srpt_scan_fwd(arrival, need, service, kk, *, Q: int, NU: tuple,
             or not kk.is_contiguous()):
         raise ValueError(f"kk must be a contiguous float64 [R]={R} tensor "
                          f"on {dev}")
+    _check_lanes(R, dev, j_live=(j_live, 0, J))
     if dev.type == "cpu":
-        return srpt_scan_ref(arrival, need, service, kk, Q=Q, NU=NU, sf=sf)
+        return srpt_scan_ref(arrival, need, service, kk, Q=Q, NU=NU, sf=sf,
+                             j_live=j_live)
     job_ev = torch.empty(R, 2 * J, dtype=_F64, device=dev)
     t_ev = torch.empty_like(job_ev)
     fs_ev = torch.empty_like(job_ev)
@@ -334,6 +394,7 @@ def srpt_scan_fwd(arrival, need, service, kk, *, Q: int, NU: tuple,
     if R == 0 or J == 0:
         return job_ev, t_ev, fs_ev, ovf, npre, ne, peak
     nu = torch.tensor(NU, dtype=_I32, device=dev)
+    jl = _lane_sizes(j_live, R, dev, J)
     if not bool(torch.isin(need, nu.to(_F64)).all()):
         raise ValueError(f"every need must be one of NU={NU}")
     lib = build.LIBRARY.load()
@@ -344,9 +405,9 @@ def srpt_scan_fwd(arrival, need, service, kk, *, Q: int, NU: tuple,
         table = (torch.empty(R * nbytes.value, dtype=torch.uint8, device=dev)
                  if nbytes.value else None)
         rc = lib.msj_srpt_scan(_ptr(arrival), _ptr(need), _ptr(service),
-                               _ptr(kk), _ptr(nu), len(NU), _ptr(job_ev),
-                               _ptr(t_ev), _ptr(fs_ev), _ptr(ovf),
-                               _ptr(npre), _ptr(ne), _ptr(peak),
+                               _ptr(kk), _ptr(jl), _ptr(nu), len(NU),
+                               _ptr(job_ev), _ptr(t_ev), _ptr(fs_ev),
+                               _ptr(ovf), _ptr(npre), _ptr(ne), _ptr(peak),
                                None if table is None else _ptr(table), R, J,
                                Q, int(sf), _stream(dev))
     build.LIBRARY.raise_on(rc, "srpt_scan", f"R={R} J={J} Q={Q} sf={sf}")
@@ -404,63 +465,71 @@ def stable_sort_fwd(*operands, num_keys: int):
     return outs
 
 
-def fcfs_fail_scan_fwd(t, need, svc, t_up, is_fail, *, k: int):
+def fcfs_fail_scan_fwd(t, need, svc, t_up, is_fail, *, k: int,
+                       k_lane=None):
     """Merged [R, L] arrival+failure stream -> start times [R, L] float64.
 
     Row j is an arrival (``is_fail`` False: the FCFS step of
     :func:`fcfs_scan_fwd`) or a drain (``is_fail`` True: the earliest-free
     server is held until ``t_up``; pad rows have ``t = +inf, t_up = 0``).
     Every row's start is written, failure rows included; the host reads
-    the arrival rows (``MergedStream.job_pos``).
+    the arrival rows (``MergedStream.job_pos``).  ``k_lane`` as in
+    :func:`fcfs_scan_fwd`.
     """
     dev = _check(t=t, need=need, svc=svc, t_up=t_up, is_fail=is_fail)
     if k < 1:
         raise ValueError(f"k must be >= 1, got {k}")
-    if dev.type == "cpu":
-        return fcfs_fail_scan_ref(t, need, svc, t_up, is_fail, k=k)
-    _fcfs_fits(k)
     R, L = t.shape
+    _check_lanes(R, dev, k_lane=(k_lane, 1, k))
+    if dev.type == "cpu":
+        return fcfs_fail_scan_ref(t, need, svc, t_up, is_fail, k=k,
+                                  k_lane=k_lane)
+    _fcfs_fits(k)
     starts = torch.empty_like(t)
     if R == 0 or L == 0:
         return starts
+    kl = _lane_sizes(k_lane, R, dev, k)
     lib = build.LIBRARY.load()
     with torch.cuda.device(dev):
         rc = lib.msj_fcfs_fail_scan(_ptr(t), _ptr(need), _ptr(svc),
-                                    _ptr(t_up), _ptr(is_fail), _ptr(starts),
-                                    R, L, k, _stream(dev))
+                                    _ptr(t_up), _ptr(is_fail), _ptr(kl),
+                                    _ptr(starts), R, L, k, _stream(dev))
     build.LIBRARY.raise_on(rc, "fcfs_fail_scan", f"R={R} L={L} k={k}")
     fcfs_fail_scan_fwd.launches += 1
     return starts
 
 
 def modbs_fail_scan_fwd(t, cls, need, svc, t_up, is_fail, slots, *,
-                        s_max: int, h: int):
-    """Merged [R, L] stream + slots [C] -> (blocked [R, L] bool,
+                        s_max: int, h: int, h_lane=None):
+    """Merged [R, L] stream + slots [C] or [R, C] -> (blocked [R, L] bool,
     starts [R, L] float64).
 
     Failure rows carry their target block in ``cls``: ``cls == C`` drains
     the helper's free-time vector, ``cls < C`` extends the class row's
     earliest completion to ``t_up``.  ``blocked`` is False on failure rows.
+    ``h_lane`` as in :func:`modbs_scan_fwd`.
     """
     dev = _check(slots, t=t, cls=cls, need=need, svc=svc, t_up=t_up,
                  is_fail=is_fail)
     if s_max < 1 or h < 1:
         raise ValueError(f"s_max and h must be >= 1, got {s_max}, {h}")
+    R, L = t.shape
+    _check_lanes(R, dev, h_lane=(h_lane, 1, h))
     if dev.type == "cpu":
         return modbs_fail_scan_ref(t, cls, need, svc, t_up, is_fail, slots,
-                                   s_max=s_max, h=h)
-    C = slots.shape[0]
+                                   s_max=s_max, h=h, h_lane=h_lane)
+    C = slots.shape[-1]
     _modbs_fits(C, s_max, h)
-    R, L = t.shape
     blocked = torch.empty(R, L, dtype=torch.bool, device=dev)
     starts = torch.empty_like(t)
     if R == 0 or L == 0:
         return blocked, starts
+    sl, hl = _slot_rows(slots, R), _lane_sizes(h_lane, R, dev, h)
     lib = build.LIBRARY.load()
     with torch.cuda.device(dev):
         rc = lib.msj_modbs_fail_scan(_ptr(t), _ptr(cls), _ptr(need),
                                      _ptr(svc), _ptr(t_up), _ptr(is_fail),
-                                     _ptr(slots), _ptr(blocked),
+                                     _ptr(sl), _ptr(hl), _ptr(blocked),
                                      _ptr(starts), R, L, C, s_max, h,
                                      _stream(dev))
     build.LIBRARY.raise_on(rc, "modbs_fail_scan",
@@ -470,7 +539,8 @@ def modbs_fail_scan_fwd(t, cls, need, svc, t_up, is_fail, slots, *,
 
 
 def bs_fail_scan_fwd(arrival, cls, need, service, ft, ftgt, fup, slots, *,
-                     s_max: int, h: int, q_cap: int, length: int):
+                     s_max: int, h: int, q_cap: int, length: int,
+                     h_lane=None, j_live=None):
     """[R, J] trace arrays + failure records ft/fup float64, ftgt int32
     [R, F] + slots [C] -> (tagged [R, length] int32, rec_t [R, length]
     float64, ovf [R] bool).
@@ -480,7 +550,8 @@ def bs_fail_scan_fwd(arrival, cls, need, service, ft, ftgt, fup, slots, *,
     rows ``ft = +inf``; F >= 1), which wins ties and claims the
     earliest-free capacity unit of its target block (``ftgt == C``: the
     helper).  ``length`` = 2J + F + F_A steps; the caller must raise on
-    ``ovf``.
+    ``ovf``.  ``slots``, ``h_lane`` and ``j_live`` as in
+    :func:`bs_scan_fwd` (every lane runs ``length`` steps).
     """
     dev = _check(slots, arrival=arrival, cls=cls, need=need,
                  service=service)
@@ -497,12 +568,13 @@ def bs_fail_scan_fwd(arrival, cls, need, service, ft, ftgt, fup, slots, *,
                          f"{h}, {q_cap}")
     if not 0 <= length < 2**31:
         raise ValueError(f"length={length} outside [0, 2**31)")
+    _check_lanes(R, dev, h_lane=(h_lane, 1, h), j_live=(j_live, 0, J))
     if dev.type == "cpu":
         return bs_fail_scan_ref(arrival, cls, need, service, ft, ftgt, fup,
                                 slots, s_max=s_max, h=h, q_cap=q_cap,
-                                length=length)
+                                length=length, h_lane=h_lane, j_live=j_live)
     F = ft.shape[1]
-    C = slots.shape[0]
+    C = slots.shape[-1]
     tagged = torch.empty(R, length, dtype=_I32, device=dev)
     rec_t = torch.empty(R, length, dtype=_F64, device=dev)
     ovf = torch.zeros(R, dtype=torch.bool, device=dev)
@@ -510,14 +582,16 @@ def bs_fail_scan_fwd(arrival, cls, need, service, ft, ftgt, fup, slots, *,
         return tagged, rec_t, ovf
     ring = torch.empty(R * C * q_cap * _BS_RING_ENTRY, dtype=torch.uint8,
                        device=dev)
+    sl, hl = _slot_rows(slots, R), _lane_sizes(h_lane, R, dev, h)
+    jl = _lane_sizes(j_live, R, dev, J)
     lib = build.LIBRARY.load()
     with torch.cuda.device(dev):
         rc = lib.msj_bs_fail_scan(_ptr(arrival), _ptr(cls), _ptr(need),
                                   _ptr(service), _ptr(ft), _ptr(ftgt),
-                                  _ptr(fup), _ptr(slots), _ptr(tagged),
-                                  _ptr(rec_t), _ptr(ovf), _ptr(ring), R, J,
-                                  F, C, s_max, h, q_cap, length,
-                                  _stream(dev))
+                                  _ptr(fup), _ptr(sl), _ptr(hl), _ptr(jl),
+                                  _ptr(tagged), _ptr(rec_t), _ptr(ovf),
+                                  _ptr(ring), R, J, F, C, s_max, h, q_cap,
+                                  length, _stream(dev))
     build.LIBRARY.raise_on(rc, "bs_fail_scan",
                            f"R={R} J={J} F={F} C={C} s_max={s_max} h={h} "
                            f"q_cap={q_cap} length={length}")

@@ -12,19 +12,32 @@ drain flow: the failure stream is merged with the arrivals on the host
 (:mod:`repro_torch.core.failures`), the ``*_fail_scan`` kernel runs it,
 and FCFS/ModBS outputs are gathered back to job order by
 ``MergedStream.job_pos``.
+
+The grid cores (``engines.register_grid``) take a whole grid of cells:
+the plans of :mod:`repro_torch.core.sim_batch` stack them to [G, R, ...]
+with per-lane sizes, the core flattens (cells, reps) to L = G R lanes,
+makes one wrapper call — one kernel launch on the card — and extracts
+each cell (the reference's ``_*_grid_jax`` cores).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ...core import engines
 from ...core import failures as flr
-from ...core.sim_batch import (_bs_fail_args, _bs_result, _class_inputs,
-                               _fcfs_inputs, _fcfs_result,
+from ...core.sim_batch import (_bs_fail_args, _bs_fail_grid_plan,
+                               _bs_grid_extract, _bs_grid_plan, _bs_result,
+                               _class_inputs, _fcfs_fail_grid_extract,
+                               _fcfs_fail_grid_plan, _fcfs_grid_extract,
+                               _fcfs_grid_plan, _fcfs_inputs, _fcfs_result,
                                _merged_class_inputs, _merged_fcfs_inputs,
-                               _merged_tensors, _modbs_result,
-                               _partition_args, _srpt_no_failures, _srpt_nu,
+                               _merged_tensors, _modbs_fail_grid_extract,
+                               _modbs_fail_grid_plan, _modbs_grid_extract,
+                               _modbs_grid_plan, _modbs_result,
+                               _partition_args, _srpt_grid_extract,
+                               _srpt_grid_plan, _srpt_no_failures, _srpt_nu,
                                _srpt_result, _unmerge, _with_drain_obs)
 from ...core.sim_torch import _bs_args, _srpt_args
 from .kernel import (bs_fail_scan_fwd, bs_scan_fwd, fcfs_fail_scan_fwd,
@@ -122,3 +135,120 @@ def _ff_srpt_torch(batch, **kw):
     """Preemptive FirstFit-SRPT event scan (rank = remaining work, first
     fit over the rank order); see ``_sf_srpt_torch``."""
     return _srpt_torch(False, batch, **kw)
+
+
+# -- grid cores: (cells, reps) flattened to one lane axis, one launch -------
+
+
+_F64, _I32 = torch.float64, torch.int32
+
+
+def _upload(plan: dict, L: int, device):
+    """``up(key, dtype)``: the plan's [G, R, ...] array ``key`` as an
+    [L, ...] tensor on ``device``."""
+    def up(key, dtype=_F64):
+        x = plan[key]
+        return torch.as_tensor(
+            np.ascontiguousarray(x.reshape(L, *x.shape[2:])), dtype=dtype,
+            device=device)
+    return up
+
+
+def _grid_shape(cells):
+    """(G, R, L) of a grid, whose failure cells must all be drain-mode."""
+    if cells[0].failures is not None:
+        for c in cells:
+            flr.require_drain(c.failures, "torch")
+    G, R = len(cells), cells[0].batch.reps
+    return G, R, G * R
+
+
+def _merged_lanes(up) -> tuple:
+    """(t, cls, need, svc, t_up, is_fail) lanes of a padded ModBS merged
+    plan."""
+    return (up("t"), up("cls", _I32), up("need", _I32), up("svc"),
+            up("t_up"), up("isf", torch.bool))
+
+
+@engines.register_grid("fcfs", "torch")
+def _fcfs_grid_torch(cells, *, device):
+    G, R, L = _grid_shape(cells)
+    if cells[0].failures is not None:
+        p = _fcfs_fail_grid_plan(cells)
+        up = _upload(p, L, device)
+        (starts,) = _host(fcfs_fail_scan_fwd(
+            up("t"), up("need", _I32), up("svc"), up("t_up"),
+            up("isf", torch.bool), k=p["k_pad"], k_lane=up("k_lane", _I32)))
+        return _fcfs_fail_grid_extract(cells, p["mss"],
+                                       starts.reshape(G, R, -1))
+    p = _fcfs_grid_plan(cells)
+    up = _upload(p, L, device)
+    (starts,) = _host(fcfs_scan_fwd(
+        up("arrival"), up("need", _I32), up("service"), k=p["k_pad"],
+        k_lane=up("k_lane", _I32)))
+    return _fcfs_grid_extract(cells, starts.reshape(G, R, -1))
+
+
+@engines.register_grid("modbs-fcfs", "torch")
+def _modbs_grid_torch(cells, *, device):
+    G, R, L = _grid_shape(cells)
+    if cells[0].failures is not None:
+        p = _modbs_fail_grid_plan(cells)
+        up = _upload(p, L, device)
+        blocked, starts = _host(*modbs_fail_scan_fwd(
+            *_merged_lanes(up), up("slots", _I32), s_max=p["s_max_pad"],
+            h=p["h_pad"], h_lane=up("h_lane", _I32)))
+        return _modbs_fail_grid_extract(cells, p["mss"],
+                                        blocked.reshape(G, R, -1),
+                                        starts.reshape(G, R, -1))
+    p = _modbs_grid_plan(cells)
+    up = _upload(p, L, device)
+    blocked, starts = _host(*modbs_scan_fwd(
+        up("arrival"), up("cls", _I32), up("need", _I32), up("service"),
+        up("slots", _I32), s_max=p["s_max_pad"], h=p["h_pad"],
+        h_lane=up("h_lane", _I32)))
+    return _modbs_grid_extract(cells, blocked.reshape(G, R, -1),
+                               starts.reshape(G, R, -1))
+
+
+@engines.register_grid("bs-fcfs", "torch")
+def _bs_grid_torch(cells, *, device):
+    G, R, L = _grid_shape(cells)
+    drain = cells[0].failures is not None
+    p = _bs_fail_grid_plan(cells) if drain else _bs_grid_plan(cells)
+    up = _upload(p, L, device)
+    trace = (up("arrival"), up("cls", _I32), up("need", _I32),
+             up("service"))
+    kw = dict(s_max=p["s_max_pad"], h=p["h_pad"], q_cap=p["q_cap_pad"],
+              h_lane=up("h_lane", _I32), j_live=up("j_live", _I32))
+    if drain:
+        out = bs_fail_scan_fwd(*trace, up("ft"), up("ftgt", _I32),
+                               up("fup"), up("slots", _I32),
+                               length=p["length"], **kw)
+    else:
+        out = bs_scan_fwd(*trace, up("slots", _I32), **kw)
+    tagged, rec_t, ovf = _host(*out)
+    return _bs_grid_extract(cells, p, tagged.reshape(G, R, -1),
+                            rec_t.reshape(G, R, -1), ovf.reshape(G, R))
+
+
+def _srpt_grid_torch(sf: bool, cells, *, device):
+    _srpt_no_failures(cells[0].failures, "sf-srpt" if sf else "ff-srpt")
+    G, R, L = _grid_shape(cells)
+    p = _srpt_grid_plan(cells)
+    up = _upload(p, L, device)
+    out = _host(*srpt_scan_fwd(
+        up("arrival"), up("need"), up("service"), up("kk"), Q=p["Q_pad"],
+        NU=p["NU"], sf=sf, j_live=up("j_live", _I32)))
+    return _srpt_grid_extract(cells, p, *(x.reshape(G, R, *x.shape[1:])
+                                          for x in out))
+
+
+@engines.register_grid("sf-srpt", "torch")
+def _sf_srpt_grid_torch(cells, *, device):
+    return _srpt_grid_torch(True, cells, device=device)
+
+
+@engines.register_grid("ff-srpt", "torch")
+def _ff_srpt_grid_torch(cells, *, device):
+    return _srpt_grid_torch(False, cells, device=device)

@@ -14,6 +14,7 @@ reference on the CPU.  Without a card every test here but the import pin
 skips.
 """
 
+import dataclasses
 import math
 import os
 import subprocess
@@ -26,7 +27,8 @@ import torch
 
 from repro_torch.bench import bs_cases, fm_cases, srpt_cases
 from repro_torch.core import failures as flr
-from repro_torch.core import sim_batch, sim_torch, workload
+from repro_torch.core import (engines, partition, sim_batch, sim_torch,
+                              workload)
 from repro_torch.core.sim_torch import _bs_args
 from repro_torch.kernels import msj_scan
 from repro_torch.kernels.decode_attention import (decode_attention_fwd,
@@ -296,6 +298,154 @@ def test_cuda_fail_kernels_equal_plain_versions_on_the_card():
             out = _port_fail(name, case, dev)
             assert K.launches()[f"{name}_fail_scan_fwd"] == 1
             _equal(out, ref, (name, k))
+
+
+# -- the grid path (tests/test_torch_grid.py's cells) ------------------------
+
+
+GRID_CASES = ([(p, False) for p in ("fcfs", "modbs-fcfs", "bs-fcfs",
+                                    "sf-srpt", "ff-srpt")]
+              + [(p, True) for p in ("fcfs", "modbs-fcfs", "bs-fcfs")])
+_GRID_WRAPPER = {"fcfs": "fcfs_scan_fwd", "modbs-fcfs": "modbs_scan_fwd",
+                 "bs-fcfs": "bs_scan_fwd", "sf-srpt": "srpt_scan_fwd",
+                 "ff-srpt": "srpt_scan_fwd"}
+
+
+def _grid_cells(drain):
+    """(k, J) = (32, 200) and (256, 120), R = 3: both paddings."""
+    cells = []
+    for g, (k, J) in enumerate(((32, 200), (256, 120))):
+        wl = _small_workload(k)
+        b = wl.sample_traces(J, 3, seed=g)
+        fb = None
+        if drain:
+            h = float(b.arrival.max())
+            fb = flr.FailureProcess(mtbf=h / 2, mttr=h / 40,
+                                    mode="drain").sample(k, h, 3, seed=g)
+        cells.append(engines.GridCell(b, wl=wl, failures=fb))
+    return cells
+
+
+def _assert_results_equal(out, ref, what):
+    for f in dataclasses.fields(ref):
+        a, b = getattr(out, f.name), getattr(ref, f.name)
+        assert (a is None) == (b is None), (what, f.name)
+        if a is not None:
+            assert np.array_equal(a, b), (what, f.name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy,drain", GRID_CASES)
+def test_cuda_grid_equals_per_cell_on_the_card(policy, drain):
+    """The stacked grid on the card is one launch of its policy's kernel,
+    and each cell equals per-cell ``simulate`` on the card."""
+    dev = _dev()
+    cells = _grid_cells(drain)
+    K.reset_launches()
+    out = engines.simulate_grid(policy, cells, device=dev)
+    want = _GRID_WRAPPER[policy]
+    if drain:
+        want = want.replace("_scan", "_fail_scan")
+    assert {w: n for w, n in K.launches().items() if n} == {want: 1}
+    for g, (cell, o) in enumerate(zip(cells, out)):
+        _assert_results_equal(o, engines.simulate(
+            policy, cell.batch, wl=cell.wl, failures=cell.failures,
+            device=dev), (policy, drain, g))
+
+
+def _grid_raw(policy, drain, cells, device):
+    """The raw outputs of the wrapper call a grid core makes, on
+    ``device`` (its plan's per-lane sizes, lanes flattened)."""
+    from repro_torch.kernels.msj_scan import ops
+
+    L = len(cells) * cells[0].batch.reps
+    if policy in ("sf-srpt", "ff-srpt"):
+        p = sim_batch._srpt_grid_plan(cells)
+        up = ops._upload(p, L, device)
+        return K.srpt_scan_fwd(up("arrival"), up("need"), up("service"),
+                               up("kk"), Q=p["Q_pad"], NU=p["NU"],
+                               sf=policy == "sf-srpt",
+                               j_live=up("j_live", torch.int32))
+    plan = {("fcfs", False): sim_batch._fcfs_grid_plan,
+            ("fcfs", True): sim_batch._fcfs_fail_grid_plan,
+            ("modbs-fcfs", False): sim_batch._modbs_grid_plan,
+            ("modbs-fcfs", True): sim_batch._modbs_fail_grid_plan,
+            ("bs-fcfs", False): sim_batch._bs_grid_plan,
+            ("bs-fcfs", True): sim_batch._bs_fail_grid_plan}[policy, drain]
+    p = plan(cells)
+    up = ops._upload(p, L, device)
+    i32 = torch.int32
+    if policy == "fcfs" and drain:
+        return (K.fcfs_fail_scan_fwd(up("t"), up("need", i32), up("svc"),
+                                     up("t_up"), up("isf", torch.bool),
+                                     k=p["k_pad"], k_lane=up("k_lane", i32)),)
+    if policy == "fcfs":
+        return (K.fcfs_scan_fwd(up("arrival"), up("need", i32),
+                                up("service"), k=p["k_pad"],
+                                k_lane=up("k_lane", i32)),)
+    sizes = dict(s_max=p["s_max_pad"], h=p["h_pad"],
+                 h_lane=up("h_lane", i32))
+    if policy == "modbs-fcfs" and drain:
+        return K.modbs_fail_scan_fwd(*ops._merged_lanes(up),
+                                     up("slots", i32), **sizes)
+    trace = (up("arrival"), up("cls", i32), up("need", i32), up("service"))
+    if policy == "modbs-fcfs":
+        return K.modbs_scan_fwd(*trace, up("slots", i32), **sizes)
+    sizes.update(q_cap=p["q_cap_pad"], j_live=up("j_live", i32))
+    if drain:
+        return K.bs_fail_scan_fwd(*trace, up("ft"), up("ftgt", i32),
+                                  up("fup"), up("slots", i32),
+                                  length=p["length"], **sizes)
+    return K.bs_scan_fwd(*trace, up("slots", i32), **sizes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy,drain", GRID_CASES)
+def test_cuda_per_lane_sizes_equal_plain_versions(policy, drain):
+    """Each kernel with per-lane sizes (dead servers, padded slots and
+    classes, sentinel jobs past ``j_live`` and the records past a lane's
+    events) equals its plain version on every raw output."""
+    dev = _dev()
+    cells = _grid_cells(drain)
+    _equal(_grid_raw(policy, drain, cells, dev),
+           _grid_raw(policy, drain, cells, "cpu"), (policy, drain))
+
+
+def _wide_cell(k, needs, a, lam, seed, J=400, reps=2):
+    """A cell of a hand-built partition (classes uniform, Exp(1)
+    services, Poisson arrivals at rate ``lam``)."""
+    part = partition.BalancedPartition(k=k, needs=tuple(needs), a=tuple(a),
+                                       psi=0.0)
+    rng = np.random.default_rng(seed)
+    cls = rng.integers(0, len(needs), (reps, J))
+    b = workload.BatchTrace.from_arrays(
+        np.cumsum(rng.exponential(1.0 / lam, (reps, J)), axis=1), cls,
+        rng.exponential(1.0, (reps, J)), np.asarray(needs)[cls], k,
+        len(needs))
+    return engines.GridCell(b, partition=part)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["modbs-fcfs", "bs-fcfs"])
+def test_cuda_grid_wider_than_every_cell(policy):
+    """24 classes of 2 slots beside 2 classes of 40: the grid's rows are
+    C_pad x s_max_pad = 24 x 40, above either cell's (48, 80), and still
+    fit; each cell equals its per-cell run on the card and the grid's
+    plain version on the CPU."""
+    dev = _dev()
+    cells = [_wide_cell(64, [1] * 24, [2] * 24, 30.0, 1),
+             _wide_cell(128, [1, 2], [40, 80], 60.0, 2)]
+    K.reset_launches()
+    out = engines.simulate_grid(policy, cells, device=dev)
+    assert sum(K.launches().values()) == 1
+    cpu = engines.simulate_grid(policy, cells, device="cpu")
+    for g, (cell, o, c) in enumerate(zip(cells, out, cpu)):
+        assert 0 < o.p_helper.mean() < 1, g
+        _assert_results_equal(o, c, (policy, g, "cpu"))
+        _assert_results_equal(o, engines.simulate(
+            policy, cell.batch, partition=cell.partition, device=dev),
+            (policy, g))
+
 
 
 # -- srpt_scan and stable_sort (tests/test_torch_srpt.py's shapes) -----------

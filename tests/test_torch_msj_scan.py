@@ -321,10 +321,13 @@ def test_modbs_blocked_iff_row_minimum_above_t(name):
 class _RunLength:
     """The FCFS kernels' run-length free-time state of m servers, as lists:
     F entries <= t_prev (their values never read), and the entries above
-    t_prev as [value, multiplicity] groups in ascending order."""
+    t_prev as [value, multiplicity] groups in ascending order.  With
+    ``live`` < m the m - live dead servers start as one group at BIG."""
 
-    def __init__(self, m):
-        self.m, self.F, self.t_prev, self.groups = m, m, 0.0, []
+    def __init__(self, m, live=None):
+        live = m if live is None else live
+        self.m, self.F, self.t_prev = m, live, 0.0
+        self.groups = [] if live == m else [[1e30, m - live]]
 
     def nth(self, n):
         r = min(max(n, 1), self.m) - 1
