@@ -9,7 +9,7 @@ Phases, each of which exits non-zero on failure:
    csrc`` with nvcc for sm_90a (into ``build/``) and print ptxas' report;
 2. run each kernel on the card at the full width of the Figure-1 workload
    (k in {256, 2048}: its C, slots, h, and the ring capacity q_cap = 8192
-   of a 100 000-job trace) with R = 16 replications and J = 4000 jobs,
+   of a 100 000-job trace) with R = 16 replications and J = 2000 jobs,
    and require ``torch.equal`` with its plain PyTorch version on the same
    inputs (J is shortened because the plain version is a Python event
    loop); time the kernel and the plain version on the card;
@@ -54,7 +54,7 @@ The Figure-3 slice adds to each phase:
 The drain-mode failure slice adds:
 
 2. ``fcfs_fail_scan``, ``modbs_fail_scan`` and ``bs_fail_scan`` at the
-   Figure-1 widths of k in {256, 2048}, R = 16, J = 2000 (ring capacity
+   Figure-1 widths of k in {256, 2048}, R = 16, J = 1000 (ring capacity
    q_cap = J, so no ring can overflow), under two outage mixes over the
    arrival horizon h: ``bench_sim.bench_failures``' process (mtbf = h/4,
    mttr = h/400, single servers) and a heavier one (mtbf = h/4,
@@ -281,6 +281,27 @@ and each path is run again cell by cell (``grid=False``), which must give
 the same result on every field (Fig. 3: every column) but ``sim_s``; both
 walls are printed.
 
+The stream slice (``engines.simulate_stream`` over a chunk source, one
+carried launch of ``fcfs_stream_scan``, ``modbs_stream_scan`` or
+``bs_stream_scan`` per chunk) adds a phase 3d: each carried kernel
+against its plain version on the card after every chunk (outputs and
+canonical carry ``torch.equal``; Fig. 1 at k = 2048, J = 1000, R = 16 in
+chunks of 250, BS-π at the stream core's default backlog_cap, and the adversarial cases ``bursts`` — more than 128
+run-length groups carried —, ``need1``, ``ties`` and BS-π's ``kit512``);
+Fig. 1's batch at k in {2048, 256}, R = 16, J = 100 000 streamed in
+chunks of 10 000 and 7 919 (ragged) for the three policies, each equal
+bit for bit to ``stream_fold(simulate(...))`` on the card with one launch
+per chunk; a generated BS-π stream (``PoissonSource``, Fig. 1 k = 2048,
+R = 16) of 2 x 10^5 and of 10^6 jobs a replication whose peak device
+memory must not grow by more than 5 %, the longer one checkpointed every
+chunk, its last step deleted and resumed to the same bytes; and each
+carried kernel's device time per chunk beside its bound.  The RWKV6
+serving phase adds the teacher-forced, layer-by-layer decode-vs-forward
+check (each layer within ``bench/decode_vs_forward.LAYER_TOL`` of its
+row's largest element) beside the free-running one.  The comparisons of
+phase 2 run at J = 2000 (4000 before) and the drain ones at J = 1000
+(2000 before), to pay for the stream phase's time.
+
 Then it prints the card's name and power limit, one ``{"kernels": [...]}``
 line and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the repository around it, it exits non-zero and prints no
@@ -299,7 +320,9 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-CMP_J, REPS = 4000, 16
+# (J of the comparisons with the plain versions: 4000 until the stream
+# slice, halved to pay for its phase)
+CMP_J, REPS = 2000, 16
 MAIN_KS, MAIN_J = (256, 1024, 2048), 100_000
 POLICIES = ("fcfs", "modbs-fcfs", "bs-fcfs")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
@@ -332,13 +355,33 @@ FAIL_KERNELS = {  # name -> (wrapper, TPU kernel it replaces)
 }
 DRAIN_KS, DRAIN_SMALL_J, DRAIN_SMALL_R = (256, 1024), 2000, 4
 # J of the drain kernels' comparison with their plain versions on the card
-# (4000 until the BS-pi redesign; halved to make room for its cases)
-DRAIN_CMP_J = 2000
+# (4000 until the BS-pi redesign, then 2000; halved each time to make room
+# for a phase)
+DRAIN_CMP_J = 1000
 # BS-pi's adversarial cases (bench/bs_cases.ADVERSARIAL): J and R of the
 # comparison with the plain version on the CPU
 BS_ADV_J, BS_ADV_R = 2000, 4
 # the FCFS / ModBS-pi adversarial cases (bench/fm_cases.ADVERSARIAL), the same
 FM_ADV_J, FM_ADV_R = 2000, 4
+# the stream path: Fig. 1's batch replayed at k and J in chunks of each
+# size (the second ragged), and a generated BS-pi stream of this many
+# jobs a replication (peak memory read after each)
+STREAM_KS, STREAM_J, STREAM_CHUNKS = (2048, 256), 100_000, (10_000, 7_919)
+STREAM_GEN_TOTALS = (200_000, 1_000_000)
+# J, R and chunk of the carried kernels' comparisons with their plain
+# versions on the card (BS-pi's at the stream core's default backlog_cap,
+# so q_cap = backlog_cap + chunk as on the main path), and the adversarial
+# cases that join Fig. 1 there
+STREAM_CMP = (1000, REPS, 250)
+STREAM_FM_ADV, STREAM_BS_ADV = ("bursts", "need1", "ties"), ("kit512",)
+STREAM_KERNELS = {  # name -> (wrapper, the reference's stream core)
+    "fcfs_stream_scan": ("fcfs_stream_fwd", "src/repro/core/sim_jax.py:160"),
+    "modbs_stream_scan": ("modbs_stream_fwd",
+                          "src/repro/core/sim_jax.py:312"),
+    "bs_stream_scan": ("bs_stream_fwd", "src/repro/core/sim_jax.py:790"),
+}
+STREAM_FIELDS = ("mean_response", "var_response", "mean_wait", "var_wait",
+                 "p_wait", "p_helper", "p_routed")
 
 
 def grid_launches(tag: str, counts: dict, want: dict) -> None:
@@ -1303,6 +1346,7 @@ def rwkv_path(dev) -> dict:
     report entry."""
     import torch
 
+    from repro_torch.bench import decode_vs_forward as dvf
     from repro_torch.configs import get_config
     from repro_torch.kernels.decode_attention import decode_attention_fwd
     from repro_torch.kernels.flash_attention import flash_attention_fwd
@@ -1472,6 +1516,19 @@ def rwkv_path(dev) -> dict:
           f"{full.float().abs().max().item():.3f}")
     if not diff < 0.25:
         fail(f"{RWKV_ARCH} decode-vs-forward diff {diff} >= 0.25")
+    # teacher-forced, layer by layer: the recurrent state after prefill(S)
+    # in place of the cache, each layer fed prefill(S + 1)'s input there
+    rel = dvf.layer_by_layer(model, params, toks, S)
+    worst_l = max(range(len(rel)), key=rel.__getitem__)
+    print(f"[serve-rwkv] {RWKV_ARCH} decode-vs-forward, layer by layer: "
+          f"decode at token {S} after prefill({S}) (the recurrent state in "
+          f"place of the cache), each layer fed prefill({S + 1})'s input "
+          f"there, against prefill({S + 1})'s output: largest |diff| / max "
+          f"|row| {rel[worst_l]:.5f} (layer {worst_l} of {len(rel)}; bound "
+          f"{dvf.LAYER_TOL:g}); free running {diff:.4f} (bound 0.25)")
+    if len(rel) != cfg.num_layers or not rel[worst_l] <= dvf.LAYER_TOL:
+        fail(f"{RWKV_ARCH} decode-vs-forward layer {worst_l}: "
+             f"{rel[worst_l]} > {dvf.LAYER_TOL}")
     peak = torch.cuda.max_memory_allocated() / 1e9
     print(f"[serve-rwkv] peak memory in the phase {peak:.2f} GB of "
           f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.2f} GB")
@@ -1497,7 +1554,8 @@ def rwkv_path(dev) -> dict:
                      bound_ms=f32_case["bound_ms"]),
         configs=cases,
         rwkv_launches={k: v for k, v in counts.items() if k != "wkv"},
-        peak_gb=peak,
+        peak_gb=peak, decode_vs_forward=dict(
+            free_running=diff, layer_by_layer=rel[worst_l]),
         serve_s={f"prompt {S}": {"prefill": p, "decode_per_token": d}
                  for S, (p, d) in sorted(walls.items())})}
 
@@ -1975,6 +2033,276 @@ def tensor_core_instructions(paths) -> None:
         if not tc or min(tc) == 0:
             fail(f"tensor-core kernel {k}: instantiations with no {inst} "
                  f"instruction, or none built ({tc})")
+
+
+def stream_bound(name: str, R: int, k: int, jobs: int, carry_in: int,
+                 carry_out: int, events: int, length: int = 0,
+                 queued: int = 0) -> tuple[float, str]:
+    """Least time for one carried chunk call: (ms, what bounds it).
+
+    Bytes: the chunk's ``jobs`` records (over all lanes) read once, its
+    outputs written once, of the carry the ``carry_in`` bytes the call
+    needs read once and the ``carry_out`` bytes it gives back written
+    once.  BS-π also reads the ``queued`` jobs' records (arrival, service,
+    need: the ring they sit in is their class) and the horizon, and writes
+    ``length`` event records a lane.  Operations: the per-event counts of
+    :func:`bound` over the ``events`` the chunk's data holds (FCFS and
+    ModBS-π one per job; BS-π the events its scan processed)."""
+    log_k = max(1, (k - 1).bit_length())
+    if name == "fcfs_stream_scan":
+        nbytes, ops = jobs * (8 + 4 + 8 + 8), events * (3 + log_k)
+    elif name == "modbs_stream_scan":
+        nbytes = jobs * (8 + 4 + 4 + 8 + 1 + 8)
+        ops = events * (6 + log_k)
+    else:
+        nbytes = (jobs * (8 + 4 + 4 + 8) + queued * (8 + 8 + 4)
+                  + R * length * (4 + 8) + R * 8)
+        ops = events * (8 + log_k)
+    nbytes += carry_in + carry_out
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F64_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def stream_path(dev, report: dict) -> None:
+    """The stream path: each carried kernel against its plain version on
+    the card after every chunk; ``simulate_stream`` replaying Fig. 1's
+    batch at full width equal bit for bit to ``stream_fold(simulate)``,
+    one launch per chunk; a generated 10^6-job BS-π stream at flat peak
+    memory, checkpointed and resumed to the same bytes.  Adds the three
+    stream entries to ``report``."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.bench import fm_cases, stream_cases as SC
+    from repro_torch.core import engines, stream
+    from repro_torch.core.workload import PoissonSource, figure1_workload
+    from repro_torch.kernels.msj_scan import kernel as K
+
+    t_phase = time.time()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t1 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.time() - t1) * 1e3
+
+    # -- kernel against plain version, chunk after chunk, on the card ------
+    J, R, chunk = STREAM_CMP
+    cuts = SC.bounds(J, chunk)
+    cmp = {name: [] for name in STREAM_KERNELS}
+    fm = [("fig1", fm_cases.fig1_case(2048, J, R, 1))]
+    fm += [(n, fm_cases.ADVERSARIAL[n](J, R, 1)) for n in STREAM_FM_ADV]
+    for label, case in fm:
+        g = case.to(dev)
+        runs = {
+            "fcfs_stream_scan": lambda fn: SC.fcfs_chunks(fn, *g.fcfs, g.k,
+                                                         cuts),
+            "modbs_stream_scan": lambda fn: SC.modbs_chunks(
+                fn, *g.modbs, g.slots, g.s_max, g.h, cuts)}
+        for name, run in runs.items():
+            kern, ms = timed(lambda: run(getattr(K, STREAM_KERNELS[name][0])))
+            plain, plain_ms = timed(lambda: run(getattr(
+                K, STREAM_KERNELS[name][0].replace("_fwd", "_ref"))))
+            try:
+                SC.equal_chunks(kern, plain, f"{name} {label}")
+            except AssertionError as e:
+                fail(str(e))
+            extra = ""
+            if name == "fcfs_stream_scan":
+                extra = (f"; carried run-length groups up to "
+                         f"{max(SC.groups_above(W, tp) for _, W, tp in plain)}")
+            print(f"[stream] {name} {label} k={case.k} R={R} J={J} in "
+                  f"chunks of {chunk}: outputs and canonical carry after "
+                  f"every chunk equal at tolerance 0 (torch.equal) to the "
+                  f"plain version on the card; {len(cuts)} chunks: kernel "
+                  f"{ms:.1f} ms, plain {plain_ms:.1f} ms (host clock){extra}")
+            cmp[name].append(dict(case=label, ms=ms / len(cuts),
+                                  plain_ms=plain_ms / len(cuts)))
+    for label in ("fig1",) + STREAM_BS_ADV:
+        if label == "fig1":
+            wl = figure1_workload(2048)
+            b = wl.sample_traces(J, R, seed=1)
+        else:
+            b, wl = SC.bs_case_batch(label, J, R, 1)
+        _, slots, s_max, h, q_cap, B = stream._bs_stream_args(
+            None, wl, chunk, None, stream.BS_BACKLOG_CAP)
+        run = lambda fn: SC.bs_chunks(fn, b, slots, s_max, h, q_cap, B, cuts,
+                                      dev)
+        kern, ms = timed(lambda: run(K.bs_stream_fwd))
+        plain, plain_ms = timed(lambda: run(K.bs_stream_ref))
+        try:
+            SC.equal_chunks(kern, plain, f"bs_stream_scan {label}")
+        except AssertionError as e:
+            fail(str(e))
+        backlog = max(int(c[-1]["pend_n"].max()) for c in plain[:-1])
+        print(f"[stream] bs_stream_scan {label} k={wl.k} C={len(slots)} "
+              f"s_max={s_max} h={h} R={R} J={J} in chunks of {chunk}, "
+              f"backlog_cap={B}: event streams, carry and canonical state "
+              f"after every chunk equal at tolerance 0 (torch.equal) to the "
+              f"plain version on the card; backlog across a boundary up to "
+              f"{backlog} jobs; {len(cuts)} chunks: kernel {ms:.1f} ms, "
+              f"plain {plain_ms:.1f} ms (host clock)")
+        cmp["bs_stream_scan"].append(dict(case=label, ms=ms / len(cuts),
+                                          plain_ms=plain_ms / len(cuts)))
+
+    # -- replay at full width: stream == fold(simulate), one launch a chunk
+    wrappers = {pol: STREAM_KERNELS[name][0]
+                for pol, name in zip(POLICIES, STREAM_KERNELS)}
+    launches = {}
+    for k in STREAM_KS:
+        wl = figure1_workload(k)
+        b = wl.sample_traces(STREAM_J, REPS, seed=0)
+        for pol in POLICIES:
+            fold = stream.stream_fold(engines.simulate(pol, b, wl=wl))
+            for chunk_jobs in STREAM_CHUNKS:
+                K.reset_launches()
+                sr, ms = timed(lambda: engines.simulate_stream(
+                    pol, b, chunk_jobs=chunk_jobs, wl=wl))
+                counts = {w: n for w, n in K.launches().items() if n}
+                want = {wrappers[pol]: -(-STREAM_J // chunk_jobs)}
+                if counts != want:
+                    fail(f"[stream] {pol} k={k} chunk {chunk_jobs} launched "
+                         f"{counts}, expected {want}")
+                for f in STREAM_FIELDS:
+                    x, y = getattr(sr, f), getattr(fold, f)
+                    if (x is None) != (y is None) or (
+                            x is not None and x.tobytes() != y.tobytes()):
+                        fail(f"[stream] {pol} k={k} chunk {chunk_jobs}: "
+                             f"{f} differs from stream_fold(simulate)")
+                if not np.isfinite(sr.mean_response).all():
+                    fail(f"[stream] {pol} k={k}: non-finite mean response")
+                rate = REPS * STREAM_J / (ms / 1e3)
+                print(f"[stream] simulate_stream({pol}) Fig. 1 k={k} "
+                      f"R={REPS} J={STREAM_J} chunk_jobs={chunk_jobs}: "
+                      f"every StreamResult field equal bit for bit to "
+                      f"stream_fold(simulate) on the card; launches "
+                      f"{counts}; {ms / 1e3:.2f} s, {rate:.0f} jobs/s")
+                if k == STREAM_KS[0] and chunk_jobs == STREAM_CHUNKS[0]:
+                    launches[wrappers[pol]] = counts[wrappers[pol]]
+
+    # -- a generated stream: flat peak memory, checkpoint and resume --------
+    wl = figure1_workload(2048)
+    ckpt = ROOT / "build" / "stream_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    mem = {}
+    for total in STREAM_GEN_TOTALS:
+        src = PoissonSource(wl, reps=REPS, seed=7)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()
+        kw = dict(ckpt_dir=str(ckpt)) if total == STREAM_GEN_TOTALS[-1] else {}
+        sr, ms = timed(lambda: engines.simulate_stream(
+            "bs-fcfs", src, chunk_jobs=STREAM_CHUNKS[0], total_jobs=total,
+            wl=wl, **kw))
+        mem[total] = torch.cuda.max_memory_allocated()
+        n = K.launches()["bs_stream_fwd"]
+        print(f"[stream] simulate_stream(bs-fcfs, PoissonSource(Fig. 1 "
+              f"k=2048), R={REPS}) after {total} jobs a replication"
+              f"{' (checkpointed every chunk)' if kw else ''}: "
+              f"{ms / 1e3:.2f} s, {REPS * total / (ms / 1e3):.0f} jobs/s, "
+              f"{n} launches, torch.cuda.max_memory_allocated "
+              f"{mem[total] / 2**20:.2f} MiB; mean response "
+              f"{sr.mean_response.mean():.6f}, P[wait>0] "
+              f"{sr.p_wait.mean():.6f}")
+        if n != total // STREAM_CHUNKS[0]:
+            fail(f"[stream] generated stream launched bs_stream_fwd {n} "
+                 f"times, expected {total // STREAM_CHUNKS[0]}")
+    small, big = (mem[t] for t in STREAM_GEN_TOTALS)
+    print(f"[stream] peak memory after {STREAM_GEN_TOTALS[-1]} jobs / after "
+          f"{STREAM_GEN_TOTALS[0]}: {big / small:.4f} (bound 1.05)")
+    if big > 1.05 * small:
+        fail(f"[stream] peak memory grew with the stream: {small} -> {big}")
+    steps = sorted(p for p in ckpt.iterdir() if p.name.startswith("step_"))
+    shutil.rmtree(steps[-1])
+    res, ms = timed(lambda: engines.simulate_stream(
+        "bs-fcfs", PoissonSource(wl, reps=REPS, seed=7),
+        chunk_jobs=STREAM_CHUNKS[0], total_jobs=STREAM_GEN_TOTALS[-1], wl=wl,
+        ckpt_dir=str(ckpt), resume=True))
+    for f in STREAM_FIELDS:
+        x, y = getattr(sr, f), getattr(res, f)
+        if x.tobytes() != y.tobytes():
+            fail(f"[stream] resumed stream: {f} differs from the run it "
+                 f"resumed")
+    print(f"[stream] deleted {steps[-1].name}, resumed from "
+          f"{steps[-2].name} in {ms / 1e3:.2f} s: every StreamResult field "
+          f"byte-identical to the uninterrupted run")
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+    # -- device time of one chunk from a carried state, beside the bound --
+    def chunk_call(name, k, R, Jc, seed):
+        """(call, bound) of ``name``'s kernel on the second Jc-job chunk of
+        a Fig. 1 trace at k, from the carry the first chunk gave out."""
+        fc = fm_cases.fig1_case(k, 2 * Jc, R, seed).to(dev)
+        first = SC.bounds(2 * Jc, Jc)[:1]
+        if name == "fcfs_stream_scan":
+            _, W, tp = SC.fcfs_chunks(K.fcfs_stream_fwd, *fc.fcfs, k,
+                                      first)[0]
+            args = tuple(x[:, Jc:].contiguous() for x in fc.fcfs)
+            cb = (W.numel() + R) * 8
+            return (lambda: K.fcfs_stream_fwd(*args, W, tp),
+                    stream_bound(name, R, k, R * Jc, cb, cb, R * Jc))
+        if name == "modbs_stream_scan":
+            mb = SC.modbs_chunks(K.modbs_stream_fwd, *fc.modbs, fc.slots,
+                                 fc.s_max, fc.h, first)[0]
+            args = tuple(x[:, Jc:].contiguous() for x in fc.modbs)
+            cb = sum(x.numel() * 8 for x in mb[2:])
+            return (lambda: K.modbs_stream_fwd(*args, *mb[2:]),
+                    stream_bound(name, R, k, R * Jc, cb, cb, R * Jc))
+        # BS-π: the driver's own chunk step, its call captured, drained
+        wl = figure1_workload(k)
+        b = wl.sample_traces(2 * Jc, R, seed=seed)
+        _, slots, s_max, h, q_cap, B = stream._bs_stream_args(
+            None, wl, Jc, None, stream.BS_BACKLOG_CAP)
+        canon = SC.bs_chunks(K.bs_stream_fwd, b, slots, s_max, h, q_cap, B,
+                             first, dev)[0][-1]
+        capture = stream._bs_device_scan(lambda *a, **kw: (a, kw), dev,
+                                         slots, s_max, h, q_cap)
+        (a, kw), _, _ = stream._bs_chunk_scan(
+            canon, b.slice_jobs(Jc, 2 * Jc), Jc, np.full(R, np.inf), capture,
+            slots, s_max, h, q_cap, B)
+        dc, C = a[6], len(slots)
+        # the kernel reads of the carried ring only the queued entries
+        st = dc[1].long()
+        queued = int((st[:, 2 * C:] - st[:, C:2 * C]).clamp(max=q_cap).sum())
+        cb = sum(x.numel() * x.element_size() for x in dc)
+        cb_in = cb - dc[3].numel() * dc[3].element_size() + queued * 4
+        events = int(K.bs_stream_fwd(*a, **kw)[0][9].sum())
+        return (lambda: K.bs_stream_fwd(*a, **kw),
+                stream_bound(name, R, k, R * Jc, cb_in, cb, events,
+                             kw["length"], queued))
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    for name, (wrapper, replaces) in STREAM_KERNELS.items():
+        call, (b_ms, b_by) = chunk_call(name, 2048, R, chunk, 1)
+        ms = cuda_ms(call, 5)
+        main, (mb_ms, mb_by) = chunk_call(name, STREAM_KS[0], REPS,
+                                          STREAM_CHUNKS[0], 0)
+        main_ms = cuda_ms(main, 3)
+        plain_ms = cmp[name][0]["plain_ms"]
+        print(f"[time] {name} Fig. 1 k=2048, one chunk from a carried "
+              f"state: R={R} chunk {chunk}: {ms:.3f} ms (plain version "
+              f"{plain_ms:.1f} ms, host clock), bound {b_ms:.5f} ms "
+              f"({b_by}); R={REPS} chunk {STREAM_CHUNKS[0]}: {main_ms:.3f} "
+              f"ms, bound {mb_ms:.5f} ms ({mb_by}); {smi}")
+        report[name] = dict(
+            name=name, route="cuda", source=SOURCE, replaces=replaces,
+            launches=launches[wrapper],
+            max_abs_err=0.0,   # every compared tensor was torch.equal
+            ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            shape=f"Fig. 1 k=2048 R={R}, a {chunk}-job chunk from a carried "
+                  f"state",
+            main_ms=main_ms, main_bound_ms=mb_ms,
+            main_shape=f"Fig. 1 k={STREAM_KS[0]} R={REPS}, a "
+                       f"{STREAM_CHUNKS[0]}-job chunk from a carried state",
+            comparisons=cmp[name])
+    print(f"[stream] the stream phase took {time.time() - t_phase:.1f} s")
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -2622,6 +2950,9 @@ def main() -> int:
     print(f"[drain] small runs (J={DRAIN_SMALL_J}, R={DRAIN_SMALL_R}, "
           f"k=256, 2048, bench outages): card == CPU on every "
           f"BatchSimResult field, availability included")
+
+    # -- 3d. the stream path: simulate_stream on the carried kernels ------
+    stream_path(dev, report)
 
     # -- 4. kernel times at the main path's largest shape -----------------
     for k in MAIN_KS[:-1]:            # and FCFS / ModBS at the other ks

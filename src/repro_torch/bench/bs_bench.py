@@ -107,6 +107,10 @@ STAMPS = {
             ("  }\n  if (lane == 0) ovf_out[blockIdx.x] = ovf;\n", 5, True),
         ))},
 }
+# the kernel with a carried (stream) entry reads ovf from the carry
+STAMPS["carried"] = {"bs_scan_kernel": dict(
+    STAMPS["branches"]["bs_scan_kernel"],
+    init="  bool ovf = kStream ? ovf_out[b] : false;\n  __syncwarp();\n")}
 
 
 def make_cases(path: Path) -> None:

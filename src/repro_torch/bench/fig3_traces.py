@@ -20,7 +20,8 @@ call's wall time spread evenly over its cells.  ``--no-grid`` runs one
 ``engines.simulate`` per cell and policy instead; the rows are equal
 either way but for ``sim_s``.  ``serverfilling`` and ``msf`` run only on
 the reference's Python event engine, which is not ported: asking for them
-raises ``KeyError``.
+raises ``KeyError``.  ``--ckpt-dir D`` checkpoints each finished cell and
+``--resume`` reloads them, as the reference script's flags do.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ import time
 
 import numpy as np
 
+from ..checkpoint import completed_steps, restore_checkpoint, save_checkpoint
 from ..core import engines
 from ..core.sim_batch import QueueOverflowError, _ci95
 from ..core.workload import BatchTrace, kit_fh2_workload, sdsc_sp2_workload
@@ -143,32 +145,65 @@ def run_policies_batch(batch: BatchTrace, wl, policies, *, device,
 
 def run(num_jobs=15_000, seed=0, ks=(512, 1024), loads=(0.5, 0.7, 0.85),
         policies=SCAN_POLICIES, reps=4, bootstrap="iid",
-        device="cuda", grid: bool = True) -> list[dict]:
+        device="cuda", grid: bool = True, ckpt_dir=None,
+        resume: bool = False) -> list[dict]:
     """Table-2/3 synthesized traces, bootstrapped, through the registry.
 
     One row per (dataset, k, load, policy), in the reference script's
     order.  ``device="cuda"`` (the default) runs the kernels and raises
     without a card; ``device="cpu"`` runs their plain versions.
-    ``grid=True`` runs each policy over every cell in one
-    :func:`grid_precompute` call, ``grid=False`` cell by cell.
+    ``grid=True`` runs each policy over every cell not yet checkpointed in
+    one :func:`grid_precompute` call, ``grid=False`` cell by cell.
+
+    With ``ckpt_dir`` each (dataset, k, load) cell's finished rows are
+    published atomically (:mod:`repro_torch.checkpoint`; the rows ride in
+    the manifest's JSON) and ``resume=True`` reloads completed cells
+    instead of simulating them: a killed run resumes with the same CSV,
+    ``sim_s`` of the restored cells included.
     """
     pols = _check_policies(policies)
     dev = engines.resolve_device(device)
-    specs, sampled = [], []
-    for name, trace_fn, wl_fn in _DATASETS:
-        for k in ks:
-            for load in loads:
-                trace = trace_fn(num_jobs, k=k, load=load, seed=seed)
-                specs.append({"dataset": name, "k": k, "load": load})
-                sampled.append((BatchTrace.from_trace(
-                    trace, reps, seed=seed, method=bootstrap),
-                    wl_fn(k=k, load=load)))
-    pre = grid_precompute(sampled, pols, device=dev) if grid else {}
+    done: set[int] = set()
+    if resume:
+        if ckpt_dir is None:
+            raise ValueError("resume=True needs a ckpt_dir")
+        done = set(completed_steps(ckpt_dir))
+    specs = [(name, trace_fn, wl_fn, k, load)
+             for name, trace_fn, wl_fn in _DATASETS
+             for k in ks for load in loads]
+    sampled = {}
+    for cell, (name, trace_fn, wl_fn, k, load) in enumerate(specs):
+        if cell in done:
+            continue
+        trace = trace_fn(num_jobs, k=k, load=load, seed=seed)
+        sampled[cell] = (BatchTrace.from_trace(trace, reps, seed=seed,
+                                               method=bootstrap),
+                         wl_fn(k=k, load=load))
+    todo = sorted(sampled)
+    pre = (grid_precompute([sampled[c] for c in todo], pols, device=dev)
+           if grid and todo else {})
     rows = []
-    for cell, (extra, (batch, wl)) in enumerate(zip(specs, sampled)):
-        rows += run_policies_batch(batch, wl, pols, device=dev,
-                                   precomputed=pre, cell=cell,
-                                   extra_cols=extra)
+    for cell, (name, _, _, k, load) in enumerate(specs):
+        key = f"{name}/k={k}/load={load}"
+        if cell in done:
+            _, _, extra = restore_checkpoint(
+                ckpt_dir, {"ok": np.zeros(1)}, step=cell)
+            if extra.get("cell_key") != key:
+                raise ValueError(
+                    f"checkpoint cell {cell} holds "
+                    f"{extra.get('cell_key')!r}, this run expects {key!r} "
+                    f"— stale ckpt_dir?")
+            rows += extra["rows"]
+            continue
+        batch, wl = sampled[cell]
+        cell_rows = run_policies_batch(
+            batch, wl, pols, device=dev, precomputed=pre,
+            cell=todo.index(cell),
+            extra_cols={"dataset": name, "k": k, "load": load})
+        if ckpt_dir is not None:
+            save_checkpoint(ckpt_dir, cell, {"ok": np.ones(1)},
+                            extra={"cell_key": key, "rows": cell_rows})
+        rows += cell_rows
     return rows
 
 
@@ -204,11 +239,15 @@ def main(argv=None):
     ap.add_argument("--no-grid", dest="grid", action="store_false",
                     help="one simulate call per cell and policy instead of "
                          "one grid per policy")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="checkpoint each finished cell's rows here")
+    ap.add_argument("--resume", action="store_true",
+                    help="reload the cells checkpointed in --ckpt-dir")
     args = ap.parse_args(argv)
     rows = run(num_jobs=args.jobs, seed=args.seed, ks=tuple(args.ks),
                loads=tuple(args.loads), policies=tuple(args.policies),
                reps=args.reps, bootstrap=args.bootstrap, device=args.device,
-               grid=args.grid)
+               grid=args.grid, ckpt_dir=args.ckpt_dir, resume=args.resume)
     emit(rows, COLS)
 
 

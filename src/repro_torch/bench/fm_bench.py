@@ -69,12 +69,47 @@ SEED, REPS = 0, 3
 # the line?); ``done`` is where the counters are written (line, before
 # it?).  "block" is the kernel of one block per replication (FCFS) and of
 # per-step counts (ModBS); "run-length" the one-warp kernels on the
-# run-length state and kept row minima.
+# run-length state and kept row minima; "carried" those with a carried
+# (stream) exit after the loop.
 _END_FCFS = ("}\n\n// -------------------------------------------------------"
              "--------------------\n// ModifiedBS-pi", True)
 _END_MODBS = ("}\n\n// ------------------------------------------------------"
               "---------------------\n// BS-pi (Definition 1)", True)
 STAMPS = {
+    # this tree's: "run-length" with each kernel's carried exit (kStream)
+    # after its loop, so a step's last stamp goes before the loop's end
+    # (checked first: every "run-length" line is in this source too)
+    "carried": {
+        "fcfs_scan_kernel": dict(
+            phases=("read", "W[n-1] and start", "fold and insert", "record"),
+            init="  double my_start = 0.0;\n",
+            done=_END_FCFS,
+            lines=(
+                ("    const double svc = __shfl_sync(kFull, cur_s, src);\n",
+                 0, False),
+                ("    const double start = fmax(fmax(t, s.t_prev), "
+                 "rs_nth(s, n - 1, &e_nth));\n", 1, False),
+                ("      rs_commit(s, start, __dadd_rn(start, svc), n);\n", 2,
+                 False),
+                ("  }\n  if constexpr (kStream) {\n    rs_store", 3, True),
+            )),
+        "modbs_scan_kernel": dict(
+            phases=("read", "row read and blocked", "helper start",
+                    "row step", "helper step", "record"),
+            init="  bool my_blocked = false;\n",
+            done=_END_MODBS,
+            lines=(
+                ("    const double svc = __shfl_sync(kFull, cur_s, src);\n",
+                 0, False),
+                ("    const bool blocked = r0 > t;\n", 1, False),
+                ("      start = fmax(fmax(t, s.t_prev), rs_nth(s, n - 1, "
+                 "&e_nth));\n    }\n", 2, False),
+                ("    if (helper_fail)\n", 3, True),
+                ("      rs_commit(s, start, __dadd_rn(start, svc), n);\n", 4,
+                 False),
+                ("  }\n  if constexpr (kStream) {\n    double* cc", 5, True),
+            )),
+    },
     "block": {
         "fcfs_scan_kernel": dict(
             phases=("read and start", "count", "roll", "write and barrier"),

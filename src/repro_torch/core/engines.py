@@ -44,8 +44,13 @@ through :func:`simulate` / :func:`simulate_grid`::
   ``simulate(policy, cells[g].batch, ...)`` and the reference's grid cell
   g bit for bit.
 
-Streaming and checkpointing are not ported yet and raise
-``NotImplementedError`` (ROADMAP Queue 1 item 10).
+* **Streams**: :func:`simulate_stream` runs ``fcfs``, ``modbs-fcfs`` and
+  ``bs-fcfs`` over a :class:`~repro_torch.core.workload.ChunkSource`
+  chunk by chunk (:func:`register_stream` cores, one carried kernel
+  launch per chunk on the card) at memory independent of the stream's
+  length, and checkpoints after every chunk with ``ckpt_dir=``; on a
+  replayed batch it equals ``stream_fold(simulate(...))`` bit for bit.
+  ``"torch"`` is the only streaming engine.
 """
 
 from __future__ import annotations
@@ -69,6 +74,10 @@ _REGISTRY: dict[tuple[str, str], Callable[..., "BatchSimResult"]] = {}
 #: grid cores take a sequence of GridCells and return one BatchSimResult
 #: per cell — a distinct signature, so a registry of their own
 _GRID_REGISTRY: dict[tuple[str, str], Callable[..., list]] = {}
+
+#: stream cores take a ChunkSource and return a StreamResult — a distinct
+#: signature again, so a registry of their own
+_STREAM_REGISTRY: dict[tuple[str, str], Callable] = {}
 
 #: short CLI aliases -> canonical policy names
 ALIASES = {
@@ -110,6 +119,24 @@ def register_grid(policy: str, engine: str):
     return deco
 
 
+def register_stream(policy: str, engine: str):
+    """Decorator: register a streaming core under ``(policy, engine)``.
+
+    A stream core is ``core(source, *, device, chunk_jobs, total_jobs,
+    partition=None, wl=None, policy, **kw) -> StreamResult``: it pulls
+    per-chunk batches from a
+    :class:`~repro_torch.core.workload.ChunkSource` and folds the
+    observables online, never holding the whole [R, J] batch.
+    """
+    def deco(fn: Callable):
+        key = (policy, engine)
+        if key in _STREAM_REGISTRY:
+            raise ValueError(f"stream core {key} registered twice")
+        _STREAM_REGISTRY[key] = fn
+        return fn
+    return deco
+
+
 def _ensure_registered() -> None:
     for mod in _PROVIDERS:
         importlib.import_module(mod)
@@ -142,6 +169,40 @@ def grid_engines_for(policy: str) -> tuple[str, ...]:
     """Engines with a grid core for a policy (canonicalized), sorted."""
     pol = canonical(policy)
     return tuple(sorted(e for p, e in grid_registered() if p == pol))
+
+
+def stream_registered() -> tuple[tuple[str, str], ...]:
+    """All registered streaming ``(policy, engine)`` keys, sorted."""
+    _ensure_registered()
+    return tuple(sorted(_STREAM_REGISTRY))
+
+
+def stream_engines_for(policy: str) -> tuple[str, ...]:
+    """Engines with a streaming core for a policy (canonicalized), sorted."""
+    pol = canonical(policy)
+    return tuple(sorted(e for p, e in stream_registered() if p == pol))
+
+
+def get_stream(policy: str, engine: str) -> Callable:
+    """The registered streaming core for ``(policy, engine)``.
+
+    A policy that streams under another engine -> ``ValueError`` naming
+    the engines that do; a policy with no streaming core (the SRPT pair)
+    -> ``KeyError``.
+    """
+    _ensure_registered()
+    pol = canonical(policy)
+    core = _STREAM_REGISTRY.get((pol, engine))
+    if core is not None:
+        return core
+    streaming = stream_engines_for(pol)
+    if streaming:
+        raise ValueError(
+            f"engine {engine!r} has no streaming core for policy {pol!r}; "
+            f"streaming engines: {list(streaming)}")
+    raise KeyError(
+        f"no streaming core for policy {policy!r}; registered streaming "
+        f"policies: {sorted({p for p, _ in _STREAM_REGISTRY})}")
 
 
 def policies_for(engine: str) -> tuple[str, ...]:
@@ -309,3 +370,61 @@ def simulate_grid(policy: str, cells: Sequence[GridCell], *,
             "mixed failure/no-failure cells in one grid — split into one "
             "simulate_grid call per failure axis")
     return _GRID_REGISTRY[(canonical(policy), engine)](cells, device=dev)
+
+
+def simulate_stream(policy: str, source, *, engine: str = "torch",
+                    device="cuda", chunk_jobs: int,
+                    total_jobs: int | None = None, partition=None, wl=None,
+                    **kw):
+    """Stream ``source`` through the ``(policy, engine)`` chunked core.
+
+    The constant-memory counterpart of :func:`simulate`: the simulation
+    is a sequence of ``chunk_jobs``-sized chunk scans, each resumed from
+    the previous chunk's carry, with the observables (running mean and M2
+    of response and wait, the queueing / helper / routing counts) folded
+    into an accumulator, so memory is O(R · chunk_jobs) whatever the
+    stream's length.  Returns a
+    :class:`~repro_torch.core.stream.StreamResult`.
+
+    ``source`` is a :class:`~repro_torch.core.workload.ChunkSource` —
+    replayed (:class:`~repro_torch.core.workload.TraceReplaySource`, or a
+    bare ``BatchTrace``, wrapped in one), bootstrapped
+    (``BatchTrace.from_trace(..., stream=True)``) or generated
+    (``PoissonSource``, ``DiurnalSource``, ``FlashCrowdSource``,
+    ``MMPPSource``).  ``total_jobs`` bounds an unbounded source (required
+    there; a finite one defaults to its ``total_jobs``).
+
+    ``device="cuda"`` (the default) launches the carried kernels, one a
+    chunk, and raises without a card; ``device="cpu"`` runs their plain
+    versions.  On a replayed batch the result equals
+    ``stream_fold(simulate(policy, batch, ...))`` bit for bit for every
+    chunk size, on either device.
+
+    ``ckpt_dir=`` saves the carry, the accumulator and the source's state
+    after every chunk (:mod:`repro_torch.checkpoint`); ``resume=True``
+    restores the latest chunk and goes on, and fails loudly if the
+    stream's layout (``chunk_jobs``, ``reps``, ``k``, policy, ...)
+    changed since.  The carries are device-independent, so a stream
+    checkpointed on the CPU resumes on the card bit for bit.  Other
+    keywords (``queue_cap``, ``backlog_cap``, ``block``) pass through to
+    the core.
+    """
+    from .workload import BatchTrace, TraceReplaySource
+
+    if isinstance(source, BatchTrace):
+        source = TraceReplaySource(source)
+    core = get_stream(policy, engine)
+    dev = resolve_device(device)
+    if chunk_jobs < 1:
+        raise ValueError(f"chunk_jobs must be >= 1, got {chunk_jobs}")
+    if total_jobs is None:
+        total_jobs = source.total_jobs
+    if total_jobs is None:
+        raise ValueError(
+            "total_jobs is required for an unbounded source "
+            f"({type(source).__name__} has source.total_jobs=None)")
+    if total_jobs < 1:
+        raise ValueError(f"total_jobs must be >= 1, got {total_jobs}")
+    return core(source, device=dev, chunk_jobs=chunk_jobs,
+                total_jobs=total_jobs, partition=partition, wl=wl,
+                policy=policy, **kw)

@@ -6,8 +6,10 @@ reference's own numpy op order so results and CSV rows match it bit for
 bit), the helpers every ``engine="torch"`` core shares (the drain-mode
 failure helpers included), the grid plans and extracts that stack a
 grid's cells onto one lane axis, and :func:`sweep_many_server`, which drives
-the Fig. 1/2 k- and load-sweeps, with or without ``failures=``, through
-:func:`repro_torch.core.engines.simulate_grid`.
+the Fig. 1/2 k- and load-sweeps, with or without ``failures=`` and
+crash-resumable with ``ckpt_dir=``, through
+:func:`repro_torch.core.engines.simulate_grid`.  Streams are in
+:mod:`repro_torch.core.stream`.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from ..checkpoint import (completed_steps, require_layout,
+                          restore_checkpoint, save_checkpoint)
 from . import engines
 from . import failures as flr
 from .partition import BalancedPartition, balanced_partition
@@ -644,13 +648,19 @@ def sweep_many_server(wl_factory: Callable[..., Workload], points: Sequence,
 
     ``failures`` injects drain-mode outages (see :func:`_sweep_failures`):
     each point's batch gets its own FailureBatch, and ``availability``
-    holds the mean live capacity fraction of each cell.  ``ckpt_dir``
-    and ``resume`` are not ported yet and raise ``NotImplementedError``.
+    holds the mean live capacity fraction of each cell.
+
+    ``ckpt_dir`` makes the sweep crash-resumable: every (point, policy)
+    cell is written atomically (:mod:`repro_torch.checkpoint`) as its own
+    step, ``point * P + policy``, the moment its results exist (in the
+    grid path, right after the policy's grid launch returns), and
+    ``resume=True`` restores completed cells — their ``sim_s`` included —
+    instead of simulating them; a point whose every cell is restored is
+    not even sampled.  The step numbering is the same in both paths, so
+    a sweep checkpointed cell by cell resumes under ``grid=True`` and the
+    other way round, with the same output.  A cell written under another
+    policy fails loudly, naming the key.
     """
-    if ckpt_dir is not None or resume:
-        raise NotImplementedError(
-            "crash-resumable sweeps (ckpt_dir=/resume=) are not ported yet: "
-            "ROADMAP Queue 1 item 10 (checkpointing)")
     if engine not in engines.available_engines():
         raise ValueError(f"unknown engine {engine!r}; registered engines: "
                          f"{list(engines.available_engines())}")
@@ -659,6 +669,8 @@ def sweep_many_server(wl_factory: Callable[..., Workload], points: Sequence,
     if unknown:
         raise KeyError(f"no {engine!r} simulator for {sorted(unknown)}; "
                        f"available: {list(avail)}")
+    if resume and ckpt_dir is None:
+        raise ValueError("resume=True needs a ckpt_dir")
     engines.resolve_device(device)
     P, N = len(policies), len(points)
     shape = (P, N)
@@ -668,6 +680,12 @@ def sweep_many_server(wl_factory: Callable[..., Workload], points: Sequence,
     p_help = np.full(shape, np.nan)
     p95 = np.zeros(shape); util = np.zeros(shape); sim_s = np.zeros(shape)
     avail = None if failures is None else np.zeros(shape)
+    cells = (mean_r, ci_r, mean_w, p_wait, ci_pw, p_help, p95, util, sim_s)
+    if avail is not None:
+        cells += (avail,)
+    done: set[int] = set()
+    if resume:
+        done = set(completed_steps(ckpt_dir))
 
     sampled: dict[int, tuple] = {}
 
@@ -681,7 +699,19 @@ def sweep_many_server(wl_factory: Callable[..., Workload], points: Sequence,
             sampled[j] = (wl, batch, busy, fb)
         return sampled[j]
 
-    def _record_cell(i: int, j: int, res, wall: float) -> None:
+    def _restore_cell(i: int, j: int, pol: str) -> None:
+        cell = j * P + i
+        tree, _, extra = restore_checkpoint(
+            ckpt_dir, {"cell": np.zeros(len(cells))}, step=cell)
+        require_layout(extra, {"policy": pol}, context=f"cell {cell}")
+        if tree["cell"].shape != (len(cells),):
+            raise ValueError(
+                f"checkpoint cell {cell} holds {tree['cell'].size} values, "
+                f"this sweep records {len(cells)} (failures= differs?)")
+        for arr, v in zip(cells, tree["cell"]):
+            arr[i, j] = v
+
+    def _record_cell(i: int, j: int, pol: str, res, wall: float) -> None:
         wl, batch, busy, _ = sampled[j]
         sim_s[i, j] = wall
         mean_r[i, j] = res.mean_response.mean()
@@ -697,28 +727,44 @@ def sweep_many_server(wl_factory: Callable[..., Workload], points: Sequence,
         util[i, j] = (busy / (wl.k * horizon)).mean()
         if avail is not None:
             avail[i, j] = res.availability.mean()
+        if ckpt_dir is not None:
+            save_checkpoint(
+                ckpt_dir, j * P + i,
+                {"cell": np.array([a[i, j] for a in cells])},
+                extra={"point": repr(points[j]), "policy": pol})
 
     if grid:
         for i, pol in enumerate(policies):
-            gcells = []
+            todo = []
             for j in range(N):
+                if j * P + i in done:
+                    _restore_cell(i, j, pol)
+                else:
+                    todo.append(j)
+            if not todo:
+                continue
+            gcells = []
+            for j in todo:
                 wl, batch, _, fb = _point_data(j)
                 gcells.append(engines.GridCell(batch=batch, wl=wl,
                                                failures=fb))
             t0 = time.time()
             results = engines.simulate_grid(pol, gcells, engine=engine,
                                             device=device)
-            wall = (time.time() - t0) / N
-            for j, res in enumerate(results):
-                _record_cell(i, j, res, wall)
+            wall = (time.time() - t0) / len(todo)
+            for j, res in zip(todo, results):
+                _record_cell(i, j, pol, res, wall)
     else:
         for j in range(N):
             for i, pol in enumerate(policies):
+                if j * P + i in done:
+                    _restore_cell(i, j, pol)
+                    continue
                 wl, batch, _, fb = _point_data(j)
                 t0 = time.time()
                 res = engines.simulate(pol, batch, engine=engine,
                                        device=device, wl=wl, failures=fb)
-                _record_cell(i, j, res, time.time() - t0)
+                _record_cell(i, j, pol, res, time.time() - t0)
     return SweepResult(points=tuple(points), policies=tuple(policies),
                        num_jobs=num_jobs, reps=reps,
                        mean_response=mean_r, ci95_response=ci_r,

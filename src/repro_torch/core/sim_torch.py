@@ -108,19 +108,32 @@ def _fcfs_sorted_step(W, t_prev, t, n, svc):
     return W_new, start
 
 
-def _fcfs_core(arrival, need, service, k: int, k_lane=None):
-    """Start times [R, J] of R FCFS sample paths from an empty system on
-    ``k_lane`` [R] servers each (None: k), padded to k."""
+def _fcfs_stream_core(W, t_prev, arrival, need, service):
+    """R FCFS sample paths over one chunk [R, J], resumed from the carry
+    ``(W [R, k] sorted, t_prev [R])`` (``sim_jax._fcfs_stream_core``).
+
+    Returns ``(W', t_prev', starts [R, J])`` with ``W'`` in the port's
+    canonical form, clamped to ``>= t_prev'``: every later start is at
+    least t_prev', so an entry at or below it reaches no output whatever
+    its value — the CUDA kernel keeps only their count.
+    """
     R, J = arrival.shape
-    W = _free_times(R, k, k_lane, arrival.device)
-    t_prev = torch.zeros(R, dtype=_F64, device=arrival.device)
     need = need.long()
     starts = torch.empty(R, J, dtype=_F64, device=arrival.device)
     for j in range(J):
         W, t_prev = _fcfs_sorted_step(W, t_prev, arrival[:, j], need[:, j],
                                       service[:, j])
         starts[:, j] = t_prev
-    return starts
+    return torch.maximum(W, t_prev[:, None]), t_prev, starts
+
+
+def _fcfs_core(arrival, need, service, k: int, k_lane=None):
+    """Start times [R, J] of R FCFS sample paths from an empty system on
+    ``k_lane`` [R] servers each (None: k), padded to k."""
+    R = arrival.shape[0]
+    W = _free_times(R, k, k_lane, arrival.device)
+    t_prev = torch.zeros(R, dtype=_F64, device=arrival.device)
+    return _fcfs_stream_core(W, t_prev, arrival, need, service)[2]
 
 
 def _kw_drain(W, t_up):
@@ -212,15 +225,20 @@ def _modbs_step(comp, W, t_prev, t, c, n, svc):
     return W, t_prev, blocked, start
 
 
-def _modbs_core(arrival, cls, need, service, slots, s_max: int, h: int,
-                h_lane=None):
-    """Per-class loss queues (padded to s_max) + helper FCFS on h servers
-    (``h_lane`` [R] live; see :func:`_modbs_init`).
+def _modbs_stream_core(comp, W, t_prev, arrival, cls, need, service):
+    """ModifiedBS-π over one chunk [R, J], resumed from the carry
+    ``(comp [R, C, s_max], W [R, h], t_prev [R])``
+    (``sim_jax._modbs_stream_core``); the caller's ``comp`` is not
+    touched.
 
-    Returns ``(blocked [R, J] bool, starts [R, J] float64)``.
+    Returns ``(comp', W', t_prev', blocked [R, J] bool, starts [R, J])``
+    with the carry in the port's canonical form: each class row sorted
+    ascending (only a row's multiset reaches an output — a job is blocked
+    when every entry is above t, and a start replaces a smallest entry)
+    and ``W'`` clamped to ``>= t_prev'`` as in :func:`_fcfs_stream_core`.
     """
     R, J = arrival.shape
-    comp, W, t_prev = _modbs_init(slots, s_max, h, R, h_lane)
+    comp = comp.clone()
     cls = cls.long()
     need = need.long()
     blocked = torch.empty(R, J, dtype=torch.bool, device=arrival.device)
@@ -229,7 +247,19 @@ def _modbs_core(arrival, cls, need, service, slots, s_max: int, h: int,
         W, t_prev, blocked[:, j], starts[:, j] = _modbs_step(
             comp, W, t_prev, arrival[:, j], cls[:, j], need[:, j],
             service[:, j])
-    return blocked, starts
+    return (torch.sort(comp, dim=2).values, torch.maximum(W, t_prev[:, None]),
+            t_prev, blocked, starts)
+
+
+def _modbs_core(arrival, cls, need, service, slots, s_max: int, h: int,
+                h_lane=None):
+    """Per-class loss queues (padded to s_max) + helper FCFS on h servers
+    (``h_lane`` [R] live; see :func:`_modbs_init`).
+
+    Returns ``(blocked [R, J] bool, starts [R, J] float64)``.
+    """
+    carry = _modbs_init(slots, s_max, h, arrival.shape[0], h_lane)
+    return _modbs_stream_core(*carry, arrival, cls, need, service)[3:]
 
 
 def _modbs_fail_step(comp, W, t_prev, t, c, n, svc, tu, isf, C: int):
@@ -318,7 +348,7 @@ def _bs_init(R: int, J: int, C: int, s_max: int, h: int, q_cap: int,
 
 
 def _bs_step(s, arrival, service, cls, need, C: int, s_max: int, h: int,
-             q_cap: int, jl=None, live=None):
+             q_cap: int, jl=None, live=None, horizon=None):
     """One BS-FCFS event per lane (``sim_jax._bs_make_step`` statement for
     statement); updates the state dict ``s`` and returns the event record
     ``(tagged, rec_t)``.
@@ -329,7 +359,11 @@ def _bs_step(s, arrival, service, cls, need, C: int, s_max: int, h: int,
     equal times.  ``jl`` [R]: the lane's jobs (None: J; jobs past it are
     never admitted); ``live`` [R] bool: the lane has events left (None:
     every lane) — a lane past its 2 jl events records (-1, Tc) and keeps
-    its state.
+    its state.  ``horizon`` [R] makes the step a chunk step of a stream
+    (``sim_jax._bs_stream_make_step``): a commit needs Th <= horizon and
+    a completion Tc < horizon (and below 0.5 BIG), an arrival ai < jl;
+    a deferred event leaves the state as it is, and ``s["ne"]`` counts
+    the events processed.
     """
     R, J = arrival.shape
     dev = arrival.device
@@ -354,8 +388,15 @@ def _bs_step(s, arrival, service, cls, need, C: int, s_max: int, h: int,
                      _INF)
 
     is_commit = (Th <= Tc) & (Th <= Ta)
+    if horizon is not None:
+        is_commit &= Th <= horizon
     is_comp = ~is_commit & (Tc < Ta)
+    if horizon is not None:
+        is_comp &= (Tc < horizon) & (Tc < 0.5 * _BIG)
     is_arr = ~is_commit & ~is_comp
+    if horizon is not None:
+        is_arr &= ai < jl
+        s["ne"] = s["ne"] + (is_commit | is_comp | is_arr).int()
     if live is not None:
         is_commit, is_comp, is_arr = (is_commit & live, is_comp & live,
                                       is_arr & live)
@@ -468,6 +509,64 @@ def _bs_core(arrival, cls, need, service, slots, s_max: int, h: int,
                                              C, s_max, h, q_cap, jl,
                                              e < 2 * jl)
     return tagged, rec_t, s["ovf"]
+
+
+#: dtypes of the BS stream carry (ai, st, comp, ring, heads, W, t_prev,
+#: t_hol, ovf, ne), the reference's ``_BS_CARRY_DTYPES``
+BS_CARRY_DTYPES = (torch.int32, torch.int32, _F64, torch.int32, torch.int32,
+                   _F64, _F64, _F64, torch.bool, torch.int32)
+
+
+def bs_live_ring(ring, st, C: int, q_cap: int):
+    """``ring`` [R, C q_cap] with every position outside a class's queue
+    set to 0: the port's canonical ring.  Class c's queue is the last
+    min(tail - head, q_cap) writes before its tail (``st`` [R, 3C] holds
+    the free counts, heads and tails)."""
+    hd = st[:, C:2 * C].long()
+    n = (st[:, 2 * C:].long() - hd).clamp(max=q_cap)
+    pos = torch.arange(q_cap, device=ring.device)
+    live = (pos[None, None, :] - hd[:, :, None]) % q_cap < n[:, :, None]
+    return torch.where(live.reshape(ring.shape), ring, 0)
+
+
+def _bs_stream_core(arrival, cls, need, service, horizon, carry, C: int,
+                    s_max: int, h: int, q_cap: int, length: int):
+    """One BS-FCFS chunk scan over R lanes resumed from ``carry``
+    (``sim_jax._bs_stream_core``).
+
+    ``carry`` is the reference's chunk carry ``(ai, st, comp, ring,
+    heads, W, t_prev, t_hol, ovf, ne)`` ([R] / [R, 3C] / [R, C s_max] /
+    [R, C q_cap] / [R, C] / [R, h] / [R] ..., dtypes
+    :data:`BS_CARRY_DTYPES`), ``horizon`` [R] the next chunk's first
+    arrival (inf when draining).  Runs ``length`` steps of
+    :func:`_bs_step` with the stream rules and returns ``(carry',
+    tagged [R, length] int32, rec_t [R, length] float64)``; the ring of
+    ``carry'`` holds only the queued entries (:func:`bs_live_ring`).
+    """
+    R, J = arrival.shape
+    ai, st, comp, ring, heads, W, t_prev, t_hol, ovf, ne = carry
+
+    def pad(x, v):   # a fresh copy with the column dropped writes go to
+        x = x.long() if x.dtype == torch.int32 else x
+        return torch.cat([x, torch.full_like(x[:, :1], v)], 1)
+
+    s = dict(ai=ai.long(), st=pad(st, 0), comp=pad(comp, _BIG),
+             ring=pad(ring, 0), heads=pad(heads, J), W=W, t_prev=t_prev,
+             t_hol=t_hol, ovf=ovf, ne=ne)
+    cls = cls.long()
+    need = need.long()
+    tagged = torch.empty(R, length, dtype=torch.int32, device=arrival.device)
+    rec_t = torch.empty(R, length, dtype=_F64, device=arrival.device)
+    for e in range(length):
+        tagged[:, e], rec_t[:, e] = _bs_step(s, arrival, service, cls, need,
+                                             C, s_max, h, q_cap,
+                                             horizon=horizon)
+    st_out = s["st"][:, :3 * C].int()
+    out = (s["ai"].int(), st_out, s["comp"][:, :C * s_max].contiguous(),
+           bs_live_ring(s["ring"][:, :C * q_cap].int(), st_out, C, q_cap),
+           s["heads"][:, :C].int(), s["W"], s["t_prev"], s["t_hol"],
+           s["ovf"], s["ne"])
+    return out, tagged, rec_t
 
 
 def _bs_fail_step(s, arrival, service, cls, need, ft, ftgt, fup, C: int,

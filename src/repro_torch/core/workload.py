@@ -4,11 +4,13 @@ The port's own copy of the parts of the reference ``repro.core.workload``
 that the Fig. 1–3 sweeps need: service-time distributions, job classes,
 the ``Workload`` with its per-replication Philox trace sampler, the
 ``BatchTrace``/``Trace`` containers (with the bootstrap
-``BatchTrace.from_trace``), the subcritical/critical scalings (eqs. 6-8),
-the Figure-1/2 workloads and the Table-2/3 HPC workloads of Figure 3.
-Sampling is plain numpy with the
-same Philox streams as the reference, so a seed gives bit-equal traces on
-both sides.
+``BatchTrace.from_trace``), the streaming chunk sources
+(:class:`ChunkSource`: replayed, Poisson, diurnal, flash-crowd, MMPP and
+bootstrap streams, each chunk from its own :func:`chunk_stream`
+substream), the subcritical/critical scalings (eqs. 6-8), the Figure-1/2
+workloads and the Table-2/3 HPC workloads of Figure 3.  Sampling is plain
+numpy with the same Philox streams as the reference, so a seed gives
+bit-equal traces and chunks on both sides.
 
 A workload is a finite set of job *classes*.  A class-``i`` job requires the
 simultaneous possession of ``n_i`` servers for a random service time ``D_i``
@@ -267,6 +269,25 @@ def replication_stream(seed: int, rep: int) -> np.random.Philox:
     return np.random.Philox(key=np.array([seed, rep], dtype=np.uint64))
 
 
+def chunk_stream(seed: int, rep: int, chunk: int) -> np.random.Philox:
+    """The Philox substream of chunk ``chunk`` within replication ``rep``.
+
+    Streaming sources draw every chunk from its own counter-based
+    substream, so chunk ``c`` of a stream is a pure function of
+    ``(seed, rep, c)`` — a resumed stream regenerates the exact chunks a
+    killed run would have produced, with no generator state beyond the
+    chunk index (prefix stability).  The substream sets Philox counter
+    word 3 to ``chunk + 1``: the base replication stream starts at
+    counter 0 and the failure streams advance counter word 2 (via
+    ``.jumped``), so the three uses can never collide.
+    """
+    if chunk < 0:
+        raise ValueError("chunk index must be nonnegative")
+    return np.random.Philox(
+        counter=np.array([0, 0, 0, chunk + 1], dtype=np.uint64),
+        key=np.array([seed, rep], dtype=np.uint64))
+
+
 @dataclasses.dataclass(frozen=True)
 class BatchTrace:
     """``reps`` stacked replications of a job trace ([R, J] arrays).
@@ -309,6 +330,13 @@ class BatchTrace:
                      service=self.service[r], need=self.need[r], k=self.k,
                      C=self.C)
 
+    def slice_jobs(self, start: int, stop: int) -> "BatchTrace":
+        """Jobs ``[start, stop)`` of every replication as a sub-batch."""
+        return BatchTrace(arrival=self.arrival[:, start:stop],
+                          cls=self.cls[:, start:stop],
+                          service=self.service[:, start:stop],
+                          need=self.need[:, start:stop], k=self.k, C=self.C)
+
     def pad_jobs(self, j_max: int) -> "BatchTrace":
         """Pad every replication to ``j_max`` jobs with sentinel no-ops.
 
@@ -343,6 +371,14 @@ class BatchTrace:
                 axis=1),
             k=self.k, C=self.C)
 
+    def chunks(self, chunk_jobs: int):
+        """Iterate the batch as consecutive ``chunk_jobs``-sized sub-batches
+        (the last may be ragged): the replay form of a stream."""
+        if chunk_jobs < 1:
+            raise ValueError(f"chunk_jobs must be >= 1, got {chunk_jobs}")
+        for pos in range(0, self.num_jobs, chunk_jobs):
+            yield self.slice_jobs(pos, min(pos + chunk_jobs, self.num_jobs))
+
     @classmethod
     def from_arrays(cls, arrival, cls_, service, need, k: int,
                     C: int | None = None) -> "BatchTrace":
@@ -375,8 +411,10 @@ class BatchTrace:
         ``replication_stream(seed, r)``, the reference's streams, so a
         seed gives the reference's batch bit for bit.
 
-        ``stream=True`` (the chunked source for unbounded logs) is not
-        ported yet and raises ``NotImplementedError``.
+        ``stream=True`` returns a :class:`BootstrapSource` instead: each
+        chunk resamples from its own :func:`chunk_stream` substream and
+        arrivals continue across chunks, so a log of any length replays
+        at constant memory through ``engines.simulate_stream``.
         """
         J = trace.num_jobs
         if J < 1:
@@ -392,9 +430,8 @@ class BatchTrace:
             raise ValueError(f"block_len must be in [1, {J}], "
                              f"got {block_len}")
         if stream:
-            raise NotImplementedError(
-                "streamed bootstrap sources (stream=True) are not ported "
-                "yet: ROADMAP Queue 1 item 10 (streaming)")
+            return BootstrapSource(trace=trace, reps=reps, seed=seed,
+                                   method=method, block_len=block_len)
         gaps = np.diff(trace.arrival, prepend=0.0)
         idx = np.empty((reps, J), dtype=np.int64)
         for r in range(reps):
@@ -443,6 +480,423 @@ class Trace:
         if self.C is not None:
             return self.C
         return int(self.cls.max()) + 1 if len(self.cls) else 0
+
+
+# --------------------------------------------------------------------------
+# Streaming chunk sources.
+#
+# A ChunkSource describes an (optionally unbounded) arrival stream as a pure
+# function of explicit state, so `engines.simulate_stream` can pull the next
+# chunk_jobs jobs at a time and never materialize the full [R, J] batch.
+# Every source draws chunk c of replication r from the counter-based Philox
+# substream `chunk_stream(seed, r, c)` — prefix stability: the chunks a
+# resumed run generates are bit-identical to those a killed run would have
+# produced, with no RNG state beyond the chunk index.
+# --------------------------------------------------------------------------
+
+
+class ChunkSource:
+    """Base class for streaming chunk generators.
+
+    A source exposes ``reps`` / ``k`` / ``C`` / ``total_jobs`` (``None``
+    for an unbounded stream) plus two methods:
+
+    * ``init_state() -> dict[str, np.ndarray]`` — the initial generator
+      state, a flat dict of numpy arrays so it rides a checkpoint tree
+      through :mod:`repro_torch.checkpoint` unchanged.
+    * ``next_chunk(state, n) -> (BatchTrace, state)`` — the next ``n``
+      jobs of every replication and the successor state.
+
+    Determinism contract: ``next_chunk`` must be a *pure* function of
+    ``(state, n)``.  Generator sources are chunk-size-dependent by design
+    (different ``n`` sequences consume the thinning/bulk draws
+    differently) but deterministic and prefix-stable for a fixed chunk
+    schedule; :class:`TraceReplaySource` is additionally chunk-size
+    *invariant* and anchors the bit-identity tests against
+    ``engines.simulate``.
+    """
+
+    def init_state(self) -> dict[str, np.ndarray]:
+        raise NotImplementedError
+
+    def next_chunk(self, state: dict[str, np.ndarray],
+                   n: int) -> tuple["BatchTrace", dict[str, np.ndarray]]:
+        raise NotImplementedError
+
+
+@dataclasses.dataclass(frozen=True)
+class TraceReplaySource(ChunkSource):
+    """Replay a fully materialized :class:`BatchTrace` chunk by chunk.
+
+    The chunk-size-invariant source: state is just the replay position,
+    so any chunk schedule yields the same job sequence — feeding it
+    through ``simulate_stream`` is bit-identical to one monolithic
+    ``simulate`` call on ``batch``.
+    """
+
+    batch: BatchTrace
+
+    @property
+    def reps(self) -> int:
+        return self.batch.reps
+
+    @property
+    def k(self) -> int:
+        return self.batch.k
+
+    @property
+    def C(self) -> int | None:
+        return self.batch.C
+
+    @property
+    def total_jobs(self) -> int:
+        return self.batch.num_jobs
+
+    def init_state(self) -> dict[str, np.ndarray]:
+        return {"pos": np.zeros((), dtype=np.int64)}
+
+    def next_chunk(self, state, n):
+        pos = int(state["pos"])
+        stop = min(pos + n, self.batch.num_jobs)
+        if stop <= pos:
+            raise ValueError("trace replay source is exhausted")
+        return (self.batch.slice_jobs(pos, stop),
+                {"pos": np.asarray(stop, dtype=np.int64)})
+
+
+def _sample_marks(rng: np.random.Generator, wl: Workload,
+                  n: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """I.i.d. (class, service, need) marks for ``n`` arrivals of ``wl``.
+
+    Shared by every generator source; the draw order (classes, then
+    per-class service fills) matches :meth:`Workload.sample_trace` so the
+    mark distribution is identical on both paths.
+    """
+    cls = rng.choice(wl.C, size=n, p=wl.alphas).astype(np.int64)
+    service = np.empty(n)
+    for i, c in enumerate(wl.classes):
+        mask = cls == i
+        service[mask] = c.service.sample(rng, size=int(mask.sum()))
+    return cls, service, wl.needs[cls]
+
+
+@dataclasses.dataclass(frozen=True)
+class PoissonSource(ChunkSource):
+    """Unbounded stationary Poisson(λ) arrivals with ``wl``'s class mix.
+
+    The streaming counterpart of :meth:`Workload.sample_traces`: same
+    marks, but arrivals continue forever — state is the chunk index plus
+    each replication's last arrival time.
+    """
+
+    wl: Workload
+    reps: int
+    seed: int = 0
+
+    @property
+    def k(self) -> int:
+        return self.wl.k
+
+    @property
+    def C(self) -> int:
+        return self.wl.C
+
+    @property
+    def total_jobs(self) -> None:
+        return None
+
+    def init_state(self) -> dict[str, np.ndarray]:
+        return {"chunk": np.zeros((), dtype=np.int64),
+                "t_last": np.zeros(self.reps)}
+
+    def next_chunk(self, state, n):
+        chunk = int(state["chunk"])
+        t_last = np.asarray(state["t_last"], dtype=np.float64)
+        arrival = np.empty((self.reps, n))
+        cls = np.empty((self.reps, n), dtype=np.int64)
+        service = np.empty((self.reps, n))
+        need = np.empty((self.reps, n), dtype=np.int64)
+        for r in range(self.reps):
+            rng = np.random.default_rng(chunk_stream(self.seed, r, chunk))
+            inter = rng.exponential(1.0 / self.wl.lam, size=n)
+            arrival[r] = t_last[r] + np.cumsum(inter)
+            cls[r], service[r], need[r] = _sample_marks(rng, self.wl, n)
+        batch = BatchTrace(arrival=arrival, cls=cls, service=service,
+                           need=need, k=self.wl.k, C=self.wl.C)
+        return batch, {"chunk": np.asarray(chunk + 1, dtype=np.int64),
+                       "t_last": arrival[:, -1].copy()}
+
+
+class _RateModulatedSource(ChunkSource):
+    """Base for time-varying λ(t) sources (Lewis–Shedler thinning).
+
+    Candidate arrivals are drawn homogeneously at ``rate_max`` and kept
+    with probability ``rate(t)/rate_max``; truncating at the n-th
+    *accepted* arrival and resuming candidates from its timestamp is
+    distributionally exact because the candidate process is Poisson
+    (memoryless) and the thinning marks are independent.  Subclasses
+    provide ``wl``/``reps``/``seed`` fields plus a vectorized ``rate(t)``
+    and its finite upper bound ``rate_max``.
+    """
+
+    def rate(self, t: np.ndarray) -> np.ndarray:
+        raise NotImplementedError
+
+    @property
+    def rate_max(self) -> float:
+        raise NotImplementedError
+
+    @property
+    def k(self) -> int:
+        return self.wl.k
+
+    @property
+    def C(self) -> int:
+        return self.wl.C
+
+    @property
+    def total_jobs(self) -> None:
+        return None
+
+    def init_state(self) -> dict[str, np.ndarray]:
+        return {"chunk": np.zeros((), dtype=np.int64),
+                "t_last": np.zeros(self.reps)}
+
+    def _thin(self, rng: np.random.Generator, t0: float, n: int) -> np.ndarray:
+        """First ``n`` accepted arrivals of the thinned process after ``t0``."""
+        lam_max = self.rate_max
+        accepted = np.empty(0)
+        t = t0
+        while accepted.size < n:
+            m = max(64, 2 * (n - accepted.size))
+            cand = t + np.cumsum(rng.exponential(1.0 / lam_max, size=m))
+            keep = rng.random(m) * lam_max < self.rate(cand)
+            accepted = np.concatenate([accepted, cand[keep]])
+            t = cand[-1]
+        return accepted[:n]
+
+    def next_chunk(self, state, n):
+        chunk = int(state["chunk"])
+        t_last = np.asarray(state["t_last"], dtype=np.float64)
+        arrival = np.empty((self.reps, n))
+        cls = np.empty((self.reps, n), dtype=np.int64)
+        service = np.empty((self.reps, n))
+        need = np.empty((self.reps, n), dtype=np.int64)
+        for r in range(self.reps):
+            rng = np.random.default_rng(chunk_stream(self.seed, r, chunk))
+            arrival[r] = self._thin(rng, float(t_last[r]), n)
+            cls[r], service[r], need[r] = _sample_marks(rng, self.wl, n)
+        batch = BatchTrace(arrival=arrival, cls=cls, service=service,
+                           need=need, k=self.wl.k, C=self.wl.C)
+        return batch, {"chunk": np.asarray(chunk + 1, dtype=np.int64),
+                       "t_last": arrival[:, -1].copy()}
+
+
+@dataclasses.dataclass(frozen=True)
+class DiurnalSource(_RateModulatedSource):
+    """Sinusoidal diurnal load: λ(t) = λ·(1 + amplitude·sin(2πt/period))."""
+
+    wl: Workload
+    reps: int
+    seed: int = 0
+    period: float = 24.0
+    amplitude: float = 0.5
+
+    def __post_init__(self):
+        if not 0.0 <= self.amplitude <= 1.0:
+            raise ValueError(f"amplitude must be in [0, 1] so λ(t) >= 0, "
+                             f"got {self.amplitude}")
+        if self.period <= 0:
+            raise ValueError(f"period must be positive, got {self.period}")
+
+    def rate(self, t: np.ndarray) -> np.ndarray:
+        return self.wl.lam * (1.0 + self.amplitude
+                              * np.sin(2.0 * math.pi * t / self.period))
+
+    @property
+    def rate_max(self) -> float:
+        return self.wl.lam * (1.0 + self.amplitude)
+
+
+@dataclasses.dataclass(frozen=True)
+class FlashCrowdSource(_RateModulatedSource):
+    """Flash crowd: λ(t) = λ·factor on [at, at+duration), else λ."""
+
+    wl: Workload
+    reps: int
+    seed: int = 0
+    at: float = 100.0
+    duration: float = 50.0
+    factor: float = 3.0
+
+    def __post_init__(self):
+        if self.factor <= 0 or self.duration <= 0:
+            raise ValueError("factor and duration must be positive")
+
+    def rate(self, t: np.ndarray) -> np.ndarray:
+        in_crowd = (t >= self.at) & (t < self.at + self.duration)
+        return np.where(in_crowd, self.wl.lam * self.factor, self.wl.lam)
+
+    @property
+    def rate_max(self) -> float:
+        return self.wl.lam * max(1.0, self.factor)
+
+
+@dataclasses.dataclass(frozen=True)
+class MMPPSource(ChunkSource):
+    """Two-phase Markov-modulated Poisson arrivals (bursty load).
+
+    The modulating chain alternates between phases 0 and 1 with
+    exponential sojourns of mean ``stay[ph]``; arrivals within a sojourn
+    of length d are a Poisson(``rates[ph]``·d) bulk placed at sorted
+    uniforms.  Truncating the n-th arrival mid-sojourn and resuming from
+    (its timestamp, its phase) is exact: the residual sojourn is
+    exponential (memoryless) and the within-sojourn arrival process is
+    Poisson, so redrawing both fresh is distributionally identical.
+    """
+
+    wl: Workload
+    reps: int
+    rates: tuple[float, float]
+    stay: tuple[float, float] = (10.0, 10.0)
+    seed: int = 0
+
+    def __post_init__(self):
+        if len(self.rates) != 2 or len(self.stay) != 2:
+            raise ValueError("MMPPSource is two-phase: rates and stay "
+                             "must each have 2 entries")
+        if min(self.rates) < 0 or max(self.rates) <= 0:
+            raise ValueError(f"phase rates must be nonnegative with at "
+                             f"least one positive, got {self.rates}")
+        if min(self.stay) <= 0:
+            raise ValueError(f"mean sojourns must be positive, "
+                             f"got {self.stay}")
+
+    @property
+    def k(self) -> int:
+        return self.wl.k
+
+    @property
+    def C(self) -> int:
+        return self.wl.C
+
+    @property
+    def total_jobs(self) -> None:
+        return None
+
+    def init_state(self) -> dict[str, np.ndarray]:
+        return {"chunk": np.zeros((), dtype=np.int64),
+                "t_last": np.zeros(self.reps),
+                "phase": np.zeros(self.reps, dtype=np.int64)}
+
+    def next_chunk(self, state, n):
+        chunk = int(state["chunk"])
+        t_last = np.asarray(state["t_last"], dtype=np.float64)
+        phase = np.asarray(state["phase"], dtype=np.int64)
+        arrival = np.empty((self.reps, n))
+        cls = np.empty((self.reps, n), dtype=np.int64)
+        service = np.empty((self.reps, n))
+        need = np.empty((self.reps, n), dtype=np.int64)
+        new_phase = np.empty(self.reps, dtype=np.int64)
+        for r in range(self.reps):
+            rng = np.random.default_rng(chunk_stream(self.seed, r, chunk))
+            t, ph = float(t_last[r]), int(phase[r])
+            times, phases, count = [], [], 0
+            while count < n:
+                d = rng.exponential(self.stay[ph])
+                m = int(rng.poisson(self.rates[ph] * d))
+                if m:
+                    times.append(t + np.sort(rng.random(m)) * d)
+                    phases.append(np.full(m, ph, dtype=np.int64))
+                    count += m
+                t += d
+                ph = 1 - ph
+            arrival[r] = np.concatenate(times)[:n]
+            new_phase[r] = np.concatenate(phases)[n - 1]
+            cls[r], service[r], need[r] = _sample_marks(rng, self.wl, n)
+        batch = BatchTrace(arrival=arrival, cls=cls, service=service,
+                           need=need, k=self.wl.k, C=self.wl.C)
+        return batch, {"chunk": np.asarray(chunk + 1, dtype=np.int64),
+                       "t_last": arrival[:, -1].copy(), "phase": new_phase}
+
+
+@dataclasses.dataclass(frozen=True)
+class BootstrapSource(ChunkSource):
+    """Unbounded bootstrap replay of an empirical trace.
+
+    The chunked mode of :meth:`BatchTrace.from_trace` (``stream=True``):
+    each chunk resamples ``n`` whole (gap, class, service, need) records
+    from the underlying trace via the chunk's Philox substream, and
+    arrival times continue from the previous chunk's last arrival — an
+    SWF log of any length replays at constant memory.  ``method`` /
+    ``block_len`` follow :meth:`BatchTrace.from_trace` (blocks never
+    straddle a chunk boundary).
+    """
+
+    trace: Trace
+    reps: int
+    seed: int = 0
+    method: str = "iid"
+    block_len: int | None = None
+
+    def __post_init__(self):
+        if self.trace.num_jobs < 1:
+            raise ValueError("cannot bootstrap an empty trace")
+        if self.reps < 1:
+            raise ValueError("need at least one replication")
+        if self.method not in ("iid", "block"):
+            raise ValueError(f"unknown bootstrap method {self.method!r}; "
+                             f"expected 'iid' or 'block'")
+        J = self.trace.num_jobs
+        if self.block_len is not None and not 1 <= self.block_len <= J:
+            raise ValueError(f"block_len must be in [1, {J}], "
+                             f"got {self.block_len}")
+
+    @property
+    def k(self) -> int:
+        return self.trace.k
+
+    @property
+    def C(self) -> int | None:
+        return self.trace.C
+
+    @property
+    def total_jobs(self) -> None:
+        return None
+
+    def init_state(self) -> dict[str, np.ndarray]:
+        return {"chunk": np.zeros((), dtype=np.int64),
+                "t_last": np.zeros(self.reps)}
+
+    def next_chunk(self, state, n):
+        chunk = int(state["chunk"])
+        t_last = np.asarray(state["t_last"], dtype=np.float64)
+        J = self.trace.num_jobs
+        bl = self.block_len
+        if bl is None:
+            bl = min(J, max(1, math.ceil(J ** (1.0 / 3.0))))
+        gaps = np.diff(self.trace.arrival, prepend=0.0)
+        arrival = np.empty((self.reps, n))
+        cls = np.empty((self.reps, n), dtype=np.int64)
+        service = np.empty((self.reps, n))
+        need = np.empty((self.reps, n), dtype=np.int64)
+        for r in range(self.reps):
+            rng = np.random.default_rng(chunk_stream(self.seed, r, chunk))
+            if self.method == "iid":
+                idx = rng.integers(0, J, size=n)
+            else:
+                n_blocks = -(-n // bl)
+                starts = rng.integers(0, J - bl + 1, size=n_blocks)
+                idx = (starts[:, None]
+                       + np.arange(bl)[None, :]).ravel()[:n]
+            arrival[r] = t_last[r] + np.cumsum(gaps[idx])
+            cls[r] = self.trace.cls[idx]
+            service[r] = self.trace.service[idx]
+            need[r] = self.trace.need[idx]
+        batch = BatchTrace(arrival=arrival, cls=cls, service=service,
+                           need=need, k=self.trace.k, C=self.trace.C)
+        return batch, {"chunk": np.asarray(chunk + 1, dtype=np.int64),
+                       "t_last": arrival[:, -1].copy()}
 
 
 # --------------------------------------------------------------------------

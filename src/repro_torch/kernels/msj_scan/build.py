@@ -29,6 +29,9 @@ LIBRARY = Library("msj_scan", SOURCES, NVCC_FLAGS, {
     "msj_fcfs_fail_scan": [_P] * 7 + [_I] * 3 + [_P],
     "msj_modbs_fail_scan": [_P] * 10 + [_I] * 5 + [_P],
     "msj_bs_fail_scan": [_P] * 14 + [_I] * 8 + [_P],
+    "msj_fcfs_stream": [_P] * 6 + [_I] * 3 + [_P],
+    "msj_modbs_stream": [_P] * 9 + [_I] * 5 + [_P],
+    "msj_bs_stream": [_P] * 19 + [_I] * 7 + [_P],
     "msj_srpt_scan": [_P] * 6 + [_I] + [_P] * 8 + [_I] * 4 + [_P],
     "msj_srpt_table_bytes": [_I, ctypes.POINTER(ctypes.c_longlong)],
     "msj_stable_sort": [_P, _P, _P, _P, _P, _P, _I, _I, _P],

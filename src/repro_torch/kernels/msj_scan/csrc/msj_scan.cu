@@ -14,8 +14,23 @@
 // (_fcfs_sorted_step, _fcfs_fail_step, _modbs_step, _modbs_fail_step,
 // _bs_make_step, _bs_fail_make_step) and of their plain PyTorch versions
 // in repro_torch/core/sim_torch.py.  Each kernel body is a template on
-// kDrain: the clean scan is the kDrain = false instantiation, whose code
-// the drain branches (if constexpr) leave untouched.
+// kDrain and kStream: the clean scan is the <false, false> instantiation,
+// whose code the drain and stream branches (if constexpr) leave untouched.
+//
+// Carried (kStream) entries run one chunk of a stream (sim_jax's
+// _fcfs_stream_core, _modbs_stream_core, _bs_stream_core; no Pallas
+// kernel): the state is loaded from a carry at entry and written back at
+// exit, in the port's canonical form.  FCFS and the ModBS helper carry W
+// clamped to >= t_prev (rs_load builds the run-length groups from it,
+// rs_store writes it back), ModBS carries each class row sorted, as the
+// kernel keeps it; BS-pi carries the reference's chunk carry (ai, st,
+// comp, ring of job ids, heads, W, t_prev, t_hol, ovf, ne): the queued
+// jobs' records are written into the record ring at entry, the ring cache
+// starts cold, the free-slot masks are rebuilt from comp, and at exit the
+// ring holds each class's queued ids and 0 elsewhere.  A BS chunk step
+// defers a commit past the horizon (Th > horizon) and a completion at or
+// past it, and counts the events it processes; the loop runs `length`
+// steps.  The step chains of the other instantiations are unchanged.
 //
 // What bounds these kernels.  Each replication is a chain of J (BS: 2J)
 // dependent event steps, and the bytes the work must move (the [R, J]
@@ -371,6 +386,90 @@ __device__ __forceinline__ void rs_drain(RunState& s, double tu) {
   rs_place(s, lim, tu, 1, F_ret);
 }
 
+// The state of a carried free-time vector W [m] (sorted, clamped to
+// >= tp: an entry at or below the last start reaches no output) after
+// rs_init(s, ..., m, m): F = the entries <= tp, then one group per run of
+// equal values above tp, counted by the entries at or below its value,
+// placed in slot order (group g in chunk g / 32, lane g % 32).  The groups
+// are at most m, which is what the slots hold.
+__device__ __forceinline__ void rs_load(RunState& s, const double* W, int m,
+                                        double tp) {
+  const int lane = threadIdx.x & 31;
+  int F = 0, g = 0;
+#pragma unroll 1
+  for (int b = 0; b < m; b += 32) {
+    const int i = b + lane;
+    const double v = i < m ? W[i] : INFINITY;
+    const double nx = i + 1 < m ? W[i + 1] : INFINITY;
+    F += __popc(__ballot_sync(kFull, i < m && !(v > tp)));
+    unsigned ends = __ballot_sync(kFull, i < m && v > tp && nx != v);
+#pragma unroll 1
+    while (ends) {
+      const int src = __ffs(ends) - 1;
+      ends &= ends - 1;
+      const double gv = __shfl_sync(kFull, v, src);
+      const unsigned gc = (unsigned)(b + src + 1);
+      const int t = g >> 5;
+      if (t >= kRegChunks) {
+        double* sv = s.sv + 32 * (t - kRegChunks);
+        if ((g & 31) == 0) sv[lane] = INFINITY;   // a new chunk: all free
+        __syncwarp();
+        if (lane == (g & 31)) {
+          sv[lane] = gv;
+          s.sc[32 * (t - kRegChunks) + lane] = gc;
+        }
+      } else if (lane == (g & 31)) {
+#pragma unroll
+        for (int u = 0; u < kRegChunks; ++u) {
+          s.v[u] = u == t ? gv : s.v[u];
+          s.c[u] = u == t ? gc : s.c[u];
+        }
+      }
+      ++g;
+    }
+  }
+  s.F = F;
+  s.base = 0u;
+  s.t_prev = tp;
+  s.nsh = g > 32 * kRegChunks ? (g - 32 * kRegChunks + 31) / 32 : 0;
+  s.wide = g > 32 * kNarrow;
+  __syncwarp();
+}
+
+// W [m] of the state, clamped to >= t_prev: F copies of t_prev, then each
+// group's value over the ranks below its count.  Each group writes its
+// value at its top rank e - 1 and a suffix minimum from the top fills the
+// ranks between (a group's value grows with its count).
+__device__ __forceinline__ void rs_store(const RunState& s, double* W, int m) {
+  const int lane = threadIdx.x & 31;
+  for (int i = lane; i < m; i += 32) W[i] = i < s.F ? s.t_prev : INFINITY;
+  __syncwarp();
+#pragma unroll
+  for (int t = 0; t < kRegChunks; ++t)
+    if (s.v[t] < INFINITY) W[(int)(s.c[t] - s.base) - 1] = s.v[t];
+#pragma unroll 1
+  for (int u = 0; u < s.nsh; ++u) {
+    const double v = s.sv[32 * u + lane];
+    if (v < INFINITY) W[(int)(s.sc[32 * u + lane] - s.base) - 1] = v;
+  }
+  __syncwarp();
+  double above = INFINITY;
+#pragma unroll 1
+  for (int b = (m - 1) & ~31; b >= 0 && b + 32 > s.F; b -= 32) {
+    const int i = b + lane;
+    double x = i < m ? W[i] : INFINITY;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const double y = __shfl_down_sync(kFull, x, off);
+      x = lane + off < 32 ? fmin(x, y) : x;
+    }
+    x = fmin(x, above);
+    above = __shfl_sync(kFull, x, 0);
+    if (i < m && i >= s.F) W[i] = x;
+  }
+  __syncwarp();
+}
+
 // ---------------------------------------------------------------------------
 // FCFS: one warp per replication on the run-length state of k servers
 // (shared memory: its spill past 128 groups), k_lane[b] of them live.
@@ -378,10 +477,12 @@ __device__ __forceinline__ void rs_drain(RunState& s, double tu) {
 // entries, one per lane, the next window in flight; the starts are
 // gathered one per lane and stored 32 at a time.  kDrain: J counts merged
 // rows; every row's start is max(t, t_prev, W[n-1]) on the state at the
-// row, and a failure row then drains instead of inserting.
+// row, and a failure row then drains instead of inserting.  kStream: the
+// state comes from the carry (carry_w [R][k], carry_t [R]) and goes back
+// to it.
 // ---------------------------------------------------------------------------
 
-template <bool kDrain>
+template <bool kDrain, bool kStream = false>
 __global__ void __launch_bounds__(32)
     fcfs_scan_kernel(const double* __restrict__ arrival,
                      const int* __restrict__ need,
@@ -389,7 +490,9 @@ __global__ void __launch_bounds__(32)
                      const double* __restrict__ t_up,
                      const bool* __restrict__ is_fail,
                      const int* __restrict__ k_lane,
-                     double* __restrict__ starts, int J, int k) {
+                     double* __restrict__ starts, int J, int k,
+                     double* __restrict__ carry_w = nullptr,
+                     double* __restrict__ carry_t = nullptr) {
   extern __shared__ double smem[];
   const int lane = threadIdx.x;
   const size_t off = (size_t)blockIdx.x * J;
@@ -399,8 +502,13 @@ __global__ void __launch_bounds__(32)
   double* out = starts + off;
   RunState s;
   const int spill = msj_spill_slots(k);
-  rs_init(s, smem, reinterpret_cast<unsigned*>(smem + spill), k,
-          clampi(k_lane[blockIdx.x], 1, k));
+  if constexpr (kStream) {
+    rs_init(s, smem, reinterpret_cast<unsigned*>(smem + spill), k, k);
+    rs_load(s, carry_w + (size_t)blockIdx.x * k, k, carry_t[blockIdx.x]);
+  } else {
+    rs_init(s, smem, reinterpret_cast<unsigned*>(smem + spill), k,
+            clampi(k_lane[blockIdx.x], 1, k));
+  }
 
   // windows: lane l holds entry wb + l (cur) and wb + 32 + l (nxt)
   double cur_a, cur_s, nxt_a, nxt_s, cur_u = 0.0, nxt_u = 0.0;
@@ -443,6 +551,10 @@ __global__ void __launch_bounds__(32)
       if (lane <= src) out[(j & ~31) + lane] = my_start;
     }
   }
+  if constexpr (kStream) {
+    rs_store(s, carry_w + (size_t)blockIdx.x * k, k);
+    if (lane == 0) carry_t[blockIdx.x] = s.t_prev;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -460,7 +572,9 @@ __global__ void __launch_bounds__(32)
 // entries, which move down one place.  A blocked job runs the FCFS step
 // on the helper's run-length state.  kDrain: J counts merged rows; a
 // failure row with cls == C drains the helper, one with cls < C replaces
-// its row's minimum by max(minimum, t_up).
+// its row's minimum by max(minimum, t_up).  kStream: the rows (sorted),
+// the helper's W and t_prev come from the carry (carry_comp [R][C*s_max],
+// carry_w [R][h], carry_t [R]) and go back to it.
 // ---------------------------------------------------------------------------
 
 // The smallest entry of a sorted row of m leaves and nv goes in.  cur, nxt:
@@ -491,7 +605,7 @@ __device__ __forceinline__ void row_replace_min(double* row, int m, double nv,
   }
 }
 
-template <bool kDrain>
+template <bool kDrain, bool kStream = false>
 __global__ void __launch_bounds__(32)
     modbs_scan_kernel(const double* __restrict__ arrival,
                       const int* __restrict__ cls,
@@ -503,7 +617,9 @@ __global__ void __launch_bounds__(32)
                       const int* __restrict__ h_lane,
                       bool* __restrict__ blocked_out,
                       double* __restrict__ starts, int J, int C, int s_max,
-                      int h) {
+                      int h, double* __restrict__ carry_comp = nullptr,
+                      double* __restrict__ carry_w = nullptr,
+                      double* __restrict__ carry_t = nullptr) {
   extern __shared__ double smem[];
   const int CS = C * s_max;
   double* comp = smem;
@@ -515,12 +631,18 @@ __global__ void __launch_bounds__(32)
   const int* cl = cls + off;
   const int* nd = need + off;
   const double* sv = service + off;
-  const int* slots = slots_all + (size_t)blockIdx.x * C;
-
-  for (int i = lane; i < CS; i += 32)   // free slots first: sorted
-    comp[i] = (i % s_max) >= slots[i / s_max] ? kBig : 0.0;
   RunState s;
-  rs_init(s, hv, hc, h, clampi(h_lane[blockIdx.x], 1, h));
+  if constexpr (kStream) {
+    const double* cc = carry_comp + (size_t)blockIdx.x * CS;
+    for (int i = lane; i < CS; i += 32) comp[i] = cc[i];
+    rs_init(s, hv, hc, h, h);
+    rs_load(s, carry_w + (size_t)blockIdx.x * h, h, carry_t[blockIdx.x]);
+  } else {
+    const int* slots = slots_all + (size_t)blockIdx.x * C;
+    for (int i = lane; i < CS; i += 32)   // free slots first: sorted
+      comp[i] = (i % s_max) >= slots[i / s_max] ? kBig : 0.0;
+    rs_init(s, hv, hc, h, clampi(h_lane[blockIdx.x], 1, h));
+  }
 
   double cur_a, cur_s, nxt_a, nxt_s, cur_u = 0.0, nxt_u = 0.0;
   int cur_c, cur_n, nxt_c, nxt_n;
@@ -595,6 +717,12 @@ __global__ void __launch_bounds__(32)
     // the row's and the helper's writes before the next step's reads
     __syncwarp();
   }
+  if constexpr (kStream) {
+    double* cc = carry_comp + (size_t)blockIdx.x * CS;
+    for (int i = lane; i < CS; i += 32) cc[i] = comp[i];
+    rs_store(s, carry_w + (size_t)blockIdx.x * h, h);
+    if (lane == 0) carry_t[blockIdx.x] = s.t_prev;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -650,6 +778,12 @@ __global__ void __launch_bounds__(32)
 // jobs (J is the row stride; a job at or past j_live is never admitted).
 // Without failures the block runs its 2 j_live events and records (-1, Tc)
 // past them, as a step with no event would.
+// kStream (sim_jax._bs_stream_make_step): the state comes from the chunk
+// carry (c_ai, c_st [R][3C], c_comp, c_ring [R][C*q_cap] job ids, c_heads,
+// c_W, c_tp, c_th, ovf_out, c_ne) and goes back to it; `length` steps,
+// a commit only while Th <= horizon[b], a completion only while
+// Tc < horizon[b] and Tc < 0.5 BIG, an arrival only while ai < J; ne
+// counts the events.
 // ---------------------------------------------------------------------------
 
 // Order-preserving key of a double (not NaN): keys compare as the values
@@ -760,7 +894,7 @@ __device__ __forceinline__ void bs_roll_insert(const double* src, double* dst,
   }
 }
 
-template <bool kDrain>
+template <bool kDrain, bool kStream = false>
 __global__ void __launch_bounds__(32)
     bs_scan_kernel(const double* __restrict__ arrival,
                    const int* __restrict__ cls, const int* __restrict__ need,
@@ -773,7 +907,17 @@ __global__ void __launch_bounds__(32)
                    const int* __restrict__ j_live, int* __restrict__ tagged_out,
                    double* __restrict__ rec_t_out, bool* __restrict__ ovf_out,
                    double2* ring_t_all, int2* ring_i_all, int J, int F, int C,
-                   int s_max, int h, int q_cap, int D, int length) {
+                   int s_max, int h, int q_cap, int D, int length,
+                   const double* __restrict__ horizon = nullptr,
+                   int* __restrict__ c_ai = nullptr,
+                   int* __restrict__ c_st = nullptr,
+                   double* __restrict__ c_comp = nullptr,
+                   int* __restrict__ c_ring = nullptr,
+                   int* __restrict__ c_heads = nullptr,
+                   double* __restrict__ c_W = nullptr,
+                   double* __restrict__ c_tp = nullptr,
+                   double* __restrict__ c_th = nullptr,
+                   int* __restrict__ c_ne = nullptr) {
   extern __shared__ double smem[];
   const int CS = C * s_max;
   double* comp = smem;
@@ -801,9 +945,10 @@ __global__ void __launch_bounds__(32)
   double* rec_t = rec_t_out + (size_t)blockIdx.x * length;
   const size_t off_f = (size_t)blockIdx.x * F;
   const int* slots = slots_all + (size_t)blockIdx.x * C;
-  const int h_live = clampi(h_lane[blockIdx.x], 1, h);
-  const int jl = clampi(j_live[blockIdx.x], 0, J);
-  const int n_ev = kDrain ? length : min(2 * jl, length);
+  const int h_live = kStream ? h : clampi(h_lane[blockIdx.x], 1, h);
+  const int jl = kStream ? J : clampi(j_live[blockIdx.x], 0, J);
+  const int n_ev = kDrain || kStream ? length : min(2 * jl, length);
+  const size_t b = blockIdx.x;
   // the class of flat index i < C*s_max: __umulhi(i, magic), exact since
   // C*s_max < 2^16 (shared memory could not hold more)
   const unsigned magic = s_max > 1 ? (unsigned)(0x100000000ull / s_max + 1)
@@ -812,29 +957,81 @@ __global__ void __launch_bounds__(32)
     return s_max > 1 ? (int)__umulhi((unsigned)i, magic) : i;
   };
 
-  for (int i = lane; i < CS; i += 32) comp[i] = kBig;
-  for (int i = lane; i < h; i += 32) Wa[i] = i < h_live ? 0.0 : kBig;
-  for (int i = lane; i < C; i += 32) {
-    st[i] = slots[i];
-    for (int r = 1; r < 5; ++r) st[r * C + i] = 0;
-    heads[i] = J;
-    ha[i] = 0.0;
-    hs[i] = 0.0;
-    hn[i] = 1;
-    fmask[i] = slots[i] >= 32 ? 0xffffffffu : (1u << max(slots[i], 0)) - 1u;
+  // free slots by the exact argmax: s_max > 32 (no 32-bit mask), or a
+  // busy slot at BIG or more
+  bool huge = s_max > 32;
+  int ai = 0, fi = 0;
+  if constexpr (kStream) {
+    // the carry: a class's free slots are its BIG entries below slots[c]
+    // (a carry with another count of them, or a busy entry above BIG,
+    // takes the exact argmax)
+    const int* cst = c_st + b * 3 * C;
+    const double* ccomp = c_comp + b * CS;
+    for (int i = lane; i < CS; i += 32) comp[i] = ccomp[i];
+    for (int i = lane; i < h; i += 32) Wa[i] = c_W[b * h + i];
+    bool odd = false;
+    for (int i = lane; i < C; i += 32) {
+      const int g0 = cst[C + i], g1 = cst[2 * C + i];
+      st[i] = cst[i];
+      st[C + i] = g0;
+      st[2 * C + i] = g1;
+      st[3 * C + i] = g0 % q_cap;
+      st[4 * C + i] = g1 % q_cap;
+      const int hd = c_heads[b * C + i];
+      heads[i] = hd;
+      const int jh = clampi(hd, 0, J - 1);
+      ha[i] = hd < J ? a[jh] : 0.0;
+      hs[i] = hd < J ? sv[jh] : 0.0;
+      hn[i] = hd < J ? clampi(nd[jh], 1, h) : 1;
+      unsigned fm = 0u;
+      int n_big = 0;
+      for (int r = 0; r < min(slots[i], s_max); ++r) {
+        const double v = ccomp[i * s_max + r];
+        if (v == kBig) {
+          ++n_big;
+          fm |= r < 32 ? 1u << r : 0u;
+        }
+        odd = odd || v > kBig;
+      }
+      fmask[i] = fm;
+      odd = odd || n_big != st[i];
+    }
+    huge = huge || __any_sync(kFull, odd);
+    // the queued jobs' records into the ring, at their slots
+    for (int c = 0; c < C; ++c) {
+      const int g0 = cst[C + c], g1 = cst[2 * C + c];
+      for (int g = max(g0, g1 - q_cap) + lane; g < g1; g += 32) {
+        const size_t slot = (size_t)c * q_cap + g % q_cap;
+        const int id = clampi(c_ring[b * C * q_cap + slot], 0, J - 1);
+        ring_t[slot] = make_double2(a[id], sv[id]);
+        ring_i[slot] = make_int2(id, clampi(nd[id], 1, h));
+      }
+    }
+    ai = c_ai[b];
+  } else {
+    for (int i = lane; i < CS; i += 32) comp[i] = kBig;
+    for (int i = lane; i < h; i += 32) Wa[i] = i < h_live ? 0.0 : kBig;
+    for (int i = lane; i < C; i += 32) {
+      st[i] = slots[i];
+      for (int r = 1; r < 5; ++r) st[r * C + i] = 0;
+      heads[i] = J;
+      ha[i] = 0.0;
+      hs[i] = 0.0;
+      hn[i] = 1;
+      fmask[i] = slots[i] >= 32 ? 0xffffffffu : (1u << max(slots[i], 0)) - 1u;
+    }
   }
   for (int i = lane; i < C * D; i += 32) rc_i[i] = make_int4(0, 1, -1, 0);
 
   // arrival windows: lane l holds entry wb + l (cur) and wb + 32 + l (nxt)
-  int wb = 0;
+  int wb = min(ai, J - 1) & ~31;
   double cur_a, cur_s, nxt_a, nxt_s;
   int cur_c, cur_n, nxt_c, nxt_n;
   {
-    const int i0 = min(lane, J - 1), i1 = min(32 + lane, J - 1);
+    const int i0 = min(wb + lane, J - 1), i1 = min(wb + 32 + lane, J - 1);
     cur_a = a[i0]; cur_s = sv[i0]; cur_c = cl[i0]; cur_n = nd[i0];
     nxt_a = a[i1]; nxt_s = sv[i1]; nxt_c = cl[i1]; nxt_n = nd[i1];
   }
-  int ai = 0, fi = 0;
   // the record of the arrival at the cursor ai, and Ta
   int j_arr, c_arr, n_arr;
   double a_arr, s_arr, v_arr, Ta;
@@ -893,10 +1090,18 @@ __global__ void __launch_bounds__(32)
   // the earliest completion: comp[cm] = Tc, cm in class c_cm
   double Tc = kBig;
   int cm = 0, c_cm = 0;
-  bool need_min = false;
+  bool need_min = kStream;
   // the helper queue's head: job gh of class gc, its record and start Th
   int gh = J, gc = 0, hn_g = 1;
   double ha_g = 0.0, hs_g = 0.0, Th = INFINITY;
+  double hz = INFINITY;   // kStream: the chunk's horizon
+  int ne = 0;             // kStream: events processed
+  if constexpr (kStream) {
+    t_prev = c_tp[b];
+    t_hol = c_th[b];
+    hz = horizon[b];
+    ne = c_ne[b];
+  }
   // a pop of class c's ring to its entry g0n of tail g1 (g0n modulo q_cap:
   // hwn): the new head comes from the ring cache, or from the ring when
   // the cache no longer holds it or the ring wrapped onto it (g1 - g0n >
@@ -946,13 +1151,17 @@ __global__ void __launch_bounds__(32)
     Th = gh < J ? fmax(fmax(ha_g, t_hol), fmax(t_prev, Wa[hn_g - 1]))
                 : INFINITY;
   };
-  // free slots by the exact argmax: s_max > 32 (no 32-bit mask), or a
-  // busy slot at BIG or more
-  bool huge = s_max > 32;
   int my_tag = -1;                // the records, one step per lane
   double my_rec = 0.0;
-  bool ovf = false;
+  bool ovf = kStream ? ovf_out[b] : false;
   __syncwarp();
+  if constexpr (kStream) {   // the carried queue's head
+    gc = bs_min_head(heads, C, -1, J, &gh);
+    if (gh < J) {
+      ha_g = ha[gc]; hs_g = hs[gc]; hn_g = hn[gc];
+    }
+    start_on_h();
+  }
 
   for (int e = 0; e < n_ev; ++e) {
     if (need_min) {   // a completion or a drain may have raised Tc
@@ -965,11 +1174,14 @@ __global__ void __launch_bounds__(32)
     bool is_fail = false;
     if constexpr (kDrain)
       is_fail = (Tf <= Ta) && (Tf <= Tc) && (Tf <= Th) && (Tf < INFINITY);
-    const bool is_commit = !is_fail && (Th <= Tc) && (Th <= Ta);
+    bool is_commit = !is_fail && (Th <= Tc) && (Th <= Ta);
+    if constexpr (kStream) is_commit = is_commit && Th <= hz;
     bool is_comp = !is_fail && !is_commit && (Tc < Ta);
-    if constexpr (kDrain) is_comp = is_comp && Tc < 0.5 * kBig;
+    if constexpr (kDrain || kStream) is_comp = is_comp && Tc < 0.5 * kBig;
+    if constexpr (kStream) is_comp = is_comp && Tc < hz;
     bool is_arr = !is_fail && !is_commit && !is_comp;
-    if constexpr (kDrain) is_arr = is_arr && ai < jl;
+    if constexpr (kDrain || kStream) is_arr = is_arr && ai < jl;
+    if constexpr (kStream) ne += is_commit || is_comp || is_arr ? 1 : 0;
     int tag = -1;
     double rec = Tc;
 
@@ -1124,6 +1336,31 @@ __global__ void __launch_bounds__(32)
     __syncwarp();
   }
   if (lane == 0) ovf_out[blockIdx.x] = ovf;
+  if constexpr (kStream) {   // the carry back, the ring as queued ids
+    for (int i = lane; i < CS; i += 32) c_comp[b * CS + i] = comp[i];
+    for (int i = lane; i < h; i += 32) c_W[b * h + i] = Wa[i];
+    int* cst = c_st + b * 3 * C;
+    for (int i = lane; i < C; i += 32) {
+      cst[i] = s_free[i];
+      cst[C + i] = s_g0[i];
+      cst[2 * C + i] = s_g1[i];
+      c_heads[b * C + i] = heads[i];
+    }
+    for (int c = 0; c < C; ++c) {
+      const int n = min(s_g1[c] - s_g0[c], q_cap), hw = s_hw[c];
+      for (int p = lane; p < q_cap; p += 32) {
+        const int d = p >= hw ? p - hw : p - hw + q_cap;
+        const size_t slot = (size_t)c * q_cap + p;
+        c_ring[b * C * q_cap + slot] = d < n ? ring_i[slot].x : 0;
+      }
+    }
+    if (lane == 0) {
+      c_ai[b] = ai;
+      c_tp[b] = t_prev;
+      c_th[b] = t_hol;
+      c_ne[b] = ne;
+    }
+  }
   if (n_ev < length) {   // past a grid lane's events: (-1, Tc) records
     if (need_min) cm = bs_argmin(comp, CS, &Tc);
     for (int i = n_ev + lane; i < length; i += 32) {
@@ -1273,6 +1510,61 @@ int msj_bs_fail_scan(const double* arrival, const int* cls, const int* need,
       arrival, cls, need, service, fail_t, fail_tgt, fail_up, slots, h_lane,
       j_live, tagged, rec_t, ovf, ring_t, ring_i, J, F, C, s_max, h, q_cap,
       msj_bs_cache_lines(C), length);
+  return (int)cudaGetLastError();
+}
+
+// Carried entries: one chunk of a stream, the carry read at entry and
+// written back in place (the caller passes copies).
+int msj_fcfs_stream(const double* arrival, const int* need,
+                    const double* service, double* carry_w, double* carry_t,
+                    double* starts, int R, int J, int k, void* stream) {
+  const size_t smem = msj_run_smem(k);
+  cudaError_t err = prepare_smem(fcfs_scan_kernel<false, true>, smem);
+  if (err != cudaSuccess) return (int)err;
+  fcfs_scan_kernel<false, true>
+      <<<R, 32, smem, static_cast<cudaStream_t>(stream)>>>(
+          arrival, need, service, nullptr, nullptr, nullptr, starts, J, k,
+          carry_w, carry_t);
+  return (int)cudaGetLastError();
+}
+
+int msj_modbs_stream(const double* arrival, const int* cls, const int* need,
+                     const double* service, double* carry_comp,
+                     double* carry_w, double* carry_t, bool* blocked,
+                     double* starts, int R, int J, int C, int s_max, int h,
+                     void* stream) {
+  const size_t smem = msj_modbs_smem(C, s_max, h);
+  cudaError_t err = prepare_smem(modbs_scan_kernel<false, true>, smem);
+  if (err != cudaSuccess) return (int)err;
+  modbs_scan_kernel<false, true>
+      <<<R, 32, smem, static_cast<cudaStream_t>(stream)>>>(
+          arrival, cls, need, service, nullptr, nullptr, nullptr, nullptr,
+          blocked, starts, J, C, s_max, h, carry_comp, carry_w, carry_t);
+  return (int)cudaGetLastError();
+}
+
+// The carry, in order: ai [R], st [R][3C], comp [R][C*s_max],
+// ring [R][C*q_cap], heads [R][C], W [R][h], t_prev, t_hol [R], ovf [R],
+// ne [R]; slots [R][C].
+int msj_bs_stream(const double* arrival, const int* cls, const int* need,
+                  const double* service, const int* slots,
+                  const double* horizon, int* c_ai, int* c_st, double* c_comp,
+                  int* c_ring, int* c_heads, double* c_W, double* c_tp,
+                  double* c_th, bool* c_ovf, int* c_ne, int* tagged,
+                  double* rec_t, void* ring_scratch, int R, int J, int C,
+                  int s_max, int h, int q_cap, int length, void* stream) {
+  const size_t smem = msj_bs_smem(C, s_max, h);
+  cudaError_t err = prepare_smem(bs_scan_kernel<false, true>, smem);
+  if (err != cudaSuccess) return (int)err;
+  double2* ring_t;
+  int2* ring_i;
+  bs_rings(ring_scratch, R, C, q_cap, &ring_t, &ring_i);
+  bs_scan_kernel<false, true>
+      <<<R, 32, smem, static_cast<cudaStream_t>(stream)>>>(
+          arrival, cls, need, service, nullptr, nullptr, nullptr, slots,
+          nullptr, nullptr, tagged, rec_t, c_ovf, ring_t, ring_i, J, 0, C,
+          s_max, h, q_cap, msj_bs_cache_lines(C), length, horizon, c_ai,
+          c_st, c_comp, c_ring, c_heads, c_W, c_tp, c_th, c_ne);
   return (int)cudaGetLastError();
 }
 

@@ -9,7 +9,10 @@ of the reference's Pallas kernels (``repro/kernels/msj_scan/kernel.py``,
 kernel's sort, the counterpart of ``sort.py``'s ``bitonic_sort``).  The
 drain-mode ``*_fail_scan_fwd`` wrappers take the host-merged
 arrival+failure stream [R, L] (``t_up`` float64, ``is_fail`` bool), or for
-BS-π the trace plus the failure records [R, F].
+BS-π the trace plus the failure records [R, F].  The carried
+``*_stream_fwd`` wrappers run one chunk of a stream: they take the carry
+the previous chunk gave out and give out the next, in the port's
+canonical form on both devices (``repro_torch.core.stream``).
 
 A grid stacks cells of different sizes on the R axis (lanes), so each
 wrapper also takes per-lane sizes, int32 [R] tensors: ``k_lane`` (FCFS
@@ -96,6 +99,33 @@ def bs_fail_scan_ref(arrival, cls, need, service, ft, ftgt, fup, slots, *,
     return sim_torch._bs_fail_core(arrival, cls, need, service, ft, ftgt,
                                    fup, slots, s_max, h, q_cap, length,
                                    h_lane, j_live)
+
+
+def fcfs_stream_ref(arrival, need, service, W, t_prev):
+    """Plain FCFS chunk scan from the carry (W [R, k], t_prev [R]) ->
+    (starts [R, J], W' [R, k], t_prev' [R]), the carry canonical."""
+    W, t_prev, starts = sim_torch._fcfs_stream_core(W, t_prev, arrival,
+                                                    need, service)
+    return starts, W, t_prev
+
+
+def modbs_stream_ref(arrival, cls, need, service, comp, W, t_prev):
+    """Plain ModifiedBS-π chunk scan from the carry (comp [R, C, s_max],
+    W [R, h], t_prev [R]) -> (blocked, starts [R, J], comp', W',
+    t_prev'), the carry canonical."""
+    comp, W, t_prev, blocked, starts = sim_torch._modbs_stream_core(
+        comp, W, t_prev, arrival, cls, need, service)
+    return blocked, starts, comp, W, t_prev
+
+
+def bs_stream_ref(arrival, cls, need, service, slots, horizon, carry, *,
+                  s_max: int, h: int, q_cap: int, length: int):
+    """Plain BS-π chunk scan from the reference's chunk carry -> (carry',
+    tagged [R, length] int32, rec_t [R, length]); ``slots`` [C] gives
+    the class count (the carry's ``st`` holds the free slots)."""
+    return sim_torch._bs_stream_core(arrival, cls, need, service, horizon,
+                                     carry, slots.shape[0], s_max, h, q_cap,
+                                     length)
 
 
 def srpt_scan_ref(arrival, need, service, kk, *, Q: int, NU: tuple,
@@ -599,9 +629,168 @@ def bs_fail_scan_fwd(arrival, cls, need, service, ft, ftgt, fup, slots, *,
     return tagged, rec_t, ovf
 
 
+# -- carried (stream) entries ------------------------------------------------
+
+
+def _check_carry(dev: torch.device, **named) -> None:
+    """Validate carry tensors: each a contiguous (dtype, shape) match on
+    ``dev``."""
+    for name, (t, dtype, shape) in named.items():
+        if (t.dtype != dtype or tuple(t.shape) != shape or t.device != dev
+                or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous {dtype} "
+                             f"{list(shape)} tensor on {dev}, got "
+                             f"{t.dtype} {list(t.shape)} on {t.device}")
+
+
+def _chunk_jobs(J: int) -> None:
+    if J < 1:
+        raise ValueError("a stream chunk needs at least one job")
+
+
+def fcfs_stream_fwd(arrival, need, service, W, t_prev):
+    """One FCFS chunk [R, J] resumed from the carry ``W`` [R, k] (sorted
+    free times) and ``t_prev`` [R] (last starts) -> (starts [R, J],
+    W' [R, k], t_prev' [R]).
+
+    The carry is the port's canonical one on both devices: W' clamped to
+    ``>= t_prev'`` (entries at or below the last start reach no output;
+    the kernel keeps only their count).  The kernel builds its run-length
+    state from W at entry and writes W' back at exit; the caller's
+    tensors are not changed.
+    """
+    dev = _check(arrival=arrival, need=need, service=service)
+    R, J = arrival.shape
+    _chunk_jobs(J)
+    k = W.shape[-1]
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    _check_carry(dev, W=(W, _F64, (R, k)), t_prev=(t_prev, _F64, (R,)))
+    if dev.type == "cpu":
+        return fcfs_stream_ref(arrival, need, service, W, t_prev)
+    _fcfs_fits(k)
+    starts = torch.empty_like(arrival)
+    W, t_prev = W.clone(), t_prev.clone()   # the kernel writes them back
+    lib = build.LIBRARY.load()
+    with torch.cuda.device(dev):
+        rc = lib.msj_fcfs_stream(_ptr(arrival), _ptr(need), _ptr(service),
+                                 _ptr(W), _ptr(t_prev), _ptr(starts), R, J,
+                                 k, _stream(dev))
+    build.LIBRARY.raise_on(rc, "fcfs_stream_scan", f"R={R} J={J} k={k}")
+    fcfs_stream_fwd.launches += 1
+    return starts, W, t_prev
+
+
+def modbs_stream_fwd(arrival, cls, need, service, comp, W, t_prev):
+    """One ModifiedBS-π chunk [R, J] resumed from the carry ``comp``
+    [R, C, s_max] (each class row's completion times; padded slots BIG),
+    ``W`` [R, h] (the helper's sorted free times) and ``t_prev`` [R] ->
+    (blocked [R, J] bool, starts [R, J], comp', W', t_prev').
+
+    The carry is canonical on both devices: each class row sorted
+    ascending (the kernel keeps rows sorted, so ``comp`` must come in
+    sorted) and W' clamped as in :func:`fcfs_stream_fwd`.  The caller's
+    tensors are not changed.
+    """
+    dev = _check(arrival=arrival, cls=cls, need=need, service=service)
+    R, J = arrival.shape
+    _chunk_jobs(J)
+    if comp.dim() != 3 or W.dim() != 2:
+        raise ValueError("comp must be [R, C, s_max] and W [R, h]")
+    C, s_max, h = comp.shape[1], comp.shape[2], W.shape[1]
+    if min(C, s_max, h) < 1:
+        raise ValueError(f"C, s_max and h must be >= 1, got {C}, {s_max}, "
+                         f"{h}")
+    _check_carry(dev, comp=(comp, _F64, (R, C, s_max)),
+                 W=(W, _F64, (R, h)), t_prev=(t_prev, _F64, (R,)))
+    if dev.type == "cpu":
+        return modbs_stream_ref(arrival, cls, need, service, comp, W, t_prev)
+    _modbs_fits(C, s_max, h)
+    blocked = torch.empty(R, J, dtype=torch.bool, device=dev)
+    starts = torch.empty_like(arrival)
+    comp, W, t_prev = comp.clone(), W.clone(), t_prev.clone()
+    lib = build.LIBRARY.load()
+    with torch.cuda.device(dev):
+        rc = lib.msj_modbs_stream(_ptr(arrival), _ptr(cls), _ptr(need),
+                                  _ptr(service), _ptr(comp), _ptr(W),
+                                  _ptr(t_prev), _ptr(blocked), _ptr(starts),
+                                  R, J, C, s_max, h, _stream(dev))
+    build.LIBRARY.raise_on(rc, "modbs_stream_scan",
+                           f"R={R} J={J} C={C} s_max={s_max} h={h}")
+    modbs_stream_fwd.launches += 1
+    return blocked, starts, comp, W, t_prev
+
+
+#: names of the BS stream carry's tensors, in order
+BS_CARRY = ("ai", "st", "comp", "ring", "heads", "W", "t_prev", "t_hol",
+            "ovf", "ne")
+
+
+def bs_stream_fwd(arrival, cls, need, service, slots, horizon, carry, *,
+                  s_max: int, h: int, q_cap: int, length: int):
+    """One BS-π chunk resumed from the reference's chunk carry ``(ai, st,
+    comp, ring, heads, W, t_prev, t_hol, ovf, ne)`` -> (carry', tagged
+    [R, length] int32, rec_t [R, length] float64).
+
+    The trace [R, J] is the chunk's local layout (the still-queued jobs
+    of earlier chunks first, ``core.stream._bs_inflate``), ``slots`` [C]
+    the classes' A slots (a class row's free slots are its BIG entries
+    below ``slots[c]``), ``horizon`` [R] the next chunk's first arrival
+    (inf when draining).  The scan runs ``length`` steps: a commit is
+    processed while Th <= horizon, a completion while Tc < horizon (and
+    below 0.5 BIG), an arrival while ai < J; a deferred event leaves the
+    carry as it is, and ``ne`` counts the events processed.  carry' holds
+    in its ring only each class's queued entries (0 elsewhere,
+    ``sim_torch.bs_live_ring``), on both devices.  The caller must raise
+    on carry'[8] (ring overflow).  The caller's tensors are not changed.
+    """
+    dev = _check(slots, arrival=arrival, cls=cls, need=need, service=service)
+    R, J = arrival.shape
+    _chunk_jobs(J)
+    if s_max < 1 or h < 1 or q_cap < 1:
+        raise ValueError(f"s_max, h and q_cap must be >= 1, got {s_max}, "
+                         f"{h}, {q_cap}")
+    if slots.dim() != 1:
+        raise ValueError("slots must be [C]")
+    C = slots.shape[0]
+    if not 0 <= length < 2**31:
+        raise ValueError(f"length={length} outside [0, 2**31)")
+    if len(carry) != len(BS_CARRY):
+        raise ValueError(f"carry must be {BS_CARRY}")
+    shapes = ((R,), (R, 3 * C), (R, C * s_max), (R, C * q_cap), (R, C),
+              (R, h), (R,), (R,), (R,), (R,))
+    _check_carry(dev, horizon=(horizon, _F64, (R,)), **{
+        n: (t, d, sh) for n, t, d, sh in zip(
+            BS_CARRY, carry, sim_torch.BS_CARRY_DTYPES, shapes)})
+    if dev.type == "cpu":
+        return bs_stream_ref(arrival, cls, need, service, slots, horizon,
+                             carry, s_max=s_max, h=h, q_cap=q_cap,
+                             length=length)
+    carry = tuple(t.clone() for t in carry)   # the kernel writes them back
+    sl = _slot_rows(slots, R)
+    tagged = torch.empty(R, length, dtype=_I32, device=dev)
+    rec_t = torch.empty(R, length, dtype=_F64, device=dev)
+    ring = torch.empty(R * C * q_cap * _BS_RING_ENTRY, dtype=torch.uint8,
+                       device=dev)
+    lib = build.LIBRARY.load()
+    with torch.cuda.device(dev):
+        rc = lib.msj_bs_stream(_ptr(arrival), _ptr(cls), _ptr(need),
+                               _ptr(service), _ptr(sl), _ptr(horizon),
+                               *(_ptr(t) for t in carry), _ptr(tagged),
+                               _ptr(rec_t), _ptr(ring), R, J, C, s_max, h,
+                               q_cap, length, _stream(dev))
+    build.LIBRARY.raise_on(rc, "bs_stream_scan",
+                           f"R={R} J={J} C={C} s_max={s_max} h={h} "
+                           f"q_cap={q_cap} length={length}")
+    bs_stream_fwd.launches += 1
+    return carry, tagged, rec_t
+
+
 WRAPPERS = (fcfs_scan_fwd, modbs_scan_fwd, bs_scan_fwd, srpt_scan_fwd,
             stable_sort_fwd, fcfs_fail_scan_fwd, modbs_fail_scan_fwd,
-            bs_fail_scan_fwd)
+            bs_fail_scan_fwd, fcfs_stream_fwd, modbs_stream_fwd,
+            bs_stream_fwd)
+
 for _w in WRAPPERS:
     _w.launches = 0
 

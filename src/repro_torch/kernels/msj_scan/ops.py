@@ -18,6 +18,10 @@ the plans of :mod:`repro_torch.core.sim_batch` stack them to [G, R, ...]
 with per-lane sizes, the core flattens (cells, reps) to L = G R lanes,
 makes one wrapper call — one kernel launch on the card — and extracts
 each cell (the reference's ``_*_grid_jax`` cores).
+
+The stream cores (``engines.register_stream``) run FCFS, ModBS-π and BS-π
+over a chunk source through the drivers of :mod:`repro_torch.core.stream`,
+one carried kernel launch (``*_stream_fwd``) per chunk.
 """
 
 from __future__ import annotations
@@ -39,9 +43,13 @@ from ...core.sim_batch import (_bs_fail_args, _bs_fail_grid_plan,
                                _partition_args, _srpt_grid_extract,
                                _srpt_grid_plan, _srpt_no_failures, _srpt_nu,
                                _srpt_result, _unmerge, _with_drain_obs)
-from ...core.sim_torch import _bs_args, _srpt_args
-from .kernel import (bs_fail_scan_fwd, bs_scan_fwd, fcfs_fail_scan_fwd,
-                     fcfs_scan_fwd, modbs_fail_scan_fwd, modbs_scan_fwd,
+from ...core.sim_torch import _bs_args, _modbs_init, _srpt_args
+from ...core.stream import (BS_BACKLOG_CAP, _bs_device_scan,
+                            _bs_stream_args, _bs_stream_drive, _scan_stream,
+                            _stream_partition)
+from .kernel import (bs_fail_scan_fwd, bs_scan_fwd, bs_stream_fwd,
+                     fcfs_fail_scan_fwd, fcfs_scan_fwd, fcfs_stream_fwd,
+                     modbs_fail_scan_fwd, modbs_scan_fwd, modbs_stream_fwd,
                      srpt_scan_fwd)
 
 
@@ -252,3 +260,94 @@ def _sf_srpt_grid_torch(cells, *, device):
 @engines.register_grid("ff-srpt", "torch")
 def _ff_srpt_grid_torch(cells, *, device):
     return _srpt_grid_torch(False, cells, device=device)
+
+
+# -- stream cores: one carried launch per chunk --------------------------------
+
+
+def _carry_on(device):
+    """``to_device(arrays)``: a restored carry back on ``device``."""
+    return lambda arrays: tuple(torch.as_tensor(a, device=device)
+                                for a in arrays)
+
+
+@engines.register_stream("fcfs", "torch")
+def _fcfs_stream_torch(source, *, device, chunk_jobs, total_jobs,
+                       partition=None, wl=None, policy="fcfs", block=4096,
+                       ckpt_dir=None, resume=False):
+    """Streaming FCFS: the Kiefer–Wolfowitz carry (W, t_prev) stays on
+    the device across chunks."""
+    k = int(source.k)
+
+    def init(R):
+        return (torch.zeros(R, k, dtype=_F64, device=device),
+                torch.zeros(R, dtype=_F64, device=device))
+
+    def chunk(carry, batch):
+        starts, W, t_prev = fcfs_stream_fwd(*_fcfs_inputs(batch, device),
+                                            *carry)
+        (starts,) = _host(starts)
+        return ((W, t_prev), starts + batch.service - batch.arrival,
+                starts - batch.arrival, None, None)
+
+    return _scan_stream(
+        source, policy=policy, chunk_jobs=chunk_jobs, total_jobs=total_jobs,
+        n_carry=2, init_fn=init, chunk_fn=chunk, to_device=_carry_on(device),
+        has_helper=False, block=block, ckpt_dir=ckpt_dir, resume=resume)
+
+
+@engines.register_stream("modbs-fcfs", "torch")
+def _modbs_stream_torch(source, *, device, chunk_jobs, total_jobs,
+                        partition=None, wl=None, policy="modbs-fcfs",
+                        block=4096, ckpt_dir=None, resume=False):
+    """Streaming ModifiedBS-FCFS: (comp, W, t_prev) stays on the device
+    across chunks."""
+    part = _stream_partition(partition, wl)
+    slots = np.asarray(part.slots, np.int32)
+    s_max = int(slots.max())
+    h = int(part.helpers)
+    sl = torch.tensor(slots, device=device)
+
+    def chunk(carry, batch):
+        if h < int(batch.need.max()):
+            raise ValueError("helper set smaller than the largest server "
+                             "need")
+        blocked, starts, *carry = modbs_stream_fwd(
+            *_class_inputs(batch, device), *carry)
+        blocked, starts = _host(blocked, starts)
+        return (tuple(carry), starts + batch.service - batch.arrival,
+                starts - batch.arrival, blocked, blocked)
+
+    return _scan_stream(
+        source, policy=policy, chunk_jobs=chunk_jobs, total_jobs=total_jobs,
+        n_carry=3, init_fn=lambda R: _modbs_init(sl, s_max, h, R),
+        chunk_fn=chunk, to_device=_carry_on(device), has_helper=True,
+        part=part, block=block, ckpt_dir=ckpt_dir, resume=resume,
+        layout_extra={"C": int(slots.shape[0]), "s_max": s_max, "h": h})
+
+
+@engines.register_stream("bs-fcfs", "torch")
+def _bs_stream_torch(source, *, device, chunk_jobs, total_jobs,
+                     partition=None, wl=None, policy="bs-fcfs",
+                     queue_cap=None, backlog_cap=BS_BACKLOG_CAP, block=4096,
+                     ckpt_dir=None, resume=False):
+    """Streaming BS-FCFS (Definition 1) through the bounded-backlog driver.
+
+    ``backlog_cap`` bounds how many still-queued jobs may cross a chunk
+    boundary (more raises: raise the cap, or the workload is unstable);
+    ``queue_cap`` defaults to ``backlog_cap + chunk_jobs``, which the
+    queue within a chunk can never exceed.
+    """
+    part, slots, s_max, h, q_cap, B = _bs_stream_args(
+        partition, wl, chunk_jobs, queue_cap, backlog_cap)
+    on_device = _bs_device_scan(bs_stream_fwd, device, slots, s_max, h,
+                                q_cap)
+
+    def scan(carry, rec, horizon, length):
+        out, tagged, rec_t = on_device(carry, rec, horizon, length)
+        return list(_host(*out)), *_host(tagged, rec_t)
+
+    return _bs_stream_drive(
+        source, policy=policy, chunk_jobs=chunk_jobs, total_jobs=total_jobs,
+        part=part, slots=slots, s_max=s_max, h=h, q_cap=q_cap, B=B,
+        scan_fn=scan, block=block, ckpt_dir=ckpt_dir, resume=resume)

@@ -7,16 +7,18 @@ so it runs on a machine with a card and no JAX::
     PYTHONPATH=src python -m pytest -q tests/test_torch_card.py
 
 Its inputs come from the port (``repro_torch.core.workload``,
-``bench.srpt_cases``, ``bench.bs_cases``) and numpy, at the shapes and
-limits of the parity files (``tests/test_torch_{msj_scan, failures, srpt,
-attention, moe, mamba, rwkv}.py``), which hold the plain versions to the
-reference on the CPU.  Without a card every test here but the import pin
+``bench.srpt_cases``, ``bench.bs_cases``, ``bench.stream_cases``) and
+numpy, at the shapes and limits of the parity files
+(``tests/test_torch_{msj_scan, failures, srpt, stream, attention, moe,
+mamba, rwkv}.py``), which hold the plain versions to the reference on the
+CPU.  Without a card every test here but the import pin
 skips.
 """
 
 import dataclasses
 import math
 import os
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -25,10 +27,10 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.bench import bs_cases, fm_cases, srpt_cases
+from repro_torch.bench import bs_cases, fm_cases, srpt_cases, stream_cases
 from repro_torch.core import failures as flr
 from repro_torch.core import (engines, partition, sim_batch, sim_torch,
-                              workload)
+                              stream, workload)
 from repro_torch.core.sim_torch import _bs_args
 from repro_torch.kernels import msj_scan
 from repro_torch.kernels.decode_attention import (decode_attention_fwd,
@@ -234,6 +236,96 @@ def test_cuda_fcfs_at_the_largest_k(k):
            (K.fcfs_fail_scan_ref(*fargs, k=k),), (k, "drain"))
     with pytest.raises(ValueError, match="exceeds"):
         K.fcfs_scan_fwd(*(x.to(dev) for x in args), k=K.FCFS_K_MAX + 1)
+
+
+# -- carried (stream) kernels (tests/test_torch_stream.py's shapes) ----------
+
+
+STREAM_J, STREAM_CHUNK = 600, 250      # chunks of 250, 250 and a ragged 100
+FM_STREAMABLE = sorted(n for n, make in fm_cases.ADVERSARIAL.items()
+                       if not make(8, 1, 0).drain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", FM_STREAMABLE)
+def test_cuda_fcfs_and_modbs_streams_equal_plain_versions(name):
+    """The carried FCFS and ModBS-pi kernels, chunk after chunk, give the
+    plain versions' outputs and canonical carries exactly; ``bursts``
+    carries more than 128 run-length groups across a boundary (the shared
+    spill)."""
+    dev = _dev()
+    case = fm_cases.ADVERSARIAL[name](STREAM_J, 2, 1)
+    g = case.to(dev)
+    cuts = stream_cases.bounds(STREAM_J, STREAM_CHUNK)
+    kern = stream_cases.fcfs_chunks(K.fcfs_stream_fwd, *g.fcfs, case.k,
+                                    cuts)
+    plain = stream_cases.fcfs_chunks(K.fcfs_stream_ref, *case.fcfs, case.k,
+                                     cuts)
+    stream_cases.equal_chunks(kern, plain, f"fcfs_stream_scan {name}")
+    if name == "bursts":
+        assert max(stream_cases.groups_above(W, tp)
+                   for _, W, tp in plain) > 128
+    kern = stream_cases.modbs_chunks(K.modbs_stream_fwd, *g.modbs, g.slots,
+                                     case.s_max, case.h, cuts)
+    plain = stream_cases.modbs_chunks(K.modbs_stream_ref, *case.modbs,
+                                      case.slots, case.s_max, case.h, cuts)
+    stream_cases.equal_chunks(kern, plain, f"modbs_stream_scan {name}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fig1"] + sorted(
+    stream_cases.BS_STREAMABLE))
+def test_cuda_bs_stream_equals_plain_version(name):
+    """The carried BS-pi kernel, chunk after chunk, gives the plain
+    version's event streams, carry and canonical state exactly; on the
+    Fig. 1 trace a backlog crosses a chunk boundary."""
+    dev = _dev()
+    if name == "fig1":
+        wl = workload.figure1_workload(32)
+        b = wl.sample_traces(STREAM_J, 2, seed=3)
+    else:
+        b, wl = stream_cases.bs_case_batch(name, STREAM_J, 2, 5)
+    _, slots, s_max, h, q_cap, B = stream._bs_stream_args(
+        None, wl, STREAM_CHUNK, None, 256)
+    cuts = stream_cases.bounds(STREAM_J, STREAM_CHUNK)
+    kern = stream_cases.bs_chunks(K.bs_stream_fwd, b, slots, s_max, h,
+                                  q_cap, B, cuts, dev)
+    plain = stream_cases.bs_chunks(K.bs_stream_ref, b, slots, s_max, h,
+                                   q_cap, B, cuts, "cpu")
+    stream_cases.equal_chunks(kern, plain, f"bs_stream_scan {name}")
+    if name == "fig1":
+        assert max(int(c[-1]["pend_n"].max()) for c in plain[:-1]) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pol", ["fcfs", "modbs-fcfs", "bs-fcfs"])
+def test_cuda_stream_equals_folded_batch_and_resumes_a_cpu_checkpoint(
+        pol, tmp_path):
+    """``simulate_stream`` on the card launches its kernel once a chunk,
+    equals ``stream_fold(simulate(...))`` on the card bit for bit, and
+    resumes a stream checkpointed on the CPU to the same bytes."""
+    _dev()
+    wl = workload.figure1_workload(32)
+    b = wl.sample_traces(STREAM_J, 2, seed=3)
+    kw = dict(chunk_jobs=170, wl=wl,
+              **({"backlog_cap": 48} if pol == "bs-fcfs" else {}))
+    fold = stream.stream_fold(engines.simulate(pol, b, wl=wl))
+    msj_scan.reset_launches()
+    got = engines.simulate_stream(pol, b, **kw)
+    name = {"fcfs": "fcfs", "modbs-fcfs": "modbs",
+            "bs-fcfs": "bs"}[pol] + "_stream_fwd"
+    assert msj_scan.launches()[name] == 4
+    d = str(tmp_path / "ckpt")
+    engines.simulate_stream(pol, b, device="cpu", ckpt_dir=d, **kw)
+    last = sorted(e for e in os.listdir(d) if e.startswith("step_"))[-1]
+    shutil.rmtree(os.path.join(d, last))
+    res = engines.simulate_stream(pol, b, ckpt_dir=d, resume=True, **kw)
+    for f in ("mean_response", "var_response", "mean_wait", "var_wait",
+              "p_wait", "p_helper", "p_routed"):
+        x, y, z = (getattr(r, f) for r in (got, fold, res))
+        assert (x is None) == (y is None) == (z is None), f
+        if x is not None:
+            assert x.tobytes() == y.tobytes() == z.tobytes(), f
 
 
 # -- drain-mode kernels (tests/test_torch_failures.py's shapes) --------------

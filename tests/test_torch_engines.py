@@ -135,9 +135,9 @@ def test_loud_errors():
     with pytest.raises(NotImplementedError, match="python engine"):
         sim_batch.sweep_many_server(workload.figure1_workload, (32,),
                                     device="cpu", failures=kill)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(ValueError, match="resume=True needs a ckpt_dir"):
         sim_batch.sweep_many_server(workload.figure1_workload, (32,),
-                                    device="cpu", ckpt_dir="ckpt")
+                                    device="cpu", resume=True)
     with pytest.raises(KeyError, match="no 'torch' simulator"):
         sim_batch.sweep_many_server(workload.figure1_workload, (32,),
                                     device="cpu", policies=("msf",))
@@ -181,6 +181,17 @@ from repro_torch.models import (config, convert, layers, model, moe,
                                 transformer)
 from repro_torch.sched import cluster, gang
 from repro_torch.serve import engine, kv_cache
+from repro_torch import checkpoint
+from repro_torch.checkpoint import ckpt
+from repro_torch.core import stream
+from repro_torch.bench import stream_cases
+wl = workload.figure1_workload(32)
+src = workload.PoissonSource(wl, reps=2, seed=1)
+for pol in ("fcfs", "modbs-fcfs", "bs-fcfs"):
+    kw = {"backlog_cap": 32} if pol == "bs-fcfs" else {}
+    sr = engines.simulate_stream(pol, src, device="cpu", chunk_jobs=20,
+                                 total_jobs=50, wl=wl, **kw)
+    assert np.isfinite(sr.mean_response).all()
 res = sim_batch.sweep_many_server(workload.figure1_workload, (32,),
                                   num_jobs=50, reps=2, device="cpu")
 assert np.isfinite(res.mean_response).all()

@@ -149,10 +149,19 @@ def test_wrappers_check_inputs_and_count_only_kernel_launches():
     K.reset_launches()
     msj_scan.fcfs_scan_fwd(a, n, v, k=32)
     msj_scan.bs_scan_fwd(a, c, n, v, sl, s_max=s_max, h=h, q_cap=q_cap)
+    W, t_prev = torch.zeros(R, 32, dtype=torch.float64), torch.zeros(
+        R, dtype=torch.float64)
+    msj_scan.fcfs_stream_fwd(a, n, v, W, t_prev)
     assert K.launches() == {"fcfs_scan_fwd": 0, "modbs_scan_fwd": 0,
                             "bs_scan_fwd": 0, "srpt_scan_fwd": 0,
                             "stable_sort_fwd": 0, "fcfs_fail_scan_fwd": 0,
-                            "modbs_fail_scan_fwd": 0, "bs_fail_scan_fwd": 0}
+                            "modbs_fail_scan_fwd": 0, "bs_fail_scan_fwd": 0,
+                            "fcfs_stream_fwd": 0, "modbs_stream_fwd": 0,
+                            "bs_stream_fwd": 0}
+    with pytest.raises(ValueError, match="W must be a contiguous"):
+        msj_scan.fcfs_stream_fwd(a, n, v, W[:1], t_prev)
+    with pytest.raises(ValueError, match="at least one job"):
+        msj_scan.fcfs_stream_fwd(a[:, :0], n[:, :0], v[:, :0], W, t_prev)
     with pytest.raises(TypeError, match="need must be torch.int32"):
         msj_scan.fcfs_scan_fwd(a, n.long(), v, k=32)
     with pytest.raises(TypeError, match="arrival must be torch.float64"):

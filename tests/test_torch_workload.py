@@ -155,8 +155,9 @@ def test_from_trace_bootstrap_equal(method, block_len):
 
 def test_from_trace_rejects_what_the_reference_rejects():
     trace = swf.sdsc_sp2_trace(50, k=512)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        workload.BatchTrace.from_trace(trace, 2, stream=True)
+    src = workload.BatchTrace.from_trace(trace, 2, stream=True)
+    assert isinstance(src, workload.BootstrapSource)
+    assert (src.reps, src.total_jobs, src.block_len) == (2, None, 4)
     with pytest.raises(ValueError, match="bootstrap method"):
         workload.BatchTrace.from_trace(trace, 2, method="wild")
     with pytest.raises(ValueError, match="block_len"):
