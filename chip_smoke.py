@@ -37,9 +37,10 @@ The Figure-3 slice adds to each phase:
    ``stable_sort`` at W in {4096, 3000}; each ``torch.equal`` to its plain
    version on the card and on the CPU, with the jobs in the system per
    event printed;
-3. ``repro_torch.bench.fig3_traces.run()`` at its defaults on the card
-   (2 datasets x k in {512, 1024} x 3 loads x 5 policies, J = 15 000,
-   R = 4) with the counts set to 0 just before and read just after:
+3. ``repro_torch.bench.fig3_traces.run(policies=SCAN_POLICIES)`` on the
+   card (2 datasets x k in {512, 1024} x 3 loads x the 5 scan policies,
+   J = 15 000, R = 4) with the counts set to 0 just before and read just
+   after:
    every row must be finite (the launch counts: see the grid slice); a
    small run on the card must equal the same run on the CPU on every
    column but ``sim_s``.  Rows are printed; no ordering between policies
@@ -54,7 +55,7 @@ The Figure-3 slice adds to each phase:
 The drain-mode failure slice adds:
 
 2. ``fcfs_fail_scan``, ``modbs_fail_scan`` and ``bs_fail_scan`` at the
-   Figure-1 widths of k in {256, 2048}, R = 16, J = 1000 (ring capacity
+   Figure-1 widths of k in {256, 2048}, R = 16, J = 800 (ring capacity
    q_cap = J, so no ring can overflow), under two outage mixes over the
    arrival horizon h: ``bench_sim.bench_failures``' process (mtbf = h/4,
    mttr = h/400, single servers) and a heavier one (mtbf = h/4,
@@ -302,6 +303,25 @@ row's largest element) beside the free-running one.  The comparisons of
 phase 2 run at J = 2000 (4000 before) and the drain ones at J = 1000
 (2000 before), to pay for the stream phase's time.
 
+The event-engine slice (``engine="python"``, the port's copy of the
+reference's event-driven simulator and its eleven policies) adds a phase
+3e, the paper's policy set: each scan kernel of FCFS, ModBS-π, BS-π,
+SF-SRPT and FF-SRPT on the card equal on every ``BatchSimResult`` field
+to ``engine="python"``, host code that shares nothing with the kernels or
+their plain versions (a Fig. 1 batch at k = 256, J = 2000, R = 2; an
+SDSC-SP2 bootstrap at k = 512, load 0.85, J = 1000, R = 2; the three
+drain policies at k = 256, J = 1000, R = 2 under bench outages);
+``fig3_traces.run`` on ``engine="python"`` equal to the run on the card
+on every column but ``sim_s`` and ``engine`` (J = 800, k = 256, load
+0.7, R = 2); and ``fig3_traces.run(ks=(1024,), loads=(0.85,), reps=2)``,
+the paper's six policies at J = 15 000 on both datasets, with the counts
+set to 0 just before and read just after: one launch each of
+``fcfs_scan`` and ``bs_scan`` and two of ``srpt_scan``, ``serverfilling``
+and ``msf`` on the event engine with one fallback warning each, every row
+finite or the reference's infinite row with a note; the kernel rows' and
+the event-engine rows' ``sim_s`` are summed apart.  The drain comparisons
+of phase 2 run at J = 800 (1000 before) to pay for the phase.
+
 Then it prints the card's name and power limit, one ``{"kernels": [...]}``
 line and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the repository around it, it exits non-zero and prints no
@@ -355,9 +375,10 @@ FAIL_KERNELS = {  # name -> (wrapper, TPU kernel it replaces)
 }
 DRAIN_KS, DRAIN_SMALL_J, DRAIN_SMALL_R = (256, 1024), 2000, 4
 # J of the drain kernels' comparison with their plain versions on the card
-# (4000 until the BS-pi redesign, then 2000; halved each time to make room
-# for a phase)
-DRAIN_CMP_J = 1000
+# (4000 until the BS-pi redesign, then 2000, then 1000; cut each time to
+# make room for a phase: 800 since the event-engine phase 3e, which also
+# holds the three drain kernels to engine="python")
+DRAIN_CMP_J = 800
 # BS-pi's adversarial cases (bench/bs_cases.ADVERSARIAL): J and R of the
 # comparison with the plain version on the CPU
 BS_ADV_J, BS_ADV_R = 2000, 4
@@ -2305,6 +2326,133 @@ def stream_path(dev, report: dict) -> None:
     print(f"[stream] the stream phase took {time.time() - t_phase:.1f} s")
 
 
+def paper_path(dev, report: dict) -> None:
+    """Phase 3e, the paper's policy set: the port's event engine
+    (``engine="python"``, host code that shares nothing with the kernels
+    or their plain versions) as the kernels' oracle, and Fig. 3 on the
+    paper's six policies at full width.  Adds this path's launches to the
+    ``report`` entries of the kernels it runs."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from repro_torch.bench import bs_cases, fig3_traces
+    from repro_torch.core import engines
+    from repro_torch.core.workload import (BatchTrace, figure1_workload,
+                                           sdsc_sp2_workload)
+    from repro_torch.data.swf import sdsc_sp2_trace
+    from repro_torch.kernels.msj_scan import kernel as K
+
+    t_phase = time.time()
+    scan = fig3_traces.SCAN_POLICIES
+
+    # -- registry parity on the card: each kernel == the event engine ----
+    wl1 = figure1_workload(256)
+    wl3 = sdsc_sp2_workload(k=512, load=0.85)
+    b3 = BatchTrace.from_trace(sdsc_sp2_trace(1000, k=512, load=0.85,
+                                              seed=5), 2, seed=5)
+    bd = wl1.sample_traces(1000, 2, seed=6)
+    cases = [("Fig. 1 k=256 J=2000 R=2", wl1.sample_traces(2000, 2, seed=4),
+              wl1, None, scan),
+             ("SDSC-SP2 bootstrap k=512 load=0.85 J=1000 R=2", b3, wl3,
+              None, scan),
+             ("Fig. 1 k=256 J=1000 R=2 bench outages (drain)", bd, wl1,
+              bs_cases.bench_failures(wl1, bd, seed=6), POLICIES)]
+    for what, b, wl, fb, pols in cases:
+        for pol in pols:
+            t1 = time.time()
+            on_card = engines.simulate(pol, b, wl=wl, failures=fb,
+                                       device=dev)
+            torch.cuda.synchronize()
+            t2 = time.time()
+            oracle = engines.simulate(pol, b, wl=wl, failures=fb,
+                                      engine="python")
+            t3 = time.time()
+            for fld in dataclasses.fields(oracle):
+                x, y = getattr(on_card, fld.name), getattr(oracle, fld.name)
+                if (x is None) != (y is None) or (
+                        x is not None and not (x.dtype == y.dtype
+                                               and np.array_equal(x, y))):
+                    fail(f"[paper] {pol} on {what}: {fld.name} of the "
+                         f"kernel differs from engine='python'")
+            print(f"[paper] {pol:>10} {what}: kernel == engine='python' "
+                  f"on every BatchSimResult field at tolerance 0 (card "
+                  f"{t2 - t1:.2f} s, event engine {t3 - t2:.2f} s)")
+
+    # -- the paper's six policies at full width (the first run of this
+    # process to send serverfilling / msf to the event engine, so the one
+    # fallback warning of each comes here) ---------------------------------
+    K.reset_launches()
+    t1 = time.time()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        rows = fig3_traces.run(ks=(1024,), loads=(0.85,), reps=2,
+                               device=dev)
+    torch.cuda.synchronize()
+    counts = K.launches()
+    wall = time.time() - t1
+    fell = sorted(str(w.message).split("'")[1] for w in caught
+                  if "falling back" in str(w.message))
+    print(f"[paper] fig3_traces.run(ks=(1024,), loads=(0.85,), reps=2) "
+          f"(2 datasets x the paper's 6 policies, J={FIG3_J}): {wall:.1f} "
+          f"s, launches {counts}; fallback warnings for {fell}")
+    grid_launches("paper", counts, {"fcfs_scan_fwd": 1, "bs_scan_fwd": 1,
+                                    "srpt_scan_fwd": 2})
+    if fell != ["msf", "serverfilling"]:
+        fail(f"[paper] expected one fallback warning each for msf and "
+             f"serverfilling, got {fell}")
+    if len(rows) != 12:
+        fail(f"[paper] {len(rows)} rows, expected 12")
+    by_engine = {"torch": 0.0, "python": 0.0}
+    for r in rows:
+        want = "python" if r["policy"] in ("serverfilling", "msf") else \
+            "torch"
+        if r["engine"] != want:
+            fail(f"[paper] {r['policy']} ran on {r['engine']}, expected "
+                 f"{want}")
+        by_engine[r["engine"]] += r["sim_s"]
+        finite = all(np.isfinite(r[f]) for f in ("mean_response", "p_wait",
+                                                 "p95_response"))
+        if not finite and not (r["mean_response"] == float("inf")
+                               and r.get("note")):
+            fail(f"[paper] non-finite row without a note: {r}")
+        note = f" note={r['note']}" if r.get("note") else ""
+        print(f"[paper] {r['dataset']} k={r['k']} load={r['load']} "
+              f"{r['policy']:>13} engine={r['engine']:<6} mean_response="
+              f"{r['mean_response']:.6f} p_wait={r['p_wait']:.6f} "
+              f"p95={r['p95_response']:.6f} util={r['utilization']:.6f} "
+              f"sim_s={r['sim_s']}{note}")
+    print(f"[paper] sim_s summed: kernel rows {by_engine['torch']:.2f} s, "
+          f"event-engine rows {by_engine['python']:.2f} s")
+
+    # -- Fig. 3 rows do not depend on the engine -------------------------
+    small = dict(num_jobs=800, ks=(256,), loads=(0.7,), reps=2)
+    t1 = time.time()
+    py_rows = fig3_traces.run(engine="python", **small)
+    t2 = time.time()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        card_rows = fig3_traces.run(device=dev, **small)
+    t3 = time.time()
+    strip = lambda rows: [{c: v for c, v in r.items()
+                           if c not in ("sim_s", "engine")} for r in rows]
+    if len(py_rows) != 12 or strip(py_rows) != strip(card_rows):
+        fail("[paper] Fig. 3 rows on engine='python' differ from the rows "
+             "on the card")
+    print(f"[paper] fig3_traces.run(J=800, k=256, load=0.7, R=2): "
+          f"engine='python' rows == the card's rows on every column but "
+          f"sim_s and engine ({len(py_rows)} rows; python {t2 - t1:.2f} s, "
+          f"card {t3 - t2:.2f} s)")
+    for name, wrapper in (("fcfs_scan", "fcfs_scan_fwd"),
+                          ("bs_scan", "bs_scan_fwd"),
+                          ("srpt_scan", "srpt_scan_fwd")):
+        report[name]["paper_launches"] = counts[wrapper]
+        report[name]["launches"] += counts[wrapper]
+    print(f"[paper] the paper-policy phase took {time.time() - t_phase:.1f} "
+          f"s")
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean device time of ``fn`` over ``reps`` calls, queued behind a
     sleep kernel: :func:`repro_torch.bench.timing.device_ms`."""
@@ -2829,7 +2977,8 @@ def main() -> int:
     # -- 3b. the Fig. 3 path: fig3_traces.run() at its defaults ------------
     K.reset_launches()
     t0 = time.time()
-    rows = fig3_traces.run(device="cuda")
+    rows = fig3_traces.run(policies=fig3_traces.SCAN_POLICIES,
+                           device="cuda")
     torch.cuda.synchronize()
     counts3 = K.launches()
     wall = time.time() - t0
@@ -2840,7 +2989,8 @@ def main() -> int:
                                     "bs_scan_fwd": 1, "srpt_scan_fwd": 2})
     K.reset_launches()
     t0 = time.time()
-    rows_cells = fig3_traces.run(device="cuda", grid=False)
+    rows_cells = fig3_traces.run(policies=fig3_traces.SCAN_POLICIES,
+                                 device="cuda", grid=False)
     torch.cuda.synchronize()
     wall_cells = time.time() - t0
     print(f"[fig3] the same run cell by cell (grid=False): "
@@ -2870,7 +3020,8 @@ def main() -> int:
         report[name]["fig3_launches"] = counts3[wrapper]
         report[name]["launches"] += counts3[wrapper]
     report["srpt_scan"]["launches"] = counts3["srpt_scan_fwd"]
-    small3 = dict(num_jobs=1500, reps=2, ks=(512,), loads=(0.85,))
+    small3 = dict(num_jobs=1500, reps=2, ks=(512,), loads=(0.85,),
+                  policies=fig3_traces.SCAN_POLICIES)
     card3 = fig3_traces.run(**small3, device="cuda")
     cpu3 = fig3_traces.run(**small3, device="cpu")
     for a, b in zip(card3, cpu3):
@@ -2953,6 +3104,9 @@ def main() -> int:
 
     # -- 3d. the stream path: simulate_stream on the carried kernels ------
     stream_path(dev, report)
+
+    # -- 3e. the paper's policy set: the event engine as the oracle -------
+    paper_path(dev, report)
 
     # -- 4. kernel times at the main path's largest shape -----------------
     for k in MAIN_KS[:-1]:            # and FCFS / ModBS at the other ks

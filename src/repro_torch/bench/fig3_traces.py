@@ -3,25 +3,30 @@
 Traces are synthesized from the paper's Table-2/3 parameters (lognormal
 service fit; the raw archive logs are not redistributable), bootstrapped
 into ``reps`` replications per cell (``BatchTrace.from_trace``, IID or
-moving-block) and run through the port's registry on the five scan
-policies: FCFS, ModBS-π, BS-π and the preemptive SF-SRPT / FF-SRPT.  Rows
-equal the reference script's (``benchmarks/fig3_traces.py``) on every
-column but ``engine`` and ``sim_s``.  Runs on the card unless
-``device="cpu"``::
+moving-block) and run through the port's registry on the paper's policy
+set, ``PAPER_POLICIES``: BS-π, FCFS, ServerFilling, SF-SRPT, FF-SRPT and
+MSF.  With ``engine="torch"`` (the default) the four scan policies run on
+their kernels (the plain versions with ``device="cpu"``), and
+``serverfilling`` / ``msf``, which have no scan core, on the event engine
+(``engine="python"``), each announced once by a ``RuntimeWarning``; the
+row's ``engine`` column records the core that ran.  ``engine="python"``
+runs every policy on the event engine over the same bootstrap batches.
+Rows equal the reference script's (``benchmarks/fig3_traces.py``) on
+every column but ``sim_s`` (its ``jax`` is the port's ``torch``).  Runs on
+the card unless ``device="cpu"``::
 
     PYTHONPATH=src python -m repro_torch.bench.fig3_traces            # card
     PYTHONPATH=src python -m repro_torch.bench.fig3_traces --device cpu \\
-        --jobs 400 --reps 2 --ks 64 --loads 0.7
+        --jobs 400 --reps 2 --ks 128 --loads 0.7
 
-Every (dataset, k, load) cell is sampled first; then each policy runs all
-cells through one ``engines.simulate_grid`` call (one kernel launch on the
-card), as the reference script's grid pre-pass does, and ``sim_s`` is that
-call's wall time spread evenly over its cells.  ``--no-grid`` runs one
+Every (dataset, k, load) cell is sampled first; then each scan policy
+runs all cells through one ``engines.simulate_grid`` call (one kernel
+launch on the card), as the reference script's grid pre-pass does, and
+``sim_s`` is that call's wall time spread evenly over its cells; an
+event-engine policy runs cell by cell.  ``--no-grid`` runs one
 ``engines.simulate`` per cell and policy instead; the rows are equal
-either way but for ``sim_s``.  ``serverfilling`` and ``msf`` run only on
-the reference's Python event engine, which is not ported: asking for them
-raises ``KeyError``.  ``--ckpt-dir D`` checkpoints each finished cell and
-``--resume`` reloads them, as the reference script's flags do.
+either way but for ``sim_s``.  ``--ckpt-dir D`` checkpoints each finished
+cell and ``--resume`` reloads them, as the reference script's flags do.
 """
 
 from __future__ import annotations
@@ -42,22 +47,15 @@ COLS = ["dataset", "k", "load", "engine", "policy", "jobs", "reps",
         "mean_response", "ci95_response", "mean_wait", "p_wait", "p_helper",
         "p95_response", "utilization", "sim_s"]
 
-#: the scan policies the port runs
+#: the policy set the paper benchmarks against (Figures 1-3); the
+#: reference's ``benchmarks/common.py`` ``PAPER_POLICIES``
+PAPER_POLICIES = ("bs", "fcfs", "serverfilling", "sf-srpt", "ff-srpt", "msf")
+
+#: the policies with a scan core (``engine="torch"``, a kernel on the card)
 SCAN_POLICIES = ("fcfs", "modbs-fcfs", "bs-fcfs", "sf-srpt", "ff-srpt")
 
 _DATASETS = (("sdsc_sp2", sdsc_sp2_trace, sdsc_sp2_workload),
              ("kit_fh2", kit_fh2_trace, kit_fh2_workload))
-
-def _check_policies(policies) -> tuple[str, ...]:
-    pols = tuple(engines.canonical(p) for p in policies)
-    ported = engines.policies_for("torch")
-    missing = [p for p in pols if p not in ported]
-    if missing:
-        raise KeyError(
-            f"{missing} run only on the reference's Python event engine "
-            f"(core/simulator.py, core/policies/), which is not ported "
-            f"(ROADMAP Queue 1 item 15); the port runs {list(ported)}")
-    return pols
 
 
 def _batch_row(policy: str, batch: BatchTrace, res) -> dict:
@@ -79,46 +77,60 @@ def _batch_row(policy: str, batch: BatchTrace, res) -> dict:
     }
 
 
-def grid_precompute(cells, policies, *, device) -> dict:
-    """One ``engines.simulate_grid`` call per policy over ``cells``, a
-    sequence of ``(batch, wl)`` pairs of one ``reps``.
+def grid_precompute(cells, policies, *, engine: str = "torch",
+                    device) -> dict:
+    """One ``engines.simulate_grid`` call per scan policy over ``cells``,
+    a sequence of ``(batch, wl)`` pairs of one ``reps``.
 
-    Returns ``{policy: (results, wall per cell)}``, the wall time of the
-    call spread evenly over its cells.  A grid that raises
+    Returns ``{policy: (results, wall per cell)}`` for every canonical
+    policy with a ``(policy, engine)`` grid core, the wall time of the
+    call spread evenly over its cells.  Policies without one (the event
+    engine's) are absent and run cell by cell.  A grid that raises
     ``RuntimeError`` (an overflowing cell fails the whole grid) is left
-    out, so its cells run one by one and the overflowing one gives the
-    reference's row of infinite response times — the reference's
+    out too, so its cells run one by one and the overflowing one gives
+    the reference's row of infinite response times — the reference's
     ``grid_precompute``.
     """
     gcells = [engines.GridCell(batch, wl=wl) for batch, wl in cells]
     out = {}
-    for pol in policies:
+    for pol in dict.fromkeys(engines.canonical(p) for p in policies):
+        if (pol, engine) not in engines.grid_registered():
+            continue
         t0 = time.time()
         try:
-            results = engines.simulate_grid(pol, gcells, device=device)
+            results = engines.simulate_grid(pol, gcells, engine=engine,
+                                            device=device)
         except RuntimeError:
             continue
         out[pol] = (results, (time.time() - t0) / len(gcells))
     return out
 
 
-def run_policies_batch(batch: BatchTrace, wl, policies, *, device,
-                       extra_cols=None, precomputed=None,
-                       cell: int = 0) -> list[dict]:
+def run_policies_batch(batch: BatchTrace, wl, policies, *,
+                       engine: str = "torch", device, extra_cols=None,
+                       precomputed=None, cell: int = 0) -> list[dict]:
     """One row per policy on a shared batch, through ``engines.simulate``.
 
-    A policy whose bounded queue overflows on this batch (unstable at this
-    load) gives the reference's row of infinite response times with the
+    A policy with no core under ``engine`` (``serverfilling``, ``msf``
+    under ``"torch"``) runs on ``engine="python"``, announced once per
+    process by :func:`engines.warn_fallback`; the row's ``engine`` column
+    records the core that ran, and a policy that has a ``"torch"`` core
+    never goes to the event engine.  An unknown policy raises
+    ``KeyError``.  A policy whose bounded queue overflows on this batch
+    (unstable at this load), or whose event-engine run exceeds its event
+    budget, gives the reference's row of infinite response times with the
     error in ``note``.  ``precomputed`` (from :func:`grid_precompute`)
     gives a policy it holds its grid's result for ``cell`` instead, with
     the same row assembly.
     """
     rows = []
-    for pol in policies:
+    for name in policies:
+        pol = engines.canonical(name)
+        use = engines._resolve_fallback(pol, engine, True)
         pre = (precomputed or {}).get(pol)
         if pre is not None:
             row = _batch_row(pol, batch, pre[0][cell])
-            row["engine"] = "torch"
+            row["engine"] = use
             row["sim_s"] = round(pre[1], 2)
             if extra_cols:
                 row.update(extra_cols)
@@ -126,16 +138,19 @@ def run_policies_batch(batch: BatchTrace, wl, policies, *, device,
             continue
         t0 = time.time()
         try:
-            res = engines.simulate(pol, batch, device=device, wl=wl)
+            res = engines.simulate(pol, batch, engine=use, device=device,
+                                   wl=wl)
             row = _batch_row(pol, batch, res)
-        except QueueOverflowError as e:
+        except RuntimeError as e:
+            if use != "python" and not isinstance(e, QueueOverflowError):
+                raise
             row = {"policy": pol, "jobs": batch.num_jobs,
                    "reps": batch.reps,
                    "mean_response": float("inf"), "mean_wait": float("inf"),
                    "p_wait": 1.0, "p_helper": None,
                    "p95_response": float("inf"), "utilization": 0.0,
                    "note": str(e)[:60]}
-        row["engine"] = "torch"
+        row["engine"] = use
         row["sim_s"] = round(time.time() - t0, 2)
         if extra_cols:
             row.update(extra_cols)
@@ -144,16 +159,20 @@ def run_policies_batch(batch: BatchTrace, wl, policies, *, device,
 
 
 def run(num_jobs=15_000, seed=0, ks=(512, 1024), loads=(0.5, 0.7, 0.85),
-        policies=SCAN_POLICIES, reps=4, bootstrap="iid",
-        device="cuda", grid: bool = True, ckpt_dir=None,
+        policies=PAPER_POLICIES, engine: str = "torch", reps=4,
+        bootstrap="iid", device="cuda", grid: bool = True, ckpt_dir=None,
         resume: bool = False) -> list[dict]:
     """Table-2/3 synthesized traces, bootstrapped, through the registry.
 
     One row per (dataset, k, load, policy), in the reference script's
-    order.  ``device="cuda"`` (the default) runs the kernels and raises
-    without a card; ``device="cpu"`` runs their plain versions.
-    ``grid=True`` runs each policy over every cell not yet checkpointed in
-    one :func:`grid_precompute` call, ``grid=False`` cell by cell.
+    order.  ``engine="torch"`` (the default) runs each scan policy on its
+    kernel and the others on the event engine (:func:`run_policies_batch`);
+    ``engine="python"`` runs every policy on the event engine.
+    ``device="cuda"`` (the default) runs the kernels and raises without a
+    card; ``device="cpu"`` runs their plain versions; ``engine="python"``
+    ignores it.  ``grid=True`` runs each scan policy over every cell not
+    yet checkpointed in one :func:`grid_precompute` call, ``grid=False``
+    cell by cell.
 
     With ``ckpt_dir`` each (dataset, k, load) cell's finished rows are
     published atomically (:mod:`repro_torch.checkpoint`; the rows ride in
@@ -161,8 +180,8 @@ def run(num_jobs=15_000, seed=0, ks=(512, 1024), loads=(0.5, 0.7, 0.85),
     instead of simulating them: a killed run resumes with the same CSV,
     ``sim_s`` of the restored cells included.
     """
-    pols = _check_policies(policies)
-    dev = engines.resolve_device(device)
+    dev = (engines.resolve_device(device)
+           if engine in engines.DEVICE_ENGINES else None)
     done: set[int] = set()
     if resume:
         if ckpt_dir is None:
@@ -180,7 +199,8 @@ def run(num_jobs=15_000, seed=0, ks=(512, 1024), loads=(0.5, 0.7, 0.85),
                                                method=bootstrap),
                          wl_fn(k=k, load=load))
     todo = sorted(sampled)
-    pre = (grid_precompute([sampled[c] for c in todo], pols, device=dev)
+    pre = (grid_precompute([sampled[c] for c in todo], policies,
+                           engine=engine, device=dev)
            if grid and todo else {})
     rows = []
     for cell, (name, _, _, k, load) in enumerate(specs):
@@ -197,7 +217,7 @@ def run(num_jobs=15_000, seed=0, ks=(512, 1024), loads=(0.5, 0.7, 0.85),
             continue
         batch, wl = sampled[cell]
         cell_rows = run_policies_batch(
-            batch, wl, pols, device=dev, precomputed=pre,
+            batch, wl, policies, engine=engine, device=dev, precomputed=pre,
             cell=todo.index(cell),
             extra_cols={"dataset": name, "k": k, "load": load})
         if ckpt_dir is not None:
@@ -231,7 +251,15 @@ def main(argv=None):
     ap.add_argument("--ks", type=int, nargs="+", default=[512, 1024])
     ap.add_argument("--loads", type=float, nargs="+",
                     default=[0.5, 0.7, 0.85])
-    ap.add_argument("--policies", nargs="+", default=list(SCAN_POLICIES))
+    ap.add_argument("--policies", nargs="+", default=list(PAPER_POLICIES),
+                    help="the paper's set by default; under --engine torch "
+                         "bs, fcfs, sf-srpt, ff-srpt (and modbs-fcfs) run "
+                         "on their kernels, serverfilling and msf (and "
+                         "sf-gittins, lsf, backfill, maxweight) on the "
+                         "event engine")
+    ap.add_argument("--engine", choices=("torch", "python"), default="torch",
+                    help="torch = the kernels where a policy has one; "
+                         "python = every policy on the event engine")
     ap.add_argument("--bootstrap", choices=("iid", "block"), default="iid")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
@@ -244,11 +272,29 @@ def main(argv=None):
     ap.add_argument("--resume", action="store_true",
                     help="reload the cells checkpointed in --ckpt-dir")
     args = ap.parse_args(argv)
+    t0 = time.time()
     rows = run(num_jobs=args.jobs, seed=args.seed, ks=tuple(args.ks),
                loads=tuple(args.loads), policies=tuple(args.policies),
-               reps=args.reps, bootstrap=args.bootstrap, device=args.device,
-               grid=args.grid, ckpt_dir=args.ckpt_dir, resume=args.resume)
+               engine=args.engine, reps=args.reps, bootstrap=args.bootstrap,
+               device=args.device, grid=args.grid, ckpt_dir=args.ckpt_dir,
+               resume=args.resume)
+    wall = time.time() - t0
     emit(rows, COLS)
+    report_engines(rows, wall)
+
+
+def report_engines(rows: list[dict], wall: float, file=None) -> None:
+    """One stderr line: the run's wall time and the rows' ``sim_s``
+    summed by the engine that ran them (the kernels' share and the event
+    engine's)."""
+    by = {}
+    for r in rows:
+        n, s = by.get(r["engine"], (0, 0.0))
+        by[r["engine"]] = (n + 1, s + r["sim_s"])
+    parts = ", ".join(f"{e} {s:.2f} s over {n} rows"
+                      for e, (n, s) in sorted(by.items()))
+    print(f"# wall {wall:.2f} s (sampling included); sim_s summed by "
+          f"engine: {parts}", file=file or sys.stderr)
 
 
 if __name__ == "__main__":

@@ -11,8 +11,9 @@ batches of 100 equal arrival times; SF and FF each.  Every line gives the
 mean and largest number n of jobs in the system per event.
 
 Each tree is timed in its own process (mean device time of ``REPS``
-calls), which also times ``fig3_traces.run()`` at its defaults on the
-card (wall time, after a warm-up call that builds the kernels).
+calls), which also times ``fig3_traces.run()`` on the five scan
+policies at its other defaults on the card (wall time, after a warm-up
+call that builds the kernels).
 ``--parent DIR`` times the checkout at DIR (for example ``git archive`` of
 the parent commit unpacked there) the same way on the same inputs, in the
 order parent, this tree, this tree, parent, and requires both trees' seven
@@ -128,7 +129,8 @@ def _load(cases: Path, name: str, device):
 
 def worker(cases: Path, out: Path) -> dict:
     """Times the importable tree's ``srpt_scan_fwd`` on every case and
-    ``fig3_traces.run()``, saves the outputs to ``out``."""
+    ``fig3_traces.run()`` on the scan policies, saves the outputs to
+    ``out``."""
     import torch
 
     from repro_torch.kernels.msj_scan import kernel as K
@@ -148,11 +150,12 @@ def worker(cases: Path, out: Path) -> dict:
     np.savez(out, **outs)
     from repro_torch.bench import fig3_traces
 
+    scan = fig3_traces.SCAN_POLICIES       # the kernels' rows only
     fig3_traces.run(num_jobs=500, reps=2, ks=(512,), loads=(0.5,),
-                    device="cuda")         # builds every kernel
+                    policies=scan, device="cuda")   # builds every kernel
     torch.cuda.synchronize()
     t0 = time.time()
-    fig3_traces.run(device="cuda")
+    fig3_traces.run(policies=scan, device="cuda")
     torch.cuda.synchronize()
     res["fig3_s"] = time.time() - t0
     return res

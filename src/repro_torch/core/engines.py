@@ -7,21 +7,51 @@ through :func:`simulate` / :func:`simulate_grid`::
     from repro_torch.core import engines
     res = engines.simulate("bs-fcfs", batch, wl=wl)            # on the card
     res = engines.simulate("bs-fcfs", batch, wl=wl, device="cpu")
+    res = engines.simulate("msf", batch, engine="python")     # on the host
 
 * **Key**: ``(policy, engine)``; policy names are the reference's
   canonical names (``"fcfs"``, ``"modbs-fcfs"``, ``"bs-fcfs"``,
-  ``"sf-srpt"``, ``"ff-srpt"``) and
-  :func:`canonical` resolves the short aliases.  The port has one engine,
-  ``"torch"``; its cores dispatch on the device of the tensors they build:
-  on ``device="cpu"`` the plain PyTorch versions run, on ``device="cuda"``
-  the hand-written kernels of :mod:`repro_torch.kernels.msj_scan`.
+  ``"sf-srpt"``, ``"ff-srpt"``, ``"serverfilling"``, ``"msf"``, ...) and
+  :func:`canonical` resolves the short aliases.  The port has two
+  engines:
+
+  - ``"torch"`` (:mod:`repro_torch.kernels.msj_scan.ops`) for the five
+    scan policies; its cores dispatch on the device of the tensors they
+    build: on ``device="cpu"`` the plain PyTorch versions run, on
+    ``device="cuda"`` the hand-written kernels of
+    :mod:`repro_torch.kernels.msj_scan`;
+  - ``"python"`` (:mod:`repro_torch.core.simulator`), the event-driven
+    engine, for all eleven policies of :mod:`repro_torch.core.policies`:
+    plain Python and numpy on the host, the oracle of every other core.
+
+  Coverage::
+
+      policy          python   torch (+ grid core)
+      fcfs            yes      yes
+      modbs-fcfs      yes      yes
+      bs-fcfs         yes      yes
+      sf-srpt         yes      yes
+      ff-srpt         yes      yes
+      serverfilling, sf-gittins, msf, lsf, backfill,
+      maxweight       yes      --
+
 * **Core**: ``core(batch, *, device, partition=None, wl=None, **kw) ->
-  BatchSimResult``; cores do not mutate the batch.
+  BatchSimResult`` for a ``"torch"`` core; a ``"python"`` core takes no
+  ``device``.  Cores do not mutate the batch.
 * **Determinism**: on a fixed batch every core returns the result of the
-  reference's engines bit for bit (rtol=0) on either device.
-* **Device**: entry points run on the card by default.  ``device="cuda"``
-  without a CUDA device raises ``RuntimeError``; nothing falls back to the
-  CPU quietly.
+  reference's engines bit for bit (rtol=0), on either device, and so
+  every ``"torch"`` core equals the ``"python"`` core of its policy.
+* **Device**: :data:`DEVICE_ENGINES` run on the card by default.
+  ``device="cuda"`` without a CUDA device raises ``RuntimeError``;
+  nothing falls back to the CPU quietly.  The device is resolved only
+  for those engines: a caller who names ``engine="python"`` asked for the
+  host oracle, and ``device`` is ignored there.
+* **Fallback**: :func:`simulate` / :func:`simulate_grid` take
+  ``fallback=True`` to run a policy that has no ``"torch"`` core (the
+  event-engine-only six) on ``"python"`` instead of raising, announced
+  by a once-per-process ``RuntimeWarning`` (:func:`warn_fallback`).  A
+  policy that has a ``"torch"`` core never goes to the event engine: not
+  on a failed kernel build, not on a missing card.
 * **Registration**: cores self-register when their provider module is
   imported, lazily on first dispatch (``_PROVIDERS``).  Double
   registration of a key is an error.  This registry is separate from the
@@ -32,9 +62,11 @@ through :func:`simulate` / :func:`simulate_grid`::
   ``modbs-fcfs`` and ``bs-fcfs``: the outages are merged into the event
   stream on the host and the ``*_fail_scan`` kernels (or their plain
   versions) run it; the result grows the ``kills``/``requeues``/
-  ``availability`` observables.  ``mode="kill"`` needs the reference's
-  Python event engine, which is not ported, and raises
-  ``NotImplementedError``, as does ``failures=`` on the SRPT pair.
+  ``availability`` observables; ``engine="python"`` runs the same
+  streams through its per-replication loops.  ``mode="kill"``
+  (kill-and-requeue, BS-π repartitioned on every capacity change) runs
+  on ``engine="python"`` for every policy; the ``"torch"`` cores raise
+  ``NotImplementedError`` on it, as on ``failures=`` for the SRPT pair.
 
 * **Grids**: :func:`simulate_grid` takes a sequence of :class:`GridCell`
   s — each a batch with its own k, J, partition and failures — and runs
@@ -42,7 +74,8 @@ through :func:`simulate` / :func:`simulate_grid`::
   onto one (cells x reps) lane axis and makes one wrapper call: one kernel
   launch per policy per grid on the card.  Cell g of the result equals
   ``simulate(policy, cells[g].batch, ...)`` and the reference's grid cell
-  g bit for bit.
+  g bit for bit.  An engine with no grid core (``"python"``) runs the
+  cells one by one behind the same call.
 
 * **Streams**: :func:`simulate_stream` runs ``fcfs``, ``modbs-fcfs`` and
   ``bs-fcfs`` over a :class:`~repro_torch.core.workload.ChunkSource`
@@ -67,7 +100,11 @@ if TYPE_CHECKING:  # pragma: no cover - typing only, avoids import cycles
     from .workload import BatchTrace
 
 #: modules whose import registers engine cores
-_PROVIDERS = ("repro_torch.kernels.msj_scan.ops",)
+_PROVIDERS = ("repro_torch.core.simulator",        # engine="python"
+              "repro_torch.kernels.msj_scan.ops")  # engine="torch"
+
+#: engines whose cores run on a device and take ``device=``
+DEVICE_ENGINES = ("torch",)
 
 _REGISTRY: dict[tuple[str, str], Callable[..., "BatchSimResult"]] = {}
 
@@ -229,6 +266,43 @@ def get(policy: str, engine: str) -> Callable[..., "BatchSimResult"]:
                      f"registered engines: {list(engines_for(pol))}")
 
 
+#: (policy, engine) pairs that already emitted their fallback warning —
+#: one RuntimeWarning per process per pair, not one per batch
+_WARNED_FALLBACKS: set[tuple[str, str]] = set()
+
+
+def warn_fallback(policy: str, engine: str) -> None:
+    """Once-per-process ``RuntimeWarning`` for an event-engine fallback.
+
+    The event engine is orders of magnitude slower than the kernels, so a
+    sweep that quietly sends a policy there can take hours without anyone
+    seeing why.  Every dispatch site that substitutes ``engine="python"``
+    for a policy with no core under the requested engine announces it
+    here.
+    """
+    import warnings
+    key = (canonical(policy), engine)
+    if key in _WARNED_FALLBACKS:
+        return
+    _WARNED_FALLBACKS.add(key)
+    warnings.warn(
+        f"policy {key[0]!r} has no engine {engine!r} core — falling back "
+        f"to the python event oracle (orders of magnitude slower); "
+        f"registered engines for this policy: {list(engines_for(key[0]))}",
+        RuntimeWarning, stacklevel=3)
+
+
+def _resolve_fallback(policy: str, engine: str, fallback: bool) -> str:
+    """The engine to dispatch: ``"python"`` for a policy with no
+    ``"torch"`` core when ``fallback`` allows it, else ``engine``."""
+    pol = canonical(policy)
+    if not fallback or engine == "python" or (pol, "torch") in registered():
+        return engine
+    get(pol, "python")  # unknown policy stays a loud KeyError
+    warn_fallback(pol, engine)
+    return "python"
+
+
 def resolve_device(device) -> torch.device:
     """``device`` as a ``torch.device``; raises where it cannot run.
 
@@ -301,23 +375,29 @@ def validate_batch(batch: "BatchTrace", *, partition=None,
 
 def simulate(policy: str, batch: "BatchTrace", *, engine: str = "torch",
              device="cuda", partition=None, wl=None, failures=None,
-             **kw) -> "BatchSimResult":
+             fallback: bool = False, **kw) -> "BatchSimResult":
     """Run ``batch`` through the registered ``(policy, engine)`` core.
 
-    ``device`` is where the scan runs: ``"cuda"`` (the default) launches
-    the hand-written kernels and raises without a card, ``"cpu"`` runs
-    their plain PyTorch versions.  ``partition``/``wl`` feed the eq.-2
+    ``device`` is where a ``"torch"`` core runs: ``"cuda"`` (the default)
+    launches the hand-written kernels and raises without a card,
+    ``"cpu"`` runs their plain PyTorch versions; ``engine="python"`` runs
+    on the host and ignores it.  ``partition``/``wl`` feed the eq.-2
     partition (ModBS and BS need one of them); extra keywords (e.g.
     ``queue_cap`` for ``bs-fcfs`` and the SRPT pair) pass through to the
-    core.  ``failures`` is a drain-mode ``FailureBatch`` of the batch's k
-    and replication count (``fcfs``, ``modbs-fcfs``, ``bs-fcfs``).
+    core.  ``failures`` is a ``FailureBatch`` of the batch's k and
+    replication count: ``mode="drain"`` for ``fcfs``, ``modbs-fcfs`` and
+    ``bs-fcfs`` on either engine, ``mode="kill"`` for every policy on
+    ``"python"``.  ``fallback=True`` runs a policy with no ``"torch"``
+    core on ``"python"`` with a once-per-process ``RuntimeWarning``.
     """
+    engine = _resolve_fallback(policy, engine, fallback)
     core = get(policy, engine)
-    dev = resolve_device(device)
+    dev = resolve_device(device) if engine in DEVICE_ENGINES else None
     validate_batch(batch, partition=partition,
                    failures=failures if hasattr(failures, "k") else None)
-    return core(batch, device=dev, partition=partition, wl=wl,
-                failures=failures, **kw)
+    if dev is not None:
+        kw["device"] = dev
+    return core(batch, partition=partition, wl=wl, failures=failures, **kw)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -338,21 +418,25 @@ class GridCell:
 
 
 def simulate_grid(policy: str, cells: Sequence[GridCell], *,
-                  engine: str = "torch", device="cuda") -> list:
+                  engine: str = "torch", device="cuda",
+                  fallback: bool = False) -> list:
     """Run every grid cell under one policy; one ``BatchSimResult`` each.
 
     The policy's grid core stacks the cells onto one (cells x reps) lane
     axis and makes one wrapper call, so on the card a grid is one kernel
     launch however many (k, load) cells it has; cell ``g`` of the result
-    equals ``simulate(policy, cells[g].batch, ...)`` bit for bit.  Every
-    cell must have the same ``reps``, and failures are all-or-none across
-    cells, as in the reference.
+    equals ``simulate(policy, cells[g].batch, ...)`` bit for bit.  An
+    engine with no grid core (``"python"``) runs the cells one by one,
+    with the same results.  Every cell must have the same ``reps``, and
+    failures are all-or-none across cells, as in the reference.
+    ``device`` and ``fallback`` act as in :func:`simulate`.
     """
     cells = tuple(cells)
     if not cells:
         raise ValueError("simulate_grid needs at least one cell")
-    get(policy, engine)  # loud unknown-policy/engine errors first
-    dev = resolve_device(device)
+    engine = _resolve_fallback(policy, engine, fallback)
+    core = get(policy, engine)  # loud unknown-policy/engine errors first
+    dev = resolve_device(device) if engine in DEVICE_ENGINES else None
     R = cells[0].batch.reps
     for g, cell in enumerate(cells):
         if cell.batch.reps != R:
@@ -369,7 +453,15 @@ def simulate_grid(policy: str, cells: Sequence[GridCell], *,
         raise ValueError(
             "mixed failure/no-failure cells in one grid — split into one "
             "simulate_grid call per failure axis")
-    return _GRID_REGISTRY[(canonical(policy), engine)](cells, device=dev)
+    grid_core = _GRID_REGISTRY.get((canonical(policy), engine))
+    if grid_core is not None:
+        return grid_core(cells, device=dev)
+    out = []
+    for cell in cells:
+        kw = {} if cell.queue_cap is None else {"queue_cap": cell.queue_cap}
+        out.append(core(cell.batch, partition=cell.partition, wl=cell.wl,
+                        failures=cell.failures, **kw))
+    return out
 
 
 def simulate_stream(policy: str, source, *, engine: str = "torch",

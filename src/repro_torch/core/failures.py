@@ -22,9 +22,9 @@ the *earliest-free* capacity unit of its target block and holds it until
 extends the ``argmin`` completion entry (or occupies a free slot).
 Running jobs are never preempted, so a breakdown defers *future* starts
 instead of killing work in flight.  ``mode="kill"`` (kill-and-requeue
-with a BS-π repartition on each capacity change) needs the reference's
-Python event engine, which is not ported: the cores raise on it
-(:func:`require_drain`).
+with a BS-π repartition on each capacity change) runs only on the event
+engine, ``engine="python"`` (:mod:`repro_torch.core.simulator`): the scan
+cores raise on it (:func:`require_drain`).
 
 Everything the engines share — event→target mapping under a
 :class:`BalancedPartition` (with slot-level dedup of pod outages), the
@@ -330,10 +330,10 @@ def drain_observables(fb: FailureBatch, batch: BatchTrace,
 
 def require_drain(failures: FailureBatch, engine: str) -> None:
     """Scan cores implement drain semantics only; kill-and-requeue needs
-    the reference's python event oracle (dynamic repartition breaks static
-    scan shapes), which the port does not have."""
+    the python event oracle (dynamic repartition breaks static scan
+    shapes)."""
     if failures.mode != "drain":
         raise NotImplementedError(
             f"failure mode {failures.mode!r} is only supported by the "
-            f"python engine (not ported: ROADMAP Queue 1 item 15); the "
-            f"{engine!r} scan cores implement mode='drain'")
+            f"python engine; the {engine!r} scan cores implement "
+            f"mode='drain'")

@@ -241,9 +241,8 @@ def _srpt_check_ovf(ovf, q_cap: int, peak=None, cell: str = "") -> None:
 def _srpt_no_failures(failures, policy: str) -> None:
     if failures is not None:
         raise NotImplementedError(
-            f"policy {policy!r} has no fault-injection scan core (the "
-            f"reference runs it on its python engine, mode='kill', which "
-            f"is not ported)")
+            f"policy {policy!r} has no fault-injection scan core — use "
+            f"engine='python' (mode='kill' kill-and-requeue)")
 
 
 def _srpt_result(batch: BatchTrace, job_ev, t_ev, fs_ev, ovf, npre, ne,
@@ -642,9 +641,10 @@ def sweep_many_server(wl_factory: Callable[..., Workload], points: Sequence,
     :func:`engines.simulate` per (point, policy) with exact per-cell
     timing.  Both give the same numbers.  ``device="cuda"`` (the default)
     runs the kernels and raises without a card; ``device="cpu"`` runs the
-    plain PyTorch versions.  Returns mean/CI arrays [policies, points],
-    equal to the reference's ``sweep_many_server`` on the same arguments
-    (``sim_s`` aside).
+    plain PyTorch versions.  ``engine="python"`` sweeps any policy of the
+    event engine, on the host (``device`` ignored).  Returns mean/CI
+    arrays [policies, points], equal to the reference's
+    ``sweep_many_server`` on the same arguments (``sim_s`` aside).
 
     ``failures`` injects drain-mode outages (see :func:`_sweep_failures`):
     each point's batch gets its own FailureBatch, and ``availability``
@@ -671,7 +671,8 @@ def sweep_many_server(wl_factory: Callable[..., Workload], points: Sequence,
                        f"available: {list(avail)}")
     if resume and ckpt_dir is None:
         raise ValueError("resume=True needs a ckpt_dir")
-    engines.resolve_device(device)
+    if engine in engines.DEVICE_ENGINES:
+        engines.resolve_device(device)
     P, N = len(policies), len(points)
     shape = (P, N)
     mean_r = np.zeros(shape); ci_r = np.zeros(shape)

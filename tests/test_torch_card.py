@@ -11,8 +11,9 @@ Its inputs come from the port (``repro_torch.core.workload``,
 numpy, at the shapes and limits of the parity files
 (``tests/test_torch_{msj_scan, failures, srpt, stream, attention, moe,
 mamba, rwkv}.py``), which hold the plain versions to the reference on the
-CPU.  Without a card every test here but the import pin
-skips.
+CPU.  The scan kernels are also held to the port's event engine
+(``engine="python"``), which shares no code with them or their plain
+versions.  Without a card every test here but the import pin skips.
 """
 
 import dataclasses
@@ -443,6 +444,27 @@ def test_cuda_grid_equals_per_cell_on_the_card(policy, drain):
         _assert_results_equal(o, engines.simulate(
             policy, cell.batch, wl=cell.wl, failures=cell.failures,
             device=dev), (policy, drain, g))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy,drain", GRID_CASES)
+def test_cuda_kernels_equal_the_event_engine(policy, drain):
+    """Each scan kernel on the card against the port's event engine
+    (``engine="python"``, which shares no code with the kernels or their
+    plain versions) on every ``BatchSimResult`` field, rtol=0: Fig. 1 at
+    k = 256, J = 500, R = 2, clean and under bench outages."""
+    dev = _dev()
+    wl = workload.figure1_workload(256)
+    b = wl.sample_traces(500, 2, seed=21)
+    fb = bs_cases.bench_failures(wl, b, seed=21) if drain else None
+    K.reset_launches()
+    out = engines.simulate(policy, b, wl=wl, failures=fb, device=dev)
+    want = _GRID_WRAPPER[policy]
+    if drain:
+        want = want.replace("_scan", "_fail_scan")
+    assert {w: n for w, n in K.launches().items() if n} == {want: 1}
+    _assert_results_equal(out, engines.simulate(
+        policy, b, engine="python", wl=wl, failures=fb), (policy, drain))
 
 
 def _grid_raw(policy, drain, cells, device):

@@ -123,6 +123,9 @@ def test_loud_errors():
     wl = workload.figure1_workload(32)
     batch = wl.sample_traces(20, 1, seed=0)
     with pytest.raises(KeyError, match="no simulation core"):
+        engines.simulate("srpt", batch, device="cpu")
+    with pytest.raises(ValueError, match="unknown engine 'torch' for "
+                                         "policy 'msf'"):
         engines.simulate("msf", batch, device="cpu")
     with pytest.raises(ValueError, match="unknown engine"):
         engines.simulate("fcfs", batch, engine="jax", device="cpu")
@@ -156,8 +159,14 @@ def test_loud_errors():
 
 
 def test_registries_are_separate():
-    assert engines.registered() == tuple(
-        (p, "torch") for p in sorted(POLICIES + ("sf-srpt", "ff-srpt")))
+    scan = POLICIES + ("sf-srpt", "ff-srpt")
+    python = scan + ("serverfilling", "sf-gittins", "msf", "lsf",
+                     "backfill", "maxweight")
+    assert engines.registered() == tuple(sorted(
+        [(p, "torch") for p in scan] + [(p, "python") for p in python]))
+    assert engines.grid_registered() == tuple(
+        (p, "torch") for p in sorted(scan))
+    assert engines.available_engines() == ("python", "torch")
     assert "torch" not in ref_engines.available_engines()
     assert engines.canonical("bs") == "bs-fcfs"
 
@@ -166,8 +175,8 @@ _PURITY = """
 import sys
 import numpy as np
 import repro_torch
-from repro_torch.core import (engines, failures, partition, sim_batch,
-                              sim_torch, workload)
+from repro_torch.core import (engines, failures, partition, policies,
+                              sim_batch, sim_torch, simulator, workload)
 from repro_torch.kernels.msj_scan import build, kernel, ops
 from repro_torch.bench import decode_vs_forward, fig3_traces
 from repro_torch.data import swf
@@ -201,7 +210,15 @@ res = sim_batch.sweep_many_server(
 assert np.isfinite(res.mean_response).all() and (res.availability < 1).all()
 rows = fig3_traces.run(num_jobs=60, reps=2, ks=(128,), loads=(0.7,),
                        device="cpu")
-assert len(rows) == 10 and all(np.isfinite(r["mean_response"]) for r in rows)
+assert len(rows) == 12 and all(np.isfinite(r["mean_response"]) for r in rows)
+batch = wl.sample_traces(60, 2, seed=1)
+kill = failures.FailureProcess(mtbf=20.0, mttr=2.0, mode="kill").sample(
+    32, float(batch.arrival.max()), 2)
+for pol in engines.policies_for("python"):
+    res = engines.simulate(pol, batch, engine="python", wl=wl, failures=kill)
+    assert np.isfinite(res.response).all()
+res = simulator.simulate(wl, policies.make_policy("msf"), num_jobs=60)
+assert res.num_jobs == 60
 eng = engine.ServingEngine([engine.RequestClass(
     "s", configs.get_config("yi_9b"), 8192, 2, 1.0, 1.0)], 8, device="cpu")
 eng.submit(engine.Request(0, "s", np.arange(1, 9), max_new_tokens=3))

@@ -2,13 +2,17 @@
 
 ``repro_torch.bench.fig3_traces.run`` on the CPU (the kernels' plain
 versions) must give the rows of ``benchmarks/fig3_traces.py:run`` with
-``engine="jax"`` and per-cell dispatch, on the five scan policies: every
-column but ``engine`` and ``sim_s`` (wall time) equal, at tolerance 0.
-k = 128 is the smallest k at which the Table-2 partition gives every
-ModBS/BS class row a slot; at k = 64 all slots are 0 and the reference's
-``jax`` engine cannot run ModBS (an empty argmin).
+``engine="jax"``: on the five scan policies every column but ``engine``
+and ``sim_s`` (wall time) equal, at tolerance 0; on the paper's six
+policies (the default) every column but ``sim_s``, the ``engine`` column
+naming the core that ran (the reference's ``jax`` is the port's
+``torch``; ``serverfilling`` and ``msf`` run on ``python`` on both
+sides).  k = 128 is the smallest k at which the Table-2 partition gives
+every ModBS/BS class row a slot; at k = 64 all slots are 0 and the
+reference's ``jax`` engine cannot run ModBS (an empty argmin).
 """
 
+import inspect
 import io
 import sys
 from pathlib import Path
@@ -17,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-import _torch_jaxref  # noqa: F401  (the reference's x64 alias)
+from _torch_jaxref import ref_engines  # the reference's x64 alias
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from benchmarks import fig3_traces as ref_fig3  # noqa: E402
@@ -28,7 +32,8 @@ KW = dict(num_jobs=400, reps=2, ks=(128,), loads=(0.7,))
 
 
 def test_rows_equal_reference_script():
-    out = fig3_traces.run(**KW, device="cpu")
+    out = fig3_traces.run(**KW, policies=fig3_traces.SCAN_POLICIES,
+                          device="cpu")
     ref = ref_fig3.run(**KW, policies=fig3_traces.SCAN_POLICIES,
                        engine="jax", grid=False)
     assert len(out) == len(ref) == 10
@@ -44,12 +49,43 @@ def test_rows_equal_reference_script():
     assert lines[0] == ",".join(fig3_traces.COLS) and len(lines) == 11
 
 
-def test_unported_policies_and_missing_card_raise():
-    with pytest.raises(KeyError, match="Queue 1 item 15"):
-        fig3_traces.run(**KW, policies=("fcfs", "serverfilling"),
-                        device="cpu")
-    with pytest.raises(KeyError, match="msf"):
-        fig3_traces.run(**KW, policies=("msf",), device="cpu")
+def test_unported_policies_and_missing_card_raise(monkeypatch):
+    """Since the event engine is ported, the paper's six policies run: the
+    default policy set gives the reference script's rows, ``engine``
+    column included, with one fallback warning for each event-engine
+    policy; an unknown policy and a missing card still raise."""
+    from repro_torch.core import engines
+
+    monkeypatch.setattr(engines, "_WARNED_FALLBACKS", set())
+    monkeypatch.setattr(ref_engines, "_WARNED_FALLBACKS", set())
+    with pytest.warns(RuntimeWarning) as caught:
+        out = fig3_traces.run(**KW, device="cpu")
+    with pytest.warns(RuntimeWarning):
+        ref = ref_fig3.run(**KW, policies=fig3_traces.PAPER_POLICIES,
+                           engine="jax")
+    assert inspect.signature(fig3_traces.run).parameters[
+        "policies"].default == fig3_traces.PAPER_POLICIES
+    assert len(out) == len(ref) == 12
+    for o, r in zip(out, ref):
+        assert set(o) == set(r)
+        for col in set(o) - {"engine", "sim_s"}:
+            assert o[col] == r[col], (o["dataset"], o["policy"], col)
+        assert o["engine"] == {"jax": "torch"}.get(r["engine"], r["engine"])
+        assert o["engine"] == ("python" if o["policy"] in
+                               ("serverfilling", "msf") else "torch")
+        assert np.isfinite(o["mean_response"])
+    fell = sorted(str(w.message).split("'")[1] for w in caught
+                  if "falling back" in str(w.message))
+    assert fell == ["msf", "serverfilling"]
+    py = fig3_traces.run(**KW, policies=fig3_traces.PAPER_POLICIES,
+                         engine="python")
+    for o, r in zip(out, py):
+        assert r["engine"] == "python"
+        assert ({c: v for c, v in o.items() if c not in ("engine", "sim_s")}
+                == {c: v for c, v in r.items()
+                    if c not in ("engine", "sim_s")})
+    with pytest.raises(KeyError, match="no simulation core"):
+        fig3_traces.run(**KW, policies=("fcfs", "srpt"), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             fig3_traces.run(**KW)

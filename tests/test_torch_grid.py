@@ -145,6 +145,9 @@ def test_grid_errors_are_loud():
         engines.simulate_grid("modbs-fcfs", [dataclasses.replace(
             cells[0], wl=None)], device="cpu")
     with pytest.raises(KeyError, match="no simulation core"):
+        engines.simulate_grid("srpt", cells, device="cpu")
+    with pytest.raises(ValueError, match="unknown engine 'torch' for "
+                                         "policy 'msf'"):
         engines.simulate_grid("msf", cells, device="cpu")
     assert engines.grid_registered() == tuple(
         (p, "torch") for p in sorted(SCAN))
@@ -410,8 +413,9 @@ FIG3 = dict(num_jobs=300, reps=2, ks=(128, 256), loads=(0.7,))
 def test_fig3_grid_rows_equal_per_cell_rows():
     """``fig3_traces.run`` with its grid pre-pass gives the per-cell run's
     rows on every column but ``sim_s``."""
-    grid = fig3_traces.run(**FIG3, device="cpu")
-    cell = fig3_traces.run(**FIG3, device="cpu", grid=False)
+    scan = fig3_traces.SCAN_POLICIES
+    grid = fig3_traces.run(**FIG3, policies=scan, device="cpu")
+    cell = fig3_traces.run(**FIG3, policies=scan, device="cpu", grid=False)
     strip = lambda rows: [{c: v for c, v in r.items() if c != "sim_s"}
                           for r in rows]
     assert len(grid) == 20 and strip(grid) == strip(cell)
@@ -434,7 +438,7 @@ def test_fig3_grid_that_raises_falls_back_to_per_cell(monkeypatch):
     monkeypatch.setattr(engines, "simulate_grid", grid)
     monkeypatch.setattr(engines, "simulate", lambda *a, **kw: sim(
         *a, **kw, **({"queue_cap": 2} if a[0] == "sf-srpt" else {})))
-    kw = dict(FIG3, ks=(128,))
+    kw = dict(FIG3, ks=(128,), policies=fig3_traces.SCAN_POLICIES)
     rows = fig3_traces.run(**kw, device="cpu")
     assert seen == list(fig3_traces.SCAN_POLICIES)
     for r in rows:
