@@ -55,7 +55,7 @@ The Figure-3 slice adds to each phase:
 The drain-mode failure slice adds:
 
 2. ``fcfs_fail_scan``, ``modbs_fail_scan`` and ``bs_fail_scan`` at the
-   Figure-1 widths of k in {256, 2048}, R = 16, J = 800 (ring capacity
+   Figure-1 widths of k in {256, 2048}, R = 16, J = 600 (ring capacity
    q_cap = J, so no ring can overflow), under two outage mixes over the
    arrival horizon h: ``bench_sim.bench_failures``' process (mtbf = h/4,
    mttr = h/400, single servers) and a heavier one (mtbf = h/4,
@@ -322,6 +322,29 @@ finite or the reference's infinite row with a note; the kernel rows' and
 the event-engine rows' ``sim_s`` are summed apart.  The drain comparisons
 of phase 2 run at J = 800 (1000 before) to pay for the phase.
 
+The theory slice (Erlang-B, ``core/theory.py``, the M/GI/s/s loss queue
+on the ``loss_scan`` kernel, the Fig. 1 / Fig. 2 / Thm 1-2 drivers and
+the real-log SWF path) adds a phase 3f, ``[theory]``: ``loss_scan``
+``torch.equal`` to its plain version on the card and on the CPU (R = 4,
+J = 2000, s in {1, 6, 24, 196, ``LOSS_S_MAX``} at an offered load of
+1.1 s, and equal arrival times) and to the heapq oracle of
+``bench/loss_cases`` at full width (R = 16, J = 100 000, s = 10, λ = 8,
+d = 1; blocking within 0.01 of Erlang-B); then, with the counts set to 0
+just before and read just after, Property 1 at Fig. 1 k = 2048, J =
+100 000, R = 16 (``modbs_scan``'s blocked mask of each class equal to
+``loss_scan`` with slots[c] on that class's substream; P_H within 0.01
+of eq. (16)), ``bench/fig2_regimes``' two sweeps at the defaults' cells
+(J = 100 000, R = 8), ``bench/theory_tables.run`` at its default
+``mc_jobs`` of 150 000 and ``fig3_traces.run_swf`` on an SDSC-SP2 log
+that ``write_swf`` wrote (J = 15 000, R = 4, the five scan policies):
+four launches of ``loss_scan``, nine of ``modbs_scan``, three each of
+``fcfs_scan`` and ``bs_scan``, two of ``srpt_scan``; phase 3's Fig. 1
+rows with ``bench/fig1_critical``'s ``ph_bound`` and ``zero_wait_R``
+columns (ModBS-π's P_H within 0.01 of ``ph_bound`` at each k); each
+driver card == CPU at a small size; and ``[time] loss_scan`` at R = 16,
+J = 100 000, s = 10 and 196 beside its bytes bound.  The drain
+comparisons of phase 2 run at J = 600 (800 before) to pay for the phase.
+
 Then it prints the card's name and power limit, one ``{"kernels": [...]}``
 line and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the repository around it, it exits non-zero and prints no
@@ -377,8 +400,9 @@ DRAIN_KS, DRAIN_SMALL_J, DRAIN_SMALL_R = (256, 1024), 2000, 4
 # J of the drain kernels' comparison with their plain versions on the card
 # (4000 until the BS-pi redesign, then 2000, then 1000; cut each time to
 # make room for a phase: 800 since the event-engine phase 3e, which also
-# holds the three drain kernels to engine="python")
-DRAIN_CMP_J = 800
+# holds the three drain kernels to engine="python"; 600 since the theory
+# phase 3f)
+DRAIN_CMP_J = 600
 # BS-pi's adversarial cases (bench/bs_cases.ADVERSARIAL): J and R of the
 # comparison with the plain version on the CPU
 BS_ADV_J, BS_ADV_R = 2000, 4
@@ -403,6 +427,14 @@ STREAM_KERNELS = {  # name -> (wrapper, the reference's stream core)
 }
 STREAM_FIELDS = ("mean_response", "var_response", "mean_wait", "var_wait",
                  "p_wait", "p_helper", "p_routed")
+# the theory path: R and J of loss_scan's comparisons with its plain
+# version, and the s of each (with LOSS_S_MAX, the largest the kernel
+# takes); test_erlang.py's M/M/s/s (R, J, s, lambda; d = 1) against the
+# heapq oracle; Property 1's Fig. 1 k (at MAIN_J, REPS); the s of the
+# [time] lines; theory_tables' mc_jobs (its default)
+LOSS_CMP, LOSS_SS = (4, 2000), (1, 6, 24, 196)
+LOSS_MMSS = (16, 100_000, 10, 8.0)
+PROP1_K, LOSS_TIME_SS, TABLES_MC_JOBS = 2048, (10, 196), 150_000
 
 
 def grid_launches(tag: str, counts: dict, want: dict) -> None:
@@ -2453,6 +2485,258 @@ def paper_path(dev, report: dict) -> None:
           f"s")
 
 
+def loss_bound(R: int, J: int) -> tuple[float, str]:
+    """Least time for one ``loss_scan`` call: (ms, what bounds it).
+
+    Bytes: arrival and service read once (8 + 8 bytes a job), the blocked
+    flag written once (1 byte).  Operations: one compare and one add a
+    job, far below the bytes' time.
+    """
+    t_bytes = R * J * 17 / HBM_BYTES_PER_S
+    t_ops = R * J * 2 / F64_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def theory_path(dev, report: dict, sw) -> None:
+    """Phase 3f, the theory path: ``loss_scan`` against its plain version
+    and the heapq oracle; then, with the counts set to 0 just before and
+    read just after, Property 1 at full width (``modbs_scan``'s blocked
+    mask of each class == ``loss_scan`` on the class's substream, P_H
+    within 0.01 of eq. (16)), Fig. 2's two sweeps through
+    ``bench/fig2_regimes``, ``bench/theory_tables.run`` and
+    ``fig3_traces.run_swf``; each driver card == CPU at small size; the
+    Fig. 1 rows of phase 3's sweep with ``bench/fig1_critical``'s theory
+    columns; ``[time] loss_scan``.  Adds ``loss_scan`` to ``report`` and
+    this path's launches to the entries of the kernels it runs."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.bench import (fig1_critical, fig2_regimes, fig3_traces,
+                                   loss_cases, theory_tables)
+    from repro_torch.core import erlang, sim_batch, theory
+    from repro_torch.core.partition import balanced_partition
+    from repro_torch.core.workload import figure1_workload
+    from repro_torch.data import swf
+    from repro_torch.kernels.msj_scan import kernel as K
+
+    t_phase = time.time()
+    strip = lambda rows: [{c: v for c, v in r.items() if c != "sim_s"}
+                          for r in rows]
+
+    # -- loss_scan against its plain version on the card ------------------
+    R, J = LOSS_CMP
+    cases = [(f"M/M/s/s s={s} load 1.1 s", s,
+              loss_cases.mmss_case(R, J, 1.1 * s, seed=s))
+             for s in LOSS_SS + (K.LOSS_S_MAX,)]
+    cases.append(("equal arrival times s=6", 6, loss_cases.ties_case(R, J)))
+    plain_ms = None
+    for what, s, (arrival, service) in cases:
+        a, v = (torch.tensor(x, device=dev) for x in (arrival, service))
+        out = K.loss_scan_fwd(a, v, s=s)
+        torch.cuda.synchronize()
+        t1 = time.time()
+        ref_dev = K.loss_scan_ref(a, v, s=s)
+        torch.cuda.synchronize()
+        ms_plain = (time.time() - t1) * 1e3
+        ref_cpu = K.loss_scan_ref(a.cpu(), v.cpu(), s=s)
+        if not (torch.equal(out, ref_dev) and torch.equal(out.cpu(),
+                                                          ref_cpu)):
+            fail(f"[theory] loss_scan on {what} (R={R} J={J}) differs from "
+                 f"its plain version")
+        if s == 6 and plain_ms is None:
+            plain_ms, (a6, v6) = ms_plain, (a, v)
+        print(f"[theory] loss_scan {what} R={R} J={J}: equal at tolerance "
+              f"0 (torch.equal) to the plain version on the card and on "
+              f"the CPU; blocked {out.float().mean().item():.6f}; plain on "
+              f"card {ms_plain:.1f} ms")
+    ms_cmp = cuda_ms(lambda: K.loss_scan_fwd(a6, v6, s=6), 5)
+    b_cmp, b_cmp_by = loss_bound(R, J)
+
+    # -- loss_scan against the heapq oracle at full width -----------------
+    R2, J2, s2, lam2 = LOSS_MMSS
+    arrival, service = loss_cases.mmss_case(R2, J2, lam2, seed=3)
+    out = K.loss_scan_fwd(torch.tensor(arrival, device=dev),
+                          torch.tensor(service, device=dev), s=s2).cpu()
+    t1 = time.time()
+    for r in range(R2):
+        if not np.array_equal(out[r].numpy(), loss_cases.loss_oracle(
+                arrival[r], service[r], s2)):
+            fail(f"[theory] loss_scan replication {r} differs from the "
+                 f"heapq oracle (M/M/s/s s={s2} lam={lam2} J={J2})")
+    e_b = erlang.erlang_b(s2, lam2)
+    pb = out.float().mean().item()
+    print(f"[theory] loss_scan M/M/s/s s={s2} lambda={lam2} d=1 R={R2} "
+          f"J={J2}: equal to the heapq oracle in every replication (oracle "
+          f"{time.time() - t1:.1f} s); blocking {pb:.6f}, Erlang-B "
+          f"E_{s2}({lam2:g}) {e_b:.6f}, |diff| {abs(pb - e_b):.6f} (limit "
+          f"0.01)")
+    if abs(pb - e_b) > 0.01:
+        fail(f"[theory] M/M/s/s blocking {pb} is not within 0.01 of "
+             f"Erlang-B {e_b}")
+
+    # -- the theory path, counts from 0 -----------------------------------
+    K.reset_launches()
+    t_main = time.time()
+    kp = PROP1_K
+    wl = figure1_workload(kp)
+    b = wl.sample_traces(MAIN_J, REPS, seed=11)
+    slots = balanced_partition(wl).slots
+    blocked = sim_batch.modified_bs_sim_batch(b, wl=wl, device=dev).blocked
+    bad = loss_cases.property1_mismatches(
+        b, blocked, slots, lambda a, v, s: sim_batch.loss_queue_sim_batch(
+            a, v, s, device=dev).blocked)
+    if bad:
+        fail(f"[theory] Property 1 fails at Fig. 1 k={kp} for (class, "
+             f"replication) {bad[:8]}")
+    ph, bound16 = blocked.mean(), theory.p_helper_upper_bound(wl)
+    print(f"[theory] Property 1 at Fig. 1 k={kp} J={MAIN_J} R={REPS}: "
+          f"modbs_scan's blocked mask of each class == loss_scan with "
+          f"slots[c] on that class's substream (slots {slots}); P_H "
+          f"{ph:.6f}, eq. (16) {bound16:.6f}, |diff| {abs(ph - bound16):.6f} "
+          f"(limit 0.01)")
+    if abs(ph - bound16) > 0.01:
+        fail(f"[theory] P_H {ph} is not within 0.01 of eq. (16) {bound16}")
+
+    t1 = time.time()
+    heavy = fig2_regimes.run_heavy_scan(device=dev)
+    sub = fig2_regimes.run_subcritical_scan(device=dev)
+    torch.cuda.synchronize()
+    wall2 = time.time() - t1
+    print(f"[theory] Fig. 2 through bench/fig2_regimes at the defaults' "
+          f"cells (heavy: k=512, loads 0.5-0.95; subcritical: load 0.85, "
+          f"k 256-2048; J=100000, R=8, not cut) on the card: "
+          f"{wall2:.1f} s, {len(heavy)} + {len(sub)} rows")
+    for r in heavy + sub:
+        print(f"[theory] fig2 {r['regime']} k={r['k']} load={r['load']} "
+              f"{r['policy']:>10}: mean_response={r['mean_response']:.6f} "
+              f"p_wait={r['p_wait']:.6f} p_helper={r['p_helper']} "
+              f"sim_s={r['sim_s']}")
+        for f in ("mean_response", "p_wait", "p95_response", "utilization"):
+            if not np.isfinite(r[f]):
+                fail(f"[theory] non-finite {f} in Fig. 2 row {r}")
+    if len(heavy) != 15 or len(sub) != 12:
+        fail(f"[theory] Fig. 2 gave {len(heavy)} + {len(sub)} rows, "
+             f"expected 15 + 12")
+
+    t1 = time.time()
+    tables = theory_tables.run(mc_jobs=TABLES_MC_JOBS, device=dev)
+    print(f"[theory] theory_tables.run(mc_jobs={TABLES_MC_JOBS}, the "
+          f"default, not cut) on the card: {time.time() - t1:.1f} s")
+    for r in tables:
+        print(f"[theory] {r['table']} k={r['k']} f_k={r['f_k']} value="
+              f"{r['value']:.6g} reference={r['reference']:.6g} mc="
+              f"{r['mc']}")
+        if r["mc"] is not None and not np.isfinite(r["mc"]):
+            fail(f"[theory] non-finite mc in {r}")
+
+    logdir = ROOT / "build" / "theory_swf"
+    shutil.rmtree(logdir, ignore_errors=True)
+    logdir.mkdir(parents=True)
+    log = str(logdir / "sdsc_sp2.swf")
+    swf.write_swf(swf.sdsc_sp2_trace(FIG3_J, k=512, load=0.85, seed=2), log)
+    t1 = time.time()
+    swf_rows = fig3_traces.run_swf(log, k=512, policies=fig3_traces.
+                                   SCAN_POLICIES, device=dev)
+    torch.cuda.synchronize()
+    print(f"[theory] run_swf on an SDSC-SP2 log write_swf wrote (J="
+          f"{FIG3_J}, k=512, R=4, moving-block bootstrap, the 5 scan "
+          f"policies): {time.time() - t1:.1f} s")
+    for r in swf_rows:
+        print(f"[theory] swf {r['policy']:>10}: mean_response="
+              f"{r['mean_response']:.6f} p_wait={r['p_wait']:.6f} "
+              f"sim_s={r['sim_s']}")
+        if not np.isfinite(r["mean_response"]):
+            fail(f"[theory] non-finite run_swf row {r}")
+    counts = K.launches()
+    wall = time.time() - t_main
+    want = {"loss_scan_fwd": len([c for c in slots if c]),
+            "modbs_scan_fwd": 1 + 2 + 5 + 1, "fcfs_scan_fwd": 2 + 1,
+            "bs_scan_fwd": 2 + 1, "srpt_scan_fwd": 2}
+    got = {w: n for w, n in counts.items() if n}
+    print(f"[theory] the path (Property 1, Fig. 2, theory tables, run_swf) "
+          f"on the card: {wall:.1f} s, launches {got} (expected {want})")
+    if got != want:
+        fail(f"[theory] the theory path launched {got}, expected {want}")
+
+    # -- Fig. 1 rows with the theory columns, from phase 3's sweep --------
+    rows1 = sw.rows("k", per_point_cols=[fig1_critical._theory_cols(k, 0.7)
+                                         for k in MAIN_KS])
+    for r in rows1:
+        print(f"[theory] fig1 k={r['k']} {r['policy']:>10}: p_helper="
+              f"{r['p_helper']} ph_bound={r['ph_bound']:.6f} zero_wait_R="
+              f"{r['zero_wait_R']:.6f} mean_response="
+              f"{r['mean_response']:.6f}")
+        if r["policy"] == "modbs-fcfs" and abs(r["p_helper"]
+                                               - r["ph_bound"]) > 0.01:
+            fail(f"[theory] Fig. 1 k={r['k']}: ModBS-pi's P_H "
+                 f"{r['p_helper']} is not within 0.01 of eq. (16)")
+
+    # -- each driver card == CPU at small size ----------------------------
+    small = dict(num_jobs=1000, reps=2)
+    pairs = [
+        ("fig1_critical.run_scan(ks=(256,), J=1000, R=2)", lambda d:
+         fig1_critical.run_scan(ks=(256,), device=d, **small)),
+        ("fig2_regimes.run_heavy_scan(loads=(0.5, 0.95), J=1000, R=2)",
+         lambda d: fig2_regimes.run_heavy_scan(loads=(0.5, 0.95), device=d,
+                                               **small)),
+        ("fig2_regimes.run_subcritical_scan(ks=(256, 2048), J=1000, R=2)",
+         lambda d: fig2_regimes.run_subcritical_scan(ks=(256, 2048),
+                                                     device=d, **small)),
+        ("theory_tables.run(mc_jobs=1000)", lambda d: theory_tables.run(
+            mc_jobs=1000, device=d)),
+        ("fig3_traces.run_swf(k=512, jobs=400, reps=2)", lambda d:
+         fig3_traces.run_swf(log, k=512, jobs=400, reps=2,
+                             policies=fig3_traces.SCAN_POLICIES, device=d))]
+    for what, run in pairs:
+        t1 = time.time()
+        card = run(dev)
+        t2 = time.time()
+        cpu = run("cpu")
+        if strip(card) != strip(cpu):
+            fail(f"[theory] {what}: the card's rows differ from the CPU's")
+        print(f"[theory] {what}: card == CPU on every column but sim_s "
+              f"({len(card)} rows; card {t2 - t1:.2f} s, CPU "
+              f"{time.time() - t2:.2f} s)")
+    shutil.rmtree(logdir, ignore_errors=True)
+
+    # -- [time] loss_scan at full width -----------------------------------
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    main_ms = {}
+    for s in LOSS_TIME_SS:
+        arrival, service = loss_cases.mmss_case(REPS, MAIN_J, 0.8 * s,
+                                                seed=s)
+        a, v = (torch.tensor(x, device=dev) for x in (arrival, service))
+        main_ms[s] = ms = cuda_ms(lambda: K.loss_scan_fwd(a, v, s=s), 3)
+        b_ms, b_by = loss_bound(REPS, MAIN_J)
+        print(f"[time] loss_scan s={s} offered load 0.8 s R={REPS} "
+              f"J={MAIN_J}: {ms:.3f} ms per launch ({ms * 1e3 / MAIN_J:.4f} "
+              f"us per step), bound {b_ms:.5f} ms ({b_by}: R J 17 bytes at "
+              f"3.35 TB/s), launches on the theory path "
+              f"{counts['loss_scan_fwd']}; {smi}")
+    report["loss_scan"] = dict(
+        name="loss_scan", route="cuda", source=SOURCE,
+        replaces="src/repro/core/sim_jax.py:105",
+        launches=counts["loss_scan_fwd"], max_abs_err=0.0,  # torch.equal
+        ms=ms_cmp, plain_ms=plain_ms, bound_ms=b_cmp, bound_by=b_cmp_by,
+        library_ms=None, shape=f"M/M/s/s s=6 R={R} J={J}",
+        main_ms_s10=main_ms[LOSS_TIME_SS[0]],
+        main_ms_s196=main_ms[LOSS_TIME_SS[1]],
+        main_bound_ms=loss_bound(REPS, MAIN_J)[0],
+        main_shape=f"M/M/s/s offered load 0.8 s R={REPS} J={MAIN_J}")
+    for name, wrapper in (("fcfs_scan", "fcfs_scan_fwd"),
+                          ("modbs_scan", "modbs_scan_fwd"),
+                          ("bs_scan", "bs_scan_fwd"),
+                          ("srpt_scan", "srpt_scan_fwd")):
+        report[name]["theory_launches"] = counts[wrapper]
+        report[name]["launches"] += counts[wrapper]
+    print(f"[theory] the theory phase took {time.time() - t_phase:.1f} s")
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean device time of ``fn`` over ``reps`` calls, queued behind a
     sleep kernel: :func:`repro_torch.bench.timing.device_ms`."""
@@ -3107,6 +3391,9 @@ def main() -> int:
 
     # -- 3e. the paper's policy set: the event engine as the oracle -------
     paper_path(dev, report)
+
+    # -- 3f. the theory path: the loss queue, Property 1, the drivers -----
+    theory_path(dev, report, sw)
 
     # -- 4. kernel times at the main path's largest shape -----------------
     for k in MAIN_KS[:-1]:            # and FCFS / ModBS at the other ks

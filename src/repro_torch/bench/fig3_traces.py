@@ -27,6 +27,15 @@ event-engine policy runs cell by cell.  ``--no-grid`` runs one
 ``engines.simulate`` per cell and policy instead; the rows are equal
 either way but for ``sim_s``.  ``--ckpt-dir D`` checkpoints each finished
 cell and ``--resume`` reloads them, as the reference script's flags do.
+
+``--swf LOG`` runs a real Standard Workload Format log instead
+(:func:`run_swf`; ``--k`` servers, ``--load`` for the partition fit,
+moving-block bootstrap unless ``--bootstrap iid``)::
+
+    PYTHONPATH=src python -m repro_torch.bench.fig3_traces --swf LOG --k 128
+
+The policy sets, the row builders and the CSV writer are shared with the
+Fig. 1/2 scripts (:mod:`repro_torch.bench.common`).
 """
 
 from __future__ import annotations
@@ -39,123 +48,21 @@ import numpy as np
 
 from ..checkpoint import completed_steps, restore_checkpoint, save_checkpoint
 from ..core import engines
-from ..core.sim_batch import QueueOverflowError, _ci95
 from ..core.workload import BatchTrace, kit_fh2_workload, sdsc_sp2_workload
-from ..data.swf import kit_fh2_trace, sdsc_sp2_trace
+from ..data.swf import (kit_fh2_trace, parse_swf, sdsc_sp2_trace,
+                        trace_to_workload)
+from .common import (PAPER_POLICIES, emit, grid_precompute,
+                     run_policies_batch)
 
 COLS = ["dataset", "k", "load", "engine", "policy", "jobs", "reps",
         "mean_response", "ci95_response", "mean_wait", "p_wait", "p_helper",
         "p95_response", "utilization", "sim_s"]
-
-#: the policy set the paper benchmarks against (Figures 1-3); the
-#: reference's ``benchmarks/common.py`` ``PAPER_POLICIES``
-PAPER_POLICIES = ("bs", "fcfs", "serverfilling", "sf-srpt", "ff-srpt", "msf")
 
 #: the policies with a scan core (``engine="torch"``, a kernel on the card)
 SCAN_POLICIES = ("fcfs", "modbs-fcfs", "bs-fcfs", "sf-srpt", "ff-srpt")
 
 _DATASETS = (("sdsc_sp2", sdsc_sp2_trace, sdsc_sp2_workload),
              ("kit_fh2", kit_fh2_trace, kit_fh2_workload))
-
-
-def _batch_row(policy: str, batch: BatchTrace, res) -> dict:
-    """CSV row of a BatchSimResult — the reference script's float ops."""
-    busy = (batch.need * batch.service).sum(axis=1)     # [R]
-    completion = batch.arrival + res.response
-    horizon = completion.max(axis=1)                    # [R]
-    ph = res.p_helper
-    return {
-        "policy": policy, "jobs": batch.num_jobs, "reps": batch.reps,
-        "mean_response": res.mean_response.mean(),
-        "ci95_response": _ci95(res.mean_response),
-        "mean_wait": res.mean_wait.mean(),
-        "p_wait": res.p_wait.mean(),
-        "ci95_p_wait": _ci95(res.p_wait),
-        "p_helper": None if ph is None else ph.mean(),
-        "p95_response": np.percentile(res.response, 95, axis=1).mean(),
-        "utilization": (busy / (batch.k * horizon)).mean(),
-    }
-
-
-def grid_precompute(cells, policies, *, engine: str = "torch",
-                    device) -> dict:
-    """One ``engines.simulate_grid`` call per scan policy over ``cells``,
-    a sequence of ``(batch, wl)`` pairs of one ``reps``.
-
-    Returns ``{policy: (results, wall per cell)}`` for every canonical
-    policy with a ``(policy, engine)`` grid core, the wall time of the
-    call spread evenly over its cells.  Policies without one (the event
-    engine's) are absent and run cell by cell.  A grid that raises
-    ``RuntimeError`` (an overflowing cell fails the whole grid) is left
-    out too, so its cells run one by one and the overflowing one gives
-    the reference's row of infinite response times — the reference's
-    ``grid_precompute``.
-    """
-    gcells = [engines.GridCell(batch, wl=wl) for batch, wl in cells]
-    out = {}
-    for pol in dict.fromkeys(engines.canonical(p) for p in policies):
-        if (pol, engine) not in engines.grid_registered():
-            continue
-        t0 = time.time()
-        try:
-            results = engines.simulate_grid(pol, gcells, engine=engine,
-                                            device=device)
-        except RuntimeError:
-            continue
-        out[pol] = (results, (time.time() - t0) / len(gcells))
-    return out
-
-
-def run_policies_batch(batch: BatchTrace, wl, policies, *,
-                       engine: str = "torch", device, extra_cols=None,
-                       precomputed=None, cell: int = 0) -> list[dict]:
-    """One row per policy on a shared batch, through ``engines.simulate``.
-
-    A policy with no core under ``engine`` (``serverfilling``, ``msf``
-    under ``"torch"``) runs on ``engine="python"``, announced once per
-    process by :func:`engines.warn_fallback`; the row's ``engine`` column
-    records the core that ran, and a policy that has a ``"torch"`` core
-    never goes to the event engine.  An unknown policy raises
-    ``KeyError``.  A policy whose bounded queue overflows on this batch
-    (unstable at this load), or whose event-engine run exceeds its event
-    budget, gives the reference's row of infinite response times with the
-    error in ``note``.  ``precomputed`` (from :func:`grid_precompute`)
-    gives a policy it holds its grid's result for ``cell`` instead, with
-    the same row assembly.
-    """
-    rows = []
-    for name in policies:
-        pol = engines.canonical(name)
-        use = engines._resolve_fallback(pol, engine, True)
-        pre = (precomputed or {}).get(pol)
-        if pre is not None:
-            row = _batch_row(pol, batch, pre[0][cell])
-            row["engine"] = use
-            row["sim_s"] = round(pre[1], 2)
-            if extra_cols:
-                row.update(extra_cols)
-            rows.append(row)
-            continue
-        t0 = time.time()
-        try:
-            res = engines.simulate(pol, batch, engine=use, device=device,
-                                   wl=wl)
-            row = _batch_row(pol, batch, res)
-        except RuntimeError as e:
-            if use != "python" and not isinstance(e, QueueOverflowError):
-                raise
-            row = {"policy": pol, "jobs": batch.num_jobs,
-                   "reps": batch.reps,
-                   "mean_response": float("inf"), "mean_wait": float("inf"),
-                   "p_wait": 1.0, "p_helper": None,
-                   "p95_response": float("inf"), "utilization": 0.0,
-                   "note": str(e)[:60]}
-        row["engine"] = use
-        row["sim_s"] = round(time.time() - t0, 2)
-        if extra_cols:
-            row.update(extra_cols)
-        rows.append(row)
-    return rows
 
 
 def run(num_jobs=15_000, seed=0, ks=(512, 1024), loads=(0.5, 0.7, 0.85),
@@ -227,20 +134,28 @@ def run(num_jobs=15_000, seed=0, ks=(512, 1024), loads=(0.5, 0.7, 0.85),
     return rows
 
 
-def emit(rows: list[dict], cols: list[str], file=None) -> None:
-    """Print ``rows`` as CSV (the reference scripts' format)."""
-    file = file or sys.stdout
-    print(",".join(cols), file=file)
-    for r in rows:
-        print(",".join(_fmt(r.get(c)) for c in cols), file=file)
+def run_swf(path: str, k: int = 512, load: float = 0.85,
+            jobs: int | None = None, seed=0, policies=PAPER_POLICIES,
+            engine: str = "torch", reps=4, bootstrap="block",
+            device="cuda") -> list[dict]:
+    """A real SWF log on the bootstrap substrate (the reference's
+    ``run_swf``): one row per policy, ``dataset`` "swf".
 
-
-def _fmt(v) -> str:
-    if v is None:
-        return ""
-    if isinstance(v, float):
-        return f"{v:.6g}"
-    return str(v)
+    The log's own arrival / service / need columns (``parse_swf``, at
+    most ``jobs`` rows) are bootstrap-resampled into ``reps``
+    replications (moving-block by default: real logs are bursty);
+    ``load`` only feeds the eq.-2 partition fit of
+    :func:`trace_to_workload`.  ``engine`` and ``device`` as in
+    :func:`run`.
+    """
+    dev = (engines.resolve_device(device)
+           if engine in engines.DEVICE_ENGINES else None)
+    trace = parse_swf(path, k=k, limit=jobs)
+    wl = trace_to_workload(trace, k, load)
+    batch = BatchTrace.from_trace(trace, reps, seed=seed, method=bootstrap)
+    return run_policies_batch(
+        batch, wl, policies, engine=engine, device=dev,
+        extra_cols={"dataset": "swf", "k": k, "load": load})
 
 
 def main(argv=None):
@@ -260,7 +175,10 @@ def main(argv=None):
     ap.add_argument("--engine", choices=("torch", "python"), default="torch",
                     help="torch = the kernels where a policy has one; "
                          "python = every policy on the event engine")
-    ap.add_argument("--bootstrap", choices=("iid", "block"), default="iid")
+    ap.add_argument("--bootstrap", choices=("iid", "block"), default=None,
+                    help="job-record resampling: iid or moving-block "
+                         "(default: iid for the synthesized tables, block "
+                         "for --swf logs: real arrivals are bursty)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (their plain versions)")
@@ -271,13 +189,29 @@ def main(argv=None):
                     help="checkpoint each finished cell's rows here")
     ap.add_argument("--resume", action="store_true",
                     help="reload the cells checkpointed in --ckpt-dir")
+    ap.add_argument("--swf", default=None,
+                    help="a real SWF log to run instead of the tables")
+    ap.add_argument("--k", type=int, default=512,
+                    help="server count for the --swf path")
+    ap.add_argument("--load", type=float, default=0.85,
+                    help="partition-fit load for the --swf path")
     args = ap.parse_args(argv)
+    if args.swf and (args.ckpt_dir or args.resume):
+        ap.error("--ckpt-dir/--resume apply to the synthesized-table sweep")
     t0 = time.time()
-    rows = run(num_jobs=args.jobs, seed=args.seed, ks=tuple(args.ks),
-               loads=tuple(args.loads), policies=tuple(args.policies),
-               engine=args.engine, reps=args.reps, bootstrap=args.bootstrap,
-               device=args.device, grid=args.grid, ckpt_dir=args.ckpt_dir,
-               resume=args.resume)
+    if args.swf:
+        rows = run_swf(args.swf, k=args.k, load=args.load, jobs=args.jobs,
+                       seed=args.seed, policies=tuple(args.policies),
+                       engine=args.engine, reps=args.reps,
+                       bootstrap=args.bootstrap or "block",
+                       device=args.device)
+    else:
+        rows = run(num_jobs=args.jobs, seed=args.seed, ks=tuple(args.ks),
+                   loads=tuple(args.loads), policies=tuple(args.policies),
+                   engine=args.engine, reps=args.reps,
+                   bootstrap=args.bootstrap or "iid", device=args.device,
+                   grid=args.grid, ckpt_dir=args.ckpt_dir,
+                   resume=args.resume)
     wall = time.time() - t0
     emit(rows, COLS)
     report_engines(rows, wall)

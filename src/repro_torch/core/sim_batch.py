@@ -8,8 +8,11 @@ failure helpers included), the grid plans and extracts that stack a
 grid's cells onto one lane axis, and :func:`sweep_many_server`, which drives
 the Fig. 1/2 k- and load-sweeps, with or without ``failures=`` and
 crash-resumable with ``ckpt_dir=``, through
-:func:`repro_torch.core.engines.simulate_grid`.  Streams are in
-:mod:`repro_torch.core.stream`.
+:func:`repro_torch.core.engines.simulate_grid`.  The reference's batched
+entry points are here too: ``loss_queue_sim_batch`` (the M/GI/s/s loss
+queue, on the ``loss_scan`` kernel) and ``fcfs_sim_batch``,
+``modified_bs_sim_batch``, ``bs_sim_batch`` over the registry.  Streams
+are in :mod:`repro_torch.core.stream`.
 """
 
 from __future__ import annotations
@@ -26,8 +29,8 @@ from ..checkpoint import (completed_steps, require_layout,
 from . import engines
 from . import failures as flr
 from .partition import BalancedPartition, balanced_partition
-from .sim_torch import (_bs_args, _bs_scatter_events, _check_classes,
-                        _srpt_args, _srpt_scatter_events)
+from .sim_torch import (SimResult, _bs_args, _bs_scatter_events,
+                        _check_classes, _srpt_args, _srpt_scatter_events)
 from .workload import BatchTrace, Workload
 
 #: waiting-time epsilon for P[wait > 0] — the reference's ``WAIT_EPS``
@@ -75,6 +78,70 @@ class BatchSimResult:
     def p_wait(self) -> np.ndarray:
         """[R] queueing probability P[wait > 0] of each replication."""
         return (self.wait > WAIT_EPS).mean(axis=1)
+
+    def rep(self, r: int) -> SimResult:
+        """Replication ``r`` as a single-trace :class:`SimResult`."""
+        return SimResult(
+            response=self.response[r],
+            p_helper=None if self.p_helper is None
+            else float(self.p_helper[r]),
+            blocked=None if self.blocked is None else self.blocked[r],
+            p_routed=None if self.p_routed is None
+            else float(self.p_routed[r]),
+            start=None if self.start is None else self.start[r])
+
+
+def loss_queue_sim_batch(arrival, service, s: int, *,
+                         device=None) -> BatchSimResult:
+    """R independent M/GI/s/s sample paths of [R, J] arrival and service
+    times (numpy arrays or tensors; ``sim_batch.loss_queue_sim_batch`` of
+    the reference).
+
+    ``blocked`` is each job's loss; ``response`` is its service time when
+    admitted and 0 when blocked, ``wait`` zero.  CPU tensors run the plain
+    version (``sim_torch._loss_core``), CUDA tensors the ``loss_scan``
+    kernel.  ``device=None`` keeps a tensor where it is and sends numpy
+    input to the card; ``device="cuda"`` without a card raises.  ``s < 1``
+    raises ``ValueError``.
+    """
+    from ..kernels.msj_scan.kernel import loss_scan_fwd
+
+    if device is None:
+        device = (arrival.device if isinstance(arrival, torch.Tensor)
+                  else "cuda")
+    dev = engines.resolve_device(device)
+    a, v = (torch.as_tensor(x, dtype=torch.float64).to(dev).contiguous()
+            for x in (arrival, service))
+    blocked = loss_scan_fwd(a, v, s=s).cpu().numpy()
+    resp = np.where(blocked, 0.0, v.cpu().numpy())
+    return BatchSimResult(response=resp, wait=np.zeros_like(resp),
+                          p_helper=None, blocked=blocked)
+
+
+def fcfs_sim_batch(batch: BatchTrace, engine: str = "torch", *,
+                   device="cuda") -> BatchSimResult:
+    """Batched FCFS via the engine registry."""
+    return engines.simulate("fcfs", batch, engine=engine, device=device)
+
+
+def modified_bs_sim_batch(batch: BatchTrace,
+                          partition: BalancedPartition | None = None,
+                          wl: Workload | None = None,
+                          engine: str = "torch", *,
+                          device="cuda") -> BatchSimResult:
+    """Batched ModifiedBS-FCFS via the engine registry."""
+    return engines.simulate("modbs-fcfs", batch, engine=engine,
+                            device=device, partition=partition, wl=wl)
+
+
+def bs_sim_batch(batch: BatchTrace,
+                 partition: BalancedPartition | None = None,
+                 wl: Workload | None = None,
+                 queue_cap: int | None = None,
+                 engine: str = "torch", *, device="cuda") -> BatchSimResult:
+    """Batched BS-FCFS (Definition 1) via the engine registry."""
+    return engines.simulate("bs-fcfs", batch, engine=engine, device=device,
+                            partition=partition, wl=wl, queue_cap=queue_cap)
 
 
 # -- shared input-prep / result-assembly helpers -----------------------------

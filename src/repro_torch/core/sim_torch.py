@@ -18,6 +18,8 @@ padding column at the end of each scattered state tensor, which no read
 ever sees.  Unlike the reference, the steps update their state tensors in
 place where that saves a copy; the state is private to each scan.
 
+* ``_loss_core``  — the M/GI/s/s loss queue (``sim_jax._loss_core``), the
+  Property-1 building block: each class row of ModifiedBS-π is one;
 * ``_fcfs_core``  — multiserver-job FCFS (Kiefer–Wolfowitz, O(k) sorted
   roll-and-insert step, ``sim_jax._fcfs_sorted_step``/``_fcfs_core``);
 * ``_modbs_core`` — ModifiedBS-π with π = FCFS (Definition 2): per-class
@@ -34,10 +36,18 @@ place where that saves a copy; the state is private to each scan.
 * ``_srpt_core``  — the preemptive ServerFilling-SRPT / FirstFit-SRPT
   2J-event scan over a Q-slot table (``sim_jax._srpt_make_step``, the
   reference step, not its XLA:CPU rewrite ``_srpt_fast_make_step``).
+
+The single-trace API at the end (``loss_queue_sim``, ``fcfs_sim``,
+``modified_bs_sim``, ``bs_sim``, ``estimate_p_helper``, returning
+:class:`SimResult`) is the counterpart of ``sim_jax``'s: each runs a trace
+as a one-replication batch through :mod:`repro_torch.core.engines` (the
+loss queue through :func:`repro_torch.core.sim_batch.loss_queue_sim_batch`),
+on the card unless ``device="cpu"``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -79,6 +89,37 @@ def _free_times(R: int, m: int, live, device):
     dead = torch.arange(m, device=device)[None, :] >= live[:, None]
     return torch.zeros(R, m, dtype=_F64, device=device).masked_fill_(dead,
                                                                      _BIG)
+
+
+# --------------------------------------------------------------------------
+# M/GI/s/s loss queue
+# --------------------------------------------------------------------------
+
+
+def _loss_core(arrival, service, s: int):
+    """Blocked masks of R M/GI/s/s sample paths: [R, J] float64 arrival
+    and service -> [R, J] bool (``sim_jax._loss_core``).
+
+    A job is blocked when all ``s`` completion times are above its
+    arrival; otherwise it takes the earliest (argmin, first index on
+    ties) and holds it until ``t + svc``.  ``s < 1`` raises (the
+    reference's argmin of an empty row fails).
+    """
+    if s < 1:
+        raise ValueError(f"the loss queue needs s >= 1 servers, got {s}")
+    R, J = arrival.shape
+    dev = arrival.device
+    comp = torch.zeros(R, s, dtype=_F64, device=dev)
+    lanes = torch.arange(R, device=dev)
+    blocked = torch.empty(R, J, dtype=torch.bool, device=dev)
+    for j in range(J):
+        t = arrival[:, j]
+        b = (comp > t[:, None]).sum(1) >= s
+        idx = comp.argmin(1)
+        comp[lanes, idx] = torch.where(b, comp[lanes, idx],
+                                       t + service[:, j])
+        blocked[:, j] = b
+    return blocked
 
 
 # --------------------------------------------------------------------------
@@ -1072,3 +1113,94 @@ def _srpt_args(batch, queue_cap) -> int:
         raise ValueError(f"queue_cap must be >= 1, got {queue_cap}")
     q = max(1, min(J, int(queue_cap)))
     return 1 << (q - 1).bit_length()
+
+
+# --------------------------------------------------------------------------
+# The single-trace API (``sim_jax``'s wrappers).  Imports of ``engines``,
+# ``sim_batch`` and ``workload`` are local: they import this module.
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class SimResult:
+    """One sample path's results (the reference's ``JaxSimResult``)."""
+
+    response: np.ndarray        # [J] response time per job
+    p_helper: float | None      # fraction SERVED on helpers (BSF only)
+    blocked: np.ndarray | None  # [J] bool, loss queue and ModBS only
+    p_routed: float | None = None  # fraction routed to H on arrival (BSF);
+                                   # > p_helper under Def.-1 pull-backs
+    start: np.ndarray | None = None  # [J] raw start times (BS-FCFS only)
+
+    @property
+    def mean_response(self) -> float:
+        return float(self.response.mean())
+
+
+def _as_batch(trace):
+    """The trace as a one-replication batch (the registry cores' input)."""
+    from .workload import BatchTrace
+
+    return BatchTrace(arrival=trace.arrival[None], cls=trace.cls[None],
+                      service=trace.service[None], need=trace.need[None],
+                      k=trace.k, C=trace.C)
+
+
+def loss_queue_sim(arrival, service, s: int, *, device="cuda") -> SimResult:
+    """Exact M/GI/s/s sample path of one [J] trace: the per-job blocked
+    mask, and response = service where admitted, 0 where blocked.  Runs
+    the ``loss_scan`` kernel on the card, its plain version with
+    ``device="cpu"``."""
+    from .sim_batch import loss_queue_sim_batch
+
+    res = loss_queue_sim_batch(np.asarray(arrival)[None],
+                               np.asarray(service)[None], s, device=device)
+    return SimResult(response=res.response[0], p_helper=None,
+                     blocked=res.blocked[0])
+
+
+def fcfs_sim(trace, engine: str = "torch", *, device="cuda") -> SimResult:
+    """Multiserver-job FCFS (head-of-line blocking), exact sample path,
+    through the registry's ``(fcfs, engine)`` core."""
+    from . import engines
+
+    return engines.simulate("fcfs", _as_batch(trace), engine=engine,
+                            device=device).rep(0)
+
+
+def modified_bs_sim(trace, partition=None, wl=None, engine: str = "torch",
+                    *, device="cuda") -> SimResult:
+    """ModifiedBS-FCFS (Definition 2), exact sample path."""
+    from . import engines
+
+    return engines.simulate("modbs-fcfs", _as_batch(trace), engine=engine,
+                            device=device, partition=partition,
+                            wl=wl).rep(0)
+
+
+def bs_sim(trace, partition=None, wl=None, queue_cap: int | None = None,
+           engine: str = "torch", *, device="cuda") -> SimResult:
+    """BS-FCFS (Definition 1, rule-3 pull-backs), exact sample path.
+
+    ``queue_cap`` bounds the per-class helper-wait rings (default
+    ``min(J, 8192)``); an overflow raises rather than returning a wrong
+    path.
+    """
+    from . import engines
+
+    return engines.simulate("bs-fcfs", _as_batch(trace), engine=engine,
+                            device=device, partition=partition, wl=wl,
+                            queue_cap=queue_cap).rep(0)
+
+
+def estimate_p_helper(wl, num_jobs: int = 200_000, seed: int = 0,
+                      reps: int = 1, *, device=None) -> float:
+    """Monte-Carlo P_H^{ModifiedBS-π} (the Cor.-1 upper bound): ``reps``
+    Philox replications of ``num_jobs`` arrivals, averaged.  Runs the
+    ``modbs_scan`` kernel on the card (``device=None`` or ``"cuda"``),
+    its plain version with ``device="cpu"``."""
+    from .sim_batch import modified_bs_sim_batch
+
+    batch = wl.sample_traces(num_jobs, reps, seed=seed)
+    res = modified_bs_sim_batch(batch, wl=wl, device=device or "cuda")
+    return float(res.p_helper.mean())

@@ -35,6 +35,7 @@ LIBRARY = Library("msj_scan", SOURCES, NVCC_FLAGS, {
     "msj_srpt_scan": [_P] * 6 + [_I] + [_P] * 8 + [_I] * 4 + [_P],
     "msj_srpt_table_bytes": [_I, ctypes.POINTER(ctypes.c_longlong)],
     "msj_stable_sort": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "msj_loss_scan": [_P] * 3 + [_I] * 3 + [_P],
 }, error_fn="msj_error_string")
 
 __all__ = ["LIBRARY", "NVCC_FLAGS", "SOURCES"]

@@ -10,7 +10,9 @@
 //   modbs_fail_scan  <- modbs_fail_scan_fwd  (_modbs_fail_kernel)
 //   bs_scan          <- bs_scan_fwd          (_bs_kernel)
 //   bs_fail_scan     <- bs_fail_scan_fwd     (_bs_fail_kernel)
-// and computes, bit for bit, the steps of repro/core/sim_jax.py
+// It also holds loss_scan, the M/GI/s/s loss queue of sim_jax._loss_core,
+// which the reference runs as a lax.scan with no Pallas kernel (see its
+// note below), and computes, bit for bit, the steps of repro/core/sim_jax.py
 // (_fcfs_sorted_step, _fcfs_fail_step, _modbs_step, _modbs_fail_step,
 // _bs_make_step, _bs_fail_make_step) and of their plain PyTorch versions
 // in repro_torch/core/sim_torch.py.  Each kernel body is a template on
@@ -1370,6 +1372,68 @@ __global__ void __launch_bounds__(32)
   }
 }
 
+// ---------------------------------------------------------------------------
+// The M/GI/s/s loss queue (sim_jax._loss_core, the Property-1 building
+// block; the reference scans it with lax.scan, no Pallas kernel): one warp
+// per replication.  Shared memory holds the s completion times as one
+// sorted row, kept as a ModBS class row is: the plain step's job is
+// blocked when all s entries are > t, which is row[0] > t, and an admitted
+// job replaces a smallest entry with t + svc (row_replace_min).  Only the
+// row's multiset reaches the output (the plain step's first argmin is one
+// of the equal minima), so the order it is kept in changes nothing, and the
+// only arithmetic is that one float64 add.  What bounds it: each step
+// depends on the last, a chain of a shared load, a compare, a ballot and a
+// shared store (for s > 32 a pass over the row's 32-entry chunks), J steps
+// per replication; the bytes, R*J*17, take microseconds.  Arrival and
+// service are read in 32-entry windows, one entry a lane, the next window
+// in flight; the blocked flags are stored 32 at a time.
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(32)
+    loss_scan_kernel(const double* __restrict__ arrival,
+                     const double* __restrict__ service,
+                     bool* __restrict__ blocked_out, int J, int s) {
+  extern __shared__ double smem[];
+  double* row = smem;
+  const int lane = threadIdx.x;
+  const size_t off = (size_t)blockIdx.x * J;
+  const double* a = arrival + off;
+  const double* sv = service + off;
+  for (int i = lane; i < s; i += 32) row[i] = 0.0;
+  double cur_a, cur_s, nxt_a, nxt_s;
+  {
+    const int i0 = min(lane, J - 1), i1 = min(32 + lane, J - 1);
+    cur_a = a[i0]; cur_s = sv[i0];
+    nxt_a = a[i1]; nxt_s = sv[i1];
+  }
+  bool my_blocked = false;
+  __syncwarp();
+  for (int j = 0; j < J; ++j) {
+    const int src = j & 31;
+    if (src == 0 && j > 0) {
+      cur_a = nxt_a; cur_s = nxt_s;
+      const int i1 = min(j + 32 + lane, J - 1);
+      nxt_a = a[i1]; nxt_s = sv[i1];
+    }
+    const double t = __shfl_sync(kFull, cur_a, src);
+    const double svc = __shfl_sync(kFull, cur_s, src);
+    const double r0 = row[0];   // the earliest completion
+    double cur = INFINITY, nxt = INFINITY;
+    if (s <= 32) {
+      if (lane < s) cur = row[lane];
+      if (lane + 1 < s) nxt = row[lane + 1];
+    }
+    const bool blocked = r0 > t;
+    if (!blocked) row_replace_min(row, s, __dadd_rn(t, svc), cur, nxt);
+    my_blocked = lane == src ? blocked : my_blocked;
+    if (src == 31 || j == J - 1) {
+      if (lane <= src) blocked_out[off + (j & ~31) + lane] = my_blocked;
+    }
+    // the row's writes before the next step's reads
+    __syncwarp();
+  }
+}
+
 // Opt in to more than 48 KiB of dynamic shared memory where needed; fail
 // with cudaErrorInvalidValue when the block's state does not fit.
 template <typename K>
@@ -1510,6 +1574,17 @@ int msj_bs_fail_scan(const double* arrival, const int* cls, const int* need,
       arrival, cls, need, service, fail_t, fail_tgt, fail_up, slots, h_lane,
       j_live, tagged, rec_t, ovf, ring_t, ring_i, J, F, C, s_max, h, q_cap,
       msj_bs_cache_lines(C), length);
+  return (int)cudaGetLastError();
+}
+
+// The loss queue: s completion times of 8 bytes in shared memory.
+int msj_loss_scan(const double* arrival, const double* service,
+                  bool* blocked, int R, int J, int s, void* stream) {
+  const size_t smem = (size_t)s * sizeof(double);
+  cudaError_t err = prepare_smem(loss_scan_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  loss_scan_kernel<<<R, 32, smem, static_cast<cudaStream_t>(stream)>>>(
+      arrival, service, blocked, J, s);
   return (int)cudaGetLastError();
 }
 

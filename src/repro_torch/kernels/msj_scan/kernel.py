@@ -13,6 +13,9 @@ BS-π the trace plus the failure records [R, F].  The carried
 ``*_stream_fwd`` wrappers run one chunk of a stream: they take the carry
 the previous chunk gave out and give out the next, in the port's
 canonical form on both devices (``repro_torch.core.stream``).
+``loss_scan_fwd`` runs the M/GI/s/s loss queue ([R, J] arrival and
+service, ``s`` servers), which the reference computes as a ``lax.scan``
+with no Pallas kernel (``sim_jax._loss_core``).
 
 A grid stacks cells of different sizes on the R axis (lanes), so each
 wrapper also takes per-lane sizes, int32 [R] tensors: ``k_lane`` (FCFS
@@ -56,6 +59,12 @@ _J_MAX = (2**31 - 1) // 3
 
 
 # -- plain versions ----------------------------------------------------------
+
+
+def loss_scan_ref(arrival, service, *, s: int):
+    """Plain M/GI/s/s scan: [R, J] arrival/service -> blocked [R, J]
+    bool."""
+    return sim_torch._loss_core(arrival, service, s)
 
 
 def fcfs_scan_ref(arrival, need, service, *, k: int, k_lane=None):
@@ -246,6 +255,19 @@ def _fcfs_fits(k: int) -> None:
                          f"({_SMEM_MAX} bytes on an H100)")
 
 
+#: the most servers the loss-queue kernel takes: their completion times,
+#: 8 bytes each, fill one block's shared memory (29 056)
+LOSS_S_MAX = _SMEM_MAX // 8
+
+
+def _loss_fits(s: int) -> None:
+    if s > LOSS_S_MAX:
+        raise ValueError(f"s={s} exceeds {LOSS_S_MAX}: the loss-queue "
+                         f"kernel keeps the s completion times, 8 bytes "
+                         f"each, in one block's shared memory ({_SMEM_MAX} "
+                         f"bytes on an H100)")
+
+
 def _modbs_fits(C: int, s_max: int, h: int) -> None:
     need = 8 * C * s_max + _spill_bytes(h)
     if need > _SMEM_MAX:
@@ -264,6 +286,34 @@ def _stream(dev: torch.device) -> ctypes.c_void_p:
 
 
 # -- wrappers ----------------------------------------------------------------
+
+
+def loss_scan_fwd(arrival, service, *, s: int):
+    """arrival/service [R, J] float64 -> blocked [R, J] bool.
+
+    The M/GI/s/s loss queue (Property 1's building block): job j is
+    blocked when all s servers are busy at its arrival (every completion
+    time > A_j); otherwise it takes the earliest-free server until
+    A_j + S_j.  ``s`` must lie in [1, :data:`LOSS_S_MAX`] on the card
+    (>= 1 on the CPU).
+    """
+    dev = _check(arrival=arrival, service=service)
+    if s < 1:
+        raise ValueError(f"the loss queue needs s >= 1 servers, got {s}")
+    if dev.type == "cpu":
+        return loss_scan_ref(arrival, service, s=s)
+    _loss_fits(s)
+    R, J = arrival.shape
+    blocked = torch.empty(R, J, dtype=torch.bool, device=dev)
+    if R == 0 or J == 0:
+        return blocked
+    lib = build.LIBRARY.load()
+    with torch.cuda.device(dev):
+        rc = lib.msj_loss_scan(_ptr(arrival), _ptr(service), _ptr(blocked),
+                               R, J, s, _stream(dev))
+    build.LIBRARY.raise_on(rc, "loss_scan", f"R={R} J={J} s={s}")
+    loss_scan_fwd.launches += 1
+    return blocked
 
 
 def fcfs_scan_fwd(arrival, need, service, *, k: int, k_lane=None):
@@ -789,7 +839,7 @@ def bs_stream_fwd(arrival, cls, need, service, slots, horizon, carry, *,
 WRAPPERS = (fcfs_scan_fwd, modbs_scan_fwd, bs_scan_fwd, srpt_scan_fwd,
             stable_sort_fwd, fcfs_fail_scan_fwd, modbs_fail_scan_fwd,
             bs_fail_scan_fwd, fcfs_stream_fwd, modbs_stream_fwd,
-            bs_stream_fwd)
+            bs_stream_fwd, loss_scan_fwd)
 
 for _w in WRAPPERS:
     _w.launches = 0

@@ -28,10 +28,11 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.bench import bs_cases, fm_cases, srpt_cases, stream_cases
+from repro_torch.bench import (bs_cases, fm_cases, loss_cases, srpt_cases,
+                               stream_cases)
 from repro_torch.core import failures as flr
 from repro_torch.core import (engines, partition, sim_batch, sim_torch,
-                              stream, workload)
+                              stream, theory, workload)
 from repro_torch.core.sim_torch import _bs_args
 from repro_torch.kernels import msj_scan
 from repro_torch.kernels.decode_attention import (decode_attention_fwd,
@@ -872,3 +873,56 @@ def test_cuda_wkv_kernel_matches_plain_version_on_the_card(rng):
                 _wkv_close(y.cpu(), ry.cpu().float().numpy(),
                            bf16=dt == torch.bfloat16)
                 _wkv_close(s_T.cpu(), rs.cpu().numpy())
+
+
+# -- the loss queue (loss_scan) and Property 1 ------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 6, 24, 196, K.LOSS_S_MAX])
+def test_cuda_loss_scan_equals_plain_version_and_oracle(s):
+    """``loss_scan`` at R = 4, J = 2000 against its plain version on the
+    card (``torch.equal``) and the heapq oracle, at an offered load of
+    1.1 s (blocking) and on equal arrival times; an ``s`` above the
+    kernel's shared memory raises."""
+    dev = _dev()
+    for arrival, service in (loss_cases.mmss_case(4, 2000, 1.1 * s,
+                                                  seed=s),
+                             loss_cases.ties_case(4, 2000)):
+        a, v = (torch.tensor(x, device=dev) for x in (arrival, service))
+        before = K.loss_scan_fwd.launches
+        out = K.loss_scan_fwd(a, v, s=s)
+        assert K.loss_scan_fwd.launches == before + 1
+        assert torch.equal(out, K.loss_scan_ref(a, v, s=s))
+        for r in range(4):
+            assert np.array_equal(out[r].cpu().numpy(), loss_cases.loss_oracle(
+                arrival[r], service[r], s)), (s, r)
+    with pytest.raises(ValueError, match="shared memory"):
+        K.loss_scan_fwd(a, v, s=K.LOSS_S_MAX + 1)
+
+
+@pytest.mark.cuda
+def test_cuda_property1_loss_scan_equals_modbs_scan():
+    """Property 1 on the card: ``modbs_scan``'s blocked mask of each class
+    equals ``loss_scan`` with slots[c] on that class's substream (Fig. 1,
+    k = 512, J = 20 000, R = 4)."""
+    dev = _dev()
+    wl = workload.figure1_workload(512)
+    b = wl.sample_traces(20_000, 4, seed=8)
+    blocked = sim_batch.modified_bs_sim_batch(b, wl=wl, device=dev).blocked
+    slots = partition.balanced_partition(wl).slots
+    assert loss_cases.property1_mismatches(
+        b, blocked, slots, lambda a, v, s: sim_batch.loss_queue_sim_batch(
+            a, v, s, device=dev).blocked) == []
+
+
+@pytest.mark.cuda
+def test_cuda_eq16_matches_monte_carlo():
+    """Eq. (16) against ``estimate_p_helper`` (``modbs_scan``) at 200 000
+    jobs on Fig. 1, k = 512, within 0.01 (``tests/test_theory.py``'s
+    check)."""
+    _dev()
+    wl = workload.figure1_workload(512)
+    mc = sim_torch.estimate_p_helper(wl, 200_000, seed=5)
+    assert mc == pytest.approx(theory.p_helper_upper_bound(wl), abs=0.01)
+

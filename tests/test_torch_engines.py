@@ -194,6 +194,16 @@ from repro_torch import checkpoint
 from repro_torch.checkpoint import ckpt
 from repro_torch.core import stream
 from repro_torch.bench import stream_cases
+from repro_torch.core import erlang, theory
+from repro_torch.bench import common, fig1_critical, fig2_regimes, theory_tables
+rng = np.random.default_rng(0)
+arr = np.cumsum(rng.exponential(0.25, (2, 200)), axis=1)
+res = sim_batch.loss_queue_sim_batch(arr, rng.exponential(1.0, (2, 200)), 3,
+                                     device="cpu")
+assert res.blocked.shape == (2, 200) and res.blocked.any()
+rep = theory.analyze(workload.figure1_workload(256))
+assert 0 < rep.p_helper_modified < 1
+assert erlang.erlang_b_torch(3, 2.0, device="cpu").item() == erlang.erlang_b(3, 2.0)
 wl = workload.figure1_workload(32)
 src = workload.PoissonSource(wl, reps=2, seed=1)
 for pol in ("fcfs", "modbs-fcfs", "bs-fcfs"):

@@ -152,12 +152,13 @@ def test_wrappers_check_inputs_and_count_only_kernel_launches():
     W, t_prev = torch.zeros(R, 32, dtype=torch.float64), torch.zeros(
         R, dtype=torch.float64)
     msj_scan.fcfs_stream_fwd(a, n, v, W, t_prev)
+    msj_scan.loss_scan_fwd(a, v, s=3)
     assert K.launches() == {"fcfs_scan_fwd": 0, "modbs_scan_fwd": 0,
                             "bs_scan_fwd": 0, "srpt_scan_fwd": 0,
                             "stable_sort_fwd": 0, "fcfs_fail_scan_fwd": 0,
                             "modbs_fail_scan_fwd": 0, "bs_fail_scan_fwd": 0,
                             "fcfs_stream_fwd": 0, "modbs_stream_fwd": 0,
-                            "bs_stream_fwd": 0}
+                            "bs_stream_fwd": 0, "loss_scan_fwd": 0}
     with pytest.raises(ValueError, match="W must be a contiguous"):
         msj_scan.fcfs_stream_fwd(a, n, v, W[:1], t_prev)
     with pytest.raises(ValueError, match="at least one job"):
