@@ -28,8 +28,9 @@ The Figure-3 slice adds to each phase:
    parallel) and ptxas' report covers its kernels;
 2. ``srpt_scan`` (SF and FF) at the full width of the Fig. 3 path's
    largest cells, k in {512, 1024} with Q = 2048 / 4096 slots, on R = 4
-   IID-bootstrapped SDSC-SP2 replications at load 0.85 with J cut to 2000
-   (the plain version is a Python event loop); KIT-FH2 (78 % need-1 jobs)
+   IID-bootstrapped SDSC-SP2 replications at load 0.85 with J cut to 1000
+   (2000 until the cross-attention slice; the plain version is a Python
+   event loop); KIT-FH2 (78 % need-1 jobs)
    at k = 1024, J = 1000; a burst (k = 512, Q = 2048, J = 500 in 5
    batches of 100 equal arrival times, services from 4 values: ties on
    arrival and rank, and hundreds of jobs in the system, the kernel's
@@ -345,6 +346,46 @@ driver card == CPU at a small size; and ``[time] loss_scan`` at R = 16,
 J = 100 000, s = 10 and 196 beside its bytes bound.  The drain
 comparisons of phase 2 run at J = 600 (800 before) to pay for the phase.
 
+The cross-attention and MLA slice (the vlm, encdec and MLA families in
+``models/``) adds two serving phases after ``[serve-hybrid]``, each on
+the card's memory alone (the phase before it freed):
+
+3. ``[serve-xattn]`` (``xattn_path``): seamless-m4t-large-v2 at full size
+   (2.03 B params, 4.1 GB) and llama-3.2-vision-90b cut by ``vlm_cut``
+   (one block of 4 self-attention layers and 1 cross-attention layer at
+   full width, 6.4 B params, 12.8 GB; its zero-init gate set to
+   ``VLM_GATE``), two requests each (prompts 512 and 2048, 32 greedy
+   tokens) through ``init_cache`` / ``prefill`` / ``decode_step`` (the
+   engine prefills tokens only, on the reference too: ROADMAP R7), with
+   stub frames of 1024 / 2560 rows (the cache's length, rounded up to
+   whole 512-row attention chunks, so that no zero row enters decode:
+   R6) or 1024 image tokens, made with numpy from a seed; the launch
+   counts set to 0 just before and read just after: flash 72 a seamless
+   prefill (encoder 24, decoder self 24 and cross 24) and 5 a vlm one,
+   decode 48 and 5 a token after the first; every flash call of the
+   served prefills (encoder non-causal Sq = Sk, cross Sq < Sk, wgmma) and
+   every decode call of a step (self, and cross at S_src - 1) held to its
+   plain version on the model's own inputs (decode with the atol at the
+   data's scale, ``keep_decode_calls``) and the decode shapes on random
+   inputs at the bf16 limit; decode-vs-forward layer by layer within
+   ``LAYER_TOL``; each shape timed beside SDPA and its bound; card == CPU
+   on the reduced float32 configs;
+4. ``[serve-mla]`` (``mla_path``): ``gmm`` at deepseek-v3's 256 experts
+   (C = 80 at 2048 tokens: wgmma; C = 20 at 512 and 8 at decode: mma)
+   against its plain version one valid expert at a time and timed; a
+   ``ServingEngine`` on ``mla_cut`` (3 dense + 2 MoE layers at full
+   width, 26.6 B params, 53.2 GB), two requests (512, 2048) with the
+   counts set to 0 just before: flash 5 a prefill (MLA at D = 192, Dv =
+   128: the CUDA-core kernel), gmm 3 x 2 a prefill and a token,
+   decode_attention none (MLA decodes in the reference's absorbed form,
+   plain products); the dropped pairs; MLA's flash calls held to the
+   plain version and timed; decode-vs-forward layer by layer held to
+   ``MLA_LAYER_TOL`` on the layers where the prefill's last token dropped
+   no pair; card == CPU on a reduced float32 engine.
+
+The SDSC-SP2 comparisons of ``srpt_scan`` at k in {512, 1024} run at
+J = 1000 (2000 before) to pay for the two phases.
+
 Then it prints the card's name and power limit, one ``{"kernels": [...]}``
 line and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the repository around it, it exits non-zero and prints no
@@ -353,6 +394,7 @@ result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -380,7 +422,7 @@ SOURCE = "src/repro_torch/kernels/msj_scan/csrc/msj_scan.cu"
 SRPT_SOURCE = "src/repro_torch/kernels/msj_scan/csrc/srpt_scan.cu"
 SRPT_REPLACES = "src/repro/kernels/msj_scan/srpt.py:75"
 SORT_REPLACES = "src/repro/kernels/msj_scan/sort.py:58"
-FIG3_KS, FIG3_J, FIG3_R, SRPT_CMP_J = (512, 1024), 15_000, 4, 2000
+FIG3_KS, FIG3_J, FIG3_R, SRPT_CMP_J = (512, 1024), 15_000, 4, 1000
 # burst: J of the comparison (the plain version is a Python event loop)
 # and of the [time] line
 SRPT_KIT_J, SRPT_BURST_CMP_J, SRPT_BURST_J, SRPT_OVF_J = 1000, 500, 1500, 300
@@ -627,6 +669,15 @@ MAMBA_S = 2048
 # the 16-byte copies and without), B = 2
 MAMBA_EDGE = ((2, 1, 64, 16), (1, 45, 200, 7), (1, 45, 200, 12),
               (2, 33, 97, 13), (2, 77, 300, 5))
+# the cross-attention and MLA serving phases: seamless-m4t-large-v2 at full
+# size and llama-3.2-vision-90b cut by ``vlm_cut``, with its zero-init
+# cross-attention gate set to VLM_GATE so that the cross layer adds to the
+# residual (as the CPU tests set it); deepseek-v3 cut by ``mla_cut``
+XATTN_ARCHS = ("seamless_m4t_large_v2", "llama_3_2_vision_90b")
+VLM_GATE = 0.5
+MLA_ARCH = "deepseek_v3_671b"
+# MLA's teacher-forced per-layer bound: bench/decode_vs_forward.LAYER_TOL
+MLA_LAYER_TOL = 2.0 ** -6
 
 
 def hybrid_cut(cfg):
@@ -859,7 +910,7 @@ def serving_path(dev) -> dict:
         # [kernel] flash_attention on that prefill's own q, k, v, layer by
         # layer: the served models' large, near-tied scores
         worst = {"wgmma": (0.0, -1), "simt": (0.0, -1)}
-        for i, (q, k, v, out, route) in enumerate(kept):
+        for i, (q, k, v, out, route, _) in enumerate(kept):
             ref = flash_attention_ref(q, k, v, causal=True)
             for name, o in ((route, out), ("simt", flash_kernel._launch(
                     q, k, v, True, "simt"))):
@@ -1137,6 +1188,18 @@ class KeptMoEInputs:
             absent += int(((flat_e >= held) & ~d).sum())
         self.saved.clear()
         return total, last, absent
+
+    def last_token_drops(self, held: int) -> list:
+        """Each kept input's last token's dropped (token, slot) pairs, in
+        the order kept (the kept inputs are kept)."""
+        moe, m = self.moe, self.m
+        out = []
+        for x, w in self.saved:
+            T = x.shape[0] * x.shape[1]
+            _, e, _ = moe.route(x.reshape(T, -1), w, m, with_aux=False)
+            d = moe._positions(e, m.num_experts, moe._capacity(m, T))[2]
+            out.append(int(d.reshape(T, m.top_k)[-1].sum()))
+        return out
 
 
 def moe_path(dev) -> dict:
@@ -2047,6 +2110,689 @@ def hybrid_path(dev) -> dict:
         peak_gb=peak, weights_init_peak_gb=init_peak,
         serve_s={f"prompt {S}": {"prefill": p, "decode_per_token": d}
                  for S, (p, d) in sorted(walls.items())}), gmm_cases
+
+
+def vlm_cut(cfg):
+    """The served cut of llama-3.2-vision-90b (configs/
+    llama_3_2_vision_90b.py: 100 layers = 20 blocks of 4 self-attention
+    layers and one tanh-gated cross-attention layer; 87.7 B params, 175 GB
+    in bf16, which no single H100 holds).  Every width stays as published
+    (d 8192, 64 heads / 8 KV heads of 128, d_ff 28672, 1024 image tokens,
+    the 128 256 vocabulary); the depth is one whole block of
+    ``cross_attn_every`` = 5 layers, 4 self and 1 cross (repeats 20 -> 1:
+    the other blocks would be further pipeline stages): 6.4 B params,
+    12.8 GB."""
+    return dataclasses.replace(cfg, name=f"{cfg.name}-block0",
+                               num_layers=cfg.cross_attn_every)
+
+
+def mla_cut(cfg):
+    """The served cut of deepseek-v3 (configs/deepseek_v3_671b.py: 61
+    layers, 3 dense then 58 MoE of 256 experts top-8 with 1 shared, and a
+    multi-token-prediction layer; 682.6 B params).  Every width stays as
+    published (d 7168, 128 heads, MLA q_lora 1536, kv_lora 512, rope 64,
+    nope 128, v 128; 256 experts top-8 of d_ff 2048, all 256 held, 1
+    shared, capacity factor 1.25; dense d_ff 18432; the 129 280
+    vocabulary); the depth is the 3 dense layers and 2 MoE layers (the
+    other 56 would be further pipeline stages), and ``mtp`` is off: the
+    MTP layer is a training head that neither prefill nor decode reads.
+    26.6 B params, 53.2 GB in bf16."""
+    return dataclasses.replace(cfg, name=f"{cfg.name}-5layer",
+                               num_layers=cfg.moe.first_dense + 2, mtp=False)
+
+
+@contextlib.contextmanager
+def keep_decode_calls(checked: dict):
+    """While active (``with``), each decode_attention call of the model
+    code is held at once to its plain version on the same inputs (the
+    caches change at the next step); ``checked`` maps the call's shape
+    (B, Sk, H, Kh, D, Dv, pos) to [calls, largest err/limit at the bf16
+    limit, largest err/limit with its atol at the data's scale, largest
+    abs err, (q, k, v, pos) copies of its first call].
+
+    The bf16 limit's atol, 1e-5, is the float32 sums' own difference for
+    values of order one.  The served layers' v reach |v| ~ 26 at this
+    init, and their near-argmax attention gives outputs near zero from
+    cancelling terms of that size, where the kernel's and the plain
+    version's float32 sums (split and combined on the card, one einsum in
+    the plain version) differ by ~2e-6 of the terms: 4.8e-5 on an output
+    of 2.3e-4 (seamless cross decode, Sk 2560; both that far from the
+    float64 value).  So the served calls are also held with the atol at
+    the data's scale, 1e-5 max |v|; random inputs of order one at the
+    same shapes are held at the bf16 limit itself (``xattn_path``)."""
+    from repro_torch.kernels.decode_attention import (decode_attention_fwd,
+                                                      decode_attention_ref)
+    from repro_torch.models import layers
+
+    def keeping(q, k, v, pos):
+        out = decode_attention_fwd(q, k, v, pos)
+        key = (q.shape[0], k.shape[1], q.shape[1], k.shape[2], q.shape[2],
+               v.shape[3], tuple(pos.tolist()))
+        ref = decode_attention_ref(q, k, v, pos).float()
+        if key not in checked:
+            checked[key] = [0, 0.0, 0.0, 0.0, (q.clone(), k.clone(),
+                                               v.clone(), pos.clone())]
+        c = checked[key]
+        d = (out.float() - ref).abs()
+        atol, rtol = ATTN_TOLS["bfloat16"]
+        scale = max(1.0, v.float().abs().max().item())
+        c[0] += 1
+        c[1] = max(c[1], (d / (atol + rtol * ref.abs())).max().item())
+        c[2] = max(c[2], (d / (atol * scale + rtol * ref.abs())).max()
+                   .item())
+        c[3] = max(c[3], d.max().item())
+        return out
+
+    layers.decode_attention_fwd = keeping
+    try:
+        yield checked
+    finally:
+        layers.decode_attention_fwd = decode_attention_fwd
+
+
+def attention_checks(tag: str, name: str, flash_kept: list,
+                     decode_checked: dict) -> tuple:
+    """Hold each kept flash call (``dvf.keep_flash_calls``) to its plain
+    version at the bf16 limit, grouped by shape, each on the route
+    ``_flash_route`` gives bf16, and print them and the decode shapes
+    ``keep_decode_calls`` held.  Returns (flash cases, decode cases), one
+    per shape, with the first call's inputs for timing."""
+    import torch
+
+    from repro_torch.bench import decode_vs_forward as dvf
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    from repro_torch.kernels.flash_attention.kernel import _flash_route
+
+    shapes = {}
+    for q, k, v, out, route, causal in flash_kept:
+        B, Sq, H, D = q.shape
+        _, Sk, Kh, Dv = v.shape
+        key = (B, Sq, Sk, H, Kh, D, Dv, causal)
+        ref = flash_attention_ref(q, k, v, causal=causal)
+        c = shapes.setdefault(key, dict(calls=0, worst=0.0, err=0.0,
+                                        routes=set(), args=(q, k, v)))
+        c["calls"] += 1
+        c["worst"] = max(c["worst"], dvf.err_over_limit(out, ref))
+        c["err"] = max(c["err"], (out.float() - ref.float()).abs().max()
+                       .item())
+        c["routes"].add(route)
+        del ref
+    flash_cases = []
+    for key, c in shapes.items():
+        B, Sq, Sk, H, Kh, D, Dv, causal = key
+        route = _flash_route(torch.bfloat16, D, Dv)
+        what = (f"{name} B={B} Sq={Sq} Sk={Sk} H={H} Kh={Kh} D={D} Dv={Dv} "
+                f"bfloat16 {'causal' if causal else 'non-causal'}, "
+                f"{'/'.join(sorted(map(str, c['routes'])))} kernel")
+        print(f"[kernel] flash_attention {what}: {c['calls']} calls of the "
+              f"served prefills on the model's own q, k, v against the "
+              f"plain version: largest err/limit {c['worst']:.3g} (limit "
+              f"{ATTN_TOLS['bfloat16'][0]:g} + {ATTN_TOLS['bfloat16'][1]:g}"
+              f" |ref|)")
+        if c["routes"] != {route}:
+            fail(f"[{tag}] flash_attention {what}: expected the {route} "
+                 f"kernel")
+        if not c["worst"] <= 1.0:
+            fail(f"[{tag}] flash_attention {what} differs from its plain "
+                 f"version: err/limit {c['worst']}")
+        flash_cases.append(dict(what=what, shape=key, err=c["err"],
+                                err_over_limit=c["worst"],
+                                kernel_route=route,
+                                args=c["args"]))
+    decode_cases = []
+    for key, (calls, unit, scaled, err, args) in decode_checked.items():
+        B, Sk, H, Kh, D, Dv, pos = key
+        what = (f"{name} B={B} Sk={Sk} H={H} Kh={Kh} (G={H // Kh}) D={D} "
+                f"bfloat16 pos={list(pos)}")
+        print(f"[kernel] decode_attention {what}: {calls} calls of the "
+              f"served decode steps against the plain version on the same "
+              f"inputs: largest err/limit {scaled:.3g} with the atol at the "
+              f"data's scale (1e-5 max |v| + 2^-6 |ref|; "
+              f"{unit:.3g} at 1e-5 + 2^-6 |ref|); max abs err {err:.3g}")
+        if not scaled <= 1.0:
+            fail(f"[{tag}] decode_attention {what} differs from its plain "
+                 f"version: err/limit {scaled}")
+        decode_cases.append(dict(what=what, err=err, err_over_limit=scaled,
+                                 err_over_unit_limit=unit, args=args))
+    return flash_cases, decode_cases
+
+
+def time_attention(flash_cases, decode_cases) -> None:
+    """``[time]`` lines of the flash and decode cases at their kept
+    inputs: the kernel, its plain version, SDPA on the same call, the
+    bound (and, for a wgmma flash case, the simt kernel)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import (decode_attention_fwd,
+                                                      decode_attention_ref)
+    from repro_torch.kernels.flash_attention import (flash_attention_fwd,
+                                                     flash_attention_ref)
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+
+    for c in flash_cases:
+        q, k, v = c["args"]
+        causal = c["shape"][-1]
+        ms = cuda_ms(lambda: flash_attention_fwd(q, k, v, causal=causal), 5)
+        plain_ms = cuda_ms(lambda: flash_attention_ref(q, k, v,
+                                                       causal=causal), 2)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True), 5)
+        b_ms, b_by = flash_bound(*c["shape"], "bfloat16")
+        simt = ""
+        if c["kernel_route"] == "wgmma":
+            c["simt_ms"] = cuda_ms(lambda: flash_kernel._launch(
+                q, k, v, causal, "simt"), 3)
+            simt = f", the simt kernel on the same call {c['simt_ms']:.4f} ms"
+        c.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                 bound_by=b_by)
+        print(f"[time] flash_attention {c['what']}: {ms:.4f} ms per launch "
+              f"({b_ms / ms:.3f} of the {b_by} bound), plain version "
+              f"{plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound {b_ms:.5f} ms "
+              f"({b_by}){simt}")
+        del c["args"]
+    for c in decode_cases:
+        q, k, v, pos = c["args"]
+        B, H, D = q.shape
+        Sk, Kh, Dv = k.shape[1], k.shape[2], v.shape[3]
+        ms = cuda_ms(lambda: decode_attention_fwd(q, k, v, pos), 20)
+        plain_ms = cuda_ms(lambda: decode_attention_ref(q, k, v, pos), 5)
+        mask = (torch.arange(Sk, device=q.device)[None, :]
+                <= pos[:, None])[:, None, None, :]
+        ks, vs = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q[:, :, None, :], ks, vs, attn_mask=mask, enable_gqa=True), 20)
+        b_ms, b_by = decode_bound(H, Kh, D, Dv, Sk, pos.tolist(), "bfloat16")
+        c.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                 bound_by=b_by)
+        print(f"[time] decode_attention {c['what']}: {ms:.4f} ms per launch "
+              f"({b_ms / ms:.3f} of the {b_by} bound), plain version "
+              f"{plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound {b_ms:.5f} ms "
+              f"({b_by})")
+        del c["args"]
+
+
+def serve_direct(model, params, toks, S: int, extra: dict, dev,
+                 new: int | None = None):
+    """One request through the model's entry points as ``run_request``
+    runs it (``init_cache`` of S + ``new`` rows, or as many as the frames,
+    ``prefill`` with the stub input, greedy ``decode_step`` for ``new``
+    tokens, each read back): (tokens, prefill s, decode s per token, last
+    logits)."""
+    import torch
+
+    from repro_torch.models.model import init_cache
+    from repro_torch.serve import engine as E
+
+    cfg, new = model.cfg, new or SERVE_NEW
+    torch.cuda.synchronize()
+    t0 = time.time()
+    rows = extra["frames"].shape[1] if "frames" in extra else S + new
+    caches = init_cache(cfg, 1, rows, device=dev)
+    logits, pre = model.prefill(params, {"tokens": toks[None, :S], **extra})
+    caches = E._seed_caches(caches, pre, S)
+    tok = logits.argmax(-1)[:, None]
+    out = [int(tok[0, 0])]
+    t1 = time.time()
+    for t in range(S, S + new - 1):
+        logits, caches = model.decode_step(params, caches, tok, t)
+        tok = logits.argmax(-1)[:, None]
+        out.append(int(tok[0, 0]))
+    t2 = time.time()
+    return out, t1 - t0, (t2 - t1) / (new - 1), logits
+
+
+def model_card_equals_cpu(tag: str, cfg, dev, *, gate=None) -> None:
+    """card == CPU at a reduced float32 config: the same weights (drawn on
+    the CPU; a vlm gate set to ``gate``) and the same prompts of 40 and 24
+    tokens with their stub inputs, 8 greedy tokens through ``prefill`` /
+    ``decode_step`` on each; the tokens must be equal and the card must
+    have launched the flash kernel."""
+    import numpy as np
+    import torch
+
+    from repro_torch.bench import decode_vs_forward as dvf
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.models.layers import tree_map
+    from repro_torch.models.model import Model
+
+    model = Model(cfg)
+    p_cpu = model.init(torch.Generator().manual_seed(3))
+    if gate is not None:
+        for lay in p_cpu["stages"][0].values():
+            if "gate" in lay["attn"]:
+                lay["attn"]["gate"].fill_(gate)
+    p_dev = tree_map(lambda t: t.to(dev), p_cpu)
+    rng = np.random.default_rng(8)
+    before = flash_attention_fwd.launches
+    for S in (40, 24):
+        toks = rng.integers(1, cfg.vocab_size, S + 8)
+        outs = []
+        for device, params in (("cpu", p_cpu), (dev, p_dev)):
+            t = torch.tensor(toks, device=device)
+            extra = dvf.stub_inputs(cfg, dvf.frame_rows(cfg, S + 8), 9,
+                                    device)
+            outs.append(serve_direct(model, params, t, S, extra, device,
+                                     new=8)[0])
+        if outs[0] != outs[1]:
+            fail(f"[{tag}] reduced float32 {cfg.name}: prompt {S} gives "
+                 f"{outs[1]} on the card and {outs[0]} on the CPU")
+    n = flash_attention_fwd.launches - before
+    print(f"[{tag}] reduced float32 {cfg.name} ({cfg.num_layers} layers, "
+          f"d={cfg.d_model}): card == CPU token for token on prompts 40 / "
+          f"24, 8 tokens each ({n} flash_attention launches on the card)")
+    if n < 1:
+        fail(f"[{tag}] the reduced model launched no kernel on the card")
+
+
+def xattn_path(dev) -> dict:
+    """The cross-attention serving paths: seamless-m4t-large-v2 at full
+    size (encoder-decoder) and ``vlm_cut`` of llama-3.2-vision-90b (its
+    gate set to ``VLM_GATE``), two requests each (prompts 512 and 2048,
+    SERVE_NEW greedy tokens) through ``init_cache`` / ``prefill`` /
+    ``decode_step`` with the launch counts set to 0 just before and read
+    just after; every flash and decode shape of the served passes held to
+    its plain version on the card; decode-vs-forward layer by layer;
+    times; card == CPU on the reduced float32 configs.  Returns
+    {"flash": cases, "decode": cases, "launches": {arch: counts},
+    "serve_s": {...}}."""
+    import numpy as np
+    import torch
+
+    from repro_torch.bench import decode_vs_forward as dvf
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import (decode_attention_fwd,
+                                                      decode_attention_ref)
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.moe_gmm import gmm
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.models.model import Model, init_cache
+    from repro_torch.models.transformer import decoder_stages
+    from repro_torch.serve import engine as E
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"[serve-xattn] {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+          f"allocated on entry (the hybrid phase's weights freed)")
+    out = {"flash": [], "decode": [], "launches": {}, "serve_s": {}}
+    for arch in XATTN_ARCHS:
+        full = get_config(arch)
+        cfg = vlm_cut(full) if full.family == "vlm" else full
+        model = Model(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        params = model.init(torch.Generator(device=dev).manual_seed(0),
+                            dtype=torch.bfloat16)
+        gates = [lay["attn"]["gate"] for lay in params["stages"][0].values()
+                 if "gate" in lay["attn"]]
+        for g in gates:                 # zeros at init: tanh(0) = 0
+            g.fill_(VLM_GATE)
+        torch.cuda.synchronize()
+        n = sum(t.numel() for t in tree_leaves(params))
+        cut = (f"{full.name} cut to one block of {cfg.num_layers} layers "
+               f"at full width (vlm_cut), cross-attention gate set to "
+               f"{VLM_GATE}" if gates else "full size, not cut")
+        print(f"[serve-xattn] {cfg.name}: {cut}; weights made on the card "
+              f"in bfloat16 in {time.time() - t0:.1f} s: {n / 1e9:.3f} B "
+              f"params, {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+              f"allocated")
+        specs = [s for st in decoder_stages(cfg) for s in st.pattern
+                 for _ in range(st.repeats)]
+        per_prefill = len(specs) + sum(s.cross for s in specs) + (
+            cfg.enc_layers if cfg.family == "encdec" else 0)
+        per_token = len(specs) + sum(s.cross for s in specs)
+        rng = np.random.default_rng(23)
+        toks = torch.tensor(rng.integers(1, cfg.vocab_size,
+                                         max(SERVE_PROMPTS)), device=dev)
+        flash_attention_fwd.launches = decode_attention_fwd.launches = 0
+        gmm.launches = 0
+        for S in SERVE_PROMPTS:
+            extra = dvf.stub_inputs(cfg, dvf.frame_rows(cfg, S + SERVE_NEW),
+                                    31 + S, dev)
+            res, t_pre, t_dec, logits = serve_direct(model, params, toks, S,
+                                                     extra, dev)
+            if len(res) != SERVE_NEW or not all(
+                    0 <= t < cfg.vocab_size for t in res) or not bool(
+                    torch.isfinite(logits).all()):
+                fail(f"[serve-xattn] {cfg.name} prompt {S}: tokens {res}, "
+                     f"finite logits {bool(torch.isfinite(logits).all())}")
+            out["serve_s"][f"{cfg.name} {S}"] = dict(prefill=t_pre,
+                                                     decode_per_token=t_dec)
+            src = {k: tuple(v.shape) for k, v in extra.items()}
+            print(f"[serve-xattn] {cfg.name} prompt {S} (source {src}): "
+                  f"prefill {t_pre * 1e3:.1f} ms to the first token, "
+                  f"decode {t_dec * 1e3:.2f} ms per token; first tokens "
+                  f"{res[:8]}")
+        counts = {"flash_attention": flash_attention_fwd.launches,
+                  "decode_attention": decode_attention_fwd.launches,
+                  "gmm": gmm.launches}
+        k = len(SERVE_PROMPTS)
+        want = {"flash_attention": per_prefill * k,
+                "decode_attention": per_token * (SERVE_NEW - 1) * k,
+                "gmm": 0}
+        print(f"[serve-xattn] {cfg.name}: launches {counts} (expected "
+              f"{want}: flash {per_prefill} per prefill"
+              f"{' (encoder, decoder self and cross)' if cfg.enc_layers else ''}"
+              f", decode {per_token} per token after the first)")
+        if counts != want:
+            fail(f"[serve-xattn] {cfg.name} launch counts {counts} differ "
+                 f"from {want}")
+        out["launches"][cfg.name] = counts
+        print(f"[serve-xattn] {cfg.name} peak memory while serving "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+        # every flash and decode shape of the served passes, held to its
+        # plain version on the model's own inputs
+        kept, checked = [], {}
+        for S in SERVE_PROMPTS:
+            extra = dvf.stub_inputs(cfg, dvf.frame_rows(cfg, S + SERVE_NEW),
+                                    31 + S, dev)
+            with dvf.keep_flash_calls(kept), keep_decode_calls(checked):
+                rows = (extra["frames"].shape[1] if "frames" in extra
+                        else S + SERVE_NEW)
+                caches = init_cache(cfg, 1, rows, device=dev)
+                logits, pre = model.prefill(params, {"tokens": toks[None, :S],
+                                                     **extra})
+                caches = E._seed_caches(caches, pre, S)
+                model.decode_step(params, caches, logits.argmax(-1)[:, None],
+                                  S)
+            del caches, pre
+        fc, dc = attention_checks("serve-xattn", cfg.name, kept, checked)
+        del kept, checked
+        # the same decode shapes and positions on random N(0, 1) q, k, v:
+        # the bf16 limit itself
+        gen = torch.Generator(device=dev).manual_seed(37)
+        for c in dc:
+            q, k, v, pos = c["args"]
+            rq, rk, rv = (torch.randn(t.shape, generator=gen, device=dev).to(
+                torch.bfloat16) for t in (q, k, v))
+            w = dvf.err_over_limit(decode_attention_fwd(rq, rk, rv, pos),
+                                   decode_attention_ref(rq, rk, rv, pos))
+            print(f"[kernel] decode_attention {c['what']} on random N(0, 1) "
+                  f"q, k, v: largest err/limit {w:.3g} (1e-5 + 2^-6 |ref|)")
+            if not w <= 1.0:
+                fail(f"[serve-xattn] decode_attention {c['what']} on random "
+                     f"inputs differs from its plain version: {w}")
+            c["random_err_over_limit"] = w
+
+        # decode-vs-forward: teacher forced, layer by layer (held), and
+        # free running (printed); the frames as long as the decode cache,
+        # so no zero row enters (R6)
+        S = SERVE_PROMPTS[0] - 1
+        extra = dvf.stub_inputs(cfg, dvf.frame_rows(cfg, S + dvf.PAD), 7,
+                                dev)
+        rel = dvf.layer_by_layer(model, params, toks, S, extra=extra)
+        diff = dvf.free_running(model, params, toks, S, extra=extra)
+        worst = max(range(len(rel)), key=rel.__getitem__)
+        kinds = [("xattn" if s.kind == "xattn" else
+                  "self+cross" if s.cross else s.kind) for s in specs]
+        print(f"[serve-xattn] {cfg.name} decode-vs-forward, layer by layer: "
+              f"decode at token {S} after prefill({S}), each layer fed "
+              f"prefill({S + 1})'s input there: largest |diff| / max |row| "
+              f"{rel[worst]:.5f} (layer {worst} of {len(rel)}, "
+              f"{kinds[worst]}; bound {dvf.LAYER_TOL:g}); per layer "
+              f"{[round(r, 5) for r in rel]}; free running, last logits max "
+              f"abs diff {diff:.4f} (printed, not held)")
+        if len(rel) != len(specs) or not rel[worst] <= dvf.LAYER_TOL:
+            fail(f"[serve-xattn] {cfg.name} decode-vs-forward layer {worst}: "
+                 f"{rel[worst]} > {dvf.LAYER_TOL}")
+        time_attention(fc, dc)
+        out["flash"] += fc
+        out["decode"] += dc
+        del model, params, gates
+        torch.cuda.empty_cache()
+        model_card_equals_cpu("serve-xattn", dataclasses.replace(
+            full, compute_dtype="float32").reduced(), dev,
+            gate=VLM_GATE if full.family == "vlm" else None)
+    return out
+
+
+def mla_path(dev) -> dict:
+    """The MLA serving path: ``gmm`` against its plain version at
+    deepseek-v3's expert shapes (E = 256; and timed there), then
+    ``ServingEngine`` on ``mla_cut`` (two requests, prompts 512 and 2048,
+    SERVE_NEW tokens) with the launch counts set to 0 just before and read
+    just after, MLA's flash calls (D = 192, Dv = 128, the CUDA-core
+    kernel) held to the plain version and timed, the dropped pairs, the
+    teacher-forced per-layer decode-vs-forward, and card == CPU on a
+    reduced float32 engine.  Returns {"gmm": cases, "flash": cases,
+    "launches": counts, ...}."""
+    import numpy as np
+    import torch
+
+    from repro_torch.bench import decode_vs_forward as dvf
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import decode_attention_fwd
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.moe_gmm import gmm, gmm_ref
+    from repro_torch.kernels.moe_gmm import kernel as gmm_kernel
+    from repro_torch.models import moe
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.models.transformer import decoder_stages
+    from repro_torch.serve import engine as E
+    from repro_torch.serve import kv_cache
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats()
+    full = get_config(MLA_ARCH)
+    cut = mla_cut(full)
+    m = cut.moe
+    gen = torch.Generator(device=dev).manual_seed(29)
+    rng = np.random.default_rng(29)
+
+    # -- [kernel] / [time] gmm at deepseek's expert shapes, E = 256 --------
+    # a 2048-token prefill (C = 80), a 512-token one (C = 20) and one token
+    # (C = 8) with skewed fills; the plain version one valid expert at a
+    # time (a float32 gather of the whole [256, 7168, 2048] stack would
+    # take 15 GB a call)
+    gmm_cases = []
+    for phase, T in (("prefill", max(SERVE_PROMPTS)),
+                     ("prefill512", min(SERVE_PROMPTS)), ("decode", 1)):
+        C = moe._capacity(m, T)
+        bm = moe.block_m_for(C)
+        Cp = (C + bm - 1) // bm * bm
+        if T > 1:
+            fill = rng.multinomial(T * m.top_k, rng.dirichlet(
+                np.full(m.num_experts, 2.0)))
+            fill[:4] = 0                           # some experts get nothing
+        else:
+            fill = np.zeros(m.num_experts, np.int64)
+            fill[rng.choice(m.num_experts, m.top_k, replace=False)] = 1
+        fill = np.minimum(fill, C)
+        be, nv = moe._fill_blocks(torch.tensor(fill, device=dev), C, bm)
+        valid = (nv > 0).cpu().numpy()
+        rows = int(valid.sum()) * bm
+        experts = int((fill > 0).sum())
+        for proj, K, N in (("gate/up", cut.d_model, m.d_ff_expert),
+                           ("down", m.d_ff_expert, cut.d_model)):
+            x = torch.randn(m.num_experts * Cp, K, generator=gen,
+                            device=dev).to(torch.bfloat16)
+            w = torch.empty(m.num_experts, K, N, dtype=torch.bfloat16,
+                            device=dev)
+            for e in range(m.num_experts):
+                w[e] = torch.randn(K, N, generator=gen, device=dev) / \
+                    math.sqrt(K)
+            res = gmm(x, w, be, nv, block_m=bm)
+            torch.cuda.synchronize()
+            route = gmm.last_route
+            what = (f"deepseek {phase} {proj} E={m.num_experts} C={C} "
+                    f"Cp={Cp} block_m={bm} K={K} N={N} bfloat16: "
+                    f"{int(valid.sum())} of {len(valid)} blocks valid, "
+                    f"{route} kernel")
+            if route != gmm_want_route("bfloat16", bm):
+                fail(f"gmm {what}: took the {route} kernel, not "
+                     f"{gmm_want_route('bfloat16', bm)}")
+            atol, rtol = ATTN_TOLS["bfloat16"]
+            worst = err = 0.0
+            for e in np.nonzero(fill)[0].tolist():
+                sl = slice(e * Cp, (e + 1) * Cp)
+                bs = slice(e * Cp // bm, (e + 1) * Cp // bm)
+                ref = gmm_ref(x[sl], w[e:e + 1], torch.zeros_like(be[bs]),
+                              nv[bs].contiguous(), block_m=bm).float()
+                d = (res[sl].float() - ref).abs()
+                err = max(err, d.max().item())
+                worst = max(worst, (d / (atol + rtol * ref.abs())).max()
+                            .item())
+            skipped = (nv == 0).repeat_interleave(bm)
+            zeros = bool((res[skipped] == 0).all())
+            print(f"[kernel] gmm {what}: max abs err {err:.3g}; limit "
+                  f"{atol:g} + {rtol:g} |ref| per element (plain version "
+                  f"one valid expert at a time), largest err/limit "
+                  f"{worst:.3g}; skipped blocks exactly zero: {zeros}")
+            if not (worst <= 1.0 and zeros):
+                fail(f"gmm {what} differs from its plain version: max abs "
+                     f"err {err}, largest err/limit {worst}, skipped "
+                     f"blocks zero {zeros}")
+            ms = cuda_ms(lambda: gmm(x, w, be, nv, block_m=bm), 5)
+            xb = x.view(m.num_experts, Cp, K)
+            lib_ms = cuda_ms(lambda: torch.bmm(xb, w), 3)
+            b_ms, b_by = gmm_bound(rows, experts, x.shape[0], K, N,
+                                   len(valid), "bfloat16")
+            simt_ms = cuda_ms(lambda: gmm_kernel._launch(
+                x, w, be, nv, bm, "simt"), 2)
+            print(f"[time] gmm {what}: {ms:.4f} ms per launch ({b_ms / ms:.3f}"
+                  f" of the {b_by} bound), torch.bmm over the [E, Cp, K] "
+                  f"buffer {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), "
+                  f"the simt kernel on the same call {simt_ms:.4f} ms")
+            gmm_cases.append(dict(what=what, dtype="bfloat16",
+                                  kernel_route=route, err=err,
+                                  err_over_limit=worst, ms=ms,
+                                  library_ms=lib_ms, bound_ms=b_ms,
+                                  bound_by=b_by, simt_ms=simt_ms))
+            del x, w, res, xb
+    torch.cuda.empty_cache()
+
+    # -- [serve-mla] ServingEngine on the cut -------------------------------
+    chips = kv_cache.chips_needed(cut, 1, 8192)
+    classes = [E.RequestClass(SERVE_CLASSES[0][0],
+                              get_config(SERVE_CLASSES[0][1]),
+                              *SERVE_CLASSES[0][2:]),
+               E.RequestClass("big", cut, 8192, chips, 4.0, 0.2)]
+    print(f"[serve-mla] {cut.name}: {full.name} cut to its {m.first_dense} "
+          f"dense and 2 MoE layers at full width, all {m.num_experts} "
+          f"experts held, MTP off (mla_cut); needs {chips} chips at bucket "
+          f"8192 (cache {kv_cache.cache_bytes(cut, 1, 8192) / 1e6:.1f} MB "
+          f"of MLA latent); the uncut model {full.num_params() / 1e9:.1f} B "
+          f"params")
+    eng, runs, rng_s = admitted_big_runs(classes, "serve-mla", dev)
+    model = eng._model("big")
+    cfg = model.cfg
+    t0 = time.time()
+    params = eng._get_params("big")            # weights on the card: set-up
+    torch.cuda.synchronize()
+    f32 = sum(t.numel() for t in tree_leaves(params)
+              if t.dtype == torch.float32)
+    init_peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[serve-mla] weights made on the card in {time.time() - t0:.1f} s:"
+          f" {cfg.num_params() / 1e9:.2f} B params ({f32 / 1e6:.2f} M kept "
+          f"in float32, the leaves read in float32), "
+          f"{cfg.active_params() / 1e9:.2f} B active per token, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+          f"{init_peak:.2f} GB peak while drawing them")
+    torch.cuda.reset_peak_memory_stats()
+    specs = [s for st in decoder_stages(cfg) for s in st.pattern
+             for _ in range(st.repeats)]
+    n_moe = sum(s.ffn == "moe" for s in specs)
+    L = len(specs)
+    if moe._capacity(m, 1) < m.top_k:
+        fail(f"decode capacity {moe._capacity(m, 1)} < top-k {m.top_k}")
+    with KeptMoEInputs(moe, m) as kept:
+        gmm.launches = flash_attention_fwd.launches = 0
+        decode_attention_fwd.launches = 0
+        t0 = time.time()
+        walls = {}
+        for S, jid in sorted(runs.items()):
+            req = eng.run_request(jid)
+            torch.cuda.synchronize()
+            dropped = kept.drops(m.num_experts)[0]
+            if len(req.output) != SERVE_NEW or not all(
+                    0 <= t < cfg.vocab_size for t in req.output):
+                fail(f"deepseek request {req.rid} (prompt {S}) gave tokens "
+                     f"{req.output}")
+            walls[S] = (req.prefill_s, req.decode_s / (SERVE_NEW - 1))
+            print(f"[serve-mla] request {req.rid} prompt {S}: prefill "
+                  f"{req.prefill_s * 1e3:.1f} ms to the first token, decode "
+                  f"{walls[S][1] * 1e3:.2f} ms per token; {dropped} of "
+                  f"{S * m.top_k * n_moe} (token, slot) pairs dropped in "
+                  f"prefill (C = {moe._capacity(m, S)}, capacity factor "
+                  f"{m.capacity_factor}); first tokens {req.output[:8]}")
+        counts = {"gmm": gmm.launches,
+                  "flash_attention": flash_attention_fwd.launches,
+                  "decode_attention": decode_attention_fwd.launches}
+        n = len(runs)
+        want = {"gmm": 3 * n_moe * n * SERVE_NEW, "flash_attention": L * n,
+                "decode_attention": 0}
+        print(f"[serve-mla] {n} deepseek requests end to end in "
+              f"{time.time() - t0:.1f} s; launches {counts} (expected "
+              f"{want}: gmm 3 x {n_moe} per prefill and per token after the "
+              f"first, flash {L} per prefill, decode_attention none: MLA "
+              f"decodes in the absorbed form, plain torch products as the "
+              f"reference's jnp.einsum)")
+        if counts != want:
+            fail(f"mla launch counts {counts} differ from {want}")
+        for jid in runs.values():
+            eng.complete(jid, 1.0)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        print(f"[serve-mla] peak memory while serving {peak:.2f} GB of "
+              f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.2f}"
+              f" GB ({init_peak:.2f} GB while drawing the weights)")
+
+        # [kernel] MLA's flash calls (D = nope + rope, Dv = v) on the
+        # model's own q, k, v at both prompt lengths
+        toks = torch.tensor(rng_s.integers(1, cfg.vocab_size,
+                                           max(SERVE_PROMPTS)), device=dev)
+        fkept = []
+        for S in SERVE_PROMPTS:
+            with dvf.keep_flash_calls(fkept):
+                model.prefill(params, {"tokens": toks[None, :S]})
+            kept.drops(m.num_experts)
+        fc, _ = attention_checks("serve-mla", cfg.name, fkept, {})
+        del fkept
+
+        # decode-vs-forward, teacher forced: each layer against the
+        # prefill, held where the prefill's last token dropped no pair
+        S = SERVE_PROMPTS[0] - 1
+        rel = dvf.layer_by_layer(model, params, toks, S)
+        last = kept.last_token_drops(m.num_experts)[:n_moe]
+        kept.saved.clear()
+    diff = dvf.free_running(model, params, toks, S)
+    dropped_at = {}
+    j = 0
+    for i, s in enumerate(specs):
+        if s.ffn == "moe":
+            dropped_at[i] = last[j]
+            j += 1
+    held = [i for i in range(L) if not dropped_at.get(i)]
+    worst = max(held, key=rel.__getitem__) if held else None
+    print(f"[serve-mla] {cut.name} decode-vs-forward, layer by layer: decode "
+          f"at token {S} after prefill({S}) (absorbed MLA against the "
+          f"latent cache), each layer fed prefill({S + 1})'s input there "
+          f"(expanded MLA, flash at D = {cfg.mla.nope_dim + cfg.mla.rope_dim}"
+          f"): |diff| / max |row| per layer {[round(r, 5) for r in rel]}; "
+          f"the last token's pairs dropped in prefill({S + 1}) by MoE layer "
+          f"{dropped_at}; held to {dvf.LAYER_TOL:g}: layers {held}, largest "
+          f"{rel[worst] if worst is not None else None}; free running, last "
+          f"logits max abs diff {diff:.4f} (printed, not held)")
+    if len(rel) != L:
+        fail(f"[serve-mla] {len(rel)} layers compared of {L}")
+    time_attention(fc, [])
+    del eng, params, model
+    torch.cuda.empty_cache()
+
+    # card == CPU: a reduced float32 engine with the same weights
+    card_equals_cpu([E.RequestClass(SERVE_CLASSES[0][0], dataclasses.replace(
+        get_config(SERVE_CLASSES[0][1]), compute_dtype="float32").reduced(),
+        *SERVE_CLASSES[0][2:]),
+        E.RequestClass("big", dataclasses.replace(
+            cut, compute_dtype="float32").reduced(), 8192, chips, 4.0, 0.2)],
+        "serve-mla", (64, 40), gmm, dev)
+    # held last, once everything above has printed
+    if worst is not None and not rel[worst] <= MLA_LAYER_TOL:
+        fail(f"[serve-mla] decode-vs-forward layer {worst}: {rel[worst]} > "
+             f"{MLA_LAYER_TOL}")
+    return dict(gmm=gmm_cases, flash=fc, launches=counts,
+                serve_s={f"prompt {S}": {"prefill": p, "decode_per_token": d}
+                         for S, (p, d) in sorted(walls.items())})
 
 
 def tensor_core_instructions(paths) -> None:
@@ -3506,6 +4252,29 @@ def main() -> int:
     gc.collect()                      # the RWKV phase's engine and weights
     torch.cuda.empty_cache()
     report["mamba_scan"], report["gmm"]["jamba_cut"] = hybrid_path(dev)
+    gc.collect()                      # the hybrid phase's engine and weights
+    torch.cuda.empty_cache()
+    xa = xattn_path(dev)
+    gc.collect()                      # the cross-attention phase's weights
+    torch.cuda.empty_cache()
+    ml = mla_path(dev)
+    fl, de, gm = (report[k] for k in ("flash_attention", "decode_attention",
+                                      "gmm"))
+    fl["xattn"] = [{k: v for k, v in c.items() if k != "shape"}
+                   for c in xa["flash"]]
+    fl["mla"] = [{k: v for k, v in c.items() if k != "shape"}
+                 for c in ml["flash"]]
+    de["xattn"] = xa["decode"]
+    gm["deepseek"] = ml["gmm"]
+    gm["max_abs_err"] = max([gm["max_abs_err"]]
+                            + [c["err"] for c in ml["gmm"]])
+    for entry, cases in ((fl, xa["flash"] + ml["flash"]),
+                         (de, xa["decode"])):
+        entry["max_abs_err"] = max([entry["max_abs_err"]]
+                                   + [c["err"] for c in cases])
+    fl["xattn_launches"] = de["xattn_launches"] = xa["launches"]
+    fl["mla_launches"] = gm["mla_launches"] = ml["launches"]
+    fl["xattn_serve_s"], gm["mla_serve_s"] = xa["serve_s"], ml["serve_s"]
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

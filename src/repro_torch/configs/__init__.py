@@ -2,9 +2,7 @@
 (the port's own copy of ``repro/configs``; the configs are data).
 
 ``get_config(name)`` returns the full :class:`ArchConfig`;
-``get_config(name).reduced()`` is the CPU smoke-test variant.  The port's
-model runs the ``dense`` and ``moe`` families (not MLA); the others are
-here as data.
+``get_config(name).reduced()`` is the CPU smoke-test variant.
 """
 
 from __future__ import annotations

@@ -13,8 +13,7 @@ The port's copy of ``repro/models/config.py``.  A single
 * ``vlm``    — decoder with interleaved cross-attention layers
   (llama-3.2-vision backbone)
 
-The port's model runs ``dense``, ``moe`` (without MLA), ``ssm`` and
-``hybrid``; the other families' configs are data here.  ``MoECfg`` adds
+The port's model runs every family.  ``MoECfg`` adds
 one field to the reference's, ``experts_held``, the share of an
 expert-parallel layer that one card holds.  ``reduced()`` returns a tiny
 same-family config for CPU smoke tests.
@@ -113,8 +112,7 @@ class ArchConfig:
         return self.family in ("ssm", "hybrid")
 
     def num_params(self) -> int:
-        """Total parameter count (exact, mirrors the port's param tree;
-        ``NotImplementedError`` for a family the port does not run)."""
+        """Total parameter count (exact, mirrors the port's param tree)."""
         from .model import num_params
         return num_params(self)
 

@@ -97,13 +97,16 @@ def _init_one(d: PDef, generator: torch.Generator, dtype):
     if d.init in ("normal", "scaled"):
         # stacked [layers, ...] leaves are drawn one layer at a time: a
         # float32 draw of a whole stack can pass 2^31 elements (yi-9b's
-        # w_gate) and would double the peak memory of the cast
+        # w_gate) and would double the peak memory of the cast; the draw
+        # is scaled in place and freed before the next one is drawn (one
+        # layer of deepseek-v3's expert stack is 15 GB in float32)
         out = torch.empty(d.shape, dtype=dt, device=dev)
         for part in (out if len(d.shape) >= 3 else [out]):
             x = torch.randn(part.shape, generator=generator,
                             dtype=torch.float32, device=dev)
-            part.copy_(x * 0.02 if d.init == "normal"
-                       else x / math.sqrt(fan_in))
+            part.copy_(x.mul_(0.02) if d.init == "normal"
+                       else x.div_(math.sqrt(fan_in)))
+            del x
         return out
     if d.init == "rwkv_decay":     # U[-8, -4]
         x = torch.rand(d.shape, generator=generator, dtype=torch.float32,

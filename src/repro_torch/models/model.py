@@ -1,17 +1,21 @@
 """Model facade: embeddings, stages, head, prefill/decode entry points.
 
-The counterpart of ``repro/models/model.py`` for the dense, MoE, ssm
-(RWKV6) and hybrid (Mamba / attention, jamba) families:
+The counterpart of ``repro/models/model.py`` for every family:
 
-  ``prefill(params, {"tokens": [B, S]})``    -> (last logits, caches)
-  ``decode_step(params, caches, tok, pos)``  -> (logits, caches)
+  ``prefill(params, {"tokens": [B, S], ...})`` -> (last logits, caches)
+  ``decode_step(params, caches, tok, pos)``    -> (logits, caches)
 
-Logits are cut to ``vocab_size`` from the padded head, as in the
-reference; neither entry point computes the MoE router's auxiliary loss,
-which only training reads.  Parameters are a tree of tensors with the
-reference's names,
-shapes and layouts (``convert.params_from_jax`` carries a reference tree
-across unchanged); decode updates the caches in place.
+The vlm family's prefill also takes ``"image_emb"`` [B, num_image_tokens,
+d] and the encdec family's ``"frames"`` [B, S_src, d] (stub frontends, as
+in the reference): the image tokens, or the encoder's output over the
+frames, are the cross-attention source.  Logits are cut to
+``vocab_size`` from the padded head, as in the reference; neither entry
+point computes the MoE router's auxiliary loss or deepseek's
+multi-token-prediction head, which only training reads (the ``mtp``
+parameters are in the tree all the same, so that it equals the
+reference's).  Parameters are a tree of tensors with the reference's
+names, shapes and layouts (``convert.params_from_jax`` carries a
+reference tree across unchanged); decode updates the caches in place.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ import torch
 
 from .config import ArchConfig
 from .layers import (PDef, dtype_of, init_params, rms_norm, rope_angles,
-                     tree_leaves)
+                     stack_defs, tree_leaves)
 from . import moe as _moe
 from . import transformer as T
 
@@ -36,12 +40,27 @@ def _vocab_padded(cfg: ArchConfig) -> int:
 def param_defs(cfg: ArchConfig) -> dict[str, Any]:
     d, Vp = cfg.d_model, _vocab_padded(cfg)
     stages = T.decoder_stages(cfg)
-    return {
+    defs: dict[str, Any] = {
         "embed": PDef((Vp, d), ("vocab", "fsdp"), "normal"),
         "stages": tuple(T.stage_param_defs(cfg, s) for s in stages),
         "final_norm": PDef((d,), (None,), "ones", read_f32=True),
         "head": PDef((d, Vp), ("fsdp", "vocab"), "scaled"),
     }
+    if cfg.family == "encdec":
+        defs["encoder"] = {
+            "stages": tuple(T.stage_param_defs(cfg, s)
+                            for s in T.encoder_stages(cfg)),
+            "final_norm": PDef((d,), (None,), "ones", read_f32=True),
+        }
+    if cfg.mtp:
+        spec = T.LayerSpec("mla" if cfg.mla else "attn", ffn="moe")
+        defs["mtp"] = {
+            "proj": PDef((2 * d, d), ("fsdp", None), "scaled"),
+            "norm_h": PDef((d,), (None,), "ones", read_f32=True),
+            "norm_e": PDef((d,), (None,), "ones", read_f32=True),
+            "layer": stack_defs(T.layer_param_defs(cfg, spec), 1),
+        }
+    return defs
 
 
 def num_params(cfg: ArchConfig) -> int:
@@ -56,6 +75,7 @@ def active_param_count(cfg: ArchConfig) -> int:
     m = cfg.moe
     n_moe = sum(sum(1 for spec in s.pattern if spec.ffn == "moe") * s.repeats
                 for s in T.decoder_stages(cfg))
+    n_moe += bool(cfg.mtp)            # the MTP layer is one more MoE layer
     held = _moe.experts_held(m)       # a one-card share holds fewer
     inactive = n_moe * (held - min(m.top_k, held)) * 3 * cfg.d_model * \
         m.d_ff_expert
@@ -67,13 +87,23 @@ def active_param_count(cfg: ArchConfig) -> int:
 # --------------------------------------------------------------------------
 
 
-def _make_ctx(cfg: ArchConfig, mode: str, positions, pos=None, batch=1):
-    sin, cos = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
-    ctx = {"mode": mode, "rope": (sin, cos), "pos": pos}
+def _rope_dim(cfg: ArchConfig) -> int:
+    return cfg.mla.rope_dim if cfg.mla is not None else cfg.head_dim
+
+
+def _make_ctx(cfg: ArchConfig, mode: str, positions, pos=None, batch=1, *,
+              src=None, src_len=None):
+    sin, cos = rope_angles(positions, _rope_dim(cfg), cfg.rope_theta)
+    ctx = {"mode": mode, "rope": (sin, cos), "src": src, "pos": pos}
     if mode == "decode":
-        # the decode kernel's per-sequence position, made once per step
+        # the decode kernel's per-sequence positions, made once per step:
+        # the token's, and S_src - 1 for cross-attention's static cache
         ctx["pos_b"] = torch.full((batch,), pos, dtype=torch.int32,
                                   device=positions.device)
+        if src_len is not None:
+            ctx["src_pos_b"] = torch.full((batch,), src_len - 1,
+                                          dtype=torch.int32,
+                                          device=positions.device)
     return ctx
 
 
@@ -81,15 +111,51 @@ def _embed(cfg: ArchConfig, params, tokens):
     return params["embed"][tokens].to(dtype_of(cfg.compute_dtype))
 
 
-def _backbone(cfg: ArchConfig, params, tokens, mode, *, caches=None,
-              pos=None):
+def _encode(cfg: ArchConfig, params, frames):
+    """The encdec encoder over stub frame embeddings [B, S_src, d]: mode
+    "train" (no caches), RoPE over the frames' positions, its own final
+    norm."""
+    enc = params["encoder"]
+    ctx = _make_ctx(cfg, "train", torch.arange(frames.shape[1],
+                                                device=frames.device))
+    x = frames.to(dtype_of(cfg.compute_dtype))
+    x, _ = T.run_stages(cfg, T.encoder_stages(cfg), enc["stages"], x, ctx)
+    return rms_norm(x, enc["final_norm"], cfg.norm_eps)
+
+
+def _source(cfg: ArchConfig, params, batch):
+    """Cross-attention source tokens for vlm / encdec, else None."""
+    if cfg.family == "vlm":
+        return batch["image_emb"]
+    if cfg.family == "encdec":
+        return _encode(cfg, params, batch["frames"])
+    return None
+
+
+def _cache_src_len(cfg: ArchConfig, caches):
+    """Rows of the static cross-attention cache (the first xattn layer's
+    or cross sublayer's), or None where the model has none."""
+    for stage, sc in zip(T.decoder_stages(cfg), caches):
+        for j, spec in enumerate(stage.pattern):
+            if spec.kind == "xattn":
+                return sc[f"l{j}"]["attn"]["k"].shape[2]
+            if spec.cross:
+                return sc[f"l{j}"]["cross"]["k"].shape[2]
+    return None
+
+
+def _backbone(cfg: ArchConfig, params, tokens, mode, *, src=None,
+              caches=None, pos=None):
     dev = tokens.device
+    src_len = None
     if mode != "decode":
         positions = torch.arange(tokens.shape[1], device=dev)
     else:
         pos = int(pos)
         positions = torch.tensor([pos], device=dev)
-    ctx = _make_ctx(cfg, mode, positions, pos, tokens.shape[0])
+        src_len = _cache_src_len(cfg, caches)
+    ctx = _make_ctx(cfg, mode, positions, pos, tokens.shape[0], src=src,
+                    src_len=src_len)
     x = _embed(cfg, params, tokens)
     x, new_caches = T.run_stages(cfg, T.decoder_stages(cfg),
                                  params["stages"], x, ctx, caches)
@@ -104,7 +170,8 @@ def _logits(cfg: ArchConfig, params, x):
 
 def prefill(cfg: ArchConfig, params, batch):
     """Full-sequence forward returning (last-token logits, caches)."""
-    x, caches = _backbone(cfg, params, batch["tokens"], "prefill")
+    src = _source(cfg, params, batch)
+    x, caches = _backbone(cfg, params, batch["tokens"], "prefill", src=src)
     return _logits(cfg, params, x), caches
 
 
@@ -116,11 +183,23 @@ def decode_step(cfg: ArchConfig, params, caches, tokens, pos):
     return _logits(cfg, params, x), caches
 
 
+def _src_len(cfg: ArchConfig, seq: int) -> int:
+    """Rows of the cross-attention cache: the image tokens (vlm), or the
+    frames, ``num_frame_tokens or seq`` (encdec; seamless sets 0, so the
+    serving cache's length ``seq``), as in the reference."""
+    if cfg.family == "vlm":
+        return cfg.num_image_tokens
+    if cfg.family == "encdec":
+        return cfg.num_frame_tokens or seq
+    return 0
+
+
 def init_cache(cfg: ArchConfig, batch: int, seq: int, *, device="cuda"):
-    """Zero caches (KV, RWKV or Mamba state) on ``device`` (the card unless
-    the caller asks for the CPU or ``"meta"``)."""
+    """Zero caches (KV, cross-attention KV, MLA latent, RWKV or Mamba
+    state) on ``device`` (the card unless the caller asks for the CPU or
+    ``"meta"``)."""
     return T.cache_template(cfg, T.decoder_stages(cfg), batch, seq,
-                            device=device)
+                            _src_len(cfg, seq), device=device)
 
 
 # --------------------------------------------------------------------------

@@ -708,6 +708,80 @@ def test_cuda_attention_kernels_match_plain_versions_on_the_card(rng):
                          decode_attention_ref(q, k, v, pos).cpu(), dtype)
 
 
+# the cross-attention and MLA serving shapes (B, Sq, Sk, H, Kh, D, Dv,
+# causal): MLA's D = nope + rope = 192 over Dv = 128 with H = Kh (past the
+# wgmma kernel's 128: the CUDA-core kernel in bf16 too), the seamless
+# encoder's non-causal Sq = Sk with H = Kh at D 64, seamless cross Sq < Sk,
+# and the vlm cross Sq < Sk at G 8, D 128
+XATTN_MLA_FLASH_SHAPES = [
+    (1, 256, 256, 8, 8, 192, 128, True),
+    (1, 130, 130, 4, 4, 192, 128, True),
+    (1, 200, 200, 16, 16, 64, 64, False),
+    (1, 100, 136, 16, 16, 64, 64, False),
+    (1, 130, 300, 16, 2, 128, 128, False),
+]
+# cross-attention decode at pos = Sk - 1 against a static cache (B, Sk,
+# H, Kh, D, Dv): seamless (G 1, D 64) and the vlm (G 8, D 128)
+XATTN_DECODE_SHAPES = [(1, 544, 16, 16, 64, 64), (2, 300, 16, 2, 128, 128)]
+
+
+@pytest.mark.cuda
+def test_cuda_attention_at_the_cross_attention_and_mla_shapes(rng):
+    """flash_attention at MLA's head dims (D 192, Dv 128: the simt route
+    in both dtypes), non-causal Sq = Sk and Sq < Sk, and decode_attention
+    at pos = Sk - 1, against their plain versions on the card at
+    ``PLAIN_TOLS``."""
+    dev = _dev()
+    for dtype in ("float32", "bfloat16"):
+        for B, Sq, Sk, H, Kh, D, Dv, causal in XATTN_MLA_FLASH_SHAPES:
+            q, k, v = (_normal(rng, s, dtype).to(dev) for s in (
+                (B, Sq, H, D), (B, Sk, Kh, D), (B, Sk, Kh, Dv)))
+            _close_plain(flash_attention_fwd(q, k, v, causal=causal).cpu(),
+                         flash_attention_ref(q, k, v, causal=causal).cpu(),
+                         dtype)
+            assert flash_attention_fwd.last_route == (
+                "wgmma" if dtype == "bfloat16" and D <= 128 else "simt")
+        for B, Sk, H, Kh, D, Dv in XATTN_DECODE_SHAPES:
+            q, k, v = (_normal(rng, s, dtype).to(dev) for s in (
+                (B, H, D), (B, Sk, Kh, D), (B, Sk, Kh, Dv)))
+            pos = torch.full((B,), Sk - 1, dtype=torch.int32, device=dev)
+            _close_plain(decode_attention_fwd(q, k, v, pos).cpu(),
+                         decode_attention_ref(q, k, v, pos).cpu(), dtype)
+
+
+@pytest.mark.cuda
+def test_cuda_gmm_at_256_experts(rng):
+    """gmm with deepseek-v3's 256 experts at its prefill capacity (C = 80,
+    block_m 128: wgmma) and decode capacity (C = 8, block_m 16: mma), at
+    narrow K, N, skewed fills with empty experts and junk in every row,
+    against its plain version on the card: bfloat16 1e-5 + 2^-6 |ref|,
+    skipped blocks exactly zero."""
+    dev = _dev()
+    E, Kd, N = 256, 256, 136
+    for C, bm in ((80, 128), (8, 16)):
+        Cp = (C + bm - 1) // bm * bm
+        fill = np.minimum(rng.multinomial(E * C // 2, rng.dirichlet(
+            np.full(E, 2.0))), C)
+        fill[:5] = 0
+        nv = torch.tensor(np.clip(fill[:, None] - np.arange(
+            0, Cp, bm)[None, :], 0, bm).reshape(-1), dtype=torch.int32)
+        be = torch.arange(E, dtype=torch.int32).repeat_interleave(Cp // bm)
+        x = torch.tensor(rng.normal(size=(E * Cp, Kd)), dtype=torch.bfloat16)
+        w = torch.tensor(rng.normal(size=(E, Kd, N)) / np.sqrt(Kd),
+                         dtype=torch.bfloat16)
+        args = [t.to(dev) for t in (x, w, be, nv)]
+        out = gmm(*args, block_m=bm)
+        ref = gmm_ref(*args, block_m=bm)
+        torch.cuda.synchronize()
+        d = (out.float() - ref.float()).abs()
+        assert (d <= 1e-5 + 2.0 ** -6 * ref.float().abs()).all(), (
+            C, d.max().item())
+        skipped = (nv == 0).to(dev).repeat_interleave(bm)
+        assert (out[skipped] == 0).all()
+        assert gmm.last_route == _gmm_route(torch.bfloat16, bm, Kd, N) == (
+            "wgmma" if bm == 128 else "mma")
+
+
 # -- gmm (tests/test_torch_moe.py's shapes) ----------------------------------
 
 

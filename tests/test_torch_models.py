@@ -1,5 +1,4 @@
-"""The port's dense, MoE, RWKV and hybrid decoders against the JAX
-reference model.
+"""The port's models, every family, against the JAX reference model.
 
 Weights are carried across with ``convert.params_from_jax`` from the
 reference's own random init, and the same token ids go to both sides, on
@@ -11,7 +10,19 @@ in the kernel's plain version, decode's in ``wkv_step``) and
 ``jamba_1_5_large_398b.reduced()`` (hybrid: one block of 8 layers, Mamba
 d_inner 256, d_state 8, scan chunk 16, attention at layer 4, MoE of 8
 experts top-2 at capacity factor 4 on every 2nd layer; prefill's scan in
-the kernel's plain version, decode's in ``mamba_decode``).
+the kernel's plain version, decode's in ``mamba_decode``),
+``deepseek_v3_671b.reduced()`` (MoE with MLA: q_lora 64, kv_lora 32,
+rope 16, nope 32, v 32; one dense layer, three MoE layers of 8 experts
+top-2 with a shared expert, and the MTP head's parameters),
+``llama_3_2_vision_90b.reduced()`` (vlm: two blocks of four self-attention
+layers and one tanh-gated cross-attention layer over 16 image tokens) and
+``seamless_m4t_large_v2.reduced()`` (encdec: a 2-layer non-causal encoder
+over the frames, a 4-layer decoder with a cross-attention sublayer in
+every layer).  The image embeddings and frames are made with numpy from a
+seed (normal x 0.05 in bfloat16, as ``tests/test_models.py:make_batch``
+makes them); the frames have as many rows as the serving cache, so that
+no zero row of the cross cache enters decode (ROADMAP Queue 3, R6; the
+R6 case itself is in ``tests/test_torch_xattn_mla.py``).
 
 Conditioning.  The reference's "scaled" init divides by the fan-in it
 reads off ``shape[-2]``, which for ``wq`` / ``wk`` [d, heads, Dh] is the
@@ -24,7 +35,12 @@ bound below that noise can tell a right port from a wrong one.  So the
 tight comparisons rescale ``wq`` and ``wk`` to fan-in d (both sides get
 the same weights), and one test keeps the reference's exact init.  RWKV
 has no attention, so its two inits are the same; jamba's one attention
-layer (``l4``) is rescaled like the others.
+layer (``l4``) is rescaled like the others, and so are the encoder's
+layers and the cross-attention sublayers; MLA's ``w_uq`` and ``w_uk``
+[rank, heads, dim] take the same fan-in from the head axis, so they are
+rescaled to fan-in rank.  The vlm's cross-attention ``gate`` is zero at
+init (tanh(0) = 0: the layer would add nothing), so the tight comparisons
+set it to 0.5 on both sides.
 
 Tolerances, stated with their reasons:
 
@@ -74,47 +90,91 @@ import jax
 import jax.numpy as jnp
 from repro.configs import get_config as ref_get_config
 from repro.models import model as ref_model
+from repro.models import transformer as ref_T
 
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.models import layers
+from repro_torch.models import transformer as T
 from repro_torch.models.convert import params_from_jax
 from repro_torch.models.model import (Model, active_param_count, init_cache,
                                       num_params)
 from repro_torch.serve.engine import _seed_caches
 
 ARCHS = ("yi_9b", "stablelm_3b", "moonshot_v1_16b_a3b", "rwkv6_7b",
-         "jamba_1_5_large_398b")
-PORTED = tuple(a for a in ARCH_IDS
-               if get_config(a).family in ("dense", "ssm", "hybrid")
-               or (get_config(a).family == "moe" and get_config(a).mla is None))
+         "jamba_1_5_large_398b", "deepseek_v3_671b", "llama_3_2_vision_90b",
+         "seamless_m4t_large_v2")
+PORTED = ARCH_IDS
 PROMPT, STEPS = 32, 5
+GATE = 0.5               # the vlm cross-attention gate of the tight tests
 # held to 5e-2 plus the reference's own bf16-vs-f32 distance (docstring)
 BF16_NOISY = ("rwkv6_7b", "jamba_1_5_large_398b")
 # bfloat16 test with the routers zeroed on both sides (docstring)
 BF16_TIED_ROUTER = ("jamba_1_5_large_398b",)
 
 
+def _rescaled(rcfg, a):
+    """An attention sublayer's params with ``wq`` / ``wk`` (GQA) or
+    ``w_uq`` / ``w_uk`` (MLA) at fan-in d or rank, and a vlm gate set to
+    ``GATE``."""
+    a = dict(a)
+    H, Kh = rcfg.num_heads, rcfg.num_kv_heads
+    if "wq" in a:
+        a["wq"] = a["wq"] * math.sqrt(H / rcfg.d_model)
+        a["wk"] = a["wk"] * math.sqrt(Kh / rcfg.d_model)
+    if "w_uq" in a:
+        a["w_uq"] = a["w_uq"] * math.sqrt(H / rcfg.mla.q_lora_rank)
+        a["w_uk"] = a["w_uk"] * math.sqrt(H / rcfg.mla.kv_lora_rank)
+    if "gate" in a:
+        a["gate"] = jnp.full_like(a["gate"], GATE)
+    return a
+
+
 def _pair(arch, *, rescale=True, tie_router=False, **over):
     """(reference model, reference params, port model, port params) on the
     reduced config with ``over`` replaced, weights carried across;
-    ``rescale`` puts ``wq`` and ``wk`` at fan-in d and ``tie_router``
-    zeroes the MoE routers (see the docstring)."""
+    ``rescale`` puts the attention projections at fan-in d (and sets the
+    vlm gate) and ``tie_router`` zeroes the MoE routers (see the
+    docstring)."""
     rcfg = dataclasses.replace(ref_get_config(arch), **over).reduced()
     pcfg = dataclasses.replace(get_config(arch), **over).reduced()
     rm = ref_model.Model(rcfg)
     rp = rm.init(jax.random.PRNGKey(1))
-    for stage in rp["stages"]:
+    stages = rp["stages"] + rp.get("encoder", {}).get("stages", ())
+    for stage in stages:
         for key, lay in stage.items():
             if tie_router and "router" in lay["ffn"]:
                 lay["ffn"]["router"] = jnp.zeros_like(lay["ffn"]["router"])
-            if rescale and "wq" in lay["attn"]:
-                a = lay["attn"]
-                d = rcfg.d_model
-                stage[key]["attn"] = dict(
-                    a, wq=a["wq"] * math.sqrt(rcfg.num_heads / d),
-                    wk=a["wk"] * math.sqrt(rcfg.num_kv_heads / d))
+            if rescale:
+                for sub in ("attn", "cross"):
+                    if sub in lay:
+                        lay[sub] = _rescaled(rcfg, lay[sub])
     return rm, rp, Model(pcfg), params_from_jax(
         jax.tree.map(np.asarray, rp), device="cpu")
+
+
+def _extra(cfg, rows, seed=3):
+    """The stub frontends' inputs of a vlm / encdec config, numpy arrays
+    (normal x 0.05, rounded to bfloat16): image_emb [1, num_image_tokens,
+    d] or frames [1, rows, d]; {} for other families."""
+    rng = np.random.default_rng(seed)
+    if cfg.family == "vlm":
+        shape, key = (1, cfg.num_image_tokens, cfg.d_model), "image_emb"
+    elif cfg.family == "encdec":
+        shape, key = (1, rows, cfg.d_model), "frames"
+    else:
+        return {}
+    return {key: np.asarray(jnp.asarray(rng.normal(size=shape) * 0.05,
+                                        jnp.bfloat16))}
+
+
+def _ref_in(toks, extra):
+    return {"tokens": jnp.asarray(toks, jnp.int32),
+            **{k: jnp.asarray(v) for k, v in extra.items()}}
+
+
+def _port_in(toks, extra):
+    return {"tokens": torch.tensor(toks), **params_from_jax(extra,
+                                                            device="cpu")}
 
 
 def _ref_seed(caches, pre):
@@ -142,14 +202,34 @@ def test_params_from_jax_carries_every_leaf(arch):
         for key in path:
             node = node[key.key if hasattr(key, "key") else key.idx]
         assert torch.equal(node, torch.from_numpy(np.asarray(leaf))), path
-    if pm.cfg.family == "ssm":
+    cfg = pm.cfg
+    if cfg.family == "ssm":
         assert pp["stages"][0]["l0"]["attn"]["w_r"].shape == (
-            pm.cfg.num_layers, pm.cfg.d_model, pm.cfg.d_model)
-    elif pm.cfg.family == "hybrid":           # one block: repeats 1
+            cfg.num_layers, cfg.d_model, cfg.d_model)
+    elif cfg.family == "hybrid":           # one block: repeats 1
         assert pp["stages"][0]["l0"]["attn"]["in_proj"].shape == (
-            1, pm.cfg.d_model, 4 * pm.cfg.d_model)
+            1, cfg.d_model, 4 * cfg.d_model)
         assert pp["stages"][0]["l4"]["attn"]["wq"].shape == (
-            1, pm.cfg.d_model, pm.cfg.num_heads, pm.cfg.head_dim)
+            1, cfg.d_model, cfg.num_heads, cfg.head_dim)
+    elif cfg.mla is not None:              # 1 dense + 3 MoE layers, MTP
+        m = cfg.mla
+        assert pp["stages"][1]["l0"]["attn"]["w_uk"].shape == (
+            3, m.kv_lora_rank, cfg.num_heads, m.nope_dim)
+        assert pp["stages"][0]["l0"]["attn"]["q_norm"].shape == (
+            1, m.q_lora_rank)
+        assert pp["mtp"]["layer"]["attn"]["w_dkv"].shape == (
+            1, cfg.d_model, m.kv_lora_rank + m.rope_dim)
+    elif cfg.family == "vlm":              # blocks of 4 attn + 1 xattn
+        E = cfg.cross_attn_every
+        assert sorted(pp["stages"][0]) == [f"l{j}" for j in range(E)]
+        assert pp["stages"][0][f"l{E - 1}"]["attn"]["gate"].shape == (
+            cfg.num_layers // E,)
+        assert pp["stages"][0][f"l{E - 1}"]["attn"]["gate"].eq(GATE).all()
+    elif cfg.family == "encdec":
+        assert pp["stages"][0]["l0"]["cross"]["wk"].shape == (
+            cfg.num_layers, cfg.d_model, cfg.num_kv_heads, cfg.head_dim)
+        assert pp["encoder"]["stages"][0]["l0"]["attn"]["wq"].shape == (
+            cfg.enc_layers, cfg.d_model, cfg.num_heads, cfg.head_dim)
     else:
         assert pp["stages"][0]["l0"]["attn"]["wq"].shape == (
             pm.cfg.num_layers, pm.cfg.d_model, pm.cfg.num_heads,
@@ -161,12 +241,16 @@ def test_params_from_jax_carries_every_leaf(arch):
 
 def _greedy_pair(arch, rescale, atol):
     """Greedy decode on both sides in float32 compute: equal tokens and
-    logits within ``atol`` at every step."""
+    logits within ``atol`` at every step.  The reference's decode step is
+    compiled once (``jax.jit``) rather than traced at every step: in
+    float32 that moves its logits by float32 rounding only."""
     rm, rp, pm, pp = _pair(arch, rescale=rescale, compute_dtype="float32")
+    r_step = jax.jit(rm.decode_step)
     cfg = pm.cfg
     toks = _prompt(cfg, PROMPT)
-    r_logits, r_pre = rm.prefill(rp, {"tokens": jnp.asarray(toks, jnp.int32)})
-    p_logits, p_pre = pm.prefill(pp, {"tokens": torch.tensor(toks)})
+    extra = _extra(cfg, PROMPT + STEPS)
+    r_logits, r_pre = rm.prefill(rp, _ref_in(toks, extra))
+    p_logits, p_pre = pm.prefill(pp, _port_in(toks, extra))
     r_cache = _ref_seed(ref_model.init_cache(rm.cfg, 1, PROMPT + STEPS),
                         r_pre)
     p_cache = _seed_caches(init_cache(cfg, 1, PROMPT + STEPS, device="cpu"),
@@ -179,7 +263,7 @@ def _greedy_pair(arch, rescale, atol):
         r_tok, p_tok = int(np.argmax(r)), int(p_logits.argmax())
         assert r_tok == p_tok, step
         pos = PROMPT + step
-        r_logits, r_cache = rm.decode_step(
+        r_logits, r_cache = r_step(
             rp, r_cache, jnp.asarray([[r_tok]], jnp.int32), jnp.int32(pos))
         p_logits, p_cache = pm.decode_step(pp, p_cache,
                                            torch.tensor([[p_tok]]), pos)
@@ -201,10 +285,9 @@ def test_bfloat16_teacher_forced_logits_match_reference(arch):
     rm, rp, pm, pp = _pair(arch, tie_router=tie)
     assert pm.cfg.compute_dtype == "bfloat16"
     toks = _prompt(pm.cfg, PROMPT + STEPS)
-    r_logits, r_pre = rm.prefill(
-        rp, {"tokens": jnp.asarray(toks[:, :PROMPT], jnp.int32)})
-    p_logits, p_pre = pm.prefill(pp, {"tokens": torch.tensor(
-        toks[:, :PROMPT])})
+    extra = _extra(pm.cfg, PROMPT + STEPS)
+    r_logits, r_pre = rm.prefill(rp, _ref_in(toks[:, :PROMPT], extra))
+    p_logits, p_pre = pm.prefill(pp, _port_in(toks[:, :PROMPT], extra))
     assert p_logits.dtype == torch.bfloat16
     r_cache = _ref_seed(ref_model.init_cache(rm.cfg, 1, PROMPT + STEPS),
                         r_pre)
@@ -213,8 +296,7 @@ def test_bfloat16_teacher_forced_logits_match_reference(arch):
     f_logits = None
     if arch in BF16_NOISY:
         fm, fp = _pair(arch, tie_router=tie, compute_dtype="float32")[:2]
-        f_logits, f_pre = fm.prefill(
-            fp, {"tokens": jnp.asarray(toks[:, :PROMPT], jnp.int32)})
+        f_logits, f_pre = fm.prefill(fp, _ref_in(toks[:, :PROMPT], extra))
         f_cache = _ref_seed(ref_model.init_cache(fm.cfg, 1, PROMPT + STEPS),
                             f_pre)
     for step in range(STEPS):
@@ -240,14 +322,18 @@ def test_bfloat16_teacher_forced_logits_match_reference(arch):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_decode_matches_forward(arch):
     """prefill(S) + decode(token S) == prefill(S + 1)'s last logits, on
-    the port's own random weights (bfloat16 compute)."""
+    the port's own random weights (bfloat16 compute); the frames of the
+    encdec model have S + 1 rows against a cache of S + 8, the shapes of
+    ``tests/test_models.py`` (R6: seven zero rows enter its decode)."""
     cfg = get_config(arch).reduced()
     model = Model(cfg)
     params = model.init(torch.Generator().manual_seed(1))
     S = 32
-    toks = torch.tensor(_prompt(cfg, S + 1))
-    full, _ = model.prefill(params, {"tokens": toks})
-    _, pre = model.prefill(params, {"tokens": toks[:, :S]})
+    toks = _prompt(cfg, S + 1)
+    extra = _extra(cfg, S + 1)
+    full, _ = model.prefill(params, _port_in(toks, extra))
+    _, pre = model.prefill(params, _port_in(toks[:, :S], extra))
+    toks = torch.tensor(toks)
     caches = _seed_caches(init_cache(cfg, 1, S + 8, device="cpu"), pre, S)
     step, _ = model.decode_step(params, caches, toks[:, S:S + 1], S)
     a, b = full.float().numpy(), step.float().numpy()
@@ -327,13 +413,97 @@ def test_jamba_full_config_counts_and_cache_without_materialising():
     assert cache[0]["l4"]["attn"]["k"].shape == (9, 1, 8192, 8, 128)
 
 
-def test_other_families_raise_naming_the_roadmap():
+def test_every_arch_builds():
+    """Every config the repo ships builds in the port (no family is left
+    to port) with the reference's stage structure, decoder and encoder;
+    configs are data."""
+    def structure(stages):
+        return [([(sp.kind, sp.cross, sp.ffn, sp.causal)
+                  for sp in st.pattern], st.repeats) for st in stages]
+
     for arch in ARCH_IDS:
-        cfg = get_config(arch)
-        assert cfg == dataclasses.replace(cfg)          # configs are data
-        if arch not in PORTED:
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                Model(cfg).param_defs()
-    assert "deepseek_v3_671b" not in PORTED             # MoE with MLA
-    assert {get_config(a).family for a in ARCH_IDS if a not in PORTED} == {
-        "vlm", "encdec", "moe"}
+        cfg, rcfg = get_config(arch), ref_get_config(arch)
+        assert cfg == dataclasses.replace(cfg)
+        assert structure(T.decoder_stages(cfg)) == structure(
+            ref_T.decoder_stages(rcfg))
+        if cfg.family == "encdec":
+            assert structure(T.encoder_stages(cfg)) == structure(
+                ref_T.encoder_stages(rcfg))
+        assert layers.tree_leaves(Model(cfg).param_defs())
+        assert len(init_cache(cfg, 1, 16, device="meta")) == len(
+            T.decoder_stages(cfg))
+    assert {get_config(a).family for a in ARCH_IDS} == {
+        "dense", "moe", "hybrid", "ssm", "vlm", "encdec"}
+
+
+def _cache_equals_reference(arch, batch=1, seq=8192):
+    """The port's meta cache has the reference's cache_specs leaves, shape
+    and dtype, in the same order (nothing is allocated)."""
+    port = [(tuple(t.shape), str(t.dtype).removeprefix("torch."))
+            for t in layers.tree_leaves(init_cache(get_config(arch), batch,
+                                                   seq, device="meta"))]
+    ref = [(tuple(x.shape), str(x.dtype)) for x in jax.tree.leaves(
+        ref_model.cache_specs(ref_get_config(arch), batch, seq))]
+    assert port == ref
+
+
+def test_deepseek_full_config_counts_and_cache_without_materialising():
+    """deepseek-v3 at full width and depth: 682.6 B params, 38.2 B active
+    per token (the MTP layer counted as one more MoE layer, as the
+    reference counts it), counted from the defs (nothing is allocated);
+    the cache holds the MLA latent, [L, B, S, 512 + 64] in bfloat16."""
+    cfg = get_config("deepseek_v3_671b")
+    rcfg = ref_get_config("deepseek_v3_671b")
+    assert num_params(cfg) == ref_model.num_params(rcfg) == 682_636_465_152
+    assert active_param_count(cfg) == ref_model.active_param_count(
+        rcfg) == 38_240_375_808
+    defs = Model(cfg).param_defs()
+    assert defs["stages"][1]["l0"]["ffn"]["w_gate"].shape == (
+        58, 256, 7168, 2048)
+    assert defs["stages"][0]["l0"]["attn"]["w_uq"].shape == (
+        3, 1536, 128, 192)
+    assert defs["mtp"]["layer"]["ffn"]["w_down"].shape == (
+        1, 256, 2048, 7168)
+    cache = init_cache(cfg, 1, 8192, device="meta")
+    assert cache[0]["l0"]["attn"]["c_kv"].shape == (3, 1, 8192, 512)
+    assert cache[1]["l0"]["attn"]["k_rope"].shape == (58, 1, 8192, 64)
+    assert cache[1]["l0"]["attn"]["c_kv"].dtype == torch.bfloat16
+    _cache_equals_reference("deepseek_v3_671b")
+
+
+def test_vlm_full_config_counts_and_cache_without_materialising():
+    """llama-3.2-vision-90b at full width and depth: 87.7 B params, 20
+    blocks of four self-attention layers and one gated cross-attention
+    layer; the cross layers' cache holds the 1024 image tokens whatever
+    the context length."""
+    cfg = get_config("llama_3_2_vision_90b")
+    assert num_params(cfg) == ref_model.num_params(ref_get_config(
+        "llama_3_2_vision_90b")) == 87_666_794_516
+    assert active_param_count(cfg) == num_params(cfg)
+    (stage,) = Model(cfg).param_defs()["stages"]
+    assert stage["l4"]["attn"]["gate"].shape == (20,)
+    assert stage["l3"]["attn"]["wq"].shape == (20, 8192, 64, 128)
+    cache = init_cache(cfg, 1, 8192, device="meta")
+    assert cache[0]["l0"]["attn"]["k"].shape == (20, 1, 8192, 8, 128)
+    assert cache[0]["l4"]["attn"]["v"].shape == (20, 1, 1024, 8, 128)
+    _cache_equals_reference("llama_3_2_vision_90b")
+
+
+def test_encdec_full_config_counts_and_cache_without_materialising():
+    """seamless-m4t-large-v2 at full width and depth: 2.03 B params, a
+    24-layer encoder and a 24-layer decoder; the cross cache has
+    ``num_frame_tokens or seq`` rows, the serving cache's length here
+    (seamless sets 0)."""
+    cfg = get_config("seamless_m4t_large_v2")
+    assert num_params(cfg) == ref_model.num_params(ref_get_config(
+        "seamless_m4t_large_v2")) == 2_034_886_656
+    defs = Model(cfg).param_defs()
+    assert defs["encoder"]["stages"][0]["l0"]["attn"]["wq"].shape == (
+        24, 1024, 16, 64)
+    assert defs["encoder"]["final_norm"].read_f32
+    assert defs["stages"][0]["l0"]["norm_cross"].shape == (24, 1024)
+    cache = init_cache(cfg, 1, 8192, device="meta")
+    assert cache[0]["l0"]["cross"]["k"].shape == (24, 1, 8192, 16, 64)
+    assert cache[0]["l0"]["attn"]["k"].shape == (24, 1, 8192, 16, 64)
+    _cache_equals_reference("seamless_m4t_large_v2")
+    _cache_equals_reference("seamless_m4t_large_v2", 2, 640)

@@ -12,9 +12,13 @@ token (``tests/test_torch_models.py`` states why the logits are compared
 there, not here).  The same two checks run with moonshot-v1-16b-a3b
 (MoE), with rwkv6-7b (RWKV6, at its own chip need) and with
 jamba-1.5-large (hybrid, at the chip need of the one-block cut that
-``chip_smoke.py`` serves) in place of yi-9b.
+``chip_smoke.py`` serves) and with deepseek-v3 (MoE with MLA, at the
+chip need of the five-layer cut that ``chip_smoke.py`` serves) in place
+of yi-9b.  A vlm or encdec request fails in both engines alike: their
+``run_request`` prefills the prompt's tokens only, and the model's
+prefill needs the image embeddings or the frames (ROADMAP Queue 3, R7).
 ``chips_needed`` and ``cache_bytes`` equal the reference's for every
-config the port runs.  A bfloat16 engine keeps in float32 exactly the
+config.  A bfloat16 engine keeps in float32 exactly the
 leaves the reference reads in float32.
 """
 
@@ -35,9 +39,7 @@ from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.models.convert import params_from_jax
 from repro_torch.serve import engine, kv_cache
 
-PORTED = tuple(a for a in ARCH_IDS
-               if get_config(a).family in ("dense", "ssm", "hybrid")
-               or (get_config(a).family == "moe" and get_config(a).mla is None))
+PORTED = ARCH_IDS
 # (name, arch, bucket, chips, mean service s, arrival mix): test_substrate's
 CLASSES = (("small", "stablelm_3b", 8192, 2, 1.0, 0.8),
            ("big", "yi_9b", 8192, 8, 4.0, 0.2))
@@ -47,6 +49,8 @@ RWKV_CLASSES = (CLASSES[0], ("big", "rwkv6_7b", 8192, 2, 4.0, 0.2))
 # jamba-1.5-large at the chip need of its one-block, 8-of-16-experts cut
 JAMBA_CLASSES = (CLASSES[0], ("big", "jamba_1_5_large_398b", 8192, 8, 4.0,
                               0.2))
+# deepseek-v3 at the chip need of its five-layer cut (chip_smoke.mla_cut)
+MLA_CLASSES = (CLASSES[0], ("big", "deepseek_v3_671b", 8192, 8, 4.0, 0.2))
 
 
 def _engines(classes_=CLASSES, **over):
@@ -101,6 +105,10 @@ def test_hybrid_admission_equals_reference_event_for_event():
     _admission_event_for_event(JAMBA_CLASSES)
 
 
+def test_mla_admission_equals_reference_event_for_event():
+    _admission_event_for_event(MLA_CLASSES)
+
+
 def _admission_event_for_event(classes):
     ref, port = _engines(classes)
     assert port.device.type == "cpu"
@@ -143,6 +151,28 @@ def test_rwkv_run_request_equals_reference_token_for_token():
 def test_hybrid_run_request_equals_reference_token_for_token():
     port = _token_for_token(JAMBA_CLASSES)
     assert port._model("big").cfg.family == "hybrid"
+
+
+def test_mla_run_request_equals_reference_token_for_token():
+    port = _token_for_token(MLA_CLASSES)
+    assert port._model("big").cfg.mla is not None
+
+
+@pytest.mark.parametrize("arch", ["llama_3_2_vision_90b",
+                                  "seamless_m4t_large_v2"])
+def test_run_request_of_a_cross_attention_class_fails_in_both(arch):
+    """R7: the engines prefill ``{"tokens": prompt}`` only, so a vlm or
+    encdec request finds no image embeddings or frames, in the reference
+    and in the port alike (``KeyError``)."""
+    ref, port = _engines((CLASSES[0], ("big", arch, 8192, 8, 4.0, 0.2)),
+                         compute_dtype="float32")
+    _submit(ref, ref_engine, n=10, max_new_tokens=2)
+    _submit(port, engine, n=10, max_new_tokens=2)
+    jid = next(j for j in sorted(port.sched.running)
+               if port._jobs[j].cls_name == "big")
+    for eng in (ref, port):
+        with pytest.raises(KeyError):
+            eng.run_request(jid)
 
 
 def _token_for_token(classes):
@@ -194,11 +224,13 @@ F32_LEAVES = {
                     "bonus_u"},
     "hybrid": NORMS | {"router", "x_dt", "dt_proj", "dt_bias", "x_B", "x_C",
                        "A_log", "D_skip"},
+    # MLA's latent norms and the MTP head's two norms (rms_norm)
+    "mla": NORMS | {"router", "q_norm", "kv_norm", "norm_h", "norm_e"},
 }
 
 
 @pytest.mark.parametrize("classes", [MOE_CLASSES, RWKV_CLASSES,
-                                     JAMBA_CLASSES])
+                                     JAMBA_CLASSES, MLA_CLASSES])
 def test_bfloat16_engine_keeps_float32_read_leaves(classes):
     """A bfloat16 engine (the configs' own compute dtype) on the CPU keeps
     exactly the leaves the reference reads in float32 in float32, equal
@@ -220,7 +252,8 @@ def test_bfloat16_engine_keeps_float32_read_leaves(classes):
         else:
             yield path, a, b
 
-    family = port._model(name).cfg.family
+    cfg = port._model(name).cfg
+    family = "mla" if cfg.mla is not None else cfg.family
     seen = set()
     for path, a, b in walk(got, want):
         leaf = path[-1]
@@ -261,14 +294,24 @@ def test_decode_step_bench_runs_on_the_cpu(arch):
     assert min(r["decode_ms"]) == r["decode_ms_min"] > 0
 
 
-@pytest.mark.parametrize("arch", ["stablelm_3b", "yi_9b"])
+@pytest.mark.parametrize("arch", ["stablelm_3b", "yi_9b", "deepseek_v3_671b",
+                                  "llama_3_2_vision_90b",
+                                  "seamless_m4t_large_v2"])
 def test_layer_by_layer_decode_vs_forward_catches_cache_faults(arch):
     """bench/decode_vs_forward on a reduced float32 model on the CPU: the
     teacher-forced decode matches the prefill layer by layer within 1e-4
     of each row's largest element (float32 products of 1 row and of S + 1
     rows summed in other orders; LAYER_TOL is 156 times that),
     free-running logits agree, and a decode step at the wrong position or
-    on an unseeded cache is beyond LAYER_TOL in some layer."""
+    on an unseeded cache is beyond LAYER_TOL in some layer.  MLA's
+    absorbed decode and expanded prefill, cross-attention's static cache
+    and the encoder (run once per prompt, its layers not compared) are
+    held alike; the vlm gate is set to 0.5 so that its cross layers add
+    to the residual.  The reduced vlm is ten layers deep, twice the
+    others, and at this init (``tests/test_torch_models.py``: attention
+    nearly an argmax) its free-running logits keep 6.9e-3 of float32
+    rounding after them, so its free-running bound is 1e-2; each of its
+    layers meets the 1e-4 all the same."""
     from repro_torch.bench import decode_vs_forward as dvf
     from repro_torch.models.model import Model
     cfg = dataclasses.replace(get_config(arch).reduced(),
@@ -276,13 +319,19 @@ def test_layer_by_layer_decode_vs_forward_catches_cache_faults(arch):
     model = Model(cfg)
     params = model.init(torch.Generator().manual_seed(0),
                         dtype=torch.float32)
+    for stage in params["stages"]:
+        for lay in stage.values():
+            if "gate" in lay["attn"]:
+                lay["attn"]["gate"].fill_(0.5)
     S = 31
     toks = torch.tensor(np.random.default_rng(3).integers(
         1, cfg.vocab_size, S + 1))
-    rel = dvf.layer_by_layer(model, params, toks, S)
+    extra = dvf.stub_inputs(cfg, dvf.frame_rows(cfg, S + dvf.PAD), 4, "cpu")
+    rel = dvf.layer_by_layer(model, params, toks, S, extra=extra)
     assert len(rel) == cfg.num_layers and max(rel) < 1e-4
-    assert dvf.free_running(model, params, toks, S) < 1e-3
-    assert max(dvf.layer_by_layer(model, params, toks, S,
-                                  pos=S - 1)) > dvf.LAYER_TOL
-    assert max(dvf.layer_by_layer(model, params, toks, S,
-                                  seed_cache=False)) > dvf.LAYER_TOL
+    free_tol = 1e-2 if cfg.num_layers > 4 else 1e-3
+    assert dvf.free_running(model, params, toks, S, extra=extra) < free_tol
+    assert max(dvf.layer_by_layer(model, params, toks, S, pos=S - 1,
+                                  extra=extra)) > dvf.LAYER_TOL
+    assert max(dvf.layer_by_layer(model, params, toks, S, seed_cache=False,
+                                  extra=extra)) > dvf.LAYER_TOL
