@@ -56,7 +56,7 @@ The Figure-3 slice adds to each phase:
 The drain-mode failure slice adds:
 
 2. ``fcfs_fail_scan``, ``modbs_fail_scan`` and ``bs_fail_scan`` at the
-   Figure-1 widths of k in {256, 2048}, R = 16, J = 600 (ring capacity
+   Figure-1 widths of k in {256, 2048}, R = 16, J = 400 (ring capacity
    q_cap = J, so no ring can overflow), under two outage mixes over the
    arrival horizon h: ``bench_sim.bench_failures``' process (mtbf = h/4,
    mttr = h/400, single servers) and a heavier one (mtbf = h/4,
@@ -386,6 +386,32 @@ the card's memory alone (the phase before it freed):
 The SDSC-SP2 comparisons of ``srpt_scan`` at k in {512, 1024} run at
 J = 1000 (2000 before) to pay for the two phases.
 
+The serving-driver slice (``launch/serve.py``, ``sched/elastic.py``,
+``runtime/``) adds the G = 9 and G = 6 heads (starcoder2-7b, H 36 / Kh 4;
+internlm2-20b, H 48 / Kh 8) to ``[serve]``'s kernel cases and times, and
+a phase after ``[serve-mla]``, on the card's memory alone:
+
+5. ``[serve-driver]`` (``driver_path``): ``run_epochs`` at the driver's
+   defaults (fleet 512, 4 epochs of 6000 jobs in chunks of 2000, R 2,
+   load 0.8, period 3600 s, amplitude 0.5: three rescales) for fcfs,
+   modbs-fcfs and bs-fcfs with the stream counts set to 0 just before
+   and read just after (one carried launch a chunk, 12 a run), each run
+   card == CPU on every printed line and ``StreamResult`` field (the CPU
+   runs, one process a policy, go on while the card serves);
+   ``main(["--execute", "5"])`` with every
+   count set to 0 just before and read just after (the epoch loop's 12
+   ``bs_stream`` launches; starcoder2-7b and yi-9b at full size and
+   deepseek-v3 cut by ``serve.cuts.mla_cut(cfg, moe_layers=1)``, 68 GB
+   of bf16 weights held together: flash L a prefill, decode L a token
+   after the first, ``gmm`` 3 a token), each request's prefill and decode
+   wall, the weights' draw and the peak memory; the first request of
+   each class again warm and then with every flash, decode and ``gmm``
+   call held to its plain version (same tokens); starcoder2-7b's
+   decode-vs-forward layer by layer within ``LAYER_TOL``; a
+   ``llamav-32k`` request raising ``KeyError`` with the card's memory
+   unchanged.  To pay for the phase, the drain comparisons of phase 2
+   run at J = 400 (600 before).
+
 Then it prints the card's name and power limit, one ``{"kernels": [...]}``
 line and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the repository around it, it exits non-zero and prints no
@@ -397,8 +423,11 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import io
 import json
 import math
+import os
+import pickle
 import subprocess
 import sys
 import time
@@ -443,8 +472,8 @@ DRAIN_KS, DRAIN_SMALL_J, DRAIN_SMALL_R = (256, 1024), 2000, 4
 # (4000 until the BS-pi redesign, then 2000, then 1000; cut each time to
 # make room for a phase: 800 since the event-engine phase 3e, which also
 # holds the three drain kernels to engine="python"; 600 since the theory
-# phase 3f)
-DRAIN_CMP_J = 600
+# phase 3f; 400 since the serving driver's phase)
+DRAIN_CMP_J = 400
 # BS-pi's adversarial cases (bench/bs_cases.ADVERSARIAL): J and R of the
 # comparison with the plain version on the CPU
 BS_ADV_J, BS_ADV_R = 2000, 4
@@ -616,7 +645,10 @@ OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 ATTN_TOLS = {"bfloat16": (1e-5, 2.0 ** -6), "float32": (2e-5, 2e-5)}
 HEADS = {"yi_9b": (32, 4, 128), "stablelm_3b": (32, 32, 80),  # H, Kh, D
          "moonshot_v1_16b_a3b": (16, 16, 128),
-         "jamba_1_5_large_398b": (64, 8, 128)}
+         "jamba_1_5_large_398b": (64, 8, 128),
+         # the group counts that are not a power of two: G = 9 (the
+         # serving driver's starcoder-8k class) and G = 6
+         "starcoder2_7b": (36, 4, 128), "internlm2_20b": (48, 8, 128)}
 FLASH_S, DECODE_SK, DECODE_BS = 2048, 8192, (1, 4)
 # tests/test_substrate.py's request classes: (name, arch, bucket, chips,
 # mean service s, arrival mix), served at full width on the one card
@@ -678,23 +710,30 @@ VLM_GATE = 0.5
 MLA_ARCH = "deepseek_v3_671b"
 # MLA's teacher-forced per-layer bound: bench/decode_vs_forward.LAYER_TOL
 MLA_LAYER_TOL = 2.0 ** -6
-
-
-def hybrid_cut(cfg):
-    """The served cut of jamba-1.5-large (configs/jamba_1_5_large_398b.py:
-    72 layers = 9 blocks of 8, 16 experts top-2; 398.6 B params, 797 GB in
-    bf16, which no single H100 holds).  Every width stays as published (d
-    8192, d_inner 16384, d_state 16, d_conv 4, dt_rank 512, 64 heads / 8
-    KV heads of 128, d_ff and d_ff_expert 24576, a router with 16 outputs,
-    top-2, capacity factor 1.25, the 65 536 vocabulary); the depth is one
-    whole block of 8 layers (repeats 9 -> 1: the other blocks would be
-    further pipeline stages), and the card holds experts 0..7 of each MoE
-    layer (rank 0 of a 2-way expert-parallel deployment: 9 stages x 2
-    cards = 18 H100s), routing and capacity still over all 16."""
-    return dataclasses.replace(
-        cfg, name=f"{cfg.name}-block0-ep0of2", num_layers=cfg.attn_every,
-        moe=dataclasses.replace(cfg.moe,
-                                experts_held=cfg.moe.num_experts // 2))
+# the serving driver (launch/serve.py): run_epochs at its defaults (the
+# reference's), held card == CPU bit for bit, and --execute with the
+# classes its draws give at seed 0
+DRIVER_KW = dict(fleet=512, epochs=4, epoch_jobs=6000, chunk_jobs=2000,
+                 reps=2, load=0.8, period=3600.0, amplitude=0.5, seed=0)
+# the driver's epoch loop at DRIVER_KW on the CPU, the plain versions of the
+# carried kernels, for one policy (argv[1]) on one thread (their many small
+# steps only slow down on more): its printed lines, history and seconds,
+# pickled to stdout
+PLAIN_EPOCHS = """
+import json, pickle, sys, time
+out, sys.stdout = sys.stdout.buffer, sys.stderr
+import torch
+torch.set_num_threads(1)
+from repro_torch.launch import serve
+pol, kw = sys.argv[1], json.loads(sys.argv[2])
+lines, t0 = [], time.time()
+hist = serve.run_epochs(serve.default_classes(kw["fleet"], "cpu"),
+                        policy=pol, device="cpu", out=lines.append, **kw)
+out.write(pickle.dumps((lines, hist, time.time() - t0)))
+"""
+DRIVER_EXECUTE = 5
+DRIVER_DRAWS = ["starcoder-8k", "deepseek-32k", "yi9b-8k", "deepseek-32k",
+                "yi9b-8k"]
 
 
 def _roofline(nbytes: float, ops: float, dtype: str) -> tuple[float, str]:
@@ -1064,6 +1103,33 @@ def gmm_bound(rows, experts, M, K, N, nblocks, dtype):
     item = 2 if dtype == "bfloat16" else 4
     nbytes = item * (rows * K + experts * K * N + M * N) + 8 * nblocks
     return _roofline(nbytes, 2 * rows * K * N, dtype)
+
+
+def gmm_vs_plain(out, x, w, be, nv, bm) -> tuple[float, float, bool]:
+    """``out = gmm(x, w, be, nv, block_m=bm)`` against the plain version,
+    one expert with valid rows at a time (the buffer is expert-major, Cp
+    rows an expert; a float32 gather of a whole expert stack can take 15
+    GB), at the bf16 limit: (largest err/limit, largest abs err, skipped
+    blocks exactly zero)."""
+    import torch
+
+    from repro_torch.kernels.moe_gmm import gmm_ref
+
+    E = w.shape[0]
+    Cp = x.shape[0] // E
+    nb = Cp // bm
+    atol, rtol = ATTN_TOLS["bfloat16"]
+    worst = err = 0.0
+    for e in torch.nonzero(nv.view(E, nb).sum(1) > 0).flatten().tolist():
+        sl, bs = slice(e * Cp, (e + 1) * Cp), slice(e * nb, (e + 1) * nb)
+        ref = gmm_ref(x[sl], w[e:e + 1], torch.zeros_like(be[bs]),
+                      nv[bs].contiguous(), block_m=bm).float()
+        d = (out[sl].float() - ref).abs()
+        err = max(err, d.max().item())
+        worst = max(worst, (d / (atol + rtol * ref.abs())).max().item())
+        del ref, d
+    skipped = (nv == 0).repeat_interleave(bm)
+    return worst, err, bool((out[skipped] == 0).all())
 
 
 def admitted_big_runs(classes, tag: str, dev):
@@ -1716,7 +1782,7 @@ def hybrid_path(dev) -> dict:
                                                 mamba_scan_fused_ref,
                                                 mamba_scan_fwd,
                                                 mamba_scan_ref)
-    from repro_torch.kernels.moe_gmm import gmm, gmm_ref
+    from repro_torch.kernels.moe_gmm import gmm
     from repro_torch.kernels.moe_gmm import kernel as gmm_kernel
     from repro_torch.kernels.rwkv6 import wkv_fwd
     from repro_torch.models import mamba, moe
@@ -1725,6 +1791,7 @@ def hybrid_path(dev) -> dict:
     from repro_torch.models.transformer import decoder_stages
     from repro_torch.serve import engine as E
     from repro_torch.serve import kv_cache
+    from repro_torch.serve.cuts import hybrid_cut
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.cuda.reset_peak_memory_stats()
@@ -1913,19 +1980,7 @@ def hybrid_path(dev) -> dict:
                 fail(f"gmm {what}: took the {route} kernel, not "
                      f"{gmm_want_route('bfloat16', bm)}")
             atol, rtol = ATTN_TOLS["bfloat16"]
-            worst, err = 0.0, 0.0
-            for e in range(H):
-                sl = slice(e * Cp, (e + 1) * Cp)
-                bs = slice(e * Cp // bm, (e + 1) * Cp // bm)
-                ref = gmm_ref(x[sl], w[e:e + 1], torch.zeros_like(be[bs]),
-                              nv[bs].contiguous(), block_m=bm).float()
-                d = (out[sl].float() - ref).abs()
-                err = max(err, d.max().item())
-                worst = max(worst, (d / (atol + rtol * ref.abs())).max()
-                            .item())
-                del ref, d
-            skipped = (nv == 0).repeat_interleave(bm)
-            zeros = bool((out[skipped] == 0).all())
+            worst, err, zeros = gmm_vs_plain(out, x, w, be, nv, bm)
             print(f"[kernel] gmm {what}: max abs err {err:.3g}; limit "
                   f"{atol:g} + {rtol:g} |ref| per element (plain version "
                   f"one expert at a time), largest err/limit {worst:.3g}; "
@@ -2110,35 +2165,6 @@ def hybrid_path(dev) -> dict:
         peak_gb=peak, weights_init_peak_gb=init_peak,
         serve_s={f"prompt {S}": {"prefill": p, "decode_per_token": d}
                  for S, (p, d) in sorted(walls.items())}), gmm_cases
-
-
-def vlm_cut(cfg):
-    """The served cut of llama-3.2-vision-90b (configs/
-    llama_3_2_vision_90b.py: 100 layers = 20 blocks of 4 self-attention
-    layers and one tanh-gated cross-attention layer; 87.7 B params, 175 GB
-    in bf16, which no single H100 holds).  Every width stays as published
-    (d 8192, 64 heads / 8 KV heads of 128, d_ff 28672, 1024 image tokens,
-    the 128 256 vocabulary); the depth is one whole block of
-    ``cross_attn_every`` = 5 layers, 4 self and 1 cross (repeats 20 -> 1:
-    the other blocks would be further pipeline stages): 6.4 B params,
-    12.8 GB."""
-    return dataclasses.replace(cfg, name=f"{cfg.name}-block0",
-                               num_layers=cfg.cross_attn_every)
-
-
-def mla_cut(cfg):
-    """The served cut of deepseek-v3 (configs/deepseek_v3_671b.py: 61
-    layers, 3 dense then 58 MoE of 256 experts top-8 with 1 shared, and a
-    multi-token-prediction layer; 682.6 B params).  Every width stays as
-    published (d 7168, 128 heads, MLA q_lora 1536, kv_lora 512, rope 64,
-    nope 128, v 128; 256 experts top-8 of d_ff 2048, all 256 held, 1
-    shared, capacity factor 1.25; dense d_ff 18432; the 129 280
-    vocabulary); the depth is the 3 dense layers and 2 MoE layers (the
-    other 56 would be further pipeline stages), and ``mtp`` is off: the
-    MTP layer is a training head that neither prefill nor decode reads.
-    26.6 B params, 53.2 GB in bf16."""
-    return dataclasses.replace(cfg, name=f"{cfg.name}-5layer",
-                               num_layers=cfg.moe.first_dense + 2, mtp=False)
 
 
 @contextlib.contextmanager
@@ -2410,6 +2436,7 @@ def xattn_path(dev) -> dict:
     from repro_torch.models.model import Model, init_cache
     from repro_torch.models.transformer import decoder_stages
     from repro_torch.serve import engine as E
+    from repro_torch.serve.cuts import vlm_cut
 
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"[serve-xattn] {torch.cuda.memory_allocated() / 1e9:.2f} GB "
@@ -2564,13 +2591,14 @@ def mla_path(dev) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels.decode_attention import decode_attention_fwd
     from repro_torch.kernels.flash_attention import flash_attention_fwd
-    from repro_torch.kernels.moe_gmm import gmm, gmm_ref
+    from repro_torch.kernels.moe_gmm import gmm
     from repro_torch.kernels.moe_gmm import kernel as gmm_kernel
     from repro_torch.models import moe
     from repro_torch.models.layers import tree_leaves
     from repro_torch.models.transformer import decoder_stages
     from repro_torch.serve import engine as E
     from repro_torch.serve import kv_cache
+    from repro_torch.serve.cuts import mla_cut
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.cuda.reset_peak_memory_stats()
@@ -2623,18 +2651,7 @@ def mla_path(dev) -> dict:
                 fail(f"gmm {what}: took the {route} kernel, not "
                      f"{gmm_want_route('bfloat16', bm)}")
             atol, rtol = ATTN_TOLS["bfloat16"]
-            worst = err = 0.0
-            for e in np.nonzero(fill)[0].tolist():
-                sl = slice(e * Cp, (e + 1) * Cp)
-                bs = slice(e * Cp // bm, (e + 1) * Cp // bm)
-                ref = gmm_ref(x[sl], w[e:e + 1], torch.zeros_like(be[bs]),
-                              nv[bs].contiguous(), block_m=bm).float()
-                d = (res[sl].float() - ref).abs()
-                err = max(err, d.max().item())
-                worst = max(worst, (d / (atol + rtol * ref.abs())).max()
-                            .item())
-            skipped = (nv == 0).repeat_interleave(bm)
-            zeros = bool((res[skipped] == 0).all())
+            worst, err, zeros = gmm_vs_plain(res, x, w, be, nv, bm)
             print(f"[kernel] gmm {what}: max abs err {err:.3g}; limit "
                   f"{atol:g} + {rtol:g} |ref| per element (plain version "
                   f"one valid expert at a time), largest err/limit "
@@ -2793,6 +2810,390 @@ def mla_path(dev) -> dict:
     return dict(gmm=gmm_cases, flash=fc, launches=counts,
                 serve_s={f"prompt {S}": {"prefill": p, "decode_per_token": d}
                          for S, (p, d) in sorted(walls.items())})
+
+
+@contextlib.contextmanager
+def keep_gmm_calls(checked: dict):
+    """While active (``with``), each gmm call of the model code
+    (``models.moe.gmm``) is held at once to its plain version on the same
+    inputs (``gmm_vs_plain``).  ``checked`` maps the call's shape (M, E,
+    K, N, block_m, route) to [calls, largest err/limit, largest abs err,
+    skipped blocks zero]."""
+    from repro_torch.kernels.moe_gmm import gmm
+    from repro_torch.models import moe
+
+    def keeping(x, w, be, nv, *, block_m):
+        out = gmm(x, w, be, nv, block_m=block_m)
+        key = (x.shape[0], w.shape[0], x.shape[1], w.shape[2], block_m,
+               gmm.last_route)
+        worst, err, zeros = gmm_vs_plain(out, x, w, be, nv, block_m)
+        c = checked.setdefault(key, [0, 0.0, 0.0, True])
+        c[0] += 1
+        c[1], c[2], c[3] = max(c[1], worst), max(c[2], err), c[3] and zeros
+        return out
+
+    moe.gmm = keeping
+    try:
+        yield checked
+    finally:
+        moe.gmm = gmm
+
+
+@contextlib.contextmanager
+def plain_epoch_runs():
+    """``PLAIN_EPOCHS`` for each policy, one process each, all started at
+    once so that they run while the card serves; yields {policy: Popen}
+    and kills whichever still runs on the way out."""
+    path = os.pathsep.join(filter(None, (str(ROOT / "src"),
+                                         os.environ.get("PYTHONPATH"))))
+    procs = {pol: subprocess.Popen(
+        [sys.executable, "-c", PLAIN_EPOCHS, pol, json.dumps(DRIVER_KW)],
+        stdout=subprocess.PIPE, env=dict(os.environ, PYTHONPATH=path))
+        for pol in POLICIES}
+    try:
+        yield procs
+    finally:
+        for p in procs.values():
+            p.kill()
+            p.wait()
+
+
+def driver_path(dev, report: dict, plain: dict) -> dict:
+    """The serving driver (``repro_torch.launch.serve``) on the card.
+
+    1. ``run_epochs`` at the driver's defaults (``DRIVER_KW``) for each
+       policy, the stream counts set to 0 just before and read just after
+       (one carried launch a chunk); the epoch and rescale lines printed;
+       at least one rescale; every printed line and every
+       ``StreamResult`` field equal bit for bit to the CPU's (``plain``:
+       ``plain_epoch_runs``' processes, read at the end of the phase), and
+       ``main``'s epoch loop (bs-fcfs) too.
+    2. ``main([... "--execute", DRIVER_EXECUTE])``: every kernel count set
+       to 0 just before and read just after; every flash, decode and gmm
+       call held to its plain version (``keep_flash_calls``,
+       ``keep_decode_calls``, ``keep_gmm_calls``); flash L a prefill,
+       decode L a token after the first, gmm 3 a MoE layer a prefill and
+       a token; each request's prefill and decode wall, each class's
+       weight draw and the peak memory printed.
+    3. starcoder2-7b's layer-by-layer decode-vs-forward within
+       ``dvf.LAYER_TOL`` (G = 9 in both attention kernels).
+    4. a ``llamav-32k`` request raises ``KeyError`` with
+       ``torch.cuda.memory_allocated()`` unchanged.
+
+    Adds ``driver_launches`` to the stream entries of ``report``; returns
+    {"flash": cases, "decode": cases, "gmm": cases, "launches": counts,
+    "serve_s": walls, ...}."""
+    import numpy as np
+    import torch
+
+    from repro_torch.bench import decode_vs_forward as dvf
+    from repro_torch.kernels import moe_gmm
+    from repro_torch.kernels.decode_attention import decode_attention_fwd
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.mamba_scan import (mamba_scan_fused,
+                                                mamba_scan_fwd)
+    from repro_torch.kernels.msj_scan import kernel as K
+    from repro_torch.kernels.rwkv6 import wkv_fwd
+    from repro_torch.launch import serve as D
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.models.transformer import decoder_stages
+    from repro_torch.serve import engine as E
+
+    t_phase = time.time()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"[serve-driver] {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+          f"allocated on entry (the MLA phase's weights freed)")
+
+    def say(line):
+        for s in line.splitlines():
+            print(f"[serve-driver] {s}")
+
+    # -- 1. the epoch loop on the carried stream kernels ------------------
+    classes = D.default_classes(DRIVER_KW["fleet"], dev)
+    wrappers = {pol: STREAM_KERNELS[name][0]
+                for pol, name in zip(POLICIES, STREAM_KERNELS)}
+    n_chunks = DRIVER_KW["epochs"] * -(-DRIVER_KW["epoch_jobs"]
+                                       // DRIVER_KW["chunk_jobs"])
+    driver_launches, epoch_s, counted = {}, {}, {}
+    for pol in POLICIES:
+        lines = []
+        torch.cuda.synchronize()
+        t0 = time.time()
+        K.reset_launches()
+        hist = D.run_epochs(classes, policy=pol, device=dev,
+                            out=lines.append, **DRIVER_KW)
+        counts = {w: n for w, n in K.launches().items() if n}
+        epoch_s[pol] = time.time() - t0
+        for line in lines:
+            say(f"{pol}: {line}")
+        want = {wrappers[pol]: n_chunks}
+        print(f"[serve-driver] run_epochs({pol}) at the driver's defaults "
+              f"{DRIVER_KW}: {epoch_s[pol]:.2f} s; launches {counts} "
+              f"(expected {want}: one carried launch a chunk)")
+        if counts != want:
+            fail(f"[serve-driver] run_epochs({pol}) launched {counts}, "
+                 f"expected {want}")
+        for k, res in hist:
+            for f in STREAM_FIELDS:
+                x = getattr(res, f)
+                if x is not None and not np.isfinite(x).all():
+                    fail(f"[serve-driver] {pol} k={k}: non-finite {f}")
+        if not any(s.startswith("rescale:") for s in lines):
+            fail(f"[serve-driver] run_epochs({pol}): no rescale at the "
+                 f"driver's defaults")
+        counted[pol] = (lines, hist)
+        driver_launches[wrappers[pol]] = counts.get(wrappers[pol], 0)
+    for name, (wrapper, _) in STREAM_KERNELS.items():
+        report[name]["driver_launches"] = driver_launches[wrapper]
+
+    # -- 2. main --execute on the card --------------------------------------
+    draw_s = {}
+    get_params = E.ServingEngine._get_params
+
+    def timed_get_params(self, name):
+        if name in self._params:
+            return get_params(self, name)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = get_params(self, name)
+        torch.cuda.synchronize()
+        draw_s[name] = time.time() - t0
+        return out
+
+    wrappers_all = {"flash_attention": flash_attention_fwd,
+                    "decode_attention": decode_attention_fwd,
+                    "gmm": moe_gmm.gmm, "wkv": wkv_fwd,
+                    "mamba_scan": mamba_scan_fused,
+                    "mamba_scan_reference_entry": mamba_scan_fwd}
+    argv = ["--execute", str(DRIVER_EXECUTE)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    E.ServingEngine._get_params = timed_get_params
+    try:
+        with contextlib.redirect_stdout(io.StringIO()) as buf:
+            K.reset_launches()
+            for w in wrappers_all.values():
+                w.launches = 0
+            t0 = time.time()
+            hist, eng = D.main(argv)
+            torch.cuda.synchronize()
+            main_s = time.time() - t0
+            counts = {n: w.launches for n, w in wrappers_all.items()}
+            counts.update({w: n for w, n in K.launches().items() if n})
+    finally:
+        E.ServingEngine._get_params = get_params
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    say(buf.getvalue())
+    reqs = sorted(eng._jobs.values(), key=lambda r: r.rid)
+    names = [r.cls_name for r in reqs]
+    print(f"[serve-driver] main({argv}) on the card in {main_s:.1f} s "
+          f"(the epoch loop at the defaults, bs-fcfs, then {len(reqs)} "
+          f"requests); draws {names}")
+    if names != DRIVER_DRAWS:
+        fail(f"[serve-driver] --execute drew {names}, expected {DRIVER_DRAWS}")
+    want = {"flash_attention": 0, "decode_attention": 0, "gmm": 0, "wkv": 0,
+            "mamba_scan": 0, "mamba_scan_reference_entry": 0,
+            wrappers["bs-fcfs"]: n_chunks}
+    first = {}                           # class -> its first request
+    for r in reqs:
+        cfg = eng._model(r.cls_name).cfg
+        specs = [s for st in decoder_stages(cfg) for s in st.pattern
+                 for _ in range(st.repeats)]
+        L = len(specs)
+        n_moe = sum(s.ffn == "moe" for s in specs)
+        new = len(r.output) - 1
+        want["flash_attention"] += L
+        if cfg.mla is None:
+            want["decode_attention"] += L * new
+        want["gmm"] += 3 * n_moe * (1 + new)
+        if len(r.output) != 16 or not all(0 <= t < cfg.vocab_size
+                                           for t in r.output):
+            fail(f"[serve-driver] request {r.rid} ({r.cls_name}) gave "
+                 f"tokens {r.output}")
+        drawn = ("" if r.cls_name in first else
+                 f"; weights drawn in {draw_s[r.cls_name]:.2f} s")
+        first.setdefault(r.cls_name, r)
+        print(f"[serve-driver] request {r.rid} {r.cls_name} ({cfg.name}, "
+              f"{L} layers, H={cfg.num_heads} Kh={cfg.num_kv_heads}): prefill "
+              f"of 16 tokens {r.prefill_s * 1e3:.1f} ms, decode "
+              f"{r.decode_s / new * 1e3:.2f} ms per token{drawn}; tokens "
+              f"{r.output}")
+    print(f"[serve-driver] launches {counts} (expected {want}: the epoch "
+          f"loop's {n_chunks} carried launches, flash L a prefill, decode L "
+          f"a token after the first (none for MLA: absorbed decode), gmm 3 "
+          f"a MoE layer a prefill and a token)")
+    if counts != want:
+        fail(f"[serve-driver] launch counts {counts} differ from {want}")
+    weights = {n: round(sum(t.numel() * t.element_size() for t in
+                            tree_leaves(eng._params[n])) / 1e9, 2)
+               for n in eng._params}
+    print(f"[serve-driver] weights held {weights} GB; "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, peak "
+          f"{peak:.2f} GB of "
+          f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.2f} GB "
+          f"in main")
+
+    # the first request of each class again, warm and then with every
+    # flash, decode and gmm call held to its plain version (launches made
+    # to compare, outside the counted run): the same tokens both times
+    fkept, dec_checked, gmm_checked, warm = [], {}, {}, {}
+    for held in (False, True):
+        with contextlib.ExitStack() as stack:
+            if held:
+                stack.enter_context(dvf.keep_flash_calls(fkept))
+                stack.enter_context(keep_decode_calls(dec_checked))
+                stack.enter_context(keep_gmm_calls(gmm_checked))
+            for name, r in first.items():
+                rid = max(q.rid for q in eng._jobs.values()) + 1
+                eng.submit(E.Request(rid=rid, cls_name=name, prompt=r.prompt,
+                                     arrival=float(rid)), float(rid))
+                again = eng.run_request(max(eng._jobs))
+                torch.cuda.synchronize()
+                if again.output != r.output:
+                    fail(f"[serve-driver] request {r.rid} ({name}) run again "
+                         f"{'held' if held else 'warm'} gave {again.output}, "
+                         f"not {r.output}")
+                if not held:
+                    warm[name] = (again.prefill_s, again.decode_s
+                                  / (len(again.output) - 1))
+    print(f"[serve-driver] the first request of each class again, warm: "
+          + ", ".join(f"{n} prefill {p * 1e3:.1f} ms, decode {d * 1e3:.2f} ms "
+                      f"per token" for n, (p, d) in warm.items())
+          + "; again with every kernel call held to its plain version: the "
+            "same tokens")
+
+    # one line per decode shape: the held calls at every position merged,
+    # the last position's inputs kept for timing
+    merged = {}
+    for key, (calls, unit, scaled, err, args) in dec_checked.items():
+        m = merged.setdefault(key[:6], [0, 0.0, 0.0, 0.0, None, None])
+        m[0] += calls
+        m[1], m[2], m[3] = max(m[1], unit), max(m[2], scaled), max(m[3], err)
+        m[4], m[5] = args, key[6]
+    print(f"[serve-driver] decode calls held at positions "
+          f"{sorted({k[6][0] for k in dec_checked})[0]}.."
+          f"{sorted({k[6][0] for k in dec_checked})[-1]}, merged by shape "
+          f"(pos below is the last one's, whose inputs are timed)")
+    dec_checked = {k + (m[5],): m[:5] for k, m in merged.items()}
+    fc, dc = attention_checks("serve-driver", "driver", fkept, dec_checked)
+    gmm_cases = []
+    for (M, Ex, Kd, N, bm, route), (calls, worst, err, zeros) in \
+            gmm_checked.items():
+        what = (f"driver M={M} E={Ex} K={Kd} N={N} block_m={bm} bfloat16, "
+                f"{route} kernel")
+        print(f"[kernel] gmm {what}: {calls} calls of the served requests "
+              f"against the plain version one valid expert at a time: "
+              f"largest err/limit {worst:.3g}, max abs err {err:.3g}; "
+              f"skipped blocks exactly zero: {zeros}")
+        if route != gmm_want_route("bfloat16", bm):
+            fail(f"[serve-driver] gmm {what}: expected the "
+                 f"{gmm_want_route('bfloat16', bm)} kernel")
+        if not (worst <= 1.0 and zeros):
+            fail(f"[serve-driver] gmm {what} differs from its plain version")
+        gmm_cases.append(dict(what=what, err=err, err_over_limit=worst,
+                              calls=calls, kernel_route=route))
+    heads = {(c["shape"][3], c["shape"][4]) for c in fc}
+    if (36, 4) not in heads or not any(k[2:4] == (36, 4) for k in
+                                       dec_checked):
+        fail("[serve-driver] no G = 9 flash or decode call was held")
+    del fkept
+    time_attention(fc, dc)
+
+    # -- 3. starcoder2-7b decode-vs-forward, layer by layer -----------------
+    name = "starcoder-8k"
+    model, params = eng._model(name), eng._params[name]
+    cfg = model.cfg
+    rng = np.random.default_rng(31)
+    toks = torch.tensor(rng.integers(1, cfg.vocab_size,
+                                     SERVE_PROMPTS[0]), device=dev)
+    S = SERVE_PROMPTS[0] - 1
+    rel = dvf.layer_by_layer(model, params, toks, S)
+    diff = dvf.free_running(model, params, toks, S)
+    worst = max(range(len(rel)), key=rel.__getitem__)
+    print(f"[serve-driver] {cfg.name} (G = {cfg.num_heads // cfg.num_kv_heads}"
+          f") decode-vs-forward, layer by layer: decode at token {S} after "
+          f"prefill({S}), each layer fed prefill({S + 1})'s input there: "
+          f"largest |diff| / max |row| {rel[worst]:.5f} (layer {worst} of "
+          f"{len(rel)}; bound {dvf.LAYER_TOL:g}); free running, last logits "
+          f"max abs diff {diff:.4f} (printed, not held)")
+    if len(rel) != cfg.num_layers or not rel[worst] <= dvf.LAYER_TOL:
+        fail(f"[serve-driver] {cfg.name} decode-vs-forward layer {worst}: "
+             f"{rel[worst]} > {dvf.LAYER_TOL}")
+
+    # -- 4. a llamav-32k request: KeyError before its weights ---------------
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    rid = max(q.rid for q in eng._jobs.values()) + 1
+    eng.submit(E.Request(rid=rid, cls_name="llamav-32k",
+                         prompt=np.arange(16), arrival=float(rid)), float(rid))
+    try:
+        eng.run_request(max(eng._jobs))
+    except KeyError as e:
+        raised = e
+    else:
+        raised = None
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    print(f"[serve-driver] llamav-32k request {rid}: raised "
+          f"{type(raised).__name__}{raised.args if raised else ''}; "
+          f"memory_allocated {before} -> {after} bytes; llamav weights held: "
+          f"{'llamav-32k' in eng._params}")
+    if type(raised) is not KeyError or after != before or \
+            "llamav-32k" in eng._params:
+        fail("[serve-driver] the llamav-32k request did not raise KeyError "
+             "before allocating")
+    main_out = buf.getvalue()
+    del eng, params, model
+
+    # -- the epoch loops against their plain versions on the CPU -----------
+    t0 = time.time()
+    plain_s = {}
+    for pol, proc in plain.items():
+        got, _ = proc.communicate()
+        if proc.returncode != 0:
+            fail(f"[serve-driver] run_epochs({pol}) on the CPU exited "
+                 f"{proc.returncode}")
+        lp, hp, plain_s[pol] = pickle.loads(got)
+        want = "".join(f"{s}\n" for s in lp)
+        lines, hc = counted[pol]
+        runs = [("the counted run", "".join(f"{s}\n" for s in lines), hc)]
+        if pol == "bs-fcfs":      # main printed them first
+            runs.append(("main's", main_out[:len(want)], hist))
+        for what, text, hc in runs:
+            if text != want:
+                fail(f"[serve-driver] run_epochs({pol}), {what}: printed "
+                     f"lines differ on the card and the CPU:\n{text}\n"
+                     f"{want}")
+            if [k for k, _ in hc] != [k for k, _ in hp]:
+                fail(f"[serve-driver] run_epochs({pol}), {what}: fleet "
+                     f"sizes differ")
+            for (k, a), (_, b) in zip(hc, hp):
+                for f in ("jobs", "reps") + STREAM_FIELDS:
+                    x, y = getattr(a, f), getattr(b, f)
+                    if (x is None) != (y is None) or (x is not None and (
+                            np.asarray(x).tobytes()
+                            != np.asarray(y).tobytes())):
+                        fail(f"[serve-driver] run_epochs({pol}), {what}, "
+                             f"k={k}: {f} on the card differs from the CPU")
+        print(f"[serve-driver] run_epochs({pol}) at the driver's defaults: "
+              f"{' and '.join(w for w, _, _ in runs)} on the card == the CPU "
+              f"plain version on every printed line ({len(lp)}, "
+              f"{sum(s.startswith('rescale:') for s in lp)} rescales) and "
+              f"every StreamResult field bit for bit; CPU plain version "
+              f"{plain_s[pol]:.2f} s on one thread")
+    print(f"[serve-driver] waited {time.time() - t0:.1f} s for the CPU runs "
+          f"(started with the phase)")
+    del hist
+    print(f"[serve-driver] the driver phase took {time.time() - t_phase:.1f} s")
+    return dict(flash=fc, decode=dc, gmm=gmm_cases, launches=counts,
+                epoch_s=epoch_s, plain_epoch_s=plain_s, peak_gb=peak,
+                draw_s=draw_s,
+                warm_s={n: {"prefill": p, "decode_per_token": d}
+                        for n, (p, d) in warm.items()},
+                serve_s={f"request {r.rid} {r.cls_name}": {
+                    "prefill": r.prefill_s,
+                    "decode_per_token": r.decode_s / (len(r.output) - 1)}
+                    for r in reqs})
 
 
 def tensor_core_instructions(paths) -> None:
@@ -4275,6 +4676,25 @@ def main() -> int:
     fl["xattn_launches"] = de["xattn_launches"] = xa["launches"]
     fl["mla_launches"] = gm["mla_launches"] = ml["launches"]
     fl["xattn_serve_s"], gm["mla_serve_s"] = xa["serve_s"], ml["serve_s"]
+    gc.collect()                      # the MLA phase's weights
+    torch.cuda.empty_cache()
+    with plain_epoch_runs() as plain:
+        dr = driver_path(dev, report, plain)
+    fl["driver"] = [{k: v for k, v in c.items() if k != "shape"}
+                    for c in dr["flash"]]
+    de["driver"], gm["driver"] = dr["decode"], dr["gmm"]
+    for entry, cases in ((fl, dr["flash"]), (de, dr["decode"]),
+                         (gm, dr["gmm"])):
+        entry["max_abs_err"] = max([entry["max_abs_err"]]
+                                   + [c["err"] for c in cases])
+    for entry, name in ((fl, "flash_attention"), (de, "decode_attention"),
+                        (gm, "gmm")):
+        entry["driver_launches"] = dr["launches"][name]
+    fl["driver_serve_s"], fl["driver_peak_gb"] = dr["serve_s"], dr["peak_gb"]
+    fl["driver_weights_draw_s"] = dr["draw_s"]
+    for pol, name in zip(POLICIES, STREAM_KERNELS):
+        report[name]["driver_run_s"] = dr["epoch_s"][pol]
+        report[name]["driver_plain_run_s"] = dr["plain_epoch_s"][pol]
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

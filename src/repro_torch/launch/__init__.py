@@ -1,0 +1,2 @@
+"""Launch entry points: ``python -m repro_torch.launch.serve`` (the
+streaming serving driver)."""

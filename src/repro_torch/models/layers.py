@@ -121,8 +121,7 @@ def _init_one(d: PDef, generator: torch.Generator, dtype):
         lo, hi = math.log(1e-3), math.log(1e-1)
         t = torch.exp(x * (hi - lo) + lo)
         return (t + torch.log(-torch.expm1(-t))).to(dt)
-    raise NotImplementedError(f"init {d.init!r} belongs to a model family "
-                              f"the port does not run yet")
+    raise ValueError(f"unknown init {d.init!r}")
 
 
 def _xla_log(x):

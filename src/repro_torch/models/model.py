@@ -123,13 +123,17 @@ def _encode(cfg: ArchConfig, params, frames):
     return rms_norm(x, enc["final_norm"], cfg.norm_eps)
 
 
+# the prefill input beside the tokens that holds a family's
+# cross-attention source
+SOURCE_KEY = {"vlm": "image_emb", "encdec": "frames"}
+
+
 def _source(cfg: ArchConfig, params, batch):
     """Cross-attention source tokens for vlm / encdec, else None."""
-    if cfg.family == "vlm":
-        return batch["image_emb"]
-    if cfg.family == "encdec":
-        return _encode(cfg, params, batch["frames"])
-    return None
+    if cfg.family not in SOURCE_KEY:
+        return None
+    src = batch[SOURCE_KEY[cfg.family]]
+    return _encode(cfg, params, src) if cfg.family == "encdec" else src
 
 
 def _cache_src_len(cfg: ArchConfig, caches):

@@ -1,1 +1,2 @@
-"""Gang placement on a fleet: the eq.-(2) partition and BS-π admission."""
+"""Gang placement on a fleet: the eq.-(2) partition, BS-π admission and
+the elastic rescale."""

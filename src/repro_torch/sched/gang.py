@@ -1,8 +1,7 @@
 """GangScheduler — BS-π (Definition 1) driving gang placement on a fleet.
 
-The port's copy of ``GangJob`` and ``GangScheduler`` from
-``repro/sched/gang.py`` (its virtual-time driver ``simulate_gangs`` is
-not on the serving path and is not copied).
+The port's copy of ``repro/sched/gang.py``: ``GangJob``,
+``GangScheduler`` and the virtual-time driver ``simulate_gangs``.
 
 Event-driven (simulated or wall-clock time): gangs arrive, get a slot in
 their class slice if one is idle, otherwise queue on the helper block under
@@ -20,6 +19,8 @@ decode on the slot's chips) and a simulator in virtual time.
 from __future__ import annotations
 
 import dataclasses
+import heapq
+import itertools
 from collections import deque
 from typing import Callable
 
@@ -167,3 +168,26 @@ class GangScheduler:
                 "helper_chips_busy": busy_help,
                 "queued": len(self.helper_wait)}
 
+
+def simulate_gangs(partition: BalancedMeshPartition, jobs: list[GangJob],
+                   aux: str = "fcfs") -> GangScheduler:
+    """Drive the scheduler with a job trace in virtual time."""
+    sched = GangScheduler(partition, aux=aux)
+    heap: list[tuple[float, int, int, str]] = []
+    seq = itertools.count()
+    for j in jobs:
+        heapq.heappush(heap, (j.arrival, next(seq), j.jid, "arrive"))
+    by_id = {j.jid: j for j in jobs}
+
+    def on_place(job: GangJob):
+        heapq.heappush(heap, (job.start + job.service, next(seq),
+                              job.jid, "finish"))
+
+    sched.on_place = on_place
+    while heap:
+        t, _, jid, kind = heapq.heappop(heap)
+        if kind == "arrive":
+            sched.arrive(by_id[jid], t)
+        else:
+            sched.complete(jid, t)
+    return sched

@@ -37,7 +37,7 @@ import torch
 from ..core.workload import Exp, JobClass
 from ..models.config import ArchConfig
 from ..models.layers import dtype_of, tree_leaves
-from ..models.model import Model, init_cache
+from ..models.model import SOURCE_KEY, Model, init_cache
 from ..sched.cluster import BalancedMeshPartition
 from ..sched.gang import GangJob, GangScheduler
 
@@ -146,6 +146,12 @@ class ServingEngine:
         req = self._jobs[jid]
         model = self._model(req.cls_name)
         cfg = model.cfg
+        if cfg.family in SOURCE_KEY:
+            # the prefill below, given only the tokens as the reference's
+            # is, would fail on the missing input; raised before the
+            # weights are made, so that a model no card holds is never
+            # allocated for it
+            raise KeyError(SOURCE_KEY[cfg.family])
         params = self._get_params(req.cls_name)
         prompt = torch.as_tensor(np.asarray(req.prompt), dtype=torch.int64,
                                  device=self.device)[None, :]

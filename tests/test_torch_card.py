@@ -725,6 +725,56 @@ XATTN_MLA_FLASH_SHAPES = [
 XATTN_DECODE_SHAPES = [(1, 544, 16, 16, 64, 64), (2, 300, 16, 2, 128, 128)]
 
 
+# the group counts that are not a power of two (H, Kh, D): starcoder2-7b
+# (G = 9; the decode kernel pads the group to 16 rows, 7 of them padding)
+# and internlm2-20b (G = 6)
+ODD_GROUP_HEADS = {"starcoder2_7b": (36, 4, 128),
+                   "internlm2_20b": (48, 8, 128)}
+# flash (B, Sq, Sk, causal): the serving driver's 16-token prompt, a
+# served 512, ragged and Sq < Sk; decode (B, Sk): the driver's 31-row
+# cache, ragged, long
+ODD_GROUP_FLASH = [(1, 16, 16, True), (1, 512, 512, True),
+                   (2, 300, 300, True), (1, 130, 300, False)]
+ODD_GROUP_DECODE = [(1, 31), (3, 777), (4, 2048)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", sorted(ODD_GROUP_HEADS))
+def test_cuda_attention_at_group_counts_9_and_6(rng, arch):
+    """flash_attention and decode_attention at starcoder2-7b's and
+    internlm2-20b's heads in bf16 (and float32) against their plain
+    versions on the card at ``PLAIN_TOLS``: every query head of the group
+    sees its own scores and no padding row of the group leaks into
+    another's softmax."""
+    dev = _dev()
+    H, Kh, D = ODD_GROUP_HEADS[arch]
+    for dtype in ("bfloat16", "float32"):
+        for B, Sq, Sk, causal in ODD_GROUP_FLASH:
+            q, k, v = (_normal(rng, s, dtype).to(dev) for s in (
+                (B, Sq, H, D), (B, Sk, Kh, D), (B, Sk, Kh, D)))
+            _close_plain(flash_attention_fwd(q, k, v, causal=causal).cpu(),
+                         flash_attention_ref(q, k, v, causal=causal).cpu(),
+                         dtype)
+            assert flash_attention_fwd.last_route == (
+                "wgmma" if dtype == "bfloat16" else "simt")
+        for B, Sk in ODD_GROUP_DECODE:
+            q, k, v = (_normal(rng, s, dtype).to(dev) for s in (
+                (B, H, D), (B, Sk, Kh, D), (B, Sk, Kh, D)))
+            pos = torch.tensor(rng.integers(-1, Sk + 2, size=B),
+                               dtype=torch.int32, device=dev)
+            out = decode_attention_fwd(q, k, v, pos)
+            _close_plain(out.cpu(), decode_attention_ref(q, k, v, pos).cpu(),
+                         dtype)
+            # each head alone (G = 1 per call) gives the same rows
+            for h in (0, H // Kh - 1, H - 1):
+                kv = h // (H // Kh)
+                one = decode_attention_fwd(
+                    q[:, h:h + 1].contiguous(),
+                    k[:, :, kv:kv + 1].contiguous(),
+                    v[:, :, kv:kv + 1].contiguous(), pos)
+                _close_plain(out[:, h:h + 1].cpu(), one.cpu(), dtype)
+
+
 @pytest.mark.cuda
 def test_cuda_attention_at_the_cross_attention_and_mla_shapes(rng):
     """flash_attention at MLA's head dims (D 192, Dv 128: the simt route

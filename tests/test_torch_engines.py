@@ -188,8 +188,11 @@ from repro_torch.kernels.moe_gmm import build as gmm_build
 from repro_torch.kernels.moe_gmm import kernel as gmm_kernel
 from repro_torch.models import (config, convert, layers, model, moe,
                                 transformer)
-from repro_torch.sched import cluster, gang
-from repro_torch.serve import engine, kv_cache
+from repro_torch.sched import cluster, elastic, gang
+from repro_torch.serve import cuts, engine, kv_cache
+from repro_torch import launch, runtime
+from repro_torch.launch import serve
+from repro_torch.runtime import fault_tolerance, straggler
 from repro_torch import checkpoint
 from repro_torch.checkpoint import ckpt
 from repro_torch.core import stream
@@ -239,6 +242,21 @@ eng = engine.ServingEngine([engine.RequestClass(
 eng.submit(engine.Request(0, "m", np.arange(1, 9), max_new_tokens=3))
 assert len(eng.run_request(0).output) == 3
 assert kv_cache.chips_needed(configs.get_config("stablelm_3b"), 1, 8192) >= 1
+hist, _ = serve.main(["--epochs", "2", "--epoch-jobs", "60", "--chunk-jobs",
+                      "30", "--policy", "fcfs", "--period", "60",
+                      "--device", "cpu"])
+assert len(hist) == 2 and np.isfinite(hist[-1][1].mean_wait).all()
+jobs = [gang.GangJob(i, i % 2, (2, 8)[i % 2], 0.1 * i, 1.0) for i in range(40)]
+sched = gang.simulate_gangs(cluster.BalancedMeshPartition.build(64, (
+    workload.JobClass("s", 2, workload.Exp(1.0), 0.7),
+    workload.JobClass("l", 8, workload.Exp(4.0), 0.3))), jobs)
+assert len(sched.completed) == 40
+mon = runtime.FleetMonitor(64)
+mon.fail(runtime.NodeFailure(0.0, 16))
+new, rep = mon.rescale_scheduler(sched)
+assert rep.new_k == 48 and isinstance(rep, elastic.RescaleReport)
+assert runtime.StragglerMitigator(new).tick(100.0) == 0
+assert cuts.mla_cut(configs.get_config("deepseek_v3_671b"), 1).num_layers == 4
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro."))

@@ -89,6 +89,7 @@ import _torch_jaxref  # noqa: F401  (the R1 alias, before any repro import)
 import jax
 import jax.numpy as jnp
 from repro.configs import get_config as ref_get_config
+from repro.models import layers as ref_layers
 from repro.models import model as ref_model
 from repro.models import transformer as ref_T
 
@@ -507,3 +508,17 @@ def test_encdec_full_config_counts_and_cache_without_materialising():
     assert cache[0]["l0"]["attn"]["k"].shape == (24, 1, 8192, 16, 64)
     _cache_equals_reference("seamless_m4t_large_v2")
     _cache_equals_reference("seamless_m4t_large_v2", 2, 640)
+
+
+@pytest.mark.parametrize("init", ["uniform", "glorot"])
+def test_unknown_init_raises_value_error_on_both_sides(init):
+    """An init name neither package knows is the reference's
+    ``ValueError(f"unknown init {d.init!r}")`` in both."""
+    with pytest.raises(ValueError) as ref:
+        ref_layers._init_one(ref_layers.PDef((4, 3), (None, None), init),
+                             jax.random.PRNGKey(0))
+    with pytest.raises(ValueError) as port:
+        layers._init_one(layers.PDef((4, 3), (None, None), init),
+                         torch.Generator().manual_seed(0), None)
+    assert type(port.value) is type(ref.value) is ValueError
+    assert str(port.value) == str(ref.value) == f"unknown init {init!r}"

@@ -49,7 +49,7 @@ RWKV_CLASSES = (CLASSES[0], ("big", "rwkv6_7b", 8192, 2, 4.0, 0.2))
 # jamba-1.5-large at the chip need of its one-block, 8-of-16-experts cut
 JAMBA_CLASSES = (CLASSES[0], ("big", "jamba_1_5_large_398b", 8192, 8, 4.0,
                               0.2))
-# deepseek-v3 at the chip need of its five-layer cut (chip_smoke.mla_cut)
+# deepseek-v3 at the chip need of its five-layer cut (serve.cuts.mla_cut)
 MLA_CLASSES = (CLASSES[0], ("big", "deepseek_v3_671b", 8192, 8, 4.0, 0.2))
 
 
