@@ -412,6 +412,25 @@ a phase after ``[serve-mla]``, on the card's memory alone:
    unchanged.  To pay for the phase, the drain comparisons of phase 2
    run at J = 400 (600 before).
 
+The training slice (``models/`` train mode, ``optim/``, ``train/``,
+``data/pipeline.py``, ``run_with_restarts``, ``launch/train.py``) builds
+``flash_attention/csrc/flash_attention_bwd.cu`` with the attention
+library and adds a last phase:
+
+6. ``[train]`` (``train_path``): the flash backward kernel against its
+   plain version at stablelm-3b's call (B 4, S 2048, H 32, D 80), yi-9b's
+   (G 8), starcoder2-7b's (G 9), MLA's D 192 / Dv 128 and one float32
+   case, timed beside its bound and SDPA's backward, both forward routes'
+   lse checked; stablelm-3b at full size (2.796 B params) through the
+   ``Trainer``, four steps at microbatches 1 and four at 2, the flash
+   counts set to 0 just before and read just after (forward 64, backward
+   32 a microbatch), loss, grad_norm, lr and wall a step, tokens/s and
+   the peak memory, layers 31 and 0's first backward calls held to the
+   plain version; reduced stablelm-3b / yi-9b three steps card == CPU;
+   the restart drill bit for bit; reduced MoE, RWKV6 and jamba train
+   steps refused naming ``gmm`` / ``wkv`` / ``mamba_scan``; the launcher
+   on the card.
+
 Then it prints the card's name and power limit, one ``{"kernels": [...]}``
 line and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the repository around it, it exits non-zero and prints no
@@ -3196,6 +3215,309 @@ def driver_path(dev, report: dict, plain: dict) -> dict:
                     for r in reqs})
 
 
+TRAIN_ARCH = "stablelm_3b"
+# (arch, H, Kh, D, Dv, B, dtype): the flash backward kernel's cases at
+# the trained model's call (stablelm-3b, B 4, S 2048) and at the served
+# models' heads (yi-9b G 8, starcoder2-7b G 9, deepseek-v3's MLA D 192 /
+# Dv 128), causal at S = TRAIN_S, and one float32 case
+BWD_CASES = (("stablelm_3b", 32, 32, 80, 80, 4, "bfloat16"),
+             ("yi_9b", 32, 4, 128, 128, 1, "bfloat16"),
+             ("starcoder2_7b", 36, 4, 128, 128, 1, "bfloat16"),
+             ("deepseek_v3_671b", 128, 128, 192, 128, 1, "bfloat16"),
+             ("stablelm_3b", 32, 32, 80, 80, 1, "float32"))
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 2048, 4
+FLASH_BWD = ("src/repro_torch/kernels/flash_attention/csrc/"
+             "flash_attention_bwd.cu", "src/repro/models/layers.py:269")
+# reduced configs whose kernels have no backward yet: a train step on the
+# card must raise naming the kernel
+REFUSED = (("moonshot_v1_16b_a3b", "gmm"), ("rwkv6_7b", "wkv"),
+           ("jamba_1_5_large_398b", "mamba_scan"))
+
+
+def flash_bwd_bound(B, S, H, Kh, D, Dv, dtype):
+    """Least time for one causal flash backward: q, k, v, o, do read once
+    (and lse), dq, dk, dv written once; five products a kept (query, key)
+    pair, q.k, do.v, ds.k, p.do, ds.q: 2 (3 D + 2 Dv) flops."""
+    item = 2 if dtype == "bfloat16" else 4
+    nbytes = (item * (B * S * H * (2 * D + 3 * Dv) + 2 * B * S * Kh
+                      * (D + Dv)) + 4 * B * H * S)
+    kept = S * (S + 1) // 2
+    return _roofline(nbytes, 2 * B * H * kept * (3 * D + 2 * Dv), dtype)
+
+
+def train_path(dev, report: dict) -> None:
+    """Training on the card (``[train]``).
+
+    1. ``flash_attention_bwd`` (three kernels: delta, dq, dk / dv) against
+       its plain version at ``BWD_CASES``, within
+       ``train_cases.BWD_TOLS``, with its device time beside the bound,
+       the plain version's time and the backward of
+       ``scaled_dot_product_attention`` through autograd (a yardstick the
+       port never calls); both forward routes' lse against the plain lse.
+    2. stablelm-3b at full size (2.796 B params, 32 layers) through the
+       port's ``Trainer``: global batch 4, sequence 2048, four steps at
+       microbatches 1 with the flash counts set to 0 just before and read
+       just after (forward 2 x 32 a microbatch: the remat recompute; the
+       backward 32), then four at microbatches 2; per step the loss,
+       grad_norm, lr and wall, then tokens/s, 6 N tokens / wall against
+       989 TFLOP/s and the peak memory; the first step's backward calls of
+       layers 31 and 0 held to the plain version on their own inputs.
+    3. reduced stablelm-3b and yi-9b in float32 compute: three train steps
+       on the card against the same steps on the CPU (``STEP_TOLS``).
+    4. the restart drill (reduced stablelm-3b, bf16 compute): killed after
+       step 3, restarted from its step-2 checkpoint, bit-equal to the run
+       never killed.
+    5. reduced moonshot (MoE), rwkv6 and jamba: a train step raises
+       ``NotImplementedError`` naming ``gmm`` / ``wkv`` / ``mamba_scan``,
+       and their ``loss_fn`` under ``torch.no_grad`` runs; the launcher
+       at reduced size on the card.
+
+    Adds ``flash_attention_bwd`` to ``report`` and the train launches to
+    ``flash_attention``'s entry."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.bench import train_cases as tc
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_train_batches
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_bwd_ref,
+                                                     flash_attention_fwd,
+                                                     flash_attention_ref)
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import layers
+    from repro_torch.models.model import Model
+    from repro_torch.optim.optimizer import AdamWConfig
+    from repro_torch.train.step import init_train_state, make_train_step
+    from repro_torch.train.trainer import Trainer
+
+    t_phase = time.time()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"[train] {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated "
+          f"on entry")
+    gen = torch.Generator(device=dev)
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    # -- 1. the backward kernel against its plain version -------------------
+    cases, worst = [], 0.0
+    for arch, H, Kh, D, Dv, B, dtype in BWD_CASES:
+        gen.manual_seed(len(cases))
+        dt = getattr(torch, dtype)
+        S = TRAIN_S
+        q, k, v = (randn(s, dt) for s in ((B, S, H, D), (B, S, Kh, D),
+                                          (B, S, Kh, Dv)))
+        do = randn((B, S, H, Dv), dt)
+        o, lse = flash_attention_fwd(q, k, v, causal=True, return_lse=True)
+        route = flash_attention_fwd.last_route
+        o_ref, lse_ref = flash_attention_ref(q, k, v, causal=True,
+                                             return_lse=True)
+        lse_err = (lse - lse_ref).abs().max().item()
+        if not torch.allclose(lse, lse_ref, atol=1e-5, rtol=1e-5):
+            fail(f"[train] lse of the {route} forward at {arch} {dtype}: "
+                 f"max err {lse_err}")
+        got = flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+        want = flash_attention_bwd_ref(q, k, v, o, lse, do, causal=True)
+        errs = [tc.bwd_error(g, w, dtype) for g, w in zip(got, want)]
+        over = max(e[0] for e in errs)
+        err = max(e[1] for e in errs)
+        what = (f"{arch} B={B} S={S} H={H} Kh={Kh} D={D} Dv={Dv} causal "
+                f"{dtype}")
+        print(f"[kernel] flash_attention_bwd {what}: max abs err {err:.3g} "
+              f"(dq, dk, dv {', '.join(f'{e[1]:.3g}' for e in errs)}); "
+              f"limit {tc.BWD_TOLS[dtype][0]:g} max|ref| + "
+              f"{tc.BWD_TOLS[dtype][1]:g} |ref|, {over:.3f} of it; lse of "
+              f"the {route} forward max err {lse_err:.3g}")
+        if not over <= 1.0:
+            fail(f"[train] flash_attention_bwd {what}: {over} of its limit")
+        del got, want, o_ref
+        ms = cuda_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do,
+                                                 causal=True), 3)
+        plain_ms = cuda_ms(lambda: flash_attention_bwd_ref(
+            q, k, v, o, lse, do, causal=True), 2)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                      for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             enable_gqa=True)
+        lib_ms = cuda_ms(lambda: torch.autograd.grad(
+            out, (qt, kt, vt), do.transpose(1, 2), retain_graph=True), 3)
+        del out, qt, kt, vt
+        b_ms, b_by = flash_bwd_bound(B, S, H, Kh, D, Dv, dtype)
+        print(f"[time] flash_attention_bwd {what}: {ms:.4f} ms per launch "
+              f"({b_ms / ms:.4f} of the bound), bound {b_ms:.5f} ms "
+              f"({b_by}), plain version {plain_ms:.4f} ms, SDPA backward "
+              f"{lib_ms:.4f} ms ({ms / lib_ms:.1f} x)")
+        cases.append(dict(what=what, err=err, over=over, ms=ms,
+                          plain_ms=plain_ms, library_ms=lib_ms,
+                          bound_ms=b_ms, bound_by=b_by, lse_err=lse_err,
+                          fwd_route=route))
+        worst = max(worst, err)
+        del q, k, v, o, lse, do
+        torch.cuda.empty_cache()
+
+    # -- 2. stablelm-3b at full size through the Trainer --------------------
+    cfg = get_config(TRAIN_ARCH)
+    n_params = Model(cfg).num_params()
+    L = cfg.num_layers
+    runs, layer_checks = {}, []
+    for M in (1, 2):
+        trainer = Trainer(cfg, TRAIN_B, TRAIN_S, microbatches=M,
+                          log_every=1, device=dev,
+                          opt_cfg=AdamWConfig(total_steps=TRAIN_STEPS))
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        params, opt = trainer.init_state()
+        torch.cuda.synchronize()
+        draw_s = time.time() - t0
+        kept, stamps = {}, []
+        real_bwd = layers.flash_attention_bwd
+        calls = [0]
+
+        def keeping(q, k, v, o, lse, do, *, causal):
+            out = real_bwd(q, k, v, o, lse, do, causal=causal)
+            if M == 1 and calls[0] in (0, L - 1):   # layers 31 and 0
+                kept[L - 1 - calls[0]] = (
+                    tuple(t.clone() for t in (q, k, v, o, lse, do)),
+                    tuple(t.clone() for t in out))
+            calls[0] += 1
+            return out
+
+        trainer.on_metrics = lambda s, m: stamps.append((time.time(), m))
+        layers.flash_attention_bwd = keeping
+        flash_attention_fwd.launches = flash_attention_bwd.launches = 0
+        try:
+            t1 = time.time()
+            res = trainer.run(TRAIN_STEPS, params=params, opt_state=opt)
+        finally:
+            layers.flash_attention_bwd = real_bwd
+        counts = {"flash_attention": flash_attention_fwd.launches,
+                  "flash_attention_bwd": flash_attention_bwd.launches}
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        walls = np.diff([t1] + [t for t, _ in stamps])
+        for (t, m), w in zip(stamps, walls):
+            print(f"[train] {cfg.name} M={M} step {m['step']}: loss "
+                  f"{m['loss']:.4f} grad_norm {m['grad_norm']:.4f} lr "
+                  f"{m['lr']:.3e} wall {w:.3f} s")
+            if not (np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])
+                    and m["grad_norm"] > 0):
+                fail(f"[train] M={M} step {m['step']}: loss {m['loss']} "
+                     f"grad_norm {m['grad_norm']}")
+        steady = float(np.mean(walls[1:]))
+        tok_s = TRAIN_B * TRAIN_S / steady
+        frac = 6 * n_params * TRAIN_B * TRAIN_S / steady / 989e12
+        want = {"flash_attention": TRAIN_STEPS * 2 * L * M,
+                "flash_attention_bwd": TRAIN_STEPS * L * M}
+        print(f"[train] {cfg.name} ({n_params / 1e9:.3f} B params, {L} "
+              f"layers, d={cfg.d_model}, remat {cfg.remat_policy}) B="
+              f"{TRAIN_B} S={TRAIN_S} microbatches {M}: params drawn in "
+              f"{draw_s:.1f} s; first step {walls[0]:.3f} s, then "
+              f"{steady:.3f} s a step ({tok_s:.0f} tokens/s, 6 N tokens / "
+              f"wall = {frac:.4f} of 989 TFLOP/s); peak memory {peak:.2f} "
+              f"GB; launches {counts} (expected {want}: the forward twice "
+              f"a layer a microbatch, remat, the backward once)")
+        if counts != want:
+            fail(f"[train] M={M} launches {counts}, expected {want}")
+        runs[M] = dict(first_s=float(walls[0]), step_s=steady,
+                       tokens_per_s=tok_s, flops_frac=frac, peak_gb=peak,
+                       launches=counts, draw_s=draw_s,
+                       loss=[m["loss"] for _, m in stamps],
+                       grad_norm=[m["grad_norm"] for _, m in stamps])
+        del trainer, params, opt, res, stamps
+        gc.collect()
+        torch.cuda.empty_cache()
+        for layer in sorted(kept):
+            ins, out = kept[layer]
+            want_out = flash_attention_bwd_ref(*ins, causal=True)
+            errs = [tc.bwd_error(g, w, "bfloat16")
+                    for g, w in zip(out, want_out)]
+            over = max(e[0] for e in errs)
+            big = max(w.float().abs().max().item() for w in want_out)
+            print(f"[kernel] flash_attention_bwd {cfg.name} layer {layer}'s "
+                  f"first-step call (B={TRAIN_B} S={TRAIN_S}, its own q, k, "
+                  f"v, o, lse, do): max abs err "
+                  f"{max(e[1] for e in errs):.3g} at max|ref| {big:.3g}, "
+                  f"{over:.3f} of the limit")
+            if not over <= 1.0:
+                fail(f"[train] layer {layer}'s backward call: {over} of its "
+                     f"limit")
+            layer_checks.append(dict(layer=layer, max_abs_err=max(
+                e[1] for e in errs), max_ref=big, of_limit=over))
+        del kept
+        torch.cuda.empty_cache()
+    if len(runs[1]["loss"]) < TRAIN_STEPS:
+        fail("[train] fewer steps than asked")
+
+    # -- 3. reduced configs: card == CPU -------------------------------------
+    for arch in ("stablelm_3b", "yi_9b"):
+        rcfg = tc.reduced_float32(get_config(arch))
+        p0 = tc.rescale_attention(rcfg, Model(rcfg).init(
+            torch.Generator().manual_seed(0)))
+        card = tc.run_steps(rcfg, p0, 3, device=dev)
+        cpu = tc.run_steps(rcfg, p0, 3, device="cpu")
+        diff = tc.steps_differ(card[1], cpu[1], card[0], cpu[0])
+        print(f"[train] {rcfg.name} float32, 3 steps card vs CPU: loss "
+              f"{[round(h['loss'], 5) for h in card[1]]}; largest "
+              f"differences {diff} (limits {tc.STEP_TOLS})")
+        if not tc.within_step_tols(diff):
+            fail(f"[train] {rcfg.name} card differs from the CPU: {diff}")
+
+    # -- 4. the restart drill ------------------------------------------------
+    with tempfile.TemporaryDirectory() as d:
+        restarts, same, drill, whole = tc.restart_drill(
+            get_config(TRAIN_ARCH).reduced(), d, device=dev)
+    print(f"[train] restart drill ({TRAIN_ARCH} reduced, bf16, 6 steps, "
+          f"failure after step 3, ckpt_every 2): {restarts} restart, "
+          f"resumed at step {drill[0]['step']}; params and moments "
+          f"bit-equal to the run never killed: {same}")
+    if restarts != 1 or not same:
+        fail("[train] the restarted run differs from the uninterrupted one")
+
+    # -- 5. kernels without a backward refuse; the launcher ------------------
+    for arch, kernel in REFUSED:
+        rcfg = get_config(arch).reduced()
+        params, opt = init_train_state(rcfg, torch.Generator(
+            device=dev).manual_seed(0))
+        batch = next(make_train_batches(rcfg, 2, 32, device=dev))[1]
+        try:
+            make_train_step(rcfg, AdamWConfig())(params, opt, batch)
+            fail(f"[train] {rcfg.name}: a train step ran on the card")
+        except NotImplementedError as e:
+            if kernel not in str(e):
+                fail(f"[train] {rcfg.name} raised for another kernel: {e}")
+            msg = str(e).split(":")[0]
+        with torch.no_grad():
+            loss, met = Model(rcfg).loss(params, batch)
+        if not torch.isfinite(loss):
+            fail(f"[train] {rcfg.name}: loss under no_grad {loss}")
+        print(f"[train] {rcfg.name}: a train step raises "
+              f"NotImplementedError ({msg}: no backward kernel yet); "
+              f"loss_fn under no_grad {float(loss):.4f}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        launch_train.main(["--arch", TRAIN_ARCH, "--reduced", "--steps",
+                           "3", "--batch", "2", "--seq", "64",
+                           "--microbatches", "2"])
+    for line in buf.getvalue().splitlines():
+        print(f"[train] launch.train --reduced on the card: {line}")
+
+    report["flash_attention_bwd"] = dict(
+        name="flash_attention_bwd", route="cuda", source=FLASH_BWD[0],
+        replaces=FLASH_BWD[1], launches=runs[1]["launches"][
+            "flash_attention_bwd"],
+        max_abs_err=worst, ms=cases[0]["ms"], plain_ms=cases[0]["plain_ms"],
+        bound_ms=cases[0]["bound_ms"], bound_by=cases[0]["bound_by"],
+        library_ms=cases[0]["library_ms"], shape=cases[0]["what"],
+        cases=cases[1:], train=runs, train_layer_checks=layer_checks)
+    report["flash_attention"]["train_launches"] = runs[1]["launches"][
+        "flash_attention"]
+    print(f"[train] phase in {time.time() - t_phase:.1f} s")
+
+
 def tensor_core_instructions(paths) -> None:
     """Print, for each kernel of each built library, its tensor-core
     instructions (HGMMA: wgmma; HMMA: mma.sync) in ``cuobjdump
@@ -4695,6 +5017,9 @@ def main() -> int:
     for pol, name in zip(POLICIES, STREAM_KERNELS):
         report[name]["driver_run_s"] = dr["epoch_s"][pol]
         report[name]["driver_plain_run_s"] = dr["plain_epoch_s"][pol]
+    gc.collect()                      # the serving driver's weights
+    torch.cuda.empty_cache()
+    train_path(dev, report)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

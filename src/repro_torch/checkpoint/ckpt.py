@@ -16,10 +16,12 @@ A tree is nested dicts, lists and tuples of leaves; dict keys are walked
 in sorted order and each leaf's path is written the way the reference's
 ``jax.tree_util`` writes it (``['sim']/['carry']/[0]``), so a manifest
 reads the same on both sides.  A leaf is a numpy array, a torch tensor
-(copied to the host) or a Python scalar.  Only dtypes numpy stores
-natively are accepted: float, int, uint and bool; anything else (a
-``bfloat16`` tensor, an object array) raises ``TypeError`` — the
-simulator's state is float64, integer and bool.
+(copied to the host) or a Python scalar.  Dtypes numpy stores natively
+(float, int, uint and bool) are stored as they are; a ``bfloat16`` tensor,
+which numpy cannot hold, is stored as the reference's ``_encode`` stores
+it, its bits in a ``uint16`` view with ``"bfloat16"`` in the manifest, and
+restored as a ``torch.bfloat16`` tensor with the same bits; anything else
+(an object array, complex) raises ``TypeError``.
 """
 
 from __future__ import annotations
@@ -36,13 +38,19 @@ import numpy as np
 import torch
 
 _NATIVE_KINDS = "fiub"
+_BF16 = "bfloat16"
 
 
-def _host(leaf) -> np.ndarray:
-    """A leaf as a host numpy array; refuses dtypes numpy cannot store."""
+def _host(leaf) -> tuple[np.ndarray, str]:
+    """A leaf as (the host numpy array to store, its logical dtype name);
+    a bfloat16 tensor as its bits in a uint16 view; refuses other dtypes
+    numpy cannot store."""
     if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.uint16), _BF16
         try:
-            arr = leaf.detach().cpu().numpy()
+            arr = t.numpy()
         except TypeError as e:
             raise TypeError(f"cannot checkpoint a {leaf.dtype} tensor: "
                             f"numpy has no native {leaf.dtype}") from e
@@ -50,8 +58,26 @@ def _host(leaf) -> np.ndarray:
         arr = np.asarray(leaf)
     if arr.dtype.kind not in _NATIVE_KINDS:
         raise TypeError(f"cannot checkpoint dtype {arr.dtype}: only float, "
-                        f"int, uint and bool leaves are stored")
-    return arr
+                        f"int, uint, bool and bfloat16 leaves are stored")
+    return arr, arr.dtype.name
+
+
+def _decode(arr: np.ndarray, dtype_name: str, path: str):
+    """A stored array as its logical dtype: a bfloat16 leaf's uint16 bits
+    as a ``torch.bfloat16`` tensor, any other leaf as it was stored."""
+    if arr.dtype.name == dtype_name:
+        return arr
+    if dtype_name == _BF16 and arr.dtype == np.uint16:
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    raise TypeError(f"checkpoint leaf {path} holds {arr.dtype}, its "
+                    f"manifest says {dtype_name}")
+
+
+def _snapshot(leaf):
+    """A host copy of a leaf, taken now (a bfloat16 tensor stays one)."""
+    if isinstance(leaf, torch.Tensor) and leaf.dtype == torch.bfloat16:
+        return leaf.detach().cpu().clone()
+    return _host(leaf)[0].copy()
 
 
 def _flatten(tree, prefix=()):
@@ -71,9 +97,11 @@ def _flatten(tree, prefix=()):
 
 
 def _unflatten(like, leaves):
-    """``like``'s structure with its leaves replaced, in flatten order."""
+    """``like``'s structure with its leaves replaced, in flatten order
+    (dict keys sorted); each dict keeps ``like``'s key order."""
     if isinstance(like, dict):
-        return {k: _unflatten(like[k], leaves) for k in sorted(like)}
+        out = {k: _unflatten(like[k], leaves) for k in sorted(like)}
+        return {k: out[k] for k in like}
     if isinstance(like, (list, tuple)):
         return type(like)(_unflatten(v, leaves) for v in like)
     return next(leaves)
@@ -91,11 +119,11 @@ def save_checkpoint(directory: str, step: int, tree, *,
     paths, leaves = _flatten(tree)
     manifest = {"step": step, "extra": extra or {}, "leaves": []}
     for i, (p, leaf) in enumerate(zip(paths, leaves)):
-        arr = _host(leaf)
+        arr, dtype_name = _host(leaf)
         fname = f"arr_{i:05d}.npy"
         np.save(os.path.join(tmp, fname), arr)
         manifest["leaves"].append({"path": p, "file": fname,
-                                   "dtype": arr.dtype.name,
+                                   "dtype": dtype_name,
                                    "shape": list(arr.shape)})
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f)
@@ -159,7 +187,8 @@ def require_layout(extra: dict, expected: dict, *, context: str = "") -> None:
 def restore_checkpoint(directory: str, tree_like, *,
                        step: int | None = None) -> tuple[Any, int, dict]:
     """Restore step ``step`` (default: the latest) into the structure of
-    ``tree_like``: ``(tree of numpy arrays, step, extra)``."""
+    ``tree_like``: ``(tree of numpy arrays, bfloat16 leaves as CPU
+    tensors, step, extra)``."""
     step = step if step is not None else latest_step(directory)
     if step is None:
         raise FileNotFoundError(f"no checkpoints under {directory}")
@@ -172,10 +201,7 @@ def restore_checkpoint(directory: str, tree_like, *,
     for p in paths:
         e = by_path[p]
         arr = np.load(os.path.join(path, e["file"]))
-        if arr.dtype.name != e["dtype"]:
-            raise TypeError(f"checkpoint leaf {p} holds {arr.dtype}, its "
-                            f"manifest says {e['dtype']}")
-        out.append(arr)
+        out.append(_decode(arr, e["dtype"], p))
     return (_unflatten(tree_like, iter(out)), manifest["step"],
             manifest.get("extra", {}))
 
@@ -204,7 +230,8 @@ class CheckpointManager:
         thread."""
         self.wait()
         _, leaves = _flatten(tree)
-        host_tree = _unflatten(tree, iter([_host(x).copy() for x in leaves]))
+        host_tree = _unflatten(tree, iter(
+            [_snapshot(x) for x in leaves]))
 
         def work():
             try:

@@ -17,6 +17,10 @@ its block size.  It checks its inputs, then
   ``csrc/decode_attention.cu`` on the current stream (one C call), raises
   if a launch is refused, and adds one to
   ``decode_attention_fwd.launches``.  There is no fallback.
+
+On the card the wrapper raises ``NotImplementedError`` when autograd
+tracks one of its inputs (``kernels.refuse_grad``): the kernel has no
+backward kernel yet, and its output would carry no gradient.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import refuse_grad
 from ..attention_build import LIBRARY
 
 NEG_INF = -1e30
@@ -167,6 +172,7 @@ def decode_attention_fwd(q, k, v, pos):
     _check(q, k, v, pos)
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, pos)
+    refuse_grad("decode_attention", q, k, v)
     B, H, D = q.shape
     _, Sk, Kh, Dv = v.shape
     v16, G = 16 // q.element_size(), H // Kh

@@ -13,7 +13,10 @@
 // row sum floored at 1e-30, and one cast of acc / l to the output dtype.
 //
 //   q [B, Sq, H, D], k [B, Sk, Kh, D], v [B, Sk, Kh, Dv] -> o [B, Sq, H, Dv]
-//   query head h reads kv head h / G, G = H / Kh (group-major heads).
+//   query head h reads kv head h / G, G = H / Kh (group-major heads);
+//   with a non-null lse [B, H, Sq] float32, also each row's log-sum-exp
+//   m + log(max(l, 1e-30)) in natural-log units (the reference's
+//   _flash_fwd_impl), which the backward (flash_attention_bwd.cu) reads.
 //
 // What bounds it on this card.  At the serving path's shapes (yi-9b:
 // H = 32, Kh = 4, D = 128; stablelm-3b: H = Kh = 32, D = 80; S = 2048)
@@ -72,8 +75,9 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
 template <typename T>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk,
-                 int H, int Kh, int D, int Dv, float scale, int causal) {
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int Sq, int Sk, int H, int Kh,
+                 int D, int Dv, float scale, int causal) {
   extern __shared__ float smem[];
   const int ds = D + 1;
   float* Qs = smem;              // [BQ][ds]
@@ -193,6 +197,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qi = q0 + rg * RPT + i;
     if (qi >= Sq) continue;
     const float li = fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && cl == 0)
+      lse[((size_t)b * H + h) * Sq + qi] = m[i] + logf(li);
     T* orow = o + ((size_t)(b * Sq + qi) * H + h) * Dv;
 #pragma unroll
     for (int jj = 0; jj < VPT; ++jj) {
@@ -204,8 +210,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int Sq, int Sk, int H, int Kh, int D, int Dv,
-                   float scale, int causal, cudaStream_t stream) {
+                   float* lse, int B, int Sq, int Sk, int H, int Kh, int D,
+                   int Dv, float scale, int causal, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * ((size_t)2 * BQ * (D + 1) + (size_t)BK * Dv +
                        (size_t)BQ * PS);
@@ -216,8 +222,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
   flash_fwd_kernel<T><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Sq, Sk, H, Kh, D, Dv,
-      scale, causal);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, Sq, Sk, H, Kh, D,
+      Dv, scale, causal);
   return cudaGetLastError();
 }
 
@@ -226,16 +232,18 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 extern "C" {
 
 int attn_flash_fwd(const void* q, const void* k, const void* v, void* o,
-                   int B, int Sq, int Sk, int H, int Kh, int D, int Dv,
-                   float scale, int causal, int is_bf16, void* stream) {
+                   void* lse, int B, int Sq, int Sk, int H, int Kh, int D,
+                   int Dv, float scale, int causal, int is_bf16,
+                   void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0 || Kh <= 0 || H % Kh ||
       D <= 0 || Dv <= 0 || Dv > DV_MAX)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(is_bf16 ? launch<__nv_bfloat16>(q, k, v, o, B, Sq, Sk, H, Kh,
-                                               D, Dv, scale, causal, s)
-                       : launch<float>(q, k, v, o, B, Sq, Sk, H, Kh, D, Dv,
-                                       scale, causal, s));
+  float* l = static_cast<float*>(lse);
+  return (int)(is_bf16 ? launch<__nv_bfloat16>(q, k, v, o, l, B, Sq, Sk, H,
+                                               Kh, D, Dv, scale, causal, s)
+                       : launch<float>(q, k, v, o, l, B, Sq, Sk, H, Kh, D,
+                                       Dv, scale, causal, s));
 }
 
 // The message of a cudaError_t returned by any entry point of the

@@ -14,7 +14,9 @@
 //
 //   q [B, Sq, H, D], k [B, Sk, Kh, D], v [B, Sk, Kh, Dv] (bf16)
 //   -> o [B, Sq, H, Dv] (bf16); query head h reads kv head h / (H / Kh);
-//   D and Dv multiples of 16, at most 128.
+//   D and Dv multiples of 16, at most 128; with a non-null lse [B, H, Sq]
+//   float32, also each row's m + log(max(l, 1e-30)) (natural log, as
+//   flash_attention.cu writes it) for the backward.
 //
 // Why the scores stay on the CUDA cores.  At the reference's init the
 // served models' scores are large (|s| in the hundreds at stablelm-3b and
@@ -143,8 +145,9 @@ __global__ void __launch_bounds__((NWG + 1) * 128, 1)
 flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
                 const __nv_bfloat16* __restrict__ k,
                 const __grid_constant__ CUtensorMap tv,
-                __nv_bfloat16* __restrict__ o, int Sq, int Sk, int H, int Kh,
-                int D, int Dv, float scale, int causal) {
+                __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                int Sq, int Sk, int H, int Kh, int D, int Dv, float scale,
+                int causal) {
   using L = Layout<DVA, NWG>;
   constexpr int BQ = L::BQ;
   constexpr int NO = 32 * DVA;     // O accumulators per thread (N = 64 DVA)
@@ -370,7 +373,13 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
   wg_sync(wg);
   if (kg == 0)
 #pragma unroll
-    for (int i = 0; i < 8; ++i) cbuf[rg + 8 * i] = l[i];
+    for (int i = 0; i < 8; ++i) {
+      cbuf[rg + 8 * i] = l[i];
+      const int qi = q0 + 64 * wg + rg + 8 * i;
+      if (lse != nullptr && qi < Sq)
+        lse[((size_t)b * H + h) * Sq + qi] =
+            m[i] + logf(fmaxf(l[i], 1e-30f));
+    }
   wg_sync(wg);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -390,8 +399,8 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
 
 template <int DVA, int NWG>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int Sq, int Sk, int H, int Kh, int D, int Dv,
-                   float scale, int causal, cudaStream_t stream) {
+                   float* lse, int B, int Sq, int Sk, int H, int Kh, int D,
+                   int Dv, float scale, int causal, cudaStream_t stream) {
   const Layout<DVA, NWG> lay(D);
   CUtensorMap mv;
   const uint64_t E = sizeof(__nv_bfloat16);
@@ -411,39 +420,41 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   flash_tc_kernel<DVA, NWG><<<grid, (NWG + 1) * 128, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k), mv, static_cast<__nv_bfloat16*>(o),
-      Sq, Sk, H, Kh, D, Dv, scale, causal);
+      lse, Sq, Sk, H, Kh, D, Dv, scale, causal);
   return cudaGetLastError();
 }
 
 template <int DVA>
 cudaError_t by_rows(const void* q, const void* k, const void* v, void* o,
-                    int B, int Sq, int Sk, int H, int Kh, int D, int Dv,
-                    float scale, int causal, cudaStream_t s) {
-  return Sq >= 128 ? launch<DVA, 2>(q, k, v, o, B, Sq, Sk, H, Kh, D, Dv,
-                                    scale, causal, s)
-                   : launch<DVA, 1>(q, k, v, o, B, Sq, Sk, H, Kh, D, Dv,
-                                    scale, causal, s);
+                    float* lse, int B, int Sq, int Sk, int H, int Kh, int D,
+                    int Dv, float scale, int causal, cudaStream_t s) {
+  return Sq >= 128 ? launch<DVA, 2>(q, k, v, o, lse, B, Sq, Sk, H, Kh, D,
+                                    Dv, scale, causal, s)
+                   : launch<DVA, 1>(q, k, v, o, lse, B, Sq, Sk, H, Kh, D,
+                                    Dv, scale, causal, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// bf16 q, k, v, o as in flash_attention.cu's attn_flash_fwd; D and Dv
-// multiples of 16 up to 128, every pointer 16-byte aligned.  Returns a
+// bf16 q, k, v, o (and lse, or null) as in flash_attention.cu's
+// attn_flash_fwd; D and Dv multiples of 16 up to 128, every pointer
+// 16-byte aligned.  Returns a
 // cudaError_t (cudaErrorInvalidValue for a shape or pointer it does not
 // take, or a tensor map that cannot be encoded).
 int attn_flash_fwd_tc(const void* q, const void* k, const void* v, void* o,
-                      int B, int Sq, int Sk, int H, int Kh, int D, int Dv,
-                      float scale, int causal, void* stream) {
+                      void* lse, int B, int Sq, int Sk, int H, int Kh,
+                      int D, int Dv, float scale, int causal, void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0 || Kh <= 0 || H % Kh ||
       D <= 0 || Dv <= 0 || D % 16 || Dv % 16 || D > 128 || Dv > 128 ||
       ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) % 16)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(Dv > 64 ? by_rows<2>(q, k, v, o, B, Sq, Sk, H, Kh, D, Dv,
+  float* l = static_cast<float*>(lse);
+  return (int)(Dv > 64 ? by_rows<2>(q, k, v, o, l, B, Sq, Sk, H, Kh, D, Dv,
                                     scale, causal, s)
-                       : by_rows<1>(q, k, v, o, B, Sq, Sk, H, Kh, D, Dv,
+                       : by_rows<1>(q, k, v, o, l, B, Sq, Sk, H, Kh, D, Dv,
                                     scale, causal, s));
 }
 

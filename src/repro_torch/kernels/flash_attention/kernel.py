@@ -1,5 +1,5 @@
-"""Wrapper of the hand-written flash-attention CUDA kernel, beside its plain
-PyTorch version.
+"""Wrappers of the hand-written flash-attention CUDA kernels, forward and
+backward, each beside its plain PyTorch version.
 
 ``flash_attention_fwd(q, k, v, causal=)`` takes q [B, Sq, H, D] and
 k / v [B, Sk, Kh, D / Dv] (float32 or bfloat16, one dtype, contiguous,
@@ -22,6 +22,20 @@ its inputs, then
   other shape.  Both are hand-written kernels; there is no fallback: a
   CUDA tensor never reaches the plain version through the wrapper, and a
   refused launch raises.
+
+``return_lse=True`` also returns each row's log-sum-exp, lse [B, H, Sq]
+float32 (m + log(max(l, 1e-30)) in natural-log units, the reference's
+``_flash_fwd_impl``), which both kernels write when given the buffer.  On
+the card the forward wrapper refuses inputs that autograd tracks
+(``kernels.refuse_grad``): ``models.layers.flash_attention`` wraps it in
+an autograd Function whose backward is the backward kernel.
+
+``flash_attention_bwd(q, k, v, o, lse, do, causal=)`` -> (dq, dk, dv): the
+backward of the reference's custom VJP ``_flash_bwd``
+(``repro/models/layers.py:269``), which is not a Pallas kernel; on CPU
+tensors :func:`flash_attention_bwd_ref`, on CUDA tensors
+``csrc/flash_attention_bwd.cu`` (three kernels: delta, dq, dk / dv),
+counted in ``flash_attention_bwd.launches`` once a call.
 """
 
 from __future__ import annotations
@@ -31,6 +45,7 @@ import math
 
 import torch
 
+from .. import refuse_grad
 from ..attention_build import LIBRARY
 
 NEG_INF = -1e30
@@ -38,23 +53,65 @@ D_MAX, DV_MAX = 256, 128
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
-def flash_attention_ref(q, k, v, *, causal: bool = True):
-    """Plain version: scores q.k in float32 times the float32 scale
-    1/sqrt(D), masked to NEG_INF where key > query when causal, softmax
-    and P.V in float32, one cast to q's dtype (the cast points of
-    ``repro/models/layers.py:flash_attention``)."""
+def _scores(q, k, causal: bool):
+    """q.k in float32 times the float32 scale 1/sqrt(D), [B, Kh, G, Sq,
+    Sk], masked to NEG_INF where key > query when causal."""
     B, Sq, H, D = q.shape
-    _, Sk, Kh, Dv = v.shape
-    G = H // Kh
-    qf = q.float().reshape(B, Sq, Kh, G, D)
+    Sk, Kh = k.shape[1], k.shape[2]
+    qf = q.float().reshape(B, Sq, Kh, H // Kh, D)
     s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float()) * (1.0 / math.sqrt(D))
     if causal:
         qp = torch.arange(Sq, device=q.device)
         mask = qp[:, None] >= torch.arange(Sk, device=q.device)[None, :]
         s = torch.where(mask, s, NEG_INF)
+    return s
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True,
+                        return_lse: bool = False):
+    """Plain version: scores q.k in float32 times the float32 scale
+    1/sqrt(D), masked to NEG_INF where key > query when causal, softmax
+    and P.V in float32, one cast to q's dtype (the cast points of
+    ``repro/models/layers.py:flash_attention``).  ``return_lse``: also
+    m + log(max(l, 1e-30)) [B, H, Sq] float32, m the row max and l the
+    row sum of exp(s - m) (``_flash_fwd_impl``'s lse)."""
+    B, Sq, H, _ = q.shape
+    Dv = v.shape[3]
+    s = _scores(q, k, causal)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bkhv->bqhgv", p, v.float())
-    return o.reshape(B, Sq, H, Dv).to(q.dtype)
+    o = o.reshape(B, Sq, H, Dv).to(q.dtype).contiguous()
+    if not return_lse:
+        return o
+    m = s.amax(dim=-1)
+    lse = m + torch.log(torch.exp(s - m[..., None]).sum(-1).clamp_min(1e-30))
+    return o, lse.reshape(B, H, Sq).contiguous()
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True):
+    """Plain version of the backward, cast point for cast point
+    ``repro/models/layers.py:_flash_bwd``: delta = rowsum(do.f32 o.f32)
+    from the rounded o; p = exp(s - lse) with masked scores at NEG_INF;
+    dp = do.f32 v.f32; ds = p (dp - delta); dq = ds k.f32 scale; dv = p
+    do.f32 and dk = ds q.f32 scale per query head, summed over the G query
+    heads of a kv head in float32 before the one cast to k's / v's
+    dtype."""
+    B, Sq, H, D = q.shape
+    _, Sk, Kh, Dv = v.shape
+    G = H // Kh
+    scale = 1.0 / math.sqrt(D)
+    p = torch.exp(_scores(q, k, causal)
+                  - lse.reshape(B, Kh, G, Sq)[..., None])
+    dof = do.float().reshape(B, Sq, Kh, G, Dv)
+    delta = (dof * o.float().reshape(B, Sq, Kh, G, Dv)).sum(-1)
+    dp = torch.einsum("bqhgv,bkhv->bhgqk", dof, v.float())
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, k.float()) * scale
+    dv = torch.einsum("bhgqk,bqhgv->bkhgv", p, dof).sum(3)
+    dk = torch.einsum("bhgqk,bqhgd->bkhgd", ds,
+                      q.float().reshape(B, Sq, Kh, G, D)) * scale
+    return (dq.reshape(B, Sq, H, D).to(q.dtype), dk.sum(3).to(k.dtype),
+            dv.to(v.dtype))
 
 
 def _flash_route(dtype, D: int, Dv: int) -> str:
@@ -94,9 +151,11 @@ def _check(q, k, v) -> None:
         raise ValueError(f"unsupported device {q.device}")
 
 
-def _launch(q, k, v, causal: bool, route: str):
+def _launch(q, k, v, causal: bool, route: str, lse=None):
     """Launch the kernel of ``route`` on CUDA tensors that passed
-    :func:`_check` and return o; counts nothing (the wrapper counts)."""
+    :func:`_check` and return o, writing each row's log-sum-exp into
+    ``lse`` [B, H, Sq] float32 where given; counts nothing (the wrapper
+    counts)."""
     B, Sq, H, D = q.shape
     _, Sk, Kh, Dv = v.shape
     if route == "wgmma" and _flash_route(q.dtype, D, Dv) != "wgmma":
@@ -108,7 +167,8 @@ def _launch(q, k, v, causal: bool, route: str):
     scale = ctypes.c_float(1.0 / math.sqrt(D))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                None if lse is None else lse.data_ptr())
         if route == "wgmma":
             rc = lib.attn_flash_fwd_tc(*ptrs, B, Sq, Sk, H, Kh, D, Dv, scale,
                                        int(causal), stream)
@@ -121,17 +181,69 @@ def _launch(q, k, v, causal: bool, route: str):
     return o
 
 
-def flash_attention_fwd(q, k, v, *, causal: bool = True):
-    """q [B, Sq, H, D]; k/v [B, Sk, Kh, D/Dv] -> [B, Sq, H, Dv]."""
+def flash_attention_fwd(q, k, v, *, causal: bool = True,
+                        return_lse: bool = False):
+    """q [B, Sq, H, D]; k/v [B, Sk, Kh, D/Dv] -> [B, Sq, H, Dv], and lse
+    [B, H, Sq] float32 with ``return_lse``."""
     _check(q, k, v)
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal)
+        return flash_attention_ref(q, k, v, causal=causal,
+                                   return_lse=return_lse)
+    refuse_grad("flash_attention (use models.layers.flash_attention, "
+                "whose backward is the backward kernel)", q, k, v)
     route = _flash_route(q.dtype, q.shape[3], v.shape[3])
-    o = _launch(q, k, v, causal, route)
+    lse = (torch.empty(q.shape[0], q.shape[2], q.shape[1],
+                       dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    o = _launch(q, k, v, causal, route, lse)
     flash_attention_fwd.launches += 1
     flash_attention_fwd.last_route = route
-    return o
+    return (o, lse) if return_lse else o
 
 
 flash_attention_fwd.launches = 0
 flash_attention_fwd.last_route = None
+
+
+def _check_bwd(q, k, v, o, lse, do) -> None:
+    _check(q, k, v)
+    B, Sq, H, _ = q.shape
+    Dv = v.shape[3]
+    for name, t, shape, dtype in (("o", o, (B, Sq, H, Dv), q.dtype),
+                                  ("do", do, (B, Sq, H, Dv), q.dtype),
+                                  ("lse", lse, (B, H, Sq), torch.float32)):
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype} {list(shape)}, got "
+                             f"{t.dtype} {list(t.shape)}")
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, expected {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True):
+    """q [B, Sq, H, D], k / v [B, Sk, Kh, D / Dv], o / do [B, Sq, H, Dv]
+    in q's dtype, lse [B, H, Sq] float32 (the forward's) -> (dq, dk, dv)
+    in q's, k's and v's shapes and dtype."""
+    _check_bwd(q, k, v, o, lse, do)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
+    B, Sq, H, D = q.shape
+    _, Sk, Kh, Dv = v.shape
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
+    lib = LIBRARY.load()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.attn_flash_bwd(
+            *(t.data_ptr() for t in (q, k, v, o, lse, do, dq, dk, dv,
+                                     delta)),
+            B, Sq, Sk, H, Kh, D, Dv, ctypes.c_float(1.0 / math.sqrt(D)),
+            int(causal), int(q.dtype == torch.bfloat16), stream)
+    LIBRARY.raise_on(rc, "flash_attention_bwd",
+                     f"B={B} Sq={Sq} Sk={Sk} H={H} Kh={Kh} D={D} Dv={Dv}")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0

@@ -32,12 +32,17 @@ Each checks its inputs, then
   ``csrc/mamba_scan.cu`` on the current stream, raises if the launch is
   refused, and adds one to its own ``.launches``.  There is no fallback:
   a CUDA tensor never reaches a plain version through a wrapper.
+
+On the card the wrapper raises ``NotImplementedError`` when autograd
+tracks one of its inputs (``kernels.refuse_grad``): the kernel has no
+backward kernel yet, and its output would carry no gradient.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .. import refuse_grad
 from .build import LIBRARY
 
 N_MAX = 16
@@ -118,6 +123,7 @@ def mamba_scan_fwd(a, b, c, *, chunk: int = 64, block_d: int = 256):
     _same_place(a, (("a", a), ("b", b), ("c", c)))
     if a.device.type == "cpu":
         return mamba_scan_ref(a, b, c)
+    refuse_grad("mamba_scan_fwd", a, b, c)
     y = torch.empty(B, S, d_in, dtype=a.dtype, device=a.device)
     lib = LIBRARY.load()
     with torch.cuda.device(a.device):
@@ -154,6 +160,7 @@ def mamba_scan_fused(dt, A, Bm, u, C, h0=None):
                      ("h0", h0)))
     if dt.device.type == "cpu":
         return mamba_scan_fused_ref(dt, A, Bm, u, C, h0)
+    refuse_grad("mamba_scan_fused", dt, A, Bm, u, C, h0)
     y = torch.empty(B, S, d_in, dtype=torch.float32, device=dt.device)
     h_T = torch.empty(B, d_in, N, dtype=torch.float32, device=dt.device)
     lib = LIBRARY.load()

@@ -23,12 +23,17 @@ then
   and ragged shapes.  All three are hand-written kernels; there is no
   fallback: a CUDA tensor never reaches the plain version through the
   wrapper, and a refused launch raises.
+
+On the card the wrapper raises ``NotImplementedError`` when autograd
+tracks one of its inputs (``kernels.refuse_grad``): the kernel has no
+backward kernel yet, and its output would carry no gradient.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .. import refuse_grad
 from .build import LIBRARY
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -186,6 +191,7 @@ def gmm(x, w, block_expert, nvalid, *, block_m: int = 128):
     _check(x, w, block_expert, nvalid, block_m)
     if x.device.type == "cpu":
         return gmm_ref(x, w, block_expert, nvalid, block_m=block_m)
+    refuse_grad("gmm", x, w)
     route = _gmm_route(x.dtype, block_m, x.shape[1], w.shape[2])
     out = _launch(x, w, block_expert, nvalid, block_m, route)
     gmm.launches += 1

@@ -24,12 +24,17 @@ Chunks start at multiples of ``chunk`` (1..64); the last one may be
 shorter (``S % chunk != 0``).  The reference's ``wkv_chunked`` instead
 takes one chunk of length S when ``chunk`` does not divide S: the same
 function, summed in another order.
+
+On the card the wrapper raises ``NotImplementedError`` when autograd
+tracks one of its inputs (``kernels.refuse_grad``): the kernel has no
+backward kernel yet, and its output would carry no gradient.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .. import refuse_grad
 from .build import LIBRARY
 
 N_MAX, CHUNK_MAX = 64, 64
@@ -147,6 +152,7 @@ def wkv_fwd(r, k, v, logw, u, s0=None, *, chunk: int = 64):
     _check(r, k, v, logw, u, s0, chunk)
     if r.device.type == "cpu":
         return wkv_chunked_ref(r, k, v, logw, u, s0, chunk=chunk)
+    refuse_grad("wkv", r, k, v, logw, u, s0)
     B, S, H, N = r.shape
     y = torch.empty_like(r)
     s_T = torch.empty(B, H, N, N, dtype=torch.float32, device=r.device)

@@ -1,2 +1,3 @@
 """Launch entry points: ``python -m repro_torch.launch.serve`` (the
-streaming serving driver)."""
+streaming serving driver) and ``python -m repro_torch.launch.train``
+(training)."""

@@ -10,11 +10,17 @@ The cast points follow the reference line for line: ``rms_norm`` and
 matmuls run in the activations' dtype (weights cast to it at use), and
 attention scores, softmax and P.V run in float32 with one cast of the
 output.  The two attention functions dispatch to the port's hand-written
-kernels: :func:`flash_attention` (prefill) to
+kernels: :func:`flash_attention` (prefill and training) to
 ``kernels/flash_attention`` and :func:`attention_decode` (decode) to
 ``kernels/decode_attention``; on CPU tensors those wrappers run their
-plain PyTorch versions.  The reference's ``_act`` sharding constraint is
-a no-op on one device and is left out.
+plain PyTorch versions.  Under autograd, :func:`flash_attention` goes
+through :class:`FlashAttention`, the counterpart of the reference's custom
+VJP (``_flash`` / ``_flash_fwd`` / ``_flash_bwd``): the forward kernel
+with its log-sum-exp, and the backward kernel.  The loss,
+:func:`chunked_cross_entropy`, forms the logits a sequence chunk at a
+time under ``torch.utils.checkpoint`` (the reference's
+``jax.checkpoint``).  The reference's ``_act`` sharding constraint is a
+no-op on one device and is left out.
 """
 
 from __future__ import annotations
@@ -24,9 +30,10 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.decode_attention import decode_attention_fwd
-from ..kernels.flash_attention import flash_attention_fwd
+from ..kernels.flash_attention import flash_attention_bwd, flash_attention_fwd
 
 NEG_INF = -1e30
 
@@ -202,10 +209,34 @@ def apply_rope(x, sin, cos):
 # --------------------------------------------------------------------------
 
 
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with a flash backward: the forward kernel saves
+    (q, k, v, o, lse), and the backward kernel recomputes the probability
+    tiles from them (the reference's ``_flash_fwd`` / ``_flash_bwd``).  On
+    CPU tensors the two wrappers run their plain versions, so the CPU
+    tests reach the function the kernels are held to."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        o, lse = flash_attention_fwd(q, k, v, causal=causal, return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
+                                         causal=ctx.causal)
+        return dq, dk, dv, None
+
+
 def flash_attention(q, k, v, *, causal: bool, chunk_q: int, chunk_k: int):
     """Softmax attention with an online (max, sum) softmax: the
     hand-written flash-attention kernel on the card, its plain version on
-    the CPU.
+    the CPU; under autograd :class:`FlashAttention`, whose backward is the
+    backward kernel (serving, under ``torch.no_grad``, calls the forward
+    wrapper alone).
 
     q: [B, Sq, H, D];  k: [B, Sk, Kh, D];  v: [B, Sk, Kh, Dv]; H % Kh == 0.
     Returns [B, Sq, H, Dv].  The kernel picks its own tiles; the chunk
@@ -218,8 +249,11 @@ def flash_attention(q, k, v, *, causal: bool, chunk_q: int, chunk_k: int):
     if Sq % chunk_q or Sk % chunk_k:
         raise ValueError(f"seq lengths ({Sq},{Sk}) not divisible by chunks "
                          f"({chunk_q},{chunk_k})")
-    return flash_attention_fwd(q.contiguous(), k.contiguous(),
-                               v.contiguous(), causal=causal)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal)
+    return flash_attention_fwd(q, k, v, causal=causal)
 
 
 def attention_ref(q, k, v, *, causal: bool, q_offset: int = 0):
@@ -264,3 +298,56 @@ def cache_update(cache_kv, new, pos: int):
     start = min(max(pos + s_max if pos < 0 else pos, 0), s_max - n)
     cache_kv[:, start:start + n] = new.to(cache_kv.dtype)
     return cache_kv
+
+
+# --------------------------------------------------------------------------
+# Loss
+# --------------------------------------------------------------------------
+
+
+def _chunk_nll(xc, w_out, lc, pmask, vocab_mask):
+    """Summed masked NLL of one chunk: the logits in x's dtype, cast to
+    float32, the padded vocab masked, logsumexp minus the gold logit."""
+    logits = (xc @ w_out.to(xc.dtype)).float()
+    if vocab_mask is not None:
+        logits = logits + vocab_mask
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lc.long()[..., None])[..., 0]
+    return ((lse - gold) * pmask).sum()
+
+
+def chunked_cross_entropy(x, w_out, labels, *, num_chunks: int,
+                          valid_vocab: int = 0, mask_last: bool = False):
+    """Cross-entropy over a padded vocab, computed in sequence chunks (the
+    reference's ``layers.chunked_cross_entropy``).
+
+    x: [B, S, d];  w_out: [d, V];  labels: [B, S] int.  The [B, S / n, V]
+    logits are formed one chunk at a time, never for the whole sequence,
+    and each chunk runs under ``torch.utils.checkpoint``, so its logits are
+    recomputed in the backward instead of kept.  ``valid_vocab``: when V
+    is padded, columns >= valid_vocab get NEG_INF before the logsumexp.
+    ``mask_last``: drop the final sequence position (MTP's shifted
+    labels).  Returns (mean_nll, token_count); the chunk sums add in
+    order into a float32 zero, as the reference's scan does (its
+    ``logit_dtype``, which no caller sets, is float32 here).
+    """
+    B, S, _ = x.shape
+    V = w_out.shape[-1]
+    if S % num_chunks:
+        num_chunks = 1
+    Sc = S // num_chunks
+    vocab_mask = None
+    if valid_vocab and valid_vocab < V:
+        vocab_mask = (torch.arange(V, device=x.device) >= valid_vocab).to(
+            torch.float32) * NEG_INF
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(num_chunks):
+        sl = slice(c * Sc, (c + 1) * Sc)
+        pmask = torch.ones(B, Sc, dtype=torch.float32, device=x.device)
+        if mask_last and c == num_chunks - 1:
+            pmask[:, -1] = 0.0
+        total = total + checkpoint(_chunk_nll, x[:, sl], w_out,
+                                   labels[:, sl], pmask, vocab_mask,
+                                   use_reentrant=False)
+    n_tok = B * S - (B if mask_last else 0)
+    return total / n_tok, n_tok

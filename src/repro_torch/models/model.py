@@ -1,7 +1,8 @@
-"""Model facade: embeddings, stages, head, prefill/decode entry points.
+"""Model facade: embeddings, stages, head, loss, prefill/decode entry points.
 
 The counterpart of ``repro/models/model.py`` for every family:
 
+  ``loss_fn(params, {"tokens", "labels", ...})`` -> (loss, metrics)
   ``prefill(params, {"tokens": [B, S], ...})`` -> (last logits, caches)
   ``decode_step(params, caches, tok, pos)``    -> (logits, caches)
 
@@ -9,13 +10,14 @@ The vlm family's prefill also takes ``"image_emb"`` [B, num_image_tokens,
 d] and the encdec family's ``"frames"`` [B, S_src, d] (stub frontends, as
 in the reference): the image tokens, or the encoder's output over the
 frames, are the cross-attention source.  Logits are cut to
-``vocab_size`` from the padded head, as in the reference; neither entry
-point computes the MoE router's auxiliary loss or deepseek's
-multi-token-prediction head, which only training reads (the ``mtp``
-parameters are in the tree all the same, so that it equals the
-reference's).  Parameters are a tree of tensors with the reference's
-names, shapes and layouts (``convert.params_from_jax`` carries a
-reference tree across unchanged); decode updates the caches in place.
+``vocab_size`` from the padded head, as in the reference.  ``loss_fn`` is
+the reference's training loss: next-token cross-entropy over the padded
+head (``layers.chunked_cross_entropy``), plus the MoE router's auxiliary
+loss and deepseek's multi-token-prediction loss where the config has
+them; the serving entry points compute neither.  Parameters are a tree
+of tensors with the reference's names, shapes and layouts
+(``convert.params_from_jax`` carries a reference tree across unchanged);
+decode updates the caches in place.
 """
 
 from __future__ import annotations
@@ -25,10 +27,12 @@ import math
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 
 from .config import ArchConfig
-from .layers import (PDef, dtype_of, init_params, rms_norm, rope_angles,
-                     stack_defs, tree_leaves)
+from .layers import (PDef, chunked_cross_entropy, dtype_of, init_params,
+                     rms_norm, rope_angles, stack_defs, tree_leaves,
+                     tree_map)
 from . import moe as _moe
 from . import transformer as T
 
@@ -108,7 +112,12 @@ def _make_ctx(cfg: ArchConfig, mode: str, positions, pos=None, batch=1, *,
 
 
 def _embed(cfg: ArchConfig, params, tokens):
-    return params["embed"][tokens].to(dtype_of(cfg.compute_dtype))
+    """The token rows of the embedding, cast to the compute dtype.
+    ``F.embedding`` rather than indexing: its backward adds the rows of
+    repeated tokens in a fixed order on both devices, where indexing's
+    backward on the CPU does not."""
+    return F.embedding(tokens, params["embed"]).to(
+        dtype_of(cfg.compute_dtype))
 
 
 def _encode(cfg: ArchConfig, params, frames):
@@ -119,7 +128,8 @@ def _encode(cfg: ArchConfig, params, frames):
     ctx = _make_ctx(cfg, "train", torch.arange(frames.shape[1],
                                                 device=frames.device))
     x = frames.to(dtype_of(cfg.compute_dtype))
-    x, _ = T.run_stages(cfg, T.encoder_stages(cfg), enc["stages"], x, ctx)
+    x, _, _ = T.run_stages(cfg, T.encoder_stages(cfg), enc["stages"], x,
+                           ctx)
     return rms_norm(x, enc["final_norm"], cfg.norm_eps)
 
 
@@ -161,10 +171,10 @@ def _backbone(cfg: ArchConfig, params, tokens, mode, *, src=None,
     ctx = _make_ctx(cfg, mode, positions, pos, tokens.shape[0], src=src,
                     src_len=src_len)
     x = _embed(cfg, params, tokens)
-    x, new_caches = T.run_stages(cfg, T.decoder_stages(cfg),
-                                 params["stages"], x, ctx, caches)
+    x, new_caches, aux = T.run_stages(cfg, T.decoder_stages(cfg),
+                                      params["stages"], x, ctx, caches)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x, new_caches
+    return x, new_caches, aux
 
 
 def _logits(cfg: ArchConfig, params, x):
@@ -172,19 +182,80 @@ def _logits(cfg: ArchConfig, params, x):
     return logits[:, :cfg.vocab_size]
 
 
+def loss_fn(cfg: ArchConfig, params, batch):
+    """Next-token CE (+ MoE aux, + MTP for deepseek).  Returns (loss,
+    metrics): ``nll``, ``tokens`` (an int), ``moe_aux`` and ``mtp_nll``
+    where the config has them, and ``loss``, as the reference's."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    src = _source(cfg, params, batch)
+    x, _, aux = _backbone(cfg, params, tokens, "train", src=src)
+    nll, n_tok = chunked_cross_entropy(
+        x, params["head"], labels, num_chunks=cfg.loss_chunk,
+        valid_vocab=cfg.vocab_size)
+    loss = nll
+    metrics = {"nll": nll, "tokens": n_tok}
+    if cfg.moe is not None:
+        loss = loss + cfg.moe.router_aux_weight * aux
+        metrics["moe_aux"] = aux
+    if cfg.mtp:
+        mtp_nll = _mtp_loss(cfg, params, x, labels)
+        loss = loss + 0.3 * mtp_nll
+        metrics["mtp_nll"] = mtp_nll
+    metrics["loss"] = loss
+    return loss, metrics
+
+
+def _mtp_loss(cfg: ArchConfig, params, h, labels):
+    """DeepSeek-v3 multi-token prediction: one extra layer predicts t+2
+    from the final hidden state and token t+1's embedding; the last
+    position has no label and is masked."""
+    p = params["mtp"]
+    emb_next = _embed(cfg, params, labels)            # token t+1 embeddings
+    z = torch.cat([rms_norm(h, p["norm_h"], cfg.norm_eps),
+                   rms_norm(emb_next, p["norm_e"], cfg.norm_eps)], dim=-1)
+    z = z @ p["proj"].to(z.dtype)
+    spec = T.LayerSpec("mla" if cfg.mla else "attn", ffn="moe")
+    ctx = _make_ctx(cfg, "train", torch.arange(z.shape[1], device=z.device))
+    lp = tree_map(lambda a: a[0], p["layer"])
+    z, _ = T.apply_layer(cfg, spec, lp, z, ctx, None)
+    mtp_labels = torch.cat([labels[:, 1:], torch.zeros_like(labels[:, :1])],
+                           dim=1)
+    nll, _ = chunked_cross_entropy(
+        z, params["head"], mtp_labels, num_chunks=cfg.loss_chunk,
+        valid_vocab=cfg.vocab_size, mask_last=True)
+    return nll
+
+
 def prefill(cfg: ArchConfig, params, batch):
     """Full-sequence forward returning (last-token logits, caches)."""
     src = _source(cfg, params, batch)
-    x, caches = _backbone(cfg, params, batch["tokens"], "prefill", src=src)
+    x, caches, _ = _backbone(cfg, params, batch["tokens"], "prefill",
+                             src=src)
     return _logits(cfg, params, x), caches
 
 
 def decode_step(cfg: ArchConfig, params, caches, tokens, pos):
     """One-token step: tokens [B, 1], pos an int.  ``caches`` is updated
     in place and returned."""
-    x, caches = _backbone(cfg, params, tokens, "decode", caches=caches,
-                          pos=pos)
+    x, caches, _ = _backbone(cfg, params, tokens, "decode", caches=caches,
+                             pos=pos)
     return _logits(cfg, params, x), caches
+
+
+def train_inputs(cfg: ArchConfig, batch: int, seq: int) -> dict:
+    """A training batch's entries as (shape, dtype): int32 tokens and
+    labels [batch, seq], and the vlm's ``image_emb`` / the encdec's
+    ``frames`` in the compute dtype (the reference's ``train_inputs``,
+    its ``ShapeDtypeStruct`` as a pair)."""
+    tok = ((batch, seq), torch.int32)
+    out = {"tokens": tok, "labels": tok}
+    dt = dtype_of(cfg.compute_dtype)
+    if cfg.family == "vlm":
+        out["image_emb"] = ((batch, cfg.num_image_tokens, cfg.d_model), dt)
+    if cfg.family == "encdec":
+        out["frames"] = ((batch, cfg.num_frame_tokens or seq, cfg.d_model),
+                         dt)
+    return out
 
 
 def _src_len(cfg: ArchConfig, seq: int) -> int:
@@ -222,6 +293,9 @@ class Model:
         """Random params on the generator's device (``dtype`` overrides
         the float32 of the defs, leaf by leaf)."""
         return init_params(self.param_defs(), generator, dtype=dtype)
+
+    def loss(self, params, batch):
+        return loss_fn(self.cfg, params, batch)
 
     def prefill(self, params, batch):
         return prefill(self.cfg, params, batch)

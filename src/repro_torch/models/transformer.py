@@ -19,7 +19,10 @@ repeat dimension on axis 0 (``stages[i]["l0"]``), and the stage body runs
 as a Python loop over the layers where the reference runs ``lax.scan``.
 Three modes share one code path:
 
-  train    — full sequence, no caches (the encoder runs in this mode)
+  train    — full sequence, no caches (the encoder runs in this mode);
+             the layers are taken out of the stacked leaves with one
+             ``unbind`` a leaf, each layer runs under the config's remat
+             policy, and the MoE router's auxiliary loss is summed
   prefill  — full sequence (flash attention, the chunked WKV kernel or
              the selective-scan kernel), returns the caches: KV, the
              static cross-attention KV of the source, the MLA latent, the
@@ -35,17 +38,23 @@ S_src - 1 of a cache of S_src rows, as the reference does; MLA decodes in
 the reference's absorbed form (attention in the latent space) as plain
 PyTorch products, since the reference computes it with ``jnp.einsum``
 outside any kernel.  The reference's layers also return the MoE router's
-auxiliary loss, a training term; these serving paths read no loss, so a
-MoE layer asks ``moe_ffn`` for none (``with_aux=False``).
+auxiliary loss, a training term: in train mode a MoE layer asks
+``moe_ffn`` for it and hands it up under its cache's ``"aux"`` key (train
+mode keeps no caches), and :func:`run_stages` returns the sum; the
+serving paths read no loss, so there a MoE layer asks for none
+(``with_aux=False``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .config import ArchConfig
 from . import mamba as _mamba
@@ -53,7 +62,7 @@ from . import moe as _moe
 from . import rwkv as _rwkv
 from .layers import (NEG_INF, PDef, apply_rope, attention_decode,
                      cache_update, dtype_of, flash_attention, rms_norm,
-                     stack_defs, swiglu, tree_map)
+                     stack_defs, swiglu, tree_leaves, tree_map)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -339,7 +348,8 @@ def apply_layer(cfg: ArchConfig, spec: LayerSpec, p, x, ctx, cache):
     """One layer: its mixer (attention of any kind, Mamba or RWKV time
     mix), the cross-attention sublayer where ``spec.cross``, and its FFN
     (dense, MoE or RWKV channel mix).  Returns (x, new_cache_or_None);
-    decode updates ``cache`` in place."""
+    decode updates ``cache`` in place.  In train mode a MoE layer's
+    cache holds its router's auxiliary loss under ``"aux"``."""
     mode = ctx["mode"]
     cache = cache or {}
     h = rms_norm(x, p["norm_attn"], cfg.norm_eps)
@@ -370,7 +380,10 @@ def apply_layer(cfg: ArchConfig, spec: LayerSpec, p, x, ctx, cache):
     h = rms_norm(x, p["norm_ffn"], cfg.norm_eps)
     f = p["ffn"]
     if spec.ffn == "moe":
-        x = x + _moe.moe_ffn(h, f, cfg, with_aux=False)[0]
+        y, aux = _moe.moe_ffn(h, f, cfg, with_aux=mode == "train")
+        x = x + y
+        if mode == "train":
+            new_cache["aux"] = aux
     elif spec.ffn == "channelmix":
         y, c = _rwkv.rwkv_channel_mix(f, h, cfg, state=cache.get("ffn"))
         x = x + y
@@ -390,11 +403,73 @@ def _stack(trees: list):
     return torch.stack(trees)
 
 
+_DOTS = {torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default}
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The ``"dots"`` policy: keep matmul outputs, recompute the rest (the
+    reference's ``jax.checkpoint_policies.checkpoint_dots``)."""
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, cfg: ArchConfig):
+    """``fn`` under the config's remat policy (the reference's ``_remat``):
+    ``"none"`` keeps every activation for the backward; ``"full"`` keeps
+    only the layer's inputs (``torch.utils.checkpoint``, the body runs
+    again in the backward); ``"dots"`` keeps the matmul outputs too.
+    Remat changes what is kept, never a value."""
+    if cfg.remat_policy == "none":
+        return fn
+    if cfg.remat_policy == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         _save_dots))
+    if cfg.remat_policy != "full":
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
+    return functools.partial(checkpoint, fn, use_reentrant=False)
+
+
+def _unstack(sparams, repeats: int) -> list:
+    """The stage's layers as ``repeats`` trees, taken out of the stacked
+    leaves with one ``unbind`` a leaf: under autograd the backward stacks
+    each leaf's gradients once, where indexing ``a[r]`` would add each
+    layer's into a zero tensor the size of the whole stack."""
+    parts = [a.unbind(0) for a in tree_leaves(sparams)]
+    out = []
+    for r in range(repeats):
+        it = iter(p[r] for p in parts)
+        out.append(tree_map(lambda _: next(it), sparams))
+    return out
+
+
+def _train_block(cfg: ArchConfig, stage: Stage, ctx, x, p_r):
+    """One repeat of a stage's pattern in train mode: (x, summed aux)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for j, spec in enumerate(stage.pattern):
+        x, c = apply_layer(cfg, spec, p_r[f"l{j}"], x, ctx, None)
+        if "aux" in c:
+            aux = aux + c["aux"]
+    return x, aux
+
+
 def run_stage(cfg: ArchConfig, stage: Stage, sparams, x, ctx, scache):
-    """The stage body over its repeat dimension, layer by layer.  Prefill
-    returns the stacked caches, decode the (updated) ``scache``, train
-    none."""
+    """The stage body over its repeat dimension, layer by layer.  Returns
+    (x, caches, aux): prefill the stacked caches, decode the (updated)
+    ``scache``, train none; aux, the summed router loss, is a float32
+    zero outside train mode and for stages without MoE."""
     mode = ctx["mode"]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if mode == "train":
+        body = functools.partial(_train_block, cfg, stage, ctx)
+        if torch.is_grad_enabled():       # nothing to keep without autograd
+            body = _remat(body, cfg)
+        for p_r in _unstack(sparams, stage.repeats):
+            x, a = body(x, p_r)
+            aux = aux + a
+        return x, None, aux
     caches = []
     for r in range(stage.repeats):
         p_r = tree_map(lambda a: a[r], sparams)
@@ -406,18 +481,21 @@ def run_stage(cfg: ArchConfig, stage: Stage, sparams, x, ctx, scache):
                                         c_r.get(key))
         caches.append(out_c)
     if mode == "decode":
-        return x, scache
-    return x, _stack(caches) if mode == "prefill" else None
+        return x, scache, aux
+    return x, _stack(caches), aux
 
 
 def run_stages(cfg: ArchConfig, stages, params, x, ctx, caches=None):
-    """params/caches: tuple (one entry per stage).  Returns (x, caches)."""
+    """params/caches: tuple (one entry per stage).  Returns (x, caches,
+    aux)."""
     new_caches = []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for si, stage in enumerate(stages):
         sc = caches[si] if caches is not None else None
-        x, nc = run_stage(cfg, stage, params[si], x, ctx, sc)
+        x, nc, a = run_stage(cfg, stage, params[si], x, ctx, sc)
         new_caches.append(nc)
-    return x, tuple(new_caches)
+        aux = aux + a
+    return x, tuple(new_caches), aux
 
 
 # --------------------------------------------------------------------------

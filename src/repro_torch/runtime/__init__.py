@@ -1,7 +1,8 @@
-"""Fleet runtime for serving: failure detection and straggler
-mitigation on the BS-π scheduler."""
+"""Fleet runtime: failure detection and straggler mitigation on the BS-π
+scheduler (serving), and restarts of a trainer from its checkpoints."""
 
-from .fault_tolerance import FleetMonitor, NodeFailure
+from .fault_tolerance import FleetMonitor, NodeFailure, run_with_restarts
 from .straggler import StragglerMitigator
 
-__all__ = ["FleetMonitor", "NodeFailure", "StragglerMitigator"]
+__all__ = ["FleetMonitor", "NodeFailure", "StragglerMitigator",
+           "run_with_restarts"]

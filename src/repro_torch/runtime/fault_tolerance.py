@@ -1,20 +1,23 @@
 """Fleet-level fault tolerance: heartbeats, failure detection, rescale.
 
-The serving half of ``repro/runtime/fault_tolerance.py``: ``NodeFailure``
-and ``FleetMonitor``.  On real fleets the heartbeat source is the cluster
-manager; here the FleetMonitor consumes simulated NodeFailure events
-(tests inject them) and drives the serving recovery path:
-``sched.elastic_repartition`` recomputes eq. (2) on the surviving chip
-count; only gangs on dead chips are lost (the paper's non-preemption
-trade), everything else keeps running.  The training path
-(``run_with_restarts``, which restarts a trainer from its latest
-checkpoint) comes with the port's trainer.
+The port's copy of ``repro/runtime/fault_tolerance.py``.  On real fleets
+the heartbeat source is the cluster manager; here the FleetMonitor
+consumes simulated NodeFailure events (tests inject them) and drives the
+two recovery paths:
+
+* training — ``run_with_restarts`` builds a fresh Trainer after each
+  injected failure, which restores the latest checkpoint and resumes the
+  deterministic data stream (bit-exact continuation is tested);
+* serving  — ``sched.elastic_repartition`` recomputes eq. (2) on the
+  surviving chip count; only gangs on dead chips are lost (the paper's
+  non-preemption trade), everything else keeps running.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+from typing import Callable
 
 from ..sched.elastic import elastic_repartition
 from ..sched.gang import GangScheduler
@@ -55,3 +58,32 @@ class FleetMonitor:
         """Apply the current live-chip count to a serving scheduler."""
         return elastic_repartition(sched, self.live_chips)
 
+
+def run_with_restarts(make_trainer: Callable[[], object], num_steps: int,
+                      *, max_restarts: int = 3, failure_steps=()):
+    """Drive a Trainer to ``num_steps`` surviving injected failures.
+
+    ``make_trainer`` builds a fresh Trainer (simulating a restarted job);
+    each failure loses all state except checkpoints — the resumed run must
+    continue from the last checkpoint.  Returns (result, restarts).
+
+    Only :class:`~repro_torch.train.trainer.InjectedFailure` triggers a
+    restart: a genuine RuntimeError out of the train step (NaN loss, shape
+    bug) propagates on the first attempt instead of burning
+    ``max_restarts`` retries on a deterministic crash."""
+    from ..train.trainer import FailureInjector, InjectedFailure
+    restarts = 0
+    fail_iter = iter(sorted(failure_steps))
+    next_fail = next(fail_iter, None)
+    while True:
+        trainer = make_trainer()
+        inj = FailureInjector(at_step=next_fail if next_fail is not None
+                              else -1)
+        try:
+            result = trainer.run(num_steps, failure=inj)
+            return result, restarts
+        except InjectedFailure:
+            restarts += 1
+            if restarts > max_restarts:
+                raise
+            next_fail = next(fail_iter, None)

@@ -1050,3 +1050,135 @@ def test_cuda_eq16_matches_monte_carlo():
     mc = sim_torch.estimate_p_helper(wl, 200_000, seed=5)
     assert mc == pytest.approx(theory.p_helper_upper_bound(wl), abs=0.01)
 
+
+
+# -- training: the flash backward kernel, the refusals, train steps ---------
+
+
+# (B, Sq, Sk, H, Kh, D, Dv, causal): tests/test_torch_flash_bwd.py's
+# shapes plus ragged tiles (Sq, Sk not multiples of 64) and D 128 at G 8
+FLASH_BWD_SHAPES = [
+    (2, 64, 64, 4, 4, 32, 32, True),
+    (1, 96, 96, 8, 2, 80, 80, True),
+    (1, 64, 128, 8, 2, 80, 80, False),
+    (1, 64, 64, 9, 1, 32, 32, True),
+    (1, 64, 64, 2, 2, 192, 128, True),
+    (1, 32, 64, 4, 1, 192, 128, False),
+    (2, 130, 130, 32, 4, 128, 128, True),
+    (1, 100, 300, 9, 1, 128, 128, False),
+    (1, 200, 200, 4, 4, 256, 128, True),
+]
+
+
+@pytest.mark.cuda
+def test_cuda_flash_backward_matches_plain_version_on_the_card(rng):
+    """``flash_attention_bwd`` (csrc/flash_attention_bwd.cu) against
+    ``flash_attention_bwd_ref`` on the card at ``train_cases.BWD_TOLS``,
+    and both forward routes' lse against the plain lse; the autograd
+    Function launches the forward kernel once and the backward once."""
+    from repro_torch.bench.train_cases import bwd_error
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_bwd_ref)
+    from repro_torch.models import layers
+
+    dev = _dev()
+    for dtype in ("float32", "bfloat16"):
+        for B, Sq, Sk, H, Kh, D, Dv, causal in FLASH_BWD_SHAPES:
+            q, k, v = (_normal(rng, s, dtype).to(dev) for s in (
+                (B, Sq, H, D), (B, Sk, Kh, D), (B, Sk, Kh, Dv)))
+            do = _normal(rng, (B, Sq, H, Dv), dtype).to(dev)
+            o, lse = flash_attention_fwd(q, k, v, causal=causal,
+                                         return_lse=True)
+            _, lse_ref = flash_attention_ref(q, k, v, causal=causal,
+                                             return_lse=True)
+            torch.testing.assert_close(lse, lse_ref, atol=1e-5, rtol=1e-5)
+            n = flash_attention_bwd.launches
+            got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+            assert flash_attention_bwd.launches == n + 1
+            want = flash_attention_bwd_ref(q, k, v, o, lse, do,
+                                           causal=causal)
+            for name, g, w in zip(("dq", "dk", "dv"), got, want):
+                over, err = bwd_error(g, w, dtype)
+                assert over <= 1.0, (dtype, B, Sq, Sk, H, Kh, D, Dv,
+                                     causal, name, err)
+        qa, ka, va = (t.clone().requires_grad_(True) for t in (q, k, v))
+        nf, nb = flash_attention_fwd.launches, flash_attention_bwd.launches
+        layers.flash_attention(qa, ka, va, causal=causal, chunk_q=Sq,
+                               chunk_k=Sk).backward(do)
+        assert (flash_attention_fwd.launches - nf,
+                flash_attention_bwd.launches - nb) == (1, 1)
+        for t, g in zip((qa, ka, va), got):
+            assert torch.equal(t.grad, g)
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_without_a_backward_refuse_grad(rng):
+    """On the card, a kernel with no backward kernel raises on inputs that
+    autograd tracks instead of returning an output with no gradient;
+    under ``torch.no_grad`` it launches as before."""
+    from repro_torch.kernels.moe_gmm import gmm as gmm_fn
+    dev = _dev()
+    x = torch.randn(64, 32, device=dev, requires_grad=True)
+    w = torch.randn(2, 32, 16, device=dev)
+    be = torch.tensor([0], dtype=torch.int32, device=dev)
+    nv = torch.tensor([64], dtype=torch.int32, device=dev)
+    with pytest.raises(NotImplementedError, match="gmm"):
+        gmm_fn(x, w, be, nv, block_m=64)
+    with torch.no_grad():
+        assert gmm_fn(x, w, be, nv, block_m=64).shape == (64, 16)
+    r, kk, vv = (torch.randn(1, 64, 2, 16, device=dev) for _ in range(3))
+    logw = -torch.rand(1, 64, 2, 16, device=dev)
+    u = torch.randn(2, 16, device=dev, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="wkv"):
+        wkv_fwd(r, kk, vv, logw, u, chunk=16)
+    dt = torch.rand(1, 32, 64, device=dev, requires_grad=True)
+    A, Bm, C = (torch.randn(*s, device=dev) for s in ((64, 8), (1, 32, 8),
+                                                       (1, 32, 8)))
+    with pytest.raises(NotImplementedError, match="mamba_scan"):
+        mamba_scan_fused(dt, A, Bm, torch.randn(1, 32, 64, device=dev), C)
+    a = torch.rand(1, 32, 64, 8, device=dev, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="mamba_scan"):
+        mamba_scan_fwd(a, a.detach(), Bm)
+    q = torch.randn(2, 4, 32, device=dev, requires_grad=True)
+    kc = torch.randn(2, 64, 2, 32, device=dev)
+    pos = torch.full((2,), 10, dtype=torch.int32, device=dev)
+    with pytest.raises(NotImplementedError, match="decode_attention"):
+        decode_attention_fwd(q, kc, kc, pos)
+    qf = torch.randn(1, 64, 2, 32, device=dev, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="flash_attention"):
+        flash_attention_fwd(qf, qf.detach(), qf.detach())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["stablelm_3b", "yi_9b"])
+def test_cuda_train_steps_equal_the_cpu(arch):
+    """Two train steps of the reduced config in float32 compute on the card
+    (the flash kernels, cuBLAS) against the same steps on the CPU (the
+    plain versions), from one float32 start with the attention projections
+    at fan-in d, within ``train_cases.STEP_TOLS``."""
+    from repro_torch.bench import train_cases as tc
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+
+    dev = _dev()
+    cfg = tc.reduced_float32(get_config(arch))
+    p0 = tc.rescale_attention(cfg, Model(cfg).init(
+        torch.Generator().manual_seed(0)))
+    card = tc.run_steps(cfg, p0, 2, device=dev)
+    cpu = tc.run_steps(cfg, p0, 2, device="cpu")
+    diff = tc.steps_differ(card[1], cpu[1], card[0], cpu[0])
+    assert tc.within_step_tols(diff), diff
+
+
+@pytest.mark.cuda
+def test_cuda_restart_drill_is_bit_exact(tmp_path):
+    """A reduced stablelm-3b run (bf16 compute: the tensor-core forward and
+    the bf16 backward) killed after step 3 and restarted from its step-2
+    checkpoint ends bit-equal to the run that was never killed."""
+    from repro_torch.bench import train_cases as tc
+    from repro_torch.configs import get_config
+
+    _dev()
+    restarts, same, _, _ = tc.restart_drill(
+        get_config("stablelm_3b").reduced(), str(tmp_path), device="cuda")
+    assert restarts == 1 and same

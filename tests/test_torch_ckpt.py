@@ -5,7 +5,8 @@ on the CPU.
   torch leaves, a ``.tmp`` left by a crash ignored, malformed ``step_*``
   entries skipped with a warning, keep-last-N, background writes,
   ``require_layout`` naming the stale key, a dtype numpy cannot store
-  refused — and a manifest that reads the same as the reference's;
+  refused, a bfloat16 leaf stored as bits as the reference stores it —
+  and a manifest that reads the same as the reference's;
 * streams — a stream resumed mid-way (its last checkpoint deleted) is
   byte-identical for all three policies; a SIGKILLed subprocess stream
   and a SIGKILLed ``sweep_many_server`` resume byte-identical; Fig. 3's
@@ -132,12 +133,43 @@ def test_require_layout_names_the_stale_key():
 
 
 @pytest.mark.parametrize("leaf", [
-    torch.zeros(2, dtype=torch.bfloat16), np.array([object()]),
-    np.zeros(2, np.complex128)])
+    np.array([object()]), np.zeros(2, np.complex128)])
 def test_dtypes_numpy_cannot_store_are_refused(tmp_path, leaf):
     with pytest.raises(TypeError, match="cannot checkpoint"):
         checkpoint.save_checkpoint(str(tmp_path), 1, {"x": leaf})
     assert checkpoint.latest_step(str(tmp_path)) is None
+
+
+def test_bfloat16_leaves_round_trip_as_the_reference_stores_them(tmp_path):
+    """A bfloat16 tensor is stored as the reference's ``_encode`` stores
+    an ml_dtypes bfloat16 array (its bits as uint16, "bfloat16" in the
+    manifest): the port restores its own and the reference's checkpoint
+    to the same bits, the two manifests and files agree, and the
+    reference restores the port's."""
+    import jax.numpy as jnp
+
+    bits = np.random.default_rng(0).integers(0, 2 ** 16, 64, dtype=np.uint16)
+    bits[(bits & 0x7F80) == 0x7F80] = 0x3F80       # no inf / nan patterns
+    port_leaf = torch.from_numpy(bits.view(np.int16)).view(torch.bfloat16)
+    ref_leaf = jnp.asarray(bits.view(jnp.bfloat16))
+    checkpoint.save_checkpoint(str(tmp_path / "port"), 1,
+                               {"w": port_leaf, "s": np.float32(2.0)})
+    ref_ckpt.save_checkpoint(str(tmp_path / "ref"), 1,
+                             {"w": ref_leaf, "s": np.float32(2.0)})
+    mans = [json.loads((tmp_path / s / "step_00000001" /
+                        "manifest.json").read_text()) for s in ("port", "ref")]
+    assert mans[0] == mans[1]
+    assert mans[0]["leaves"][1]["dtype"] == "bfloat16"
+    for side in ("port", "ref"):
+        got, _, _ = checkpoint.restore_checkpoint(str(tmp_path / side),
+                                                  {"w": 0, "s": 0})
+        assert got["w"].dtype == torch.bfloat16
+        assert np.array_equal(got["w"].view(torch.int16).numpy().view(
+            np.uint16), bits)
+        assert float(got["s"]) == 2.0
+    back, _, _ = ref_ckpt.restore_checkpoint(str(tmp_path / "port"),
+                                             {"w": ref_leaf, "s": 0})
+    assert np.array_equal(np.asarray(back["w"]).view(np.uint16), bits)
 
 
 def test_restore_without_checkpoints_fails_loudly(tmp_path):

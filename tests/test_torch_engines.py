@@ -199,6 +199,12 @@ from repro_torch.core import stream
 from repro_torch.bench import stream_cases
 from repro_torch.core import erlang, theory
 from repro_torch.bench import common, fig1_critical, fig2_regimes, theory_tables
+from repro_torch import optim, train
+from repro_torch.optim import compression, optimizer
+from repro_torch.train import step as train_step, trainer
+from repro_torch.data import pipeline
+from repro_torch.launch import train as launch_train
+from repro_torch.bench import train_cases
 rng = np.random.default_rng(0)
 arr = np.cumsum(rng.exponential(0.25, (2, 200)), axis=1)
 res = sim_batch.loss_queue_sim_batch(arr, rng.exponential(1.0, (2, 200)), 3,
@@ -257,6 +263,13 @@ new, rep = mon.rescale_scheduler(sched)
 assert rep.new_k == 48 and isinstance(rep, elastic.RescaleReport)
 assert runtime.StragglerMitigator(new).tick(100.0) == 0
 assert cuts.mla_cut(configs.get_config("deepseek_v3_671b"), 1).num_layers == 4
+res = launch_train.main(["--arch", "stablelm_3b", "--reduced", "--device",
+                         "cpu", "--steps", "2", "--batch", "2", "--seq", "16",
+                         "--microbatches", "2"])
+assert len(res["history"]) == 1 and np.isfinite(res["history"][0]["loss"])
+pl = {"w": __import__("torch").ones(4, 3)}
+pay, _ = optim.TopKCompressor(0.5).compress(pl, optim.TopKCompressor().init(pl))
+assert optim.TopKCompressor().decompress(pay)["w"].shape == (4, 3)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro."))
